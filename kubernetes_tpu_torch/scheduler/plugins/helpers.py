@@ -1,0 +1,66 @@
+"""Shared helpers for pod-affinity-style term matching.
+
+reference: pkg/scheduler/framework/types.go AffinityTerm.Matches + GetAffinityTerms
+(namespace defaulting), and the matchLabelKeys merge semantics of
+podtopologyspread/common.go + interpodaffinity.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+from ...api import PodAffinityTerm, Selector
+from ...api.labels import IN, Requirement
+
+
+def term_namespaces_match(term: PodAffinityTerm, source_ns: str, target_ns: str,
+                          ns_labels: Mapping[str, Mapping[str, str]]) -> bool:
+    """Does `target_ns` fall in the term's namespace set?
+
+    - If both `namespaces` and `namespaceSelector` are unset: defaults to the
+      source pod's namespace.
+    - `namespaceSelector` empty ({}) selects all namespaces; nil selects none.
+    - The union of the explicit list and selector matches applies.
+    """
+    if term.namespaces:
+        if target_ns in term.namespaces:
+            return True
+    if term.namespace_selector is not None:
+        return term.namespace_selector.matches(ns_labels.get(target_ns, {}))
+    if not term.namespaces:
+        return target_ns == source_ns
+    return False
+
+
+def _merge_match_label_keys(sel: Optional[Selector], match_label_keys,
+                            source_pod) -> Optional[Selector]:
+    """matchLabelKeys merge shared by InterPodAffinity terms and PTS constraints:
+    the source pod's value for each listed key is appended as an In requirement."""
+    if not match_label_keys or sel is None:
+        return sel
+    extra = []
+    for k in match_label_keys:
+        if k in source_pod.metadata.labels:
+            extra.append(Requirement(k, IN, (source_pod.metadata.labels[k],)))
+    return Selector(sel.requirements + tuple(extra))
+
+
+def effective_selector(term: PodAffinityTerm, source_pod) -> Optional[Selector]:
+    """reference: interpodaffinity matchLabelKeys handling."""
+    return _merge_match_label_keys(term.selector, term.match_label_keys, source_pod)
+
+
+def term_matches_pod(term: PodAffinityTerm, source_pod, target_pod,
+                     ns_labels: Mapping[str, Mapping[str, str]]) -> bool:
+    """AffinityTerm.Matches: target pod's namespace in term namespaces AND labels
+    match the (matchLabelKeys-merged) selector. A nil selector matches nothing."""
+    if not term_namespaces_match(term, source_pod.metadata.namespace,
+                                 target_pod.metadata.namespace, ns_labels):
+        return False
+    sel = effective_selector(term, source_pod)
+    return sel is not None and sel.matches(target_pod.metadata.labels)
+
+
+def pts_effective_selector(constraint, pod) -> Optional[Selector]:
+    """PTS matchLabelKeys merge (reference: podtopologyspread/common.go)."""
+    return _merge_match_label_keys(constraint.selector, constraint.match_label_keys, pod)

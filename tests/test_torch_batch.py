@@ -1,0 +1,191 @@
+"""The port's BatchScheduler(device="cpu") against the JAX package's
+BatchScheduler(solver="exact") over identical stores: the same
+{pod: node} map on every workload of tests/test_batch_parity.py and on
+seeded mixed workloads (one batch and many small batches). Also: a
+fallback-class pod is refused with the reason that names its ROADMAP item,
+unported options raise, and the port's store keeps its contract.
+"""
+
+import random
+
+import pytest
+from test_torch_workloads import MIXED_WORKLOADS, PARITY_WORKLOADS, ZONE, unpack, wl_seeded_mixed
+
+import kubernetes_tpu.testing as jt
+import kubernetes_tpu_torch.testing as tt
+from kubernetes_tpu.scheduler import Framework
+from kubernetes_tpu.scheduler.batch import BatchScheduler as JBatch
+from kubernetes_tpu.scheduler.plugins import default_plugins
+from kubernetes_tpu.store import APIStore as JStore
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler as TBatch
+from kubernetes_tpu_torch.store import AlreadyBoundError, APIStore as TStore
+from kubernetes_tpu_torch.store import ConflictError, NotFoundError
+from kubernetes_tpu_torch.utils import FakeClock
+
+
+def run_pkg(workload, port: bool, batch_size=4096, rounds=1):
+    """Build the workload for one package, run its scheduler to idle (the
+    pending pods split over `rounds` waves of creates), return the store's
+    {pod name: node name} map and the scheduler."""
+    mod = tt if port else jt
+    nodes, pods, bound = unpack(workload(mod))
+    if not port:
+        # the port has no preemption yet (ROADMAP.md queue 1 item 2): hold
+        # the JAX scheduler to the case where no preemption applies
+        for p in pods:
+            p.spec.preemption_policy = "Never"
+    store = TStore() if port else JStore()
+    for n in nodes:
+        store.create("nodes", n)
+    for p in bound:
+        store.create("pods", p)
+    if port:
+        sched = TBatch(store, device="cpu", batch_size=batch_size)
+    else:
+        sched = JBatch(store, Framework(default_plugins()), solver="exact",
+                       batch_size=batch_size)
+    sched.sync()
+    wave = -(-len(pods) // rounds)
+    for lo in range(0, len(pods), wave):
+        for p in pods[lo:lo + wave]:
+            store.create("pods", p)
+        sched.run_until_idle()
+    got, _ = store.list("pods")
+    return {p.metadata.name: p.spec.node_name for p in got}, sched
+
+
+def assert_same_placements(workload, **kw):
+    want, jsched = run_pkg(workload, port=False, **kw)
+    got, tsched = run_pkg(workload, port=True, **kw)
+    assert jsched.preempt_victims_total == 0 and jsched.preemption_count == 0
+    assert got == want, "\n".join(f"{k}: jax={want[k]!r} port={got.get(k)!r}"
+                                  for k in want if want[k] != got.get(k))
+    return got, tsched
+
+
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_batch_scheduler_matches_jax(workload):
+    assert_same_placements(workload)
+
+
+@pytest.mark.parametrize("seed", range(4, 10))
+def test_seeded_mixed_property(seed):
+    """Seeded property over mixed workloads: identical placement maps."""
+    rng = random.Random(seed)
+    wl = wl_seeded_mixed(seed, n_nodes=rng.randint(6, 20), n_pods=rng.randint(20, 60))
+    assert_same_placements(wl)
+
+
+@pytest.mark.parametrize("workload", [MIXED_WORKLOADS[1], PARITY_WORKLOADS[1]],
+                         ids=lambda w: w.__name__)
+def test_small_batches_and_waves_match_jax(workload):
+    """Many batches and several create waves: the incremental tensor cache,
+    the dirty-row mirrors and the queue ordering across batches."""
+    assert_same_placements(workload, batch_size=7, rounds=3)
+
+
+def test_fallback_class_pod_refused_with_reason():
+    nodes = [tt.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj() for i in range(2)]
+    store = TStore()
+    for n in nodes:
+        store.create("nodes", n)
+    store.create("pods", tt.MakePod("vol").req({"cpu": "100m"}).pvc("claim-a").obj())
+    store.create("pods", tt.MakePod("plain").req({"cpu": "100m"}).obj())
+    sched = TBatch(store, device="cpu")
+    sched.sync()
+    sched.run_until_idle()
+    vol = store.get("pods", "default/vol")
+    assert not vol.spec.node_name
+    cond = [c for c in vol.status.conditions if c.type == "PodScheduled"]
+    assert cond and "not yet ported" in cond[0].message
+    assert "ROADMAP.md queue 1 item 2" in cond[0].message
+    assert sched.fallback_refused == 1
+    assert store.get("pods", "default/plain").spec.node_name
+
+
+def test_device_rejects_fail_unschedulable():
+    store = TStore()
+    store.create("nodes", tt.MakeNode("n0").capacity({"cpu": "1"}).obj())
+    for i in range(3):
+        store.create("pods", tt.MakePod(f"p{i}").req({"cpu": "600m"}).obj())
+    clock = FakeClock()
+    sched = TBatch(store, device="cpu", clock=clock)
+    sched.sync()
+    sched.run_until_idle()
+    pods, _ = store.list("pods")
+    assert sum(1 for p in pods if p.spec.node_name) == 1
+    assert sched.failed_count == 2 and sched.scheduled_count == 1
+    assert len(sched.queue.unschedulable_pods()) == 2
+    # a node added later moves them to backoff; once it expires the cycle
+    # places one more
+    store.create("nodes", tt.MakeNode("n1").capacity({"cpu": "1"}).obj())
+    sched.run_until_idle()
+    assert not sched.queue.unschedulable_pods()
+    clock.step(2.0)
+    sched.queue.flush_backoff_completed()
+    sched.run_until_idle()
+    pods, _ = store.list("pods")
+    assert sum(1 for p in pods if p.spec.node_name) == 2
+
+
+@pytest.mark.parametrize("solver,item", [("auto", 1), ("fast", 1), ("auction", 5),
+                                         ("sinkhorn", 5)])
+def test_unported_solvers_raise_with_roadmap_item(solver, item):
+    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+        TBatch(TStore(), device="cpu", solver=solver)
+
+
+def test_custom_framework_raises():
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        TBatch(TStore(), object(), device="cpu")
+
+
+def test_store_contract():
+    store = TStore()
+    n = store.create("nodes", tt.MakeNode("n0").obj())
+    p = store.create("pods", tt.MakePod("p").obj())
+    assert p.metadata.resource_version > n.metadata.resource_version
+    w = store.watch(kind="pods", since_rv=0)
+    store.bind("default", "p", "n0")
+    with pytest.raises(AlreadyBoundError):
+        store.bind("default", "p", "n0")
+    evs = w.drain()
+    assert [e.type for e in evs] == ["ADDED", "MODIFIED"]
+    rvs = [e.resource_version for e in evs]
+    assert rvs == sorted(rvs) and len(set(rvs)) == 2
+    assert store.get("pods", "default/p").spec.node_name == "n0"
+    with pytest.raises(ValueError, match="not stored"):
+        store.create("services", tt.MakePod("x").obj())
+    created, errors = store.create_many("pods", [tt.MakePod("p").obj(), tt.MakePod("q").obj()])
+    assert created == 1 and len(errors) == 1
+    q = store.get("pods", "default/q")
+    q.metadata.labels["x"] = "1"
+    store.update("pods", q)
+    with pytest.raises(ConflictError):
+        store.update("pods", q)  # stale resource version
+    store.delete("pods", "default/q")
+    with pytest.raises(NotFoundError):
+        store.get("pods", "default/q")
+    assert [e.type for e in w.drain()] == ["ADDED", "MODIFIED", "DELETED"]
+
+
+def test_zone_spread_respected_across_batches():
+    store = TStore()
+    for i in range(12):
+        store.create("nodes", tt.MakeNode(f"n{i}").labels({ZONE: f"z{i % 4}"})
+                     .capacity({"cpu": "8", "memory": "16Gi", "pods": "50"}).obj())
+    sched = TBatch(store, device="cpu", batch_size=5)
+    sched.sync()
+    store.create_many("pods", [
+        tt.MakePod(f"s{i}").labels({"app": "s"}).req({"cpu": "100m"})
+        .topology_spread(1, ZONE, "DoNotSchedule", {"app": "s"}).obj() for i in range(23)])
+    sched.run_until_idle()
+    pods, _ = store.list("pods")
+    zones = {}
+    for p in pods:
+        assert p.spec.node_name
+        z = int(p.spec.node_name[1:]) % 4
+        zones[z] = zones.get(z, 0) + 1
+    assert max(zones.values()) - min(zones.values()) <= 1
+    assert sched.batches_solved == 5

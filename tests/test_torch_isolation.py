@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+A subprocess runs one batch through the port on the CPU and reports what
+it imported; a static pass over every module of kubernetes_tpu_torch and
+chip_smoke.py finds no such import; and the entry points default to the
+card, raising where none is present (decided inside each test).
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "kubernetes_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "kubernetes_tpu")
+
+_ONE_BATCH = r"""
+import json, sys
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod
+
+store = APIStore()
+for i in range(4):
+    store.create("nodes", MakeNode(f"n{i}").labels({"topology.kubernetes.io/zone": f"z{i % 2}"})
+                 .capacity({"cpu": "4", "memory": "8Gi"}).obj())
+for i in range(6):
+    store.create("pods", MakePod(f"p{i}").labels({"app": "a"}).req({"cpu": "500m"})
+                 .topology_spread(1, "topology.kubernetes.io/zone", "DoNotSchedule", {"app": "a"})
+                 .pod_anti_affinity("kubernetes.io/hostname", {"app": "b"}).obj())
+sched = BatchScheduler(store, device="cpu")
+sched.sync()
+sched.run_until_idle()
+pods, _ = store.list("pods")
+print(json.dumps({"bound": sum(1 for p in pods if p.spec.node_name),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_one_batch_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _ONE_BATCH], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bound"] == 6
+    assert got["modules"] == []
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_static_import_of_jax_or_jax_package(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path.name} imports {bad}"
+
+
+def test_batch_scheduler_defaults_to_the_card():
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    if torch.cuda.is_available():
+        assert BatchScheduler(APIStore()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            BatchScheduler(APIStore(), None)
+
+
+def test_solver_wrappers_raise_for_other_devices():
+    from kubernetes_tpu_torch.ops.solver import resolve_device
+    from kubernetes_tpu_torch.snapshot.tensorizer import scatter_rows
+
+    with pytest.raises(ValueError, match="device"):
+        resolve_device("meta")
+    meta = torch.empty((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        scatter_rows(meta, torch.empty(1, dtype=torch.int32, device="meta"),
+                     torch.empty((1, 2), dtype=torch.int32, device="meta"))

@@ -1,0 +1,261 @@
+"""Seeded workloads shared by the port's tests (tests/test_torch_*.py).
+
+One generator per workload of tests/test_batch_parity.py, plus seeded
+mixed ones. Each takes a testing module (`kubernetes_tpu.testing` or
+`kubernetes_tpu_torch.testing`, which share one MakePod/MakeNode API) and returns
+(nodes, pods[, pre-bound pods]), so the same objects can be built for the
+JAX package and for the port. This module imports neither jax nor the JAX
+package, so the card-only tests can use it on a machine without JAX.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import kubernetes_tpu_torch.testing as tt
+from kubernetes_tpu_torch.scheduler.cache import Cache
+from kubernetes_tpu_torch.snapshot import tensorizer as ttz
+
+ZONE = "topology.kubernetes.io/zone"
+HOST = "kubernetes.io/hostname"
+
+def wl_basic_fit_spread(m):
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "8", "memory": "16Gi"}).obj() for i in range(8)]
+    pods = [m.MakePod(f"p{i}").req({"cpu": "1", "memory": "2Gi"}).obj() for i in range(24)]
+    return nodes, pods
+
+
+def wl_heterogeneous(m):
+    rng = random.Random(42)
+    nodes = [m.MakeNode(f"n{i}").capacity({
+        "cpu": str(rng.choice([2, 4, 8, 16])), "memory": f"{rng.choice([4, 8, 32])}Gi",
+        "pods": str(rng.choice([5, 110]))}).obj() for i in range(12)]
+    pods = [m.MakePod(f"p{i}").req({
+        "cpu": f"{rng.choice([100, 250, 500, 1000, 3000])}m",
+        "memory": f"{rng.choice([128, 512, 2048])}Mi"}).priority(rng.choice([0, 0, 10])).obj()
+        for i in range(40)]
+    return nodes, pods
+
+
+def wl_overcommit(m):
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "2"}).obj() for i in range(3)]
+    pods = [m.MakePod(f"p{i}").req({"cpu": "1500m"}).obj() for i in range(6)]
+    return nodes, pods
+
+
+def wl_best_effort(m):
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "4", "memory": "8Gi"}).obj() for i in range(4)]
+    pods = [m.MakePod(f"p{i}").req({}).obj() for i in range(10)]
+    return nodes, pods
+
+
+def wl_node_selector_affinity(m):
+    nodes = [m.MakeNode(f"n{i}").labels({"disk": "ssd" if i % 2 == 0 else "hdd",
+                                         "zone": f"z{i % 3}"}).capacity({"cpu": "8"}).obj()
+             for i in range(6)]
+    pods = [m.MakePod(f"sel{i}").node_selector({"disk": "ssd"}).req({"cpu": "500m"}).obj()
+            for i in range(6)]
+    pods += [m.MakePod(f"aff{i}").node_affinity_in("zone", ["z0", "z1"]).req({"cpu": "500m"}).obj()
+             for i in range(4)]
+    pods += [m.MakePod(f"pref{i}").preferred_node_affinity(10, "disk", ["hdd"])
+             .req({"cpu": "500m"}).obj() for i in range(4)]
+    return nodes, pods
+
+
+def wl_taints(m):
+    nodes = [m.MakeNode("tainted1").taints([{"key": "gpu", "value": "true", "effect": "NoSchedule"}])
+             .capacity({"cpu": "8"}).obj(),
+             m.MakeNode("soft").taints([{"key": "old", "value": "1", "effect": "PreferNoSchedule"}])
+             .capacity({"cpu": "8"}).obj(),
+             m.MakeNode("clean").capacity({"cpu": "8"}).obj()]
+    pods = [m.MakePod(f"plain{i}").req({"cpu": "500m"}).obj() for i in range(4)]
+    pods += [m.MakePod(f"tol{i}").toleration("gpu", "true", effect="NoSchedule")
+             .req({"cpu": "500m"}).obj() for i in range(2)]
+    return nodes, pods
+
+
+def wl_unschedulable_node(m):
+    nodes = [m.MakeNode("cordoned").unschedulable().capacity({"cpu": "8"}).obj(),
+             m.MakeNode("open").capacity({"cpu": "8"}).obj()]
+    pods = [m.MakePod(f"p{i}").req({"cpu": "500m"}).obj() for i in range(3)]
+    return nodes, pods
+
+
+def wl_host_ports(m):
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj() for i in range(3)]
+    pods = [m.MakePod(f"p{i}").req({"cpu": "100m"}, host_port=8080).obj() for i in range(4)]
+    return nodes, pods
+
+
+def wl_image_locality(m):
+    big = 800 * 1024 * 1024
+    nodes = [m.MakeNode("warm").images({"model-server:latest": big}).capacity({"cpu": "8"}).obj(),
+             m.MakeNode("cold1").capacity({"cpu": "8"}).obj(),
+             m.MakeNode("cold2").capacity({"cpu": "8"}).obj()]
+    pods = [m.MakePod(f"p{i}").req({"cpu": "100m"}).container("model-server:latest").obj()
+            for i in range(2)]
+    return nodes, pods
+
+
+def wl_pts_do_not_schedule(m):
+    nodes = [m.MakeNode(f"n{i}").labels({ZONE: f"z{i % 3}"}).capacity({"cpu": "16"}).obj()
+             for i in range(6)]
+    pods = [m.MakePod(f"w{i}").labels({"app": "web"}).req({"cpu": "100m"})
+            .topology_spread(1, ZONE, "DoNotSchedule", {"app": "web"}).obj() for i in range(12)]
+    return nodes, pods
+
+
+def wl_pts_schedule_anyway(m):
+    nodes = [m.MakeNode(f"n{i}").labels({ZONE: "a" if i < 2 else "b"}).capacity({"cpu": "16"}).obj()
+             for i in range(4)]
+    pods = [m.MakePod(f"w{i}").labels({"app": "w"}).req({"cpu": "100m"})
+            .topology_spread(1, ZONE, "ScheduleAnyway", {"app": "w"}).obj() for i in range(8)]
+    return nodes, pods
+
+
+def wl_mixed_constraints_stress(m):
+    rng = random.Random(7)
+    nodes = []
+    for i in range(10):
+        n = m.MakeNode(f"n{i}").labels({ZONE: f"z{i % 4}", "tier": rng.choice(["a", "b"])}) \
+            .capacity({"cpu": "8", "memory": "16Gi", "pods": "20"})
+        if i % 5 == 0:
+            n = n.taints([{"key": "spot", "value": "true", "effect": "NoSchedule"}])
+        nodes.append(n.obj())
+    pods = []
+    for i in range(30):
+        p = m.MakePod(f"p{i}").labels({"grp": f"g{i % 3}"}).req({
+            "cpu": f"{rng.choice([100, 500, 1000])}m", "memory": f"{rng.choice([256, 1024])}Mi"})
+        if i % 3 == 0:
+            p = p.topology_spread(2, ZONE, "DoNotSchedule", {"grp": f"g{i % 3}"})
+        if i % 4 == 0:
+            p = p.toleration("spot", "true", effect="NoSchedule")
+        if i % 7 == 0:
+            p = p.preferred_node_affinity(5, "tier", ["a"])
+        pods.append(p.obj())
+    return nodes, pods
+
+
+def wl_interpod_anti_affinity(m):
+    nodes = [m.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj() for i in range(3)]
+    pods = [m.MakePod(f"w{i}").labels({"app": "web"}).req({"cpu": "100m"})
+            .pod_anti_affinity(HOST, {"app": "web"}).obj() for i in range(3)]
+    return nodes, pods
+
+
+def wl_seeded_mixed(seed, n_nodes=12, n_pods=40):
+    """A seeded mixed workload: zones, taints, priorities, PTS of both kinds,
+    inter-pod affinity of every kind, host ports, pre-bound holders."""
+
+    def build(m):
+        rng = random.Random(seed)
+        nodes = []
+        for i in range(n_nodes):
+            b = m.MakeNode(f"n{i}").labels({ZONE: f"z{i % 3}", "tier": rng.choice("ab")}) \
+                .capacity({"cpu": str(rng.choice([4, 8, 16])),
+                           "memory": f"{rng.choice([8, 16, 32])}Gi", "pods": "30"})
+            if rng.random() < 0.2:
+                b = b.taints([{"key": "spot", "value": "1", "effect": "NoSchedule"}])
+            elif rng.random() < 0.2:
+                b = b.taints([{"key": "old", "value": "1", "effect": "PreferNoSchedule"}])
+            nodes.append(b.obj())
+        bound = []
+        for i in range(3):
+            b = m.MakePod(f"held{i}").labels({"app": "db"}).req({"cpu": "250m"}) \
+                .pod_anti_affinity(HOST, {"app": "db"}) \
+                .preferred_pod_affinity(10, ZONE, {"app": "web"}).obj()
+            b.spec.node_name = f"n{rng.randrange(n_nodes)}"
+            bound.append(b)
+        pods = []
+        for i in range(n_pods):
+            app = rng.choice(["web", "db", "cache", "batch"])
+            b = m.MakePod(f"p{i}").labels({"app": app}).priority(rng.choice([0, 0, 5])).req({
+                "cpu": f"{rng.choice([100, 250, 500, 1000])}m",
+                "memory": f"{rng.choice([128, 512, 1024, 2048])}Mi"})
+            r = rng.random()
+            if app == "db" and r < 0.6:
+                b = b.pod_anti_affinity(HOST, {"app": "db"})
+            if app == "web":
+                b = b.topology_spread(1, ZONE, "ScheduleAnyway", {"app": "web"})
+                if r < 0.5:
+                    b = b.preferred_pod_affinity(40, ZONE, {"app": "db"})
+            if app == "cache":
+                b = b.topology_spread(1, ZONE, "DoNotSchedule", {"app": "cache"})
+                if r < 0.4:
+                    b = b.pod_affinity(ZONE, {"app": "db"})
+                else:
+                    b = b.preferred_pod_anti_affinity(20, HOST, {"app": "cache"})
+            if app == "batch" and r < 0.3:
+                b = m.MakePod(f"p{i}").labels({"app": app}).req({"cpu": "100m"},
+                                                                 host_port=9000)
+            if rng.random() < 0.3:
+                b = b.toleration("spot", "1", effect="NoSchedule")
+            if rng.random() < 0.2:
+                b = b.preferred_node_affinity(rng.choice([5, 50]), "tier", ["a"])
+            pods.append(b.obj())
+        return nodes, pods, bound
+
+    build.__name__ = f"wl_seeded_mixed_{seed}"
+    return build
+
+
+PARITY_WORKLOADS = [wl_basic_fit_spread, wl_heterogeneous, wl_overcommit, wl_best_effort,
+                    wl_node_selector_affinity, wl_taints, wl_unschedulable_node, wl_host_ports,
+                    wl_image_locality, wl_pts_do_not_schedule, wl_pts_schedule_anyway,
+                    wl_mixed_constraints_stress, wl_interpod_anti_affinity]
+MIXED_WORKLOADS = [wl_seeded_mixed(s) for s in range(4)]
+
+
+def unpack(built):
+    nodes, pods = built[0], built[1]
+    bound = built[2] if len(built) > 2 else []
+    return nodes, pods, bound
+
+
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_workload_is_deterministic_and_well_formed(workload):
+    """Two builds give the same specs (the seed fixes everything) and every
+    object has a unique name."""
+    a, b = unpack(workload(tt)), unpack(workload(tt))
+    for xs, ys in zip(a, b):
+        assert [x.metadata.name for x in xs] == [y.metadata.name for y in ys]
+        assert [x.spec for x in xs] == [y.spec for y in ys]
+        assert len({x.metadata.name for x in xs}) == len(xs)
+    nodes, pods, bound = a
+    assert nodes and pods
+    assert all(p.spec.node_name for p in bound)
+    assert not any(p.spec.node_name for p in pods)
+
+
+def check_mirrors_after_churn(device):
+    """Drive five rounds of bound-pod churn through the port's TensorCache
+    and check, every round, that the device mirrors equal the host arrays
+    (a fresh upload) and that the incremental host rows equal a rebuild."""
+    cache = Cache()
+    for i in range(30):
+        cache.add_node(tt.MakeNode(f"n{i}").labels({ZONE: f"z{i % 3}"})
+                       .capacity({"cpu": "8", "memory": "16Gi", "pods": "50"}).obj())
+    tc = ttz.TensorCache()
+    for step in range(5):
+        for j in range(4):
+            p = tt.MakePod(f"d{step}-{j}").labels({"app": "w"}).req({"cpu": "250m"}).obj()
+            p.spec.node_name = f"n{(step * 4 + j) % 30}"
+            cache.add_pod(p)
+        snap = cache.update_snapshot()
+        cluster, changed = tc.cluster_tensors(snap)
+        pending = [tt.MakePod(f"s{step}-{j}").labels({"app": "w"}).req({"cpu": "100m"})
+                   .topology_spread(2, ZONE, "DoNotSchedule", {"app": "w"}).obj()
+                   for j in range(6)]
+        ttz.build_pod_batch(pending, snap, cluster, reuse=tc, changed_nodes=changed)
+        views = tc.device_views(cluster, device)
+        for f in ttz.TensorCache.DEVICE_FIELDS:
+            assert views[f].device.type == device.type
+            assert views[f].dtype == torch.int32
+            np.testing.assert_array_equal(views[f].cpu().numpy(), getattr(cluster, f), err_msg=f)
+        np.testing.assert_array_equal(views["selcls_count"].cpu().numpy(), cluster.selcls_count)
+        fresh = ttz.build_cluster_tensors(snap)
+        for f in ttz.TensorCache.DEVICE_FIELDS:
+            np.testing.assert_array_equal(getattr(cluster, f), getattr(fresh, f), err_msg=f)
