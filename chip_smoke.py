@@ -15,11 +15,32 @@ Phases, each printing one JSON line:
              of assignment, used and pod_count
   kernel_B   the row-scatter kernel against scatter_rows_plain /
              scatter_cols_plain after seeded churn rounds; exact equality
+  kernel_C   the waterfill kernel against waterfill_group_plain on the card,
+             on tensorizer inputs: (a) SchedulingBasic 5,000 nodes, a
+             4,096-pod group, (b) a 10,000-pod group (k_slots 16,384, the
+             global sort path), (c) host ports, preferred node affinity,
+             taints, a seeded gang row and a group below the 256-slot floor,
+             (d) a node over-committed by a bound pod (free < 0); exact
+             equality of k_per_node and chosen_nodes in order
+  kernel_D   the repair-check kernel against repair_check_plain on seeded
+             placed batches (TopologySpreading, hostname anti-affinity, and a
+             mixed batch with all four kinds and minDomains), under all four
+             gate combinations; exact equality, every mask non-empty on the
+             mixed batch
   main_path  APIStore -> BatchScheduler(device="cuda", solver="exact") ->
              run_until_idle on the SchedulingBasic and TopologySpreading
              shapes: every pod bound through the store, no node
              over-committed, zone skew <= 1, kernel launch counts > 0
-  kernels    one line per kernel: launches on the main path, error against
+  main_path_fast
+             BatchScheduler(solver="fast") on SchedulingBasic,
+             TopologySpreading, PodAntiAffinity and PodAffinity (and
+             solver="auto" on SchedulingBasic): every pod bound, every
+             constraint holding, no breaker failure, kernels C and D
+             launched where the workload routes to them, and the same
+             {pod: node} map as a rerun on the CPU (the plain versions);
+             SchedulingBasic and TopologySpreading also run the exact mode
+             right after, as the fast mode's comparison partner
+  kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. A failed phase exits non-zero before the
@@ -35,6 +56,7 @@ from --seed. --small runs every phase at a reduced size.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import random
 import subprocess
@@ -47,6 +69,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 NONTENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_A_SRC = "kubernetes_tpu_torch/csrc/greedy_scan.cu"
 KERNEL_B_SRC = "kubernetes_tpu_torch/csrc/row_scatter.cu"
+KERNEL_C_SRC = "kubernetes_tpu_torch/csrc/waterfill.cu"
+KERNEL_D_SRC = "kubernetes_tpu_torch/csrc/repair_check.cu"
 
 
 def emit(obj) -> None:
@@ -102,6 +126,29 @@ def spread_pods(p, prefix="sp"):
             for i in range(p)]
 
 
+def anti_pods(groups, size, prefix="anti"):
+    from kubernetes_tpu_torch.testing import MakePod
+
+    return [MakePod(f"{prefix}-{g}-{i}").labels({"grp": f"g{g}"})
+            .pod_anti_affinity(HOST, {"grp": f"g{g}"}).req({"cpu": "200m"}).obj()
+            for g in range(groups) for i in range(size)]
+
+
+def affinity_seeds(zones):
+    from kubernetes_tpu_torch.testing import MakePod
+
+    return [MakePod(f"seed-{z}").labels({"svc": f"s{z}"}).node(f"node-{z}")
+            .req({"cpu": "100m"}).obj() for z in range(zones)]
+
+
+def affinity_pods(p, zones, prefix="aff"):
+    from kubernetes_tpu_torch.testing import MakePod
+
+    return [MakePod(f"{prefix}-{i}").labels({"peer": "1"})
+            .pod_affinity(ZONE, {"svc": f"s{i % zones}"}).req({"cpu": "200m"}).obj()
+            for i in range(p)]
+
+
 def mixed_pods(p, seed):
     """IPA required anti-affinity and preferred (anti-)affinity, PTS
     ScheduleAnyway and DoNotSchedule, host ports, taints/tolerations,
@@ -134,7 +181,7 @@ def mixed_pods(p, seed):
 
 def tensorize(nodes, pods, device, bound=()):
     """The port's host pipeline on a fixed cluster: cache -> snapshot ->
-    tensorizer -> make_inputs."""
+    tensorizer -> make_inputs. Returns (inputs, d_max, gates, batch)."""
     from kubernetes_tpu_torch.ops.solver import make_inputs
     from kubernetes_tpu_torch.scheduler.cache import Cache
     from kubernetes_tpu_torch.snapshot.tensorizer import TensorCache, build_pod_batch
@@ -150,7 +197,7 @@ def tensorize(nodes, pods, device, bound=()):
     inputs, d_max = make_inputs(cluster, batch, device)
     gates = dict(has_ipa=bool(batch.ipa.has_any), has_ct=bool(batch.ct_class.size),
                  has_st=bool(batch.st_class.size), has_gang=False)
-    return inputs, d_max, gates, cluster
+    return inputs, d_max, gates, batch
 
 
 def pod_slice(inp, k):
@@ -377,16 +424,300 @@ def phase_kernel_b(device, sizes, seed):
     return err, line
 
 
-def drive_main_path(name, nodes, pods, device, batch_size):
+# ---------------------------------------------------------------------------
+# kernel C: waterfill
+# ---------------------------------------------------------------------------
+
+
+def group_call(inp, members, cls, j_max, gang_row=None):
+    """The arguments of one waterfill_group call for a group of a tensorized
+    batch, as models/waterfill.py waterfill_solve makes them."""
+    from kubernetes_tpu_torch.models.waterfill import k_slots_for
+
+    n = inp.alloc.shape[0]
+    pi0 = int(members[0])
+    cports = inp.class_ports[cls]
+    port_conflict = (inp.node_ports & cports[None, :]).any(dim=1)
+    args = (inp.alloc, inp.used, inp.used_nz, inp.pod_count, inp.max_pods, inp.filter_ok[cls],
+            port_conflict, bool(cports.any()), inp.napref_raw[cls], inp.has_napref[cls],
+            inp.taint_cnt[cls], inp.img_score[cls], inp.req[pi0], inp.req_nz[pi0],
+            inp.balanced_active[pi0], len(members))
+    kw = dict(j_max=j_max, k_slots=k_slots_for(len(members), n, j_max), gang_row=gang_row,
+              has_gang=gang_row is not None)
+    return args, kw
+
+
+def kernel_c_work(args, kw, placed):
+    """(bytes, operations) of one waterfill group: every input read once and
+    every output written once; operations: the per-node fit depth and
+    normalizers, ~32 per slot for LeastAllocated + Balanced + running min +
+    key, one comparison per slot for the selection, and m log2 m to order
+    the m placed slots."""
+    import math
+
+    import torch
+
+    alloc = args[0]
+    n, r = alloc.shape
+    j_max, k = kw["j_max"], kw["k_slots"]
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if kw["gang_row"] is not None:
+        tensors.append(kw["gang_row"])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + n * 4 + k * 4
+    slots = n * j_max
+    ops = n * (3 * r + 20) + slots * 33 + int(placed * max(1.0, math.log2(max(placed, 1))))
+    return nbytes, ops
+
+
+def compare_c(name, args, kw, device, iters):
+    from kubernetes_tpu_torch.models.waterfill import waterfill_group, waterfill_group_plain
+    from kubernetes_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES["waterfill"]
+    got = waterfill_group(*args, **kw)
+    sync(device)
+    launched = kernels.LAUNCHES["waterfill"] - before
+    ref = waterfill_group_plain(*args, **kw)
+    sync(device)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
+    equal = all(a.dtype == b.dtype and bool((a == b).all()) for a, b in zip(got, ref))
+    placed = int(got[0].sum())
+    ms = timed_ms(lambda: waterfill_group(*args, **kw), iters, device)
+    plain_ms = timed_ms(lambda: waterfill_group_plain(*args, **kw), max(iters // 5, 1), device)
+    nbytes, ops = kernel_c_work(args, kw, placed)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    line = {"phase": "kernel_C", "case": name, "nodes": args[0].shape[0], "group": args[-1],
+            "j_max": kw["j_max"], "k_slots": kw["k_slots"], "has_port": args[7],
+            "has_gang": kw["has_gang"], "equal": equal, "max_abs_err": err, "placed": placed,
+            "chosen_in_order": int((got[1] >= 0).sum()), "launches": launched,
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+            "bound_by": b_by}
+    emit(line)
+    check(equal, f"kernel C differs from its plain version on case {name}")
+    check(device.type != "cuda" or launched == 1, f"kernel C did not launch on case {name}")
+    check(placed > 0 and placed == line["chosen_in_order"], f"kernel C placed nothing on {name}")
+    return line
+
+
+def phase_kernel_c(device, sizes, seed):
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.models.waterfill import bucket_j_max, make_groups
+    from kubernetes_tpu_torch.testing import MakePod
+
+    n = sizes["nodes"]
+    lines = []
+
+    def first_group(nodes, pods, bound=(), gang=False):
+        inp, _, _, batch = tensorize(nodes, pods, device, bound=bound)
+        members, cls = make_groups(batch)[0]
+        j_max = bucket_j_max(inp.max_pods, inp.pod_count, n, 2_600_000)
+        gang_row = None
+        if gang:
+            rng = np.random.default_rng(seed)
+            gang_row = torch.from_numpy(rng.integers(0, 100, size=n).astype(np.int32)).to(device)
+        return group_call(inp, members, cls, j_max, gang_row)
+
+    # (a) the main path's group: SchedulingBasic, batch_size identical pods
+    args, kw = first_group(make_nodes(n), basic_pods(sizes["batch"], "ca"))
+    lines.append(compare_c("a_scheduling_basic", args, kw, device, 20))
+    # (b) a group past the shared-memory sort: the global merge path
+    args, kw = first_group(make_nodes(n), basic_pods(sizes["group_big"], "cb"))
+    check(kw["k_slots"] > 4096, f"case b does not reach the global sort: k_slots {kw['k_slots']}")
+    lines.append(compare_c("b_global_sort", args, kw, device, 5))
+    # (c) host ports (some taken by bound pods), preferred node affinity,
+    # PreferNoSchedule taints, a seeded gang row, a group below 256 slots
+    holders = []
+    for i in range(0, n, 13):
+        h = MakePod(f"port-holder-{i}").req({"cpu": "100m"}, host_port=9090).obj()
+        h.spec.node_name = f"node-{i}"
+        holders.append(h)
+    pods = [MakePod(f"cc-{i}").req({"cpu": "300m", "memory": "512Mi"}, host_port=9090)
+            .preferred_node_affinity(20, ZONE, ["zone-3", "zone-5"]).obj() for i in range(100)]
+    args, kw = first_group(make_nodes(n, zones=10, taints=True, seed=seed), pods, holders,
+                           gang=True)
+    check(args[7] and kw["k_slots"] > args[-1], "case c misses the port cap or the 256 floor")
+    lines.append(compare_c("c_ports_napref_taints_gang", args, kw, device, 20))
+    # (d) nodes over-committed by bound pods: negative free capacity
+    hogs = []
+    for i, req in enumerate(({"cpu": "12"}, {"memory": "40Gi"}, {"cpu": "7900m"})):
+        h = MakePod(f"hog-{i}").req(req).obj()
+        h.spec.node_name = f"node-{i}"
+        hogs.append(h)
+    args, kw = first_group(make_nodes(n), basic_pods(sizes["batch"] // 2, "cd"), hogs)
+    check(int((args[0] - args[1]).min()) < 0, "case d has no over-committed node")
+    lines.append(compare_c("d_overcommitted", args, kw, device, 20))
+    return max(ln["max_abs_err"] for ln in lines), lines[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel D: repair_check
+# ---------------------------------------------------------------------------
+
+
+def placed_check_args(inp, batch, rng, frac=0.95):
+    """A seeded random placement of a tensorized batch as repair_check's
+    arguments (device tensors): the pod axis padded to a pow2 >= 256, the
+    count rows including every placed pod."""
+    import numpy as np
+    import torch
+
+    device = inp.alloc.device
+    p, n = len(batch.pods), inp.alloc.shape[0]
+    cls = np.asarray(batch.class_of_pod, dtype=np.int32)
+    node_of = rng.integers(0, n, size=p).astype(np.int32)
+    node_of[rng.random(p) > frac] = -1
+    placed = node_of >= 0
+    sel = inp.selcls_count.cpu().numpy().astype(np.int64)
+    grp = inp.grp_count.cpu().numpy().astype(np.int64)
+    np.add.at(sel.T, node_of[placed], inp.class_matches_selcls.cpu().numpy()[cls[placed]])
+    np.add.at(grp.T, node_of[placed], inp.class_holds_grp.cpu().numpy()[cls[placed]])
+    pb = max(256, 1 << (p - 1).bit_length())
+    node_pad = np.full(pb, -1, np.int32)
+    node_pad[:p] = node_of
+    cls_pad = np.zeros(pb, np.int32)
+    cls_pad[:p] = cls
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (t(node_pad), t(cls_pad), t(sel.astype(np.int32)), t(grp.astype(np.int32)),
+            inp.topo_id, inp.rn_key, inp.rn_sel, inp.ea_grp, inp.ra_key, inp.ra_sel,
+            inp.class_matches_selcls, inp.class_holds_grp, inp.grp_key, inp.aff_ok,
+            inp.ct_class, inp.ct_key, inp.ct_sel, inp.ct_max_skew, inp.ct_min_domains)
+
+
+def kernel_d_work(args, has_affinity, has_ct):
+    """(bytes, operations) of one check: the inputs its gates read, once,
+    and the four masks written; operations: segment sums of every count row
+    under every key, the spread rows' domain pass, ~8 per pod term."""
+    node_of, cls_of, sel, grp, topo = args[:5]
+    pb = node_of.numel()
+    kk, n = topo.shape
+    ct = args[14].numel()
+    nbytes = 2 * pb * 4 + topo.numel() * 4 + 4 * pb
+    ops = 4 * pb
+    if has_affinity:
+        tables = args[5:13]
+        nbytes += (sel.numel() + grp.numel()) * 4 + sum(t.numel() * 4 for t in tables)
+        terms = args[5].shape[1] + args[7].shape[1] + args[8].shape[1]
+        ops += 2 * kk * (sel.shape[0] + grp.shape[0]) * n + 8 * pb * terms
+    if has_ct:
+        nbytes += ct * n * 5 + ct * 5 * 4
+        ops += 8 * ct * n + 3 * pb * ct
+    return nbytes, ops
+
+
+def compare_d(name, args, d_max, device, gates, require_all=False):
+    from kubernetes_tpu_torch.models.repair import repair_check, repair_check_plain
+    from kubernetes_tpu_torch.ops import kernels
+
+    err, counts = 0, {}
+    for has_affinity, has_ct in gates:
+        before = kernels.LAUNCHES["repair_check"]
+        got = repair_check(*args, d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
+        sync(device)
+        launched = kernels.LAUNCHES["repair_check"] - before
+        ref = repair_check_plain(*args, d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
+        sync(device)
+        equal = all(a.dtype == b.dtype and bool((a == b).all()) for a, b in zip(got, ref))
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
+        err = max(err, e)
+        key = f"affinity={int(has_affinity)},ct={int(has_ct)}"
+        counts[key] = [int(m.sum()) for m in got]
+        check(equal, f"kernel D differs from its plain version on {name} {key}")
+        check(device.type != "cuda" or launched == 1, f"kernel D did not launch on {name} {key}")
+    emit({"phase": "kernel_D", "case": name, "pods": int((args[0] >= 0).sum()),
+          "pb": args[0].numel(), "d_max": d_max, "equal": True, "max_abs_err": err,
+          "violations_rn_ea_ra_ct": counts})
+    if require_all:
+        full = counts["affinity=1,ct=1"]
+        check(all(c > 0 for c in full), f"{name}: a violation kind never fires: {full}")
+    return err
+
+
+def phase_kernel_d(device, sizes, seed):
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.repair import repair_check, repair_check_plain
+    from kubernetes_tpu_torch.testing import MakePod
+
+    n = sizes["nodes"]
+    rng = np.random.default_rng(seed)
+    all_gates = [(True, True), (True, False), (False, True), (False, False)]
+    errs = []
+    inp, d_max, _, batch = tensorize(make_nodes(n, zones=10), spread_pods(sizes["spread"], "ds"),
+                                        device)
+    spread_args = placed_check_args(inp, batch, rng)
+    errs.append(compare_d("topology_spreading", spread_args, d_max, device, all_gates))
+    inp, d_a, _, batch = tensorize(make_nodes(n), anti_pods(sizes["anti_groups"], 40, "da"),
+                                      device)
+    errs.append(compare_d("hostname_anti_affinity", placed_check_args(inp, batch, rng), d_a,
+                          device, all_gates))
+    # mixed: every kind, minDomains above the zone count, nodes without the
+    # zone key, holders in zone-0 whose zone anti-affinity repels "web"
+    nodes = make_nodes(n, zones=10)
+    for i in range(0, n, 20):
+        del nodes[i].metadata.labels[ZONE]
+    holders = []
+    for i in (10, 30, 50):  # zone-0 nodes that keep the key (every 20th lost it)
+        h = MakePod(f"guard-{i}").labels({"app": "guard"}).req({"cpu": "100m"}) \
+            .pod_anti_affinity(ZONE, {"app": "web"}).obj()
+        h.spec.node_name = f"node-{i}"
+        holders.append(h)
+    pods = []
+    for i in range(sizes["mixed"]):
+        b = MakePod(f"dm-{i}").req({"cpu": "100m"})
+        kind = i % 5
+        if kind == 0:
+            b = b.labels({"app": "db"}).pod_anti_affinity(HOST, {"app": "db"})
+        elif kind == 1:
+            b = b.labels({"app": "web"})
+        elif kind == 2:
+            b = b.labels({"app": "aff"}).pod_affinity(ZONE, {"app": "db"})
+        elif kind == 3:
+            b = b.labels({"app": "sp"}).topology_spread(1, ZONE, "DoNotSchedule", {"app": "sp"},
+                                                         min_domains=20)
+        else:
+            b = b.labels({"app": "sq"}).topology_spread(1, ZONE, "DoNotSchedule", {"app": "sq"})
+        pods.append(b.obj())
+    inp, d_m, _, batch = tensorize(nodes, pods, device, bound=holders)
+    errs.append(compare_d("mixed_all_kinds_min_domains", placed_check_args(inp, batch, rng), d_m,
+                          device, all_gates, require_all=True))
+    # the main path's shape: one TopologySpreading batch of batch_size pods
+    k = min(sizes["batch"], sizes["spread"])
+    inp, d_max, _, batch = tensorize(make_nodes(n, zones=10), spread_pods(k, "dt"), device)
+    args = placed_check_args(inp, batch, rng)
+    ms = timed_ms(lambda: repair_check(*args, d_max=d_max, has_affinity=False, has_ct=True), 50,
+                  device)
+    plain_ms = timed_ms(lambda: repair_check_plain(*args, d_max=d_max, has_affinity=False,
+                                                   has_ct=True), 5, device)
+    nbytes, ops = kernel_d_work(args, False, True)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    timing = {"phase": "kernel_D_timing",
+              "shape": f"{n} nodes, {k} placed pods (pb {args[0].numel()}), has_ct",
+              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
+              "bound_by": b_by}
+    emit(timing)
+    return max(errs), timing
+
+
+def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=()):
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
 
     store = APIStore()
     store.create_many("nodes", nodes)
+    if bound:
+        store.create_many("pods", list(bound))
     # the call a user makes: device="cuda" (the default), not a pinned index
-    sched = BatchScheduler(store, device=device.type, solver="exact", batch_size=batch_size)
+    sched = BatchScheduler(store, device=device.type, solver=solver, batch_size=batch_size)
     sched.sync()
+    # start each timed run from a collected heap: the garbage of the phases
+    # before it must not land in this run's stage clocks
+    gc.collect()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     store.create_many("pods", pods)
@@ -451,6 +782,123 @@ def phase_main_path(device, sizes, card):
     return out
 
 
+def fast_workloads(sizes):
+    """name -> a function making (nodes, bound pods, pending pods): the scheduler_perf
+    shapes bench.py:205-260 uses, 8 cpu / 32Gi / 110-pod nodes."""
+    n, zones_aff = sizes["nodes"], 50
+    return {
+        "SchedulingBasic": lambda: (make_nodes(n), [], basic_pods(sizes["basic"], "fb")),
+        "TopologySpreading": lambda: (make_nodes(n, zones=10), [],
+                                      spread_pods(sizes["spread"], "fs")),
+        "PodAntiAffinity": lambda: (make_nodes(n), [], anti_pods(sizes["anti_groups"], 40, "fa")),
+        "PodAffinity": lambda: (make_nodes(n, zones=zones_aff), affinity_seeds(zones_aff),
+                                affinity_pods(sizes["affinity"], zones_aff, "ff")),
+    }
+
+
+def check_fast_constraints(name, placed, n_zones_aff=50):
+    """The workload's own constraint on the final placements."""
+    mine = [p for p in placed if not p.metadata.name.startswith("seed-")]
+    if name == "TopologySpreading":
+        zones = {}
+        for p in mine:
+            z = int(p.spec.node_name.rsplit("-", 1)[1]) % 10
+            zones[z] = zones.get(z, 0) + 1
+        skew = max(zones.values()) - min(zones.values())
+        check(len(zones) == 10 and skew <= 1, f"{name}: zone skew {skew} > 1")
+        return {"zone_skew": skew}
+    if name == "PodAntiAffinity":
+        groups = {}
+        for p in mine:
+            groups.setdefault(p.metadata.labels["grp"], []).append(p.spec.node_name)
+        worst = max(len(v) - len(set(v)) for v in groups.values())
+        check(worst == 0, f"{name}: {worst} pods share a node with their anti-affine group")
+        return {"groups": len(groups), "shared_nodes": worst}
+    if name == "PodAffinity":
+        off = [p.metadata.name for p in mine
+               if int(p.spec.node_name.rsplit("-", 1)[1]) % n_zones_aff
+               != int(p.metadata.name.rsplit("-", 1)[1]) % n_zones_aff]
+        check(not off, f"{name}: {len(off)} pods outside their seed's zone, e.g. {off[:3]}")
+        return {"outside_seed_zone": 0}
+    return {}
+
+
+def phase_main_path_fast(device, sizes, card):
+    import torch
+
+    batch = sizes["batch"]
+    out = {}
+    for name, build in fast_workloads(sizes).items():
+        nodes, seeds, pods = build()
+        store, sched, got, launches, create_s, sched_s = drive_main_path(
+            name, nodes, pods, device, batch, solver="fast", bound=seeds)
+        placed = [p for p in got if p.spec.node_name]
+        check(len(placed) == len(pods) + len(seeds),
+              f"{name}: {len(placed) - len(seeds)}/{len(pods)} pods bound through the store")
+        check_no_overcommit(placed, nodes)
+        br = sched.breaker
+        check(br.failures_total == 0 and br.trips == 0,
+              f"{name}: solver failures {br.failures_total}, trips {br.trips}: "
+              f"{sched.last_solver_error}")
+        constrained = name != "SchedulingBasic"
+        if constrained:
+            check(sched.repair_totals["batches"] > 0, f"{name}: no batch rode propose-and-repair")
+        if device.type == "cuda":
+            check(launches["waterfill"] > 0, f"{name}: kernel C never launched")
+            if constrained:
+                check(launches["repair_check"] > 0, f"{name}: kernel D never launched")
+        card_map = {p.metadata.name: p.spec.node_name for p in got}
+        # the same workload with the port on the CPU: the plain versions
+        t0 = time.perf_counter()
+        nodes_c, seeds_c, pods_c = build()
+        _, sched_c, got_c, _, _, _ = drive_main_path(name, nodes_c, pods_c, torch.device("cpu"),
+                                                     batch, solver="fast", bound=seeds_c)
+        cpu_s = time.perf_counter() - t0
+        cpu_map = {p.metadata.name: p.spec.node_name for p in got_c}
+        differ = [k for k in card_map if card_map[k] != cpu_map.get(k)]
+        check(not differ, f"{name}: {len(differ)} placements differ from the CPU run, "
+                          f"e.g. {[(k, card_map[k], cpu_map.get(k)) for k in differ[:3]]}")
+        check(sched_c.repair_totals == sched.repair_totals,
+              f"{name}: repair totals differ from the CPU run")
+        line = {"phase": "main_path_fast", "workload": name, "solver": "fast",
+                "nodes": len(nodes), "pods": len(pods), "bound": len(placed) - len(seeds),
+                "batches": sched.batches_solved, "launches": launches,
+                "pods_per_s": len(pods) / sched_s, "schedule_s": sched_s, "create_s": create_s,
+                "solve_s_per_batch": sum(sched.solve_seconds) / max(len(sched.solve_seconds), 1),
+                "stage_seconds": sched.stage_seconds, "repair_totals": sched.repair_totals,
+                "last_path": sched._solve_path, "breaker": br.describe(),
+                "cpu_rerun_s": cpu_s, "cpu_map_equal": True, "card": card}
+        line.update(check_fast_constraints(name, placed))
+        if name in ("SchedulingBasic", "TopologySpreading"):
+            # the exact mode on the same shape right after, on the same card:
+            # the comparison partner for the fast mode's pods/s
+            nodes_x, seeds_x, pods_x = build()
+            _, sched_x, got_x, _, _, sched_s_x = drive_main_path(
+                name, nodes_x, pods_x, device, batch, solver="exact", bound=seeds_x)
+            check(all(p.spec.node_name for p in got_x), f"{name} exact: pods left unbound")
+            line["exact_adjacent"] = {"pods_per_s": len(pods_x) / sched_s_x,
+                                      "schedule_s": sched_s_x,
+                                      "stage_seconds": sched_x.stage_seconds}
+        emit(line)
+        out[name] = line
+        if name == "SchedulingBasic":
+            # the daemon's mode: auto routes as fast does
+            nodes_a, seeds_a, pods_a = build()
+            _, sched_a, got_a, launches_a, _, sched_s_a = drive_main_path(
+                name, nodes_a, pods_a, device, batch, solver="auto", bound=seeds_a)
+            auto_map = {p.metadata.name: p.spec.node_name for p in got_a}
+            check(auto_map == card_map, f"{name}: solver auto places differently from fast")
+            check(sched_a.breaker.failures_total == 0, f"{name} auto: solver failures")
+            check(device.type != "cuda" or launches_a["waterfill"] > 0,
+                  f"{name} auto: kernel C never launched")
+            emit({"phase": "main_path_fast", "workload": name, "solver": "auto",
+                  "pods": len(pods_a), "bound": sum(1 for p in got_a if p.spec.node_name),
+                  "launches": launches_a, "pods_per_s": len(pods_a) / sched_s_a,
+                  "stage_seconds": sched_a.stage_seconds, "same_map_as_fast": True,
+                  "card": card})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -474,18 +922,24 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     sizes = ({"nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
-              "batch": 400} if args.small else
+              "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500}
+             if args.small else
              {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
-              "batch": 4096})
+              "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000})
     try:
         info = phase_device(device)
         phase_build()
         err_a, timing_a = phase_kernel_a(device, sizes, args.seed)
         err_b, line_b = phase_kernel_b(device, sizes, args.seed)
+        err_c, line_c = phase_kernel_c(device, sizes, args.seed)
+        err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
+        fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # A and B: the exact main path (SchedulingBasic); C and D: the fast main
+    # path, summed over its four workloads (counts reset before each run)
     launches = main["SchedulingBasic"]["launches"]
     kernels = [
         {"name": "greedy_scan", "route": "cuda", "source": KERNEL_A_SRC,
@@ -499,6 +953,21 @@ def main(argv=None) -> int:
          "plain_ms": line_b["plain_ms"], "bound_ms": line_b["bound_ms"],
          "bound_by": line_b["bound_by"], "library_ms": line_b["library_ms"],
          "checked": True, "shape": line_b["timing_shape"]},
+        {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
+         "replaces": "kubernetes_tpu/models/waterfill.py:79",
+         "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
+         "max_abs_err": err_c, "ms": line_c["ms"], "plain_ms": line_c["plain_ms"],
+         "bound_ms": line_c["bound_ms"], "bound_by": line_c["bound_by"], "library_ms": None,
+         "library": "none: torch.topk computes only the selection, not the whole function",
+         "checked": True,
+         "shape": f"{line_c['nodes']} nodes x j_max {line_c['j_max']}, group {line_c['group']}"},
+        {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
+         "replaces": "kubernetes_tpu/models/repair.py:121",
+         "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),
+         "max_abs_err": err_d, "ms": timing_d["ms"], "plain_ms": timing_d["plain_ms"],
+         "bound_ms": timing_d["bound_ms"], "bound_by": timing_d["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call computes the violation check",
+         "checked": True, "shape": timing_d["shape"]},
     ]
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:

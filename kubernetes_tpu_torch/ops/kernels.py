@@ -11,8 +11,10 @@ torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
 it happens and nowhere else).
 
-  greedy_scan  kernel A, csrc/greedy_scan.cu  <- ops/solver.py greedy_scan_solve
-  row_scatter  kernel B, csrc/row_scatter.cu  <- snapshot/tensorizer.py scatter_rows/_cols
+  greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
+  row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py scatter_rows/_cols
+  waterfill     kernel C, csrc/waterfill.cu     <- models/waterfill.py waterfill_group
+  repair_check  kernel D, csrc/repair_check.cu  <- models/repair.py repair_check
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from .solver import FIELD_DTYPES, SolverInputs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"greedy_scan": "greedy_scan.cu", "row_scatter": "row_scatter.cu"}
+SOURCES = {"greedy_scan": "greedy_scan.cu", "row_scatter": "row_scatter.cu",
+           "waterfill": "waterfill.cu", "repair_check": "repair_check.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -91,6 +94,19 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def _bind_args_entry(lib: ctypes.CDLL, name: str, struct) -> None:
+    """`<name>_launch(const Args*, stream)` plus its layout check."""
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    size = getattr(lib, f"{name}_args_size")
+    size.argtypes = []
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{struct.__name__} layout differs between csrc/{SOURCES[name]} "
+                           "and ops/kernels.py")
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
@@ -104,10 +120,14 @@ def _lib(name: str) -> ctypes.CDLL:
             if lib.greedy_scan_args_size() != ctypes.sizeof(_GreedyScanArgs):
                 raise RuntimeError("GreedyScanArgs layout differs between "
                                    "csrc/greedy_scan.cu and ops/kernels.py")
-        else:
+        elif name == "row_scatter":
             lib.row_scatter_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             lib.row_scatter_launch.restype = ctypes.c_int
+        elif name == "waterfill":
+            _bind_args_entry(lib, name, _WaterfillArgs)
+        else:
+            _bind_args_entry(lib, name, _RepairCheckArgs)
         _LIBS[name] = lib
     return lib
 
@@ -278,3 +298,162 @@ def launch_row_scatter(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
                                  int(cols), torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES["row_scatter"] += 1
     _raise_on(err, "row_scatter launch")
+
+
+# ---------------------------------------------------------------------------
+# kernel C
+# ---------------------------------------------------------------------------
+
+_WF_INTS = ("N", "R", "j_max", "k_slots", "sort_len", "group_size", "has_port", "has_gang")
+_WF_PTRS = ("alloc", "used", "used_nz", "pod_count", "max_pods", "filter_ok", "port_conflict",
+            "napref", "has_napref", "taint", "img", "gang", "req", "req_nz", "bal_active",
+            "k_per_node", "chosen_nodes", "j_cap", "static_score", "keys", "sortbuf", "state")
+
+
+class _WaterfillArgs(ctypes.Structure):
+    _fields_ = [(d, ctypes.c_int) for d in _WF_INTS] + [(f, ctypes.c_void_p) for f in _WF_PTRS]
+
+
+def _check_flag(x: torch.Tensor, name: str, device: torch.device) -> None:
+    """A one-element bool tensor on `device` (an element of a class/pod table)."""
+    _check_cuda(x, name, torch.bool, device)
+    if x.numel() != 1:
+        raise ValueError(f"{name}: expected one element, got shape {tuple(x.shape)}")
+
+
+def launch_waterfill_group(alloc, used, used_nz, pod_count, max_pods,
+                           filter_ok_row, port_conflict_row, has_port, napref_row, has_napref,
+                           taint_row, img_row, req, req_nz, bal_active, group_size: int,
+                           j_max: int, k_slots: int, gang_row=None, has_gang: bool = False):
+    """Kernel C on CUDA tensors: returns (k_per_node [N] int32, chosen_nodes
+    [k_slots] int32) like waterfill_group_plain. One wrapper call launches
+    the kernel's passes on the current stream; the inputs are not modified."""
+    device = alloc.device
+    n, r = alloc.shape
+    if n < 1 or r < 2:
+        raise ValueError("waterfill: needs at least one node and the cpu/memory columns")
+    if j_max < 1 or not 1 <= k_slots <= n * j_max:
+        raise ValueError(f"waterfill: k_slots {k_slots} outside [1, N*j_max = {n * j_max}]")
+    for name, t, dtype, shape in (
+            ("alloc", alloc, torch.int32, (n, r)), ("used", used, torch.int32, (n, r)),
+            ("used_nz", used_nz, torch.int32, (n, r)), ("pod_count", pod_count, torch.int32, (n,)),
+            ("max_pods", max_pods, torch.int32, (n,)),
+            ("filter_ok_row", filter_ok_row, torch.bool, (n,)),
+            ("port_conflict_row", port_conflict_row, torch.bool, (n,)),
+            ("napref_row", napref_row, torch.int32, (n,)),
+            ("taint_row", taint_row, torch.int32, (n,)), ("img_row", img_row, torch.int32, (n,)),
+            ("req", req, torch.int32, (r,)), ("req_nz", req_nz, torch.int32, (r,))):
+        _check_cuda(t, name, dtype, device, shape)
+    if has_gang:
+        if gang_row is None:
+            raise ValueError("waterfill: has_gang needs gang_row")
+        _check_cuda(gang_row, "gang_row", torch.int32, device, (n,))
+    _check_flag(has_napref, "has_napref", device)
+    _check_flag(bal_active, "bal_active", device)
+    sort_len = 1 << (k_slots - 1).bit_length()
+    k_per_node = torch.empty(n, dtype=torch.int32, device=device)
+    chosen = torch.empty(k_slots, dtype=torch.int32, device=device)
+    scratch = dict(j_cap=torch.empty(n, dtype=torch.int32, device=device),
+                   static_score=torch.empty(n, dtype=torch.int32, device=device),
+                   keys=torch.empty(n * j_max, dtype=torch.int32, device=device),
+                   sortbuf=torch.empty(sort_len, dtype=torch.int64, device=device),
+                   state=torch.empty(2 + 4 * 256, dtype=torch.int32, device=device))
+    ptrs = dict(alloc=alloc, used=used, used_nz=used_nz, pod_count=pod_count, max_pods=max_pods,
+                filter_ok=filter_ok_row, port_conflict=port_conflict_row, napref=napref_row,
+                has_napref=has_napref, taint=taint_row, img=img_row,
+                gang=gang_row if has_gang else None, req=req, req_nz=req_nz,
+                bal_active=bal_active, k_per_node=k_per_node, chosen_nodes=chosen, **scratch)
+    args = _WaterfillArgs(N=n, R=r, j_max=j_max, k_slots=k_slots, sort_len=sort_len,
+                          group_size=max(0, min(int(group_size), 2**31 - 1)),
+                          has_port=int(bool(has_port)), has_gang=int(bool(has_gang)))
+    for f in _WF_PTRS:
+        t = ptrs[f]
+        setattr(args, f, t.data_ptr() if t is not None else None)
+    lib = _lib("waterfill")
+    err = lib.waterfill_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["waterfill"] += 1
+    _raise_on(err, "waterfill launch")
+    return k_per_node, chosen
+
+
+# ---------------------------------------------------------------------------
+# kernel D
+# ---------------------------------------------------------------------------
+
+_RC_INTS = ("Pb", "N", "Kk", "SC", "G", "RNm", "EAm", "RAm", "Ct", "d_max", "has_affinity",
+            "has_ct", "dom_in_smem")
+_RC_PTRS = ("node_of", "cls_of", "dyn_selcls", "dyn_grp", "topo_id", "rn_key", "rn_sel",
+            "ea_grp", "ra_key", "ra_sel", "class_matches", "class_holds", "grp_key", "aff_ok",
+            "ct_class", "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains",
+            "v_rn", "v_ea", "v_ra", "v_ct", "dom_tab", "bad", "dom_scratch")
+
+
+class _RepairCheckArgs(ctypes.Structure):
+    _fields_ = [(d, ctypes.c_int) for d in _RC_INTS] + [(f, ctypes.c_void_p) for f in _RC_PTRS]
+
+
+# domain scratch of kernel D in shared memory up to 2 * 6,000 int32 (under
+# the default 48 KB per block with its static arrays); beyond that, a global
+# scratch slice per block
+_RC_SMEM_DOMAINS = 6000
+
+
+def launch_repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
+                        rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+                        class_matches, class_holds, grp_key, aff_ok,
+                        ct_class, ct_key, ct_sel, ct_max_skew, ct_min_domains,
+                        d_max: int, has_affinity: bool = True, has_ct: bool = True):
+    """Kernel D on CUDA tensors: returns the four [Pb] bool masks like
+    repair_check_plain. The inputs are not modified."""
+    device = node_of.device
+    pb = node_of.shape[0]
+    kk, n = topo_id.shape
+    sc, g = dyn_selcls.shape[0], dyn_grp.shape[0]
+    c = aff_ok.shape[0]
+    ct = ct_class.shape[0]
+    if d_max < 1:
+        raise ValueError("repair_check: d_max must be >= 1")
+    checks = [("node_of", node_of, torch.int32, (pb,)), ("cls_of", cls_of, torch.int32, (pb,)),
+              ("dyn_selcls", dyn_selcls, torch.int32, (sc, n)),
+              ("dyn_grp", dyn_grp, torch.int32, (g, n)), ("topo_id", topo_id, torch.int32, (kk, n)),
+              ("class_matches", class_matches, torch.int32, (c, sc)),
+              ("class_holds", class_holds, torch.int32, (c, g)),
+              ("grp_key", grp_key, torch.int32, (g,)), ("aff_ok", aff_ok, torch.bool, (c, n))]
+    for family in (("rn_key", rn_key), ("rn_sel", rn_sel)), (("ea_grp", ea_grp),), (
+            ("ra_key", ra_key), ("ra_sel", ra_sel)):
+        width = family[0][1].shape[1] if family[0][1].dim() == 2 else -1
+        checks += [(name, t, torch.int32, (c, width)) for name, t in family]
+    checks += [(name, t, torch.int32, (ct,)) for name, t in (
+        ("ct_class", ct_class), ("ct_key", ct_key), ("ct_sel", ct_sel),
+        ("ct_max_skew", ct_max_skew), ("ct_min_domains", ct_min_domains))]
+    for name, t, dtype, shape in checks:
+        _check_cuda(t, name, dtype, device, shape)
+    outs = [torch.empty(pb, dtype=torch.bool, device=device) for _ in range(4)]
+    if pb == 0:
+        return tuple(outs)
+    in_smem = d_max <= _RC_SMEM_DOMAINS
+    m = sc + g
+    dom_tab = (torch.empty(kk * m * d_max, dtype=torch.int32, device=device)
+               if has_affinity else None)
+    bad = torch.empty(ct * n, dtype=torch.uint8, device=device) if has_ct else None
+    dom_scratch = (None if in_smem else
+                   torch.empty(max(kk * m, ct) * 2 * d_max, dtype=torch.int32, device=device))
+    ptrs = dict(node_of=node_of, cls_of=cls_of, dyn_selcls=dyn_selcls, dyn_grp=dyn_grp,
+                topo_id=topo_id, rn_key=rn_key, rn_sel=rn_sel, ea_grp=ea_grp, ra_key=ra_key,
+                ra_sel=ra_sel, class_matches=class_matches, class_holds=class_holds,
+                grp_key=grp_key, aff_ok=aff_ok, ct_class=ct_class, ct_key=ct_key, ct_sel=ct_sel,
+                ct_max_skew=ct_max_skew, ct_min_domains=ct_min_domains, v_rn=outs[0],
+                v_ea=outs[1], v_ra=outs[2], v_ct=outs[3], dom_tab=dom_tab, bad=bad,
+                dom_scratch=dom_scratch)
+    args = _RepairCheckArgs(Pb=pb, N=n, Kk=kk, SC=sc, G=g, RNm=rn_key.shape[1],
+                            EAm=ea_grp.shape[1], RAm=ra_key.shape[1], Ct=ct, d_max=d_max,
+                            has_affinity=int(bool(has_affinity)), has_ct=int(bool(has_ct)),
+                            dom_in_smem=int(in_smem))
+    for f in _RC_PTRS:
+        t = ptrs[f]
+        setattr(args, f, t.data_ptr() if t is not None else None)
+    lib = _lib("repair_check")
+    err = lib.repair_check_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["repair_check"] += 1
+    _raise_on(err, "repair_check launch")
+    return tuple(outs)

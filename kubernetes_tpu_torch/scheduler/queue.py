@@ -102,6 +102,20 @@ class SchedulingQueue:
             qp.timestamp = self._clock.now()
             self._unschedulable[qp.key] = qp
 
+    def add_backoff(self, qps: List[QueuedPodInfo]) -> None:
+        """Transient-error requeue (the solver failure domain): straight into
+        the backoff tier with a per-pod expiry from its attempt count. Unlike
+        add_unschedulable, no cluster event is needed before the retry: the
+        pod is fine, the infrastructure hiccuped."""
+        if not qps:
+            return
+        with self._lock:
+            now = self._clock.now()
+            for qp in qps:
+                qp.timestamp = now
+                heapq.heappush(self._backoff, (now + self._backoff_duration(qp.attempts),
+                                               next(self._seq), qp))
+
     def _backoff_duration(self, attempts: int) -> float:
         d = self._initial_backoff * (2 ** max(attempts - 1, 0))
         return min(d, self._max_backoff)

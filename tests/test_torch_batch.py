@@ -1,9 +1,11 @@
 """The port's BatchScheduler(device="cpu") against the JAX package's
-BatchScheduler(solver="exact") over identical stores: the same
-{pod: node} map on every workload of tests/test_batch_parity.py and on
-seeded mixed workloads (one batch and many small batches). Also: a
-fallback-class pod is refused with the reason that names its ROADMAP item,
-unported options raise, and the port's store keeps its contract.
+BatchScheduler over identical stores: the same {pod: node} map on every
+workload of tests/test_batch_parity.py and on seeded mixed workloads (one
+batch and many small batches), in the exact, fast and auto modes. Also: an
+injected solver exception requeues the batch with backoff and trips the
+circuit breaker exactly as in JAX, a fallback-class pod is refused with the
+reason that names its ROADMAP item, unported options raise, and the port's
+store keeps its contract.
 """
 
 import random
@@ -17,13 +19,15 @@ from kubernetes_tpu.scheduler import Framework
 from kubernetes_tpu.scheduler.batch import BatchScheduler as JBatch
 from kubernetes_tpu.scheduler.plugins import default_plugins
 from kubernetes_tpu.store import APIStore as JStore
+from kubernetes_tpu.utils import FakeClock as JFakeClock
 from kubernetes_tpu_torch.scheduler.batch import BatchScheduler as TBatch
 from kubernetes_tpu_torch.store import AlreadyBoundError, APIStore as TStore
 from kubernetes_tpu_torch.store import ConflictError, NotFoundError
 from kubernetes_tpu_torch.utils import FakeClock
+from kubernetes_tpu_torch.utils import FakeClock as TFakeClock
 
 
-def run_pkg(workload, port: bool, batch_size=4096, rounds=1):
+def run_pkg(workload, port: bool, batch_size=4096, rounds=1, solver="exact"):
     """Build the workload for one package, run its scheduler to idle (the
     pending pods split over `rounds` waves of creates), return the store's
     {pod name: node name} map and the scheduler."""
@@ -40,9 +44,9 @@ def run_pkg(workload, port: bool, batch_size=4096, rounds=1):
     for p in bound:
         store.create("pods", p)
     if port:
-        sched = TBatch(store, device="cpu", batch_size=batch_size)
+        sched = TBatch(store, device="cpu", batch_size=batch_size, solver=solver)
     else:
-        sched = JBatch(store, Framework(default_plugins()), solver="exact",
+        sched = JBatch(store, Framework(default_plugins()), solver=solver,
                        batch_size=batch_size)
     sched.sync()
     wave = -(-len(pods) // rounds)
@@ -129,11 +133,104 @@ def test_device_rejects_fail_unschedulable():
     assert sum(1 for p in pods if p.spec.node_name) == 2
 
 
-@pytest.mark.parametrize("solver,item", [("auto", 1), ("fast", 1), ("auction", 5),
-                                         ("sinkhorn", 5)])
+@pytest.mark.parametrize("solver,item", [("native", 7), ("auction", 5), ("sinkhorn", 5)])
 def test_unported_solvers_raise_with_roadmap_item(solver, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         TBatch(TStore(), device="cpu", solver=solver)
+
+
+@pytest.mark.parametrize("solver", ["fast", "auto"])
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_fast_modes_match_jax(workload, solver):
+    got, tsched = assert_same_placements(workload, solver=solver)
+    want_path = "repair" if tsched.repair_totals["batches"] else "fast"
+    assert tsched._solve_path == want_path
+    assert tsched.breaker.failures_total == 0
+
+
+@pytest.mark.parametrize("solver", ["fast", "auto"])
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_fast_modes_small_batches_match_jax(workload, solver):
+    """Many small batches and create waves through waterfill and repair."""
+    assert_same_placements(workload, batch_size=7, rounds=3, solver=solver)
+
+
+def test_fast_mode_repair_totals_match_jax():
+    want, jsched = run_pkg(MIXED_WORKLOADS[0], port=False, solver="fast", batch_size=9)
+    got, tsched = run_pkg(MIXED_WORKLOADS[0], port=True, solver="fast", batch_size=9)
+    assert got == want
+    assert tsched.repair_totals == jsched.repair_totals
+    assert tsched.repair_totals["batches"] > 0
+    assert tsched._last_repair.as_dict() == jsched._last_repair.as_dict()
+
+
+def _breaker_run(port: bool, monkeypatch, threshold=2):
+    """Both packages: a fast-mode scheduler whose waterfill raises for the
+    first three cycles; then the fault is removed and three more pods
+    arrive. Returns the breaker/queue/placement state after each of five
+    cycles (the clock steps 11 s, past the pod backoff, between cycles;
+    the cooldown is 15 s)."""
+    import kubernetes_tpu.models.waterfill as jwf
+    import kubernetes_tpu_torch.scheduler.batch as tbatch
+
+    def boom(*_a, **_k):
+        raise RuntimeError("injected solver fault")
+
+    mod = tt if port else jt
+    clock = (TFakeClock if port else JFakeClock)()
+    store = TStore() if port else JStore()
+    for i in range(4):
+        store.create("nodes", mod.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj())
+    if port:
+        monkeypatch.setattr(tbatch, "waterfill_solve", boom)
+        sched = TBatch(store, device="cpu", solver="fast", clock=clock,
+                       breaker_threshold=threshold, breaker_cooldown_s=15.0)
+    else:
+        monkeypatch.setattr(jwf, "waterfill_solve", boom)
+        sched = JBatch(store, Framework(default_plugins()), solver="fast", clock=clock,
+                       breaker_threshold=threshold, breaker_cooldown_s=15.0,
+                       pipeline_binds=False)
+    sched.sync()
+    for i in range(6):
+        p = mod.MakePod(f"p{i}").req({"cpu": "500m"}).obj()
+        p.spec.preemption_policy = "Never"
+        store.create("pods", p)
+    trail = []
+    for cycle in range(5):
+        if cycle == 3:
+            monkeypatch.undo()
+            for i in range(6, 9):
+                p = mod.MakePod(f"p{i}").req({"cpu": "500m"}).obj()
+                p.spec.preemption_policy = "Never"
+                store.create("pods", p)
+        sched.run_until_idle()
+        pods, _ = store.list("pods")
+        trail.append((sched.breaker.describe(), sched._solve_path,
+                      sorted(sched.queue.tracked_keys()) if port else None,
+                      {p.metadata.name: p.spec.node_name for p in pods}))
+        clock.step(11.0)
+        sched.queue.flush_backoff_completed()
+    return trail
+
+
+def test_injected_solver_error_requeues_and_trips_breaker_like_jax(monkeypatch):
+    want = _breaker_run(False, monkeypatch)
+    got = _breaker_run(True, monkeypatch)
+    assert [t[0] for t in got] == [t[0] for t in want]
+    assert [t[1] for t in got] == [t[1] for t in want]
+    assert [t[3] for t in got] == [t[3] for t in want]
+    first = got[0]
+    assert first[0]["failures_total"] == 1 and first[0]["state"] == "closed"
+    assert len(first[2]) == 6  # every pod requeued into the backoff tier
+    assert not any(first[3].values())  # nothing bound by the failing batch
+    assert got[1][0]["state"] == "open" and got[1][0]["trips"] == 1
+    # the open breaker degrades the next batch to the scan, which binds all
+    assert got[2][0]["state"] == "open" and got[2][1] == "exact" and all(got[2][3].values())
+    # after the cooldown one half-open probe of the fast path closes it
+    assert got[3][0]["state"] == "closed" and got[3][0]["recoveries"] == 1
+    assert got[3][1] == "fast" and all(got[3][3].values())
 
 
 def test_custom_framework_raises():

@@ -3,16 +3,18 @@
 Run on the card with `python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py` (tests/conftest.py configures JAX, which the card's
 machine need not have; this file imports neither jax nor the JAX package).
-Kernel A (greedy_scan) and kernel B (row_scatter) are held against their
-plain PyTorch versions on the same card tensors, built by the port's own
-tensorizer: exact equality.
+Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill) and
+kernel D (repair_check) are held against their plain PyTorch versions on
+the same card tensors, built by the port's own tensorizer or from seeded
+numpy inputs: exact equality.
 """
 
 import numpy as np
 import pytest
 import torch
 from test_torch_workloads import (MIXED_WORKLOADS, PARITY_WORKLOADS, check_mirrors_after_churn,
-                                  unpack)
+                                  placed_check_case, unpack, wl_interpod_anti_affinity,
+                                  wl_pts_do_not_schedule, wl_repair_kinds)
 
 import kubernetes_tpu_torch.testing as tt
 from kubernetes_tpu_torch.ops import solver as tsolver
@@ -108,10 +110,12 @@ def test_kernel_b_matches_plain_on_card(cuda_device, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["exact", "fast"])
 @pytest.mark.parametrize("workload", MIXED_WORKLOADS[:2] + [PARITY_WORKLOADS[1]],
                          ids=lambda w: w.__name__)
-def test_batch_scheduler_card_matches_cpu(cuda_device, workload):
+def test_batch_scheduler_card_matches_cpu(cuda_device, workload, solver):
     """The scheduler on the card places exactly as its CPU (plain) run."""
+    from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
 
@@ -123,9 +127,125 @@ def test_batch_scheduler_card_matches_cpu(cuda_device, workload):
             store.create("nodes", o)
         for o in bound + pods:
             store.create("pods", o)
-        sched = BatchScheduler(store, device=device, batch_size=9)
+        sched = BatchScheduler(store, device=device, batch_size=9, solver=solver)
         sched.sync()
+        kernels.reset_launch_counts()
         sched.run_until_idle()
+        assert sched.breaker.failures_total == 0, sched.last_solver_error
+        if device.type == "cuda" and solver == "fast":
+            assert kernels.LAUNCHES["waterfill"] > 0
         got, _ = store.list("pods")
         maps.append({p.metadata.name: p.spec.node_name for p in got})
     assert maps[0] == maps[1]
+
+
+# ---------------------------------------------------------------------------
+# kernel C (waterfill) and kernel D (repair_check)
+# ---------------------------------------------------------------------------
+
+
+def _seeded_group(seed, n, j_max, group, device, ports=False, gang=False, overcommit=False):
+    """Seeded inputs of one waterfill_group call on `device`."""
+    rng = np.random.default_rng(seed)
+    r = 3
+    alloc = rng.integers(1000, 8000, size=(n, r)).astype(np.int32)
+    used = (alloc * rng.random((n, r)) * 0.8).astype(np.int32)
+    if overcommit:
+        hot = rng.choice(n, size=max(n // 8, 1), replace=False)
+        used[hot] = alloc[hot] + rng.integers(1, 900, size=(hot.size, r)).astype(np.int32)
+    req = rng.integers(20, 400, size=r).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = [t(alloc), t(used), t(np.maximum(used, 50).astype(np.int32)),
+            t(rng.integers(0, j_max, size=n).astype(np.int32)),
+            t(rng.integers(j_max // 2 + 1, 3 * j_max + 2, size=n).astype(np.int32)),
+            t(rng.random(n) < 0.85), t(rng.random(n) < 0.3 if ports else np.zeros(n, bool)), ports,
+            t(rng.integers(0, 60, size=n).astype(np.int32)), t(np.asarray(True)),
+            t(rng.integers(0, 4, size=n).astype(np.int32)),
+            t(rng.integers(0, 30, size=n).astype(np.int32)), t(req),
+            t(np.maximum(req, 100).astype(np.int32)), t(np.asarray(True)), group]
+    gang_row = t(rng.integers(0, 100, size=n).astype(np.int32)) if gang else None
+    return args, gang_row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,j_max,group,opts", [
+    (64, 8, 100, {}),
+    (64, 1, 30, {"ports": True}),
+    (500, 16, 3, {"gang": True, "overcommit": True}),  # below the 256 floor
+    (2000, 16, 9000, {}),  # k_slots 16,384: the global sort path
+    (300, 32, 9600, {}),  # k_slots == N * j_max
+    (5000, 128, 4096, {"overcommit": True}),
+])
+def test_kernel_c_matches_plain_on_card(cuda_device, n, j_max, group, opts):
+    from kubernetes_tpu_torch.models import waterfill as wf
+    from kubernetes_tpu_torch.ops import kernels
+
+    args, gang_row = _seeded_group(n + group, n, j_max, group, cuda_device, **opts)
+    k_slots = wf.k_slots_for(group, n, j_max)
+    before = kernels.LAUNCHES["waterfill"]
+    got = wf.waterfill_group(*args, j_max, k_slots, gang_row, gang_row is not None)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["waterfill"] == before + 1
+    want = wf.waterfill_group_plain(*args, j_max, k_slots, gang_row, gang_row is not None)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[0].sum()) == int((got[1] >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_kernel_c_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import waterfill as wf
+
+    args, _ = _seeded_group(0, 64, 8, 10, cuda_device)
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(TypeError, match="alloc"):
+        wf.waterfill_group(*bad, 8, 256)
+    bad = list(args)
+    bad[5] = args[5][:10]
+    with pytest.raises(ValueError, match="filter_ok_row"):
+        wf.waterfill_group(*bad, 8, 256)
+    with pytest.raises(ValueError, match="k_slots"):
+        wf.waterfill_group(*args, 8, 64 * 8 + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_affinity,has_ct", [(True, True), (True, False), (False, True),
+                                                 (False, False)])
+@pytest.mark.parametrize("workload", [wl_repair_kinds, wl_interpod_anti_affinity,
+                                      wl_pts_do_not_schedule] + MIXED_WORKLOADS[:2],
+                         ids=lambda w: w.__name__)
+def test_kernel_d_matches_plain_on_card(cuda_device, workload, has_affinity, has_ct):
+    from kubernetes_tpu_torch.models import repair as rp
+    from kubernetes_tpu_torch.ops import kernels
+
+    for seed in range(2):
+        args, d_max = placed_check_case(workload, seed)
+        dev_args = [torch.from_numpy(a).to(cuda_device) for a in args]
+        before = kernels.LAUNCHES["repair_check"]
+        got = rp.repair_check(*dev_args, d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["repair_check"] == before + 1
+        want = rp.repair_check_plain(*dev_args, d_max=d_max, has_affinity=has_affinity,
+                                     has_ct=has_ct)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bool and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernel_d_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import repair as rp
+
+    args, d_max = placed_check_case(wl_repair_kinds, 0)
+    dev_args = [torch.from_numpy(a).to(cuda_device) for a in args]
+    bad = list(dev_args)
+    bad[0] = dev_args[0].long()
+    with pytest.raises(TypeError, match="node_of"):
+        rp.repair_check(*bad, d_max=d_max)
+    bad = list(dev_args)
+    bad[13] = dev_args[13][:, :3]
+    with pytest.raises(ValueError, match="aff_ok"):
+        rp.repair_check(*bad, d_max=d_max)

@@ -25,19 +25,30 @@ from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
 from kubernetes_tpu_torch.store import APIStore
 from kubernetes_tpu_torch.testing import MakeNode, MakePod
 
-store = APIStore()
-for i in range(4):
-    store.create("nodes", MakeNode(f"n{i}").labels({"topology.kubernetes.io/zone": f"z{i % 2}"})
-                 .capacity({"cpu": "4", "memory": "8Gi"}).obj())
-for i in range(6):
-    store.create("pods", MakePod(f"p{i}").labels({"app": "a"}).req({"cpu": "500m"})
-                 .topology_spread(1, "topology.kubernetes.io/zone", "DoNotSchedule", {"app": "a"})
-                 .pod_anti_affinity("kubernetes.io/hostname", {"app": "b"}).obj())
-sched = BatchScheduler(store, device="cpu")
-sched.sync()
-sched.run_until_idle()
-pods, _ = store.list("pods")
-print(json.dumps({"bound": sum(1 for p in pods if p.spec.node_name),
+bound = {}
+for solver in ("exact", "fast"):
+    store = APIStore()
+    for i in range(4):
+        store.create("nodes", MakeNode(f"n{i}").labels({"topology.kubernetes.io/zone": f"z{i % 2}"})
+                     .capacity({"cpu": "4", "memory": "8Gi"}).obj())
+    for i in range(6):
+        store.create("pods", MakePod(f"p{i}").labels({"app": "a"}).req({"cpu": "500m"})
+                     .topology_spread(1, "topology.kubernetes.io/zone", "DoNotSchedule",
+                                      {"app": "a"})
+                     .pod_anti_affinity("kubernetes.io/hostname", {"app": "b"}).obj())
+    for i in range(3):
+        store.create("pods", MakePod(f"free{i}").req({"cpu": "250m"}).obj())
+    sched = BatchScheduler(store, device="cpu", solver=solver, batch_size=6)
+    sched.sync()
+    sched.run_until_idle()
+    pods, _ = store.list("pods")
+    bound[solver] = sum(1 for p in pods if p.spec.node_name)
+    if solver == "fast":
+        bound["repair_batches"] = sched.repair_totals["batches"]
+        bound["last_path"] = sched._solve_path
+print(json.dumps({"bound": bound,
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.startswith("kubernetes_tpu_torch.models")),
                   "modules": sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
 """
@@ -47,7 +58,10 @@ def test_one_batch_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _ONE_BATCH], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["bound"] == 6
+    # fast mode: the constrained batch rode repair, the constraint-free one waterfill
+    assert got["bound"] == {"exact": 9, "fast": 9, "repair_batches": 1, "last_path": "fast"}
+    assert {"kubernetes_tpu_torch.models.repair",
+            "kubernetes_tpu_torch.models.waterfill"} <= set(got["loaded"])
     assert got["modules"] == []
 
 

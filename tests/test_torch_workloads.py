@@ -201,6 +201,86 @@ def wl_seeded_mixed(seed, n_nodes=12, n_pods=40):
     return build
 
 
+def wl_repair_kinds(m):
+    """Every kind the repair check reports: required hostname anti-affinity,
+    holders' anti-affinity against incoming pods, required zone affinity,
+    DoNotSchedule spread with and without minDomains; two nodes lack the
+    zone key."""
+    nodes = []
+    for i in range(16):
+        labels = {HOST: f"n{i}"}
+        if i < 14:
+            labels[ZONE] = f"z{i % 4}"
+        nodes.append(m.MakeNode(f"n{i}").labels(labels)
+                     .capacity({"cpu": "32", "memory": "64Gi", "pods": "110"}).obj())
+    bound = []
+    for i, node in enumerate(("n0", "n5", "n9")):
+        b = m.MakePod(f"holder{i}").labels({"app": "guard"}).req({"cpu": "100m"}) \
+            .pod_anti_affinity(HOST, {"app": "web"}).obj()
+        b.spec.node_name = node
+        bound.append(b)
+    pods = []
+    for i in range(40):
+        kind = i % 5
+        b = m.MakePod(f"k{i}").req({"cpu": "100m"})
+        if kind == 0:
+            b = b.labels({"app": "db"}).pod_anti_affinity(HOST, {"app": "db"})
+        elif kind == 1:
+            b = b.labels({"app": "web"})
+        elif kind == 2:
+            b = b.labels({"app": "aff"}).pod_affinity(ZONE, {"app": "db"})
+        elif kind == 3:
+            b = b.labels({"app": "sp"}).topology_spread(1, ZONE, "DoNotSchedule", {"app": "sp"},
+                                                         min_domains=6)
+        else:
+            b = b.labels({"app": "sq"}).topology_spread(1, ZONE, "DoNotSchedule", {"app": "sq"})
+        pods.append(b.obj())
+    return nodes, pods, bound
+
+
+CHECK_FIELDS = ("topo_id", "rn_key", "rn_sel", "ea_grp", "ra_key", "ra_sel",
+                "class_matches_selcls", "class_holds_grp", "grp_key", "aff_ok", "ct_class",
+                "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains")
+
+
+def placed_check_case(workload, seed, placed_frac=0.9):
+    """A seeded random placement of a workload's pending pods, as the numpy
+    arguments of repair_check (the port's tensorizer builds the tables):
+    (args tuple in repair_check order, d_max). The pod axis is padded to a
+    pow2 bucket >= 256 and the counts include every placed pod."""
+    from kubernetes_tpu_torch.ops.solver import make_inputs
+
+    nodes, pods, bound = unpack(workload(tt))
+    cache = Cache()
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    snap = cache.update_snapshot()
+    cluster = ttz.build_cluster_tensors(snap)
+    batch = ttz.build_pod_batch(pods, snap, cluster)
+    inp, d_max = make_inputs(cluster, batch, "cpu")
+    f = {k: getattr(inp, k).numpy() for k in CHECK_FIELDS + ("selcls_count", "grp_count")}
+    rng = np.random.default_rng(seed)
+    p, n = len(pods), cluster.n
+    node_of = rng.integers(0, n, size=p).astype(np.int32)
+    node_of[rng.random(p) > placed_frac] = -1
+    cls = np.asarray(batch.class_of_pod, dtype=np.int32)
+    selcls = f["selcls_count"].astype(np.int64)
+    grp = f["grp_count"].astype(np.int64)
+    for i in np.nonzero(node_of >= 0)[0]:
+        selcls[:, node_of[i]] += f["class_matches_selcls"][cls[i]]
+        grp[:, node_of[i]] += f["class_holds_grp"][cls[i]]
+    pb = max(256, 1 << (p - 1).bit_length())
+    node_pad = np.full(pb, -1, np.int32)
+    node_pad[:p] = node_of
+    cls_pad = np.zeros(pb, np.int32)
+    cls_pad[:p] = cls
+    args = (node_pad, cls_pad, selcls.astype(np.int32), grp.astype(np.int32)) + tuple(
+        f[k] for k in CHECK_FIELDS)
+    return args, d_max
+
+
 PARITY_WORKLOADS = [wl_basic_fit_spread, wl_heterogeneous, wl_overcommit, wl_best_effort,
                     wl_node_selector_affinity, wl_taints, wl_unschedulable_node, wl_host_ports,
                     wl_image_locality, wl_pts_do_not_schedule, wl_pts_schedule_anyway,
@@ -214,7 +294,7 @@ def unpack(built):
     return nodes, pods, bound
 
 
-@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS + [wl_repair_kinds],
                          ids=lambda w: w.__name__)
 def test_workload_is_deterministic_and_well_formed(workload):
     """Two builds give the same specs (the seed fixes everything) and every
