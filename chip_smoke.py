@@ -5,8 +5,8 @@
 
 Phases, each printing one JSON line:
   device     card name, count, nvidia-smi name and power limit
-  build      nvcc builds kernels A and B from csrc/ (ptxas register,
-             shared-memory and spill lines)
+  build      nvcc builds every kernel from csrc/, one nvcc per source, all
+             started together (ptxas register, shared-memory and spill lines)
   kernel_A   the greedy-scan kernel against greedy_scan_solve_plain on the
              card, on tensors the port's tensorizer built from seeded
              inputs: (a) SchedulingBasic 5,000 nodes x 10,000 pods,
@@ -40,6 +40,32 @@ Phases, each printing one JSON line:
              {pod: node} map as a rerun on the CPU (the plain versions);
              SchedulingBasic and TopologySpreading also run the exact mode
              right after, as the fast mode's comparison partner
+  kernel_G   the gang cover-curve kernel against cover_curve_plain: (a) one
+             250-node slice (n_slots 256) with 1,000 victims (k_max 1,024),
+             (b) k = 0, pad victims and ineligible nodes, (c) a shape above
+             the JAX wrapper's 4,000,000-element budget; exact equality
+  kernel_H   the rank-align kernel against rank_align_plain: (a) p_max 4,096,
+             16 gangs of 256 ranked members at shuffled positions, (b) ties,
+             unplaced members and non-members, (c) p_max 16,384 (the global
+             merge path); exact equality
+  main_path_gang
+             BatchScheduler(solver="fast") on GangScheduling_2k_250 (256 nodes
+             of 16 cpu / 64Gi in 4 slices, 8 PodGroups x 250 ranked members,
+             the JAX rung's shape) and GangScheduling_5000 (the 5,000 nodes in
+             20 slices, 16 PodGroups x 256 ranked members, one batch), and the
+             latter again with solver="exact": every member bound, no node
+             over-committed, 0 vetoes, kernels H and C (A in exact) launched,
+             the same map as a CPU rerun; reported: the slices each gang spans
+             and the ring adjacency beside a rank_align=False run
+  main_path_gang_preempt
+             GangPreemption (2 slices x 8 nodes of 6-cpu priority-1 fillers, a
+             12 x 3-cpu priority-100 gang, then a 40-member one) and
+             GangPreemption_5000 (5,000 nodes in 20 slices, 4 x 1500m fillers
+             a node, a 400-member gang, then a 600-member one): the DELETED
+             events are exactly the min-cost cover the script computes with
+             the host curve, the gang binds whole on that slice, the second
+             gang is vetoed with zero further evictions, pods are conserved,
+             kernel G launched, and a CPU rerun evicts and places the same
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -49,8 +75,10 @@ script exits non-zero and prints no result.
 
 Sizes are scheduler_perf's SchedulingBasic 5000Nodes_10000Pods and the
 TopologySpreading shape (test/integration/scheduler_perf/misc/
-performance-config.yaml), nodes 8 cpu / 32Gi / 110 pods. Inputs are made
-from --seed. --small runs every phase at a reduced size.
+performance-config.yaml), nodes 8 cpu / 32Gi / 110 pods; the gang shapes
+are the JAX package's gang rungs (bench.py:1529-1660) and their scale-up
+to those 5,000 nodes. Inputs are made from --seed. --small runs every phase
+at a reduced size.
 """
 
 from __future__ import annotations
@@ -71,6 +99,8 @@ KERNEL_A_SRC = "kubernetes_tpu_torch/csrc/greedy_scan.cu"
 KERNEL_B_SRC = "kubernetes_tpu_torch/csrc/row_scatter.cu"
 KERNEL_C_SRC = "kubernetes_tpu_torch/csrc/waterfill.cu"
 KERNEL_D_SRC = "kubernetes_tpu_torch/csrc/repair_check.cu"
+KERNEL_G_SRC = "kubernetes_tpu_torch/csrc/cover_curve.cu"
+KERNEL_H_SRC = "kubernetes_tpu_torch/csrc/rank_align.cu"
 
 
 def emit(obj) -> None:
@@ -261,6 +291,31 @@ def timed_ms(fn, iters, device, warmup=1):
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(fn, prefixes, device, iters=50):
+    """Device time per call of fn (ms): the summed durations of the CUDA
+    kernels whose names start with one of `prefixes`, from a torch.profiler
+    trace of `iters` calls; None on the CPU or when the trace holds no such
+    kernel (the time is then not measured)."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if ev.key.removeprefix("void ").startswith(tuple(prefixes)):
+            total_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0))
+    return total_us / iters / 1e3 if total_us else None
 
 
 def sync(device):
@@ -899,6 +954,506 @@ def phase_main_path_fast(device, sizes, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# gangs: workloads (the JAX package's gang rungs, bench.py:1529-1660, and the
+# same shapes on the 5,000-node cluster)
+# ---------------------------------------------------------------------------
+
+SLICE = "tpu.scheduling/slice"
+SLICE_INDEX = "tpu.scheduling/slice-index"
+
+
+def _testing(m):
+    if m is None:
+        import kubernetes_tpu_torch.testing as m
+    return m
+
+
+def slice_nodes(n, n_slices, cpu, mem, m=None):
+    """n nodes, node i in slice i % n_slices at ring index i // n_slices."""
+    m = _testing(m)
+    return [m.MakeNode(f"node-{i}").tpu_slice(i % n_slices, index=i // n_slices)
+            .capacity({"cpu": cpu, "memory": mem, "pods": "110"}).obj() for i in range(n)]
+
+
+def gang_pods(name, n, cpu, mem=None, prio=0, m=None):
+    """PodGroup `name` (quorum n) and its n ranked members."""
+    m = _testing(m)
+    req = {"cpu": cpu}
+    if mem:
+        req["memory"] = mem
+    pods = [m.MakePod(f"{name}-{i}").gang(name, rank=i).priority(prio).req(req).obj()
+            for i in range(n)]
+    return m.make_pod_group(name, n), pods
+
+
+def gang_workloads(sizes):
+    """name -> (nodes, [(PodGroup, members)], batch_size) for main_path_gang."""
+    def build(m=None):
+        g2k = [gang_pods(f"train-{g}", 250, "500m", "1Gi", m=m) for g in range(8)]
+        big = [gang_pods(f"job-{g}", sizes["gang_members"], "500m", "1Gi", m=m)
+               for g in range(16)]
+        return {"GangScheduling_2k_250": (slice_nodes(256, 4, "16", "64Gi", m), g2k, 4096),
+                "GangScheduling_5000": (slice_nodes(sizes["nodes"], 20, "8", "32Gi", m), big,
+                                        sizes["batch"])}
+    return build
+
+
+def preempt_workloads(sizes):
+    """name -> (nodes, bound fillers, gang size, uncoverable gang size) for
+    main_path_gang_preempt. GangPreemption: 2 slices x 8 nodes full of 6-cpu
+    priority-1 fillers, a 12 x 3-cpu gang (fits one slice after 6 evictions)
+    and a 40 x 3-cpu gang (never). GangPreemption_5000: 20 slices, 4 fillers
+    of 1500m per node (2 cpu left, no 3-cpu pod fits anywhere), a gang that
+    fits one slice only after evictions (at most 2 members a node) and one
+    no slice can ever hold."""
+    def fillers(nodes, per_node, cpu, m):
+        out = []
+        for node in nodes:
+            name = node.metadata.name
+            for j in range(per_node):
+                f = m.MakePod(f"low-{name}-{j}").priority(1).req({"cpu": cpu}).obj()
+                f.spec.node_name = name
+                out.append(f)
+        return out
+
+    def build(m=None):
+        m = _testing(m)
+        small = [m.MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+                 .capacity({"cpu": "8", "memory": "32Gi", "pods": "110"}).obj()
+                 for s in range(2) for i in range(8)]
+        big = slice_nodes(sizes["nodes"], 20, "8", "32Gi", m)
+        per_slice = sizes["nodes"] // 20
+        return {"GangPreemption": (small, fillers(small, 1, "6", m), 12, 40),
+                "GangPreemption_5000": (big, fillers(big, 4, "1500m", m),
+                                        sizes["preempt_members"], 2 * per_slice + 100)}
+    return build
+
+
+def ring_adjacency(pods, nodes):
+    """The JAX rung's placement-quality column from the objects themselves:
+    mean ring distance between consecutive ranks of each gang (a cross-slice
+    pair pays the longest ring)."""
+    from kubernetes_tpu_torch.api.podgroup import pod_gang_rank, pod_group_key
+    from kubernetes_tpu_torch.models.gangcover import mean_neighbor_distance
+
+    where = {n.metadata.name: (int(n.metadata.labels[SLICE]), int(n.metadata.labels[SLICE_INDEX]))
+             for n in nodes}
+    ring = {}
+    for s, i in where.values():
+        ring[s] = max(ring.get(s, 0), i + 1)
+    groups, ranks, slices, pos = [], [], [], []
+    gid = {}
+    for p in pods:
+        g = pod_group_key(p)
+        if g and p.spec.node_name:
+            s, i = where[p.spec.node_name]
+            groups.append(gid.setdefault(g, len(gid)))
+            ranks.append(pod_gang_rank(p))
+            slices.append(s)
+            pos.append(i)
+    return mean_neighbor_distance(groups, ranks, slices, pos, ring)
+
+
+def drive_gang(nodes, bound, gangs, device, batch_size, solver="fast", rank_align=True,
+               watch=False, backoff=(1.0, 10.0)):
+    """Store -> BatchScheduler -> PodGroups and members in one create_many ->
+    run_until_idle. Returns (store, sched, launches, seconds, watch)."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    if bound:
+        store.create_many("pods", bound)
+    sched = BatchScheduler(store, device=device.type, solver=solver, batch_size=batch_size,
+                           rank_align=rank_align, pod_initial_backoff=backoff[0],
+                           pod_max_backoff=backoff[1])
+    sched.sync()
+    w = store.watch(kind="pods", maxsize=1_000_000) if watch else None
+    gc.collect()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for pg, _members in gangs:
+        store.create("podgroups", pg)
+    store.create_many("pods", [p for _pg, members in gangs for p in members])
+    sched.run_until_idle()
+    sync(device)
+    return store, sched, dict(kernels.LAUNCHES), time.perf_counter() - t0, w
+
+
+def gang_spans(pods):
+    """Slices each gang's bound members span, per gang."""
+    from kubernetes_tpu_torch.api.podgroup import pod_group_key
+
+    spans = {}
+    for p in pods:
+        g = pod_group_key(p)
+        if g and p.spec.node_name:
+            spans.setdefault(g, set()).add(p.spec.node_name)
+    return spans
+
+
+def phase_main_path_gang(device, sizes, card):
+    import torch
+
+    out = {}
+    build = gang_workloads(sizes)
+    for name in ("GangScheduling_2k_250", "GangScheduling_5000"):
+        for solver in (("fast", "exact") if name == "GangScheduling_5000" else ("fast",)):
+            nodes, gangs, batch = build()[name]
+            n_members = sum(len(ms) for _pg, ms in gangs)
+            store, sched, launches, sched_s, _ = drive_gang(nodes, [], gangs, device, batch,
+                                                            solver)
+            pods, _ = store.list("pods")
+            placed = [p for p in pods if p.spec.node_name]
+            check(len(placed) == n_members,
+                  f"{name} {solver}: {len(placed)}/{n_members} gang members bound")
+            check_no_overcommit(placed, nodes)
+            check(sched.gang_vetoes == 0, f"{name} {solver}: {sched.gang_vetoes} vetoes")
+            check(sched.breaker.failures_total == 0,
+                  f"{name} {solver}: solver failures: {sched.last_solver_error}")
+            if device.type == "cuda":
+                check(launches["rank_align"] > 0, f"{name} {solver}: kernel H never launched")
+                kernel = "waterfill" if solver == "fast" else "greedy_scan"
+                check(launches[kernel] > 0, f"{name} {solver}: {kernel} never launched")
+            card_map = {p.metadata.name: p.spec.node_name for p in pods}
+            t0 = time.perf_counter()
+            nodes_c, gangs_c, _ = build()[name]
+            store_c, _, _, _, _ = drive_gang(nodes_c, [], gangs_c, torch.device("cpu"), batch,
+                                             solver)
+            cpu_s = time.perf_counter() - t0
+            cpu_map = {p.metadata.name: p.spec.node_name for p in store_c.list("pods")[0]}
+            differ = [k for k in card_map if card_map[k] != cpu_map.get(k)]
+            check(not differ, f"{name} {solver}: {len(differ)} placements differ from the CPU "
+                              f"run, e.g. {[(k, card_map[k], cpu_map.get(k)) for k in differ[:3]]}")
+            slice_of = {n.metadata.name: n.metadata.labels[SLICE] for n in nodes}
+            spans = sorted(len({slice_of[x] for x in v}) for v in gang_spans(pods).values())
+            line = {"phase": "main_path_gang", "workload": name, "solver": solver,
+                    "nodes": len(nodes), "gangs": len(gangs), "members": n_members,
+                    "bound": len(placed), "vetoes": sched.gang_vetoes,
+                    "batches": sched.batches_solved, "launches": launches,
+                    "pods_per_s": n_members / sched_s, "schedule_s": sched_s,
+                    "solve_s_per_batch": sum(sched.solve_seconds) / max(len(sched.solve_seconds), 1),
+                    "stage_seconds": sched.stage_seconds, "slices_spanned_per_gang": spans,
+                    "adjacency": ring_adjacency(pods, nodes),
+                    "cpu_rerun_s": cpu_s, "cpu_map_equal": True, "card": card}
+            if solver == "fast":
+                # the rank-blind partner: the same workload without kernel H
+                nodes_b, gangs_b, _ = build()[name]
+                store_b, sched_b, _, _, _ = drive_gang(nodes_b, [], gangs_b, device, batch,
+                                                       solver, rank_align=False)
+                pods_b, _ = store_b.list("pods")
+                check(sum(1 for p in pods_b if p.spec.node_name) == n_members,
+                      f"{name}: the rank-blind run left members unbound")
+                line["adjacency_rank_blind"] = ring_adjacency(pods_b, nodes_b)
+                line["last_gang"] = sched.last_gang
+            emit(line)
+            out[f"{name}/{solver}"] = line
+    return out
+
+
+def phase_main_path_gang_preempt(device, sizes, card):
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import compute_pod_resource_request
+    from kubernetes_tpu_torch.models.gangcover import cover_curve_host, victim_order
+
+    out = {}
+    build = preempt_workloads(sizes)
+
+    def settle(sched, until, deadline_s):
+        """Drive cycles (eviction, parking, release and the re-solve take
+        several) until `until()` or the wall deadline."""
+        deadline = time.perf_counter() + deadline_s
+        while time.perf_counter() < deadline and not until():
+            sched.run_until_idle()
+            sched.queue.flush_backoff_completed()
+            sched.pump_events()
+            time.sleep(0.02)
+
+    def run(name, dev):
+        from kubernetes_tpu_torch.ops import kernels
+
+        nodes, bound, n_gang, n_big = build()[name]
+        pg, members = gang_pods("gp", n_gang, "3", prio=100)
+        store, sched, _, sched_s, w = drive_gang(nodes, bound, [(pg, members)], dev,
+                                                 sizes["batch"], watch=True,
+                                                 backoff=(0.05, 0.2))
+
+        def gang_bound():
+            return sum(1 for p in store.list("pods")[0]
+                       if p.metadata.name.startswith("gp-") and p.spec.node_name)
+
+        t0 = time.perf_counter()
+        settle(sched, lambda: gang_bound() >= n_gang, 120.0)
+        sync(dev)
+        seconds = sched_s + time.perf_counter() - t0
+        deleted = sorted(ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED")
+        gang_map = {p.metadata.name: p.spec.node_name for p in store.list("pods")[0]
+                    if p.metadata.name.startswith("gp-")}
+        stats = sched.gangpreempt.stats()
+        # the uncoverable gang: vetoed on every retry, zero further evictions
+        pg2, big = gang_pods("gbig", n_big, "3", prio=100)
+        store.create("podgroups", pg2)
+        store.create_many("pods", big)
+        settle(sched, lambda: False, 1.0)
+        sync(dev)
+        launches = dict(kernels.LAUNCHES)
+        deleted_after = [ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED"]
+        vetoed = [e for e in store.list("events")[0] if e.reason == "GangPreemptionVetoed"
+                  and e.involved_name.startswith("gbig-")]
+        big_bound = sum(1 for p in store.list("pods")[0]
+                        if p.metadata.name.startswith("gbig-") and p.spec.node_name)
+        w.stop()
+        return dict(nodes=nodes, bound=bound, n_gang=n_gang, store=store, sched=sched,
+                    deleted=deleted, gang_map=gang_map, stats=stats, seconds=seconds,
+                    launches=launches, deleted_after=deleted_after, vetoed=vetoed,
+                    big_bound=big_bound, members=members + big)
+
+    for name in ("GangPreemption", "GangPreemption_5000"):
+        r = run(name, device)
+        nodes, n_gang, sched = r["nodes"], r["n_gang"], r["sched"]
+        slice_of = {n.metadata.name: int(n.metadata.labels[SLICE]) for n in nodes}
+        placed = {slice_of[v] for v in r["gang_map"].values() if v}
+        check(sum(1 for v in r["gang_map"].values() if v) == n_gang,
+              f"{name}: {sum(1 for v in r['gang_map'].values() if v)}/{n_gang} gang members bound")
+        check(len(placed) == 1, f"{name}: the gang spans slices {sorted(placed)}")
+        chosen = placed.pop()
+        # the script's own cover: the chosen slice's fillers in eviction
+        # order, the host curve, the smallest k reaching the quorum
+        victims = [p for p in r["bound"] if slice_of[p.spec.node_name] == chosen]
+        local = {n.metadata.name: i for i, n in enumerate(
+            [n for n in nodes if slice_of[n.metadata.name] == chosen])}
+        req = np.array([3000, 0, 0])
+        v_req = np.array([[compute_pod_resource_request(v).milli_cpu, 0, 0] for v in victims])
+        order = victim_order(np.array([v.spec.priority for v in victims]),
+                             (v_req[:, :1] * 1000 // 3000).sum(axis=1))
+        node_objs = [n for n in nodes if slice_of[n.metadata.name] == chosen]
+        used = {}
+        for v in r["bound"]:
+            used[v.spec.node_name] = used.get(v.spec.node_name, 0) + \
+                compute_pod_resource_request(v).milli_cpu
+        free = np.array([[8000 - used.get(n.metadata.name, 0), 0, 0] for n in node_objs])
+        head = np.array([110 - sum(1 for v in victims if v.spec.node_name == n.metadata.name)
+                         for n in node_objs])
+        caps = cover_curve_host(free, head, np.ones(len(node_objs), bool),
+                                np.array([local[victims[i].spec.node_name] for i in order]),
+                                v_req[order], req)
+        k = int(np.nonzero(caps >= n_gang)[0][0])
+        want = sorted(victims[i].metadata.name for i in order[:k])
+        check(r["deleted"] == want, f"{name}: deleted {len(r['deleted'])} pods, the cover is "
+                                    f"{k}: {sorted(set(r['deleted']) ^ set(want))[:5]}")
+        check(not r["deleted_after"], f"{name}: the uncoverable gang evicted "
+                                      f"{len(r['deleted_after'])} pods")
+        check(r["vetoed"] and r["big_bound"] == 0,
+              f"{name}: the uncoverable gang was not vetoed ({r['big_bound']} bound)")
+        stats = r["stats"]
+        check(stats["preempted"] == 1 and stats["victims"] == k,
+              f"{name}: preemptor totals {stats}")
+        from kubernetes_tpu_torch.testing import assert_pod_conservation
+
+        keys = [p.key for p in r["members"]]
+        cons = assert_pod_conservation(r["store"], sched, keys)["counts"]
+        if device.type == "cuda":
+            check(r["launches"]["cover_curve"] > 0, f"{name}: kernel G never launched")
+        t0 = time.perf_counter()
+        c = run(name, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        check(c["deleted"] == r["deleted"] and c["gang_map"] == r["gang_map"],
+              f"{name}: the CPU rerun evicted or placed differently")
+        line = {"phase": "main_path_gang_preempt", "workload": name, "nodes": len(nodes),
+                "fillers": len(r["bound"]), "gang": n_gang, "uncoverable_gang": len(
+                    r["members"]) - n_gang, "slice": chosen, "cover_k": k,
+                "deleted": len(r["deleted"]), "deleted_by_veto_leg": len(r["deleted_after"]),
+                "vetoed_events": len(r["vetoed"]), "preemption": stats,
+                "preemption_after_veto_leg": sched.gangpreempt.stats(),
+                "conservation": cons, "launches": r["launches"],
+                "seconds_to_bound": r["seconds"], "batches": sched.batches_solved,
+                "stage_seconds": sched.stage_seconds, "cpu_rerun_s": cpu_s,
+                "cpu_equal": True, "card": card}
+        emit(line)
+        out[name] = line
+        sched.stop()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel G: cover_curve, kernel H: rank_align
+# ---------------------------------------------------------------------------
+
+
+def cover_case(rng, ns, k, r, device, pads=0, inelig=0.0):
+    """Seeded padded arguments of one cover_curve call on `device`, with
+    magnitudes of the main path (millicores, MiB, pods)."""
+    import numpy as np
+    import torch
+
+    n_slots = 1 << max(0, ns - 1).bit_length()
+    k_max = 1 << max(0, k + pads - 1).bit_length()
+    free = np.zeros((n_slots, r), np.int32)
+    free[:ns] = rng.integers(-500, 4000, size=(ns, r))
+    head = np.zeros(n_slots, np.int32)
+    head[:ns] = rng.integers(0, 110, size=ns)
+    elig = np.zeros(n_slots, bool)
+    elig[:ns] = rng.random(ns) >= inelig
+    vn = np.full(k_max, -1, np.int32)
+    vn[:k] = rng.integers(0, ns, size=k)
+    vr = np.zeros((k_max, r), np.int32)
+    vr[:k] = rng.integers(0, 2000, size=(k, r))
+    req = rng.integers(0, 3000, size=r).astype(np.int32)
+    req[0] = 3000
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return tuple(t(a) for a in (free, head, elig, vn, vr, req))
+
+
+def kernel_g_work(args):
+    """(bytes, operations): inputs read once, caps written once; per node
+    the capacity (3 ops a dimension), per victim its node's update and
+    capacity (~4 ops a dimension + 4), one add per curve entry."""
+    free, head, elig, vn, vr, req = args
+    n_slots, r = free.shape
+    k_max = vn.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + (k_max + 1) * 4
+    ops = n_slots * 3 * r + k_max * (4 * r + 4) + k_max + 1
+    return nbytes, ops
+
+
+def phase_kernel_g(device, sizes, seed):
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.gangcover import cover_curve, cover_curve_plain
+    from kubernetes_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    cases = {
+        "a_full_width_slice": cover_case(rng, sizes["slice_nodes"], sizes["cover_victims"], 3,
+                                         device),
+        "b_k0_pads_ineligible": cover_case(rng, 37, 0, 3, device, pads=5, inelig=0.4),
+        "b_pads_ineligible": cover_case(rng, 200, 300, 4, device, pads=200, inelig=0.3),
+        "c_above_jax_budget": cover_case(rng, sizes["budget_nodes"], 1000, 3, device),
+    }
+    err, lines = 0, {}
+    for name, args in cases.items():
+        before = kernels.LAUNCHES["cover_curve"]
+        got = cover_curve(*args)
+        sync(device)
+        launched = kernels.LAUNCHES["cover_curve"] - before
+        ref = cover_curve_plain(*args)
+        sync(device)
+        e = int((got.long() - ref.long()).abs().max())
+        equal = got.dtype == ref.dtype and bool((got == ref).all())
+        n_slots, r = args[0].shape
+        line = {"phase": "kernel_G", "case": name, "n_slots": n_slots, "k_max": args[3].shape[0],
+                "R": r, "prefix_elems": (args[3].shape[0] + 1) * n_slots * r, "equal": equal,
+                "max_abs_err": e, "launches": launched, "caps_last": int(got[-1])}
+        err = max(err, e)
+        check(equal, f"kernel G differs from its plain version on case {name}")
+        check(device.type != "cuda" or launched == 1, f"kernel G did not launch on case {name}")
+        if name.startswith("a_"):
+            line["ms"] = timed_ms(lambda: cover_curve(*args), 200, device)
+            line["plain_ms"] = timed_ms(lambda: cover_curve_plain(*args), 20, device)
+            # the kernel's own device time, apart from the wrapper's host work
+            line["device_ms"] = device_ms(lambda: cover_curve(*args), ("cover_curve",), device)
+            nbytes, ops = kernel_g_work(args)
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"n_slots {n_slots}, k_max {args[3].shape[0]}, R {r}"
+        emit(line)
+        lines[name] = line
+    check(cases["c_above_jax_budget"][0].shape[0] * 1025 * 3 > 4_000_000,
+          "case c is not above the JAX wrapper's 4M-element budget")
+    return err, lines["a_full_width_slice"]
+
+
+def align_case(rng, p, p_max, groups, device, ties=False):
+    """Seeded padded arguments of one rank_align call: `groups` gangs of
+    ranked members with shuffled ring positions, the rest non-members."""
+    import numpy as np
+    import torch
+
+    a = np.full(p_max, -1, np.int32)
+    g = np.arange(p_max, dtype=np.int32) + np.int32(2**30)
+    rank = np.zeros(p_max, np.int32)
+    pos = np.zeros(p_max, np.int32)
+    a[:p] = rng.integers(0, 5000, size=p)
+    members = p if not ties else (3 * p) // 4
+    g[:members] = rng.integers(0, groups, size=members)
+    g[members:p] = 2**29 + np.arange(members, p)
+    rank[:p] = rng.permutation(p) if not ties else rng.integers(0, 8, size=p)
+    pos[:p] = rng.permutation(p) if not ties else rng.integers(0, 8, size=p)
+    if ties:
+        unplaced = rng.random(p) < 0.1
+        a[:p][unplaced] = -1
+        pos[:p][unplaced] = 2**30
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return tuple(t(x) for x in (a, g, rank, pos))
+
+
+def kernel_h_work(args):
+    """(bytes, operations): four inputs read once, the output written once;
+    two sorts of p_max rows at ~3 ops per comparison, p_max log2 p_max
+    comparisons each, and the scatter."""
+    import math
+
+    p_max = args[0].shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + p_max * 4
+    ops = int(2 * 3 * p_max * max(1.0, math.log2(p_max)) + p_max)
+    return nbytes, ops
+
+
+def phase_kernel_h(device, sizes, seed):
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.gangcover import rank_align_kernel, rank_align_plain
+    from kubernetes_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed + 1)
+    pm = sizes["align_p_max"]
+    cases = {
+        "a_16_gangs_of_256": align_case(rng, pm, pm, 16, device),
+        "b_ties_unplaced_nonmembers": align_case(rng, pm - pm // 4 - 3, pm, 5, device, ties=True),
+        "c_global_merge": align_case(rng, 4 * pm - 100, 4 * pm, 64, device),
+    }
+    err, lines = 0, {}
+    for name, args in cases.items():
+        before = kernels.LAUNCHES["rank_align"]
+        got = rank_align_kernel(*args)
+        sync(device)
+        launched = kernels.LAUNCHES["rank_align"] - before
+        ref = rank_align_plain(*args)
+        sync(device)
+        e = int((got.long() - ref.long()).abs().max())
+        equal = got.dtype == ref.dtype and bool((got == ref).all())
+        line = {"phase": "kernel_H", "case": name, "p_max": args[0].shape[0], "equal": equal,
+                "max_abs_err": e, "launches": launched,
+                "moved": int((got != args[0]).sum())}
+        err = max(err, e)
+        check(equal, f"kernel H differs from its plain version on case {name}")
+        check(device.type != "cuda" or launched == 1, f"kernel H did not launch on case {name}")
+        if name.startswith("a_"):
+            line["ms"] = timed_ms(lambda: rank_align_kernel(*args), 200, device)
+            line["plain_ms"] = timed_ms(lambda: rank_align_plain(*args), 50, device)
+            line["device_ms"] = device_ms(lambda: rank_align_kernel(*args), ("ra_",), device)
+            nbytes, ops = kernel_h_work(args)
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"p_max {args[0].shape[0]}, 16 gangs"
+        emit(line)
+        lines[name] = line
+    check(cases["c_global_merge"][0].shape[0] > 4096 or device.type == "cpu",
+          "case c does not reach the global merge path")
+    return err, lines["a_16_gangs_of_256"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -922,10 +1477,14 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     sizes = ({"nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
-              "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500}
+              "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500,
+              "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
+              "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096}
              if args.small else
              {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
-              "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000})
+              "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
+              "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
+              "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096})
     try:
         info = phase_device(device)
         phase_build()
@@ -933,13 +1492,18 @@ def main(argv=None) -> int:
         err_b, line_b = phase_kernel_b(device, sizes, args.seed)
         err_c, line_c = phase_kernel_c(device, sizes, args.seed)
         err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
+        err_g, line_g = phase_kernel_g(device, sizes, args.seed)
+        err_h, line_h = phase_kernel_h(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
         fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
+        gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
+        preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # A and B: the exact main path (SchedulingBasic); C and D: the fast main
-    # path, summed over its four workloads (counts reset before each run)
+    # path, summed over its four workloads; G: the gang preemption path, H:
+    # the gang path, each summed over its runs (counts reset before each run)
     launches = main["SchedulingBasic"]["launches"]
     kernels = [
         {"name": "greedy_scan", "route": "cuda", "source": KERNEL_A_SRC,
@@ -968,6 +1532,21 @@ def main(argv=None) -> int:
          "bound_ms": timing_d["bound_ms"], "bound_by": timing_d["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call computes the violation check",
          "checked": True, "shape": timing_d["shape"]},
+        {"name": "cover_curve", "route": "cuda", "source": KERNEL_G_SRC,
+         "replaces": "kubernetes_tpu/models/gangcover.py:78",
+         "launches": sum(ln["launches"]["cover_curve"] for ln in preempt.values()),
+         "max_abs_err": err_g, "ms": line_g["ms"], "plain_ms": line_g["plain_ms"],
+         "bound_ms": line_g["bound_ms"], "bound_by": line_g["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call computes the curve",
+         "checked": True, "shape": line_g["shape"]},
+        {"name": "rank_align", "route": "cuda", "source": KERNEL_H_SRC,
+         "replaces": "kubernetes_tpu/models/gangcover.py:174",
+         "launches": sum(ln["launches"]["rank_align"] for ln in gang.values()),
+         "max_abs_err": err_h, "ms": line_h["ms"], "plain_ms": line_h["plain_ms"],
+         "bound_ms": line_h["bound_ms"], "bound_by": line_h["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call computes the aligned permutation "
+                    "(two lexsorts and a scatter)",
+         "checked": True, "shape": line_h["shape"]},
     ]
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:

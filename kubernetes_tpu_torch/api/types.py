@@ -24,8 +24,10 @@ LABEL_HOSTNAME = "kubernetes.io/hostname"
 LABEL_ZONE = "topology.kubernetes.io/zone"
 LABEL_REGION = "topology.kubernetes.io/region"
 
-# Gang positional label (api/podgroup.py of the JAX package): positional
-# metadata, excluded from the pod class signature
+# A gang member's rank (its position in the job's collective order):
+# positional metadata, excluded from the pod class signature so a 250-rank
+# gang stays one equivalence class; consumed by the rank-alignment pass
+# (models/gangcover.py rank_align). api/podgroup.py re-exports it.
 POD_GROUP_RANK_LABEL = "pod-group.scheduling/rank"
 
 # Taint effects
@@ -289,6 +291,7 @@ class PodSpec:
     tolerations: List[Toleration] = field(default_factory=list)
     topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
     priority: int = 0
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
     scheduling_gates: List[str] = field(default_factory=list)
     overhead: Optional[Dict[str, Any]] = None
     volumes: List[Volume] = field(default_factory=list)
@@ -313,6 +316,7 @@ class PodSpec:
                 for t in d.get("topologySpreadConstraints") or []
             ],
             priority=int(d.get("priority", 0) or 0),
+            preemption_policy=d.get("preemptionPolicy", "PreemptLowerPriority"),
             scheduling_gates=[g["name"] if isinstance(g, Mapping) else g
                               for g in d.get("schedulingGates") or []],
             overhead=d.get("overhead"),

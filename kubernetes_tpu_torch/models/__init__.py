@@ -1,2 +1,3 @@
-"""L5 — the fast-mode solvers: waterfill (kernel C) and propose-and-repair
-(kernel D). Import them from their modules."""
+"""L5 — the fast-mode solvers, waterfill (kernel C) and propose-and-repair
+(kernel D), and the gang kernels, victim cover (G) and rank alignment (H).
+Import them from their modules."""

@@ -15,6 +15,8 @@ it happens and nowhere else).
   row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py scatter_rows/_cols
   waterfill     kernel C, csrc/waterfill.cu     <- models/waterfill.py waterfill_group
   repair_check  kernel D, csrc/repair_check.cu  <- models/repair.py repair_check
+  cover_curve   kernel G, csrc/cover_curve.cu   <- models/gangcover.py cover_curve
+  rank_align    kernel H, csrc/rank_align.cu    <- models/gangcover.py rank_align_kernel
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from .solver import FIELD_DTYPES, SolverInputs
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"greedy_scan": "greedy_scan.cu", "row_scatter": "row_scatter.cu",
-           "waterfill": "waterfill.cu", "repair_check": "repair_check.cu"}
+           "waterfill": "waterfill.cu", "repair_check": "repair_check.cu",
+           "cover_curve": "cover_curve.cu", "rank_align": "rank_align.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -126,8 +129,14 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.row_scatter_launch.restype = ctypes.c_int
         elif name == "waterfill":
             _bind_args_entry(lib, name, _WaterfillArgs)
-        else:
+        elif name == "repair_check":
             _bind_args_entry(lib, name, _RepairCheckArgs)
+        elif name == "cover_curve":
+            _bind_args_entry(lib, name, _CoverCurveArgs)
+            lib.cover_curve_max_r.argtypes = []
+            lib.cover_curve_max_r.restype = ctypes.c_int
+        else:
+            _bind_args_entry(lib, name, _RankAlignArgs)
         _LIBS[name] = lib
     return lib
 
@@ -457,3 +466,81 @@ def launch_repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
     LAUNCHES["repair_check"] += 1
     _raise_on(err, "repair_check launch")
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# kernel G
+# ---------------------------------------------------------------------------
+
+
+class _CoverCurveArgs(ctypes.Structure):
+    _fields_ = ([(d, ctypes.c_int) for d in ("n_slots", "k_max", "R")]
+                + [(f, ctypes.c_void_p) for f in ("free", "headroom", "eligible", "v_node",
+                                                  "v_req", "req", "caps")])
+
+
+def launch_cover_curve(free, headroom, eligible, v_node, v_req, req) -> torch.Tensor:
+    """Kernel G on CUDA tensors: returns caps [k_max + 1] int32 like
+    cover_curve_plain. The inputs are not modified."""
+    device = free.device
+    if free.dim() != 2:
+        raise ValueError("cover_curve: free must be [n_slots, R]")
+    n_slots, r = free.shape
+    k_max = v_node.shape[0] if v_node.dim() == 1 else -1
+    for name, t, dtype, shape in (
+            ("free", free, torch.int32, (n_slots, r)),
+            ("headroom", headroom, torch.int32, (n_slots,)),
+            ("eligible", eligible, torch.bool, (n_slots,)),
+            ("v_node", v_node, torch.int32, (k_max,)),
+            ("v_req", v_req, torch.int32, (k_max, r)), ("req", req, torch.int32, (r,))):
+        _check_cuda(t, name, dtype, device, shape)
+    lib = _lib("cover_curve")
+    if not 1 <= r <= lib.cover_curve_max_r():
+        raise ValueError(f"cover_curve: R = {r} outside [1, {lib.cover_curve_max_r()}]")
+    caps = torch.empty(k_max + 1, dtype=torch.int32, device=device)
+    args = _CoverCurveArgs(n_slots=n_slots, k_max=k_max, R=r, free=free.data_ptr(),
+                           headroom=headroom.data_ptr(), eligible=eligible.data_ptr(),
+                           v_node=v_node.data_ptr() if k_max else None,
+                           v_req=v_req.data_ptr() if k_max else None, req=req.data_ptr(),
+                           caps=caps.data_ptr())
+    err = lib.cover_curve_launch(ctypes.byref(args),
+                                 torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["cover_curve"] += 1
+    _raise_on(err, "cover_curve launch")
+    return caps
+
+
+# ---------------------------------------------------------------------------
+# kernel H
+# ---------------------------------------------------------------------------
+
+
+class _RankAlignArgs(ctypes.Structure):
+    _fields_ = [("p_max", ctypes.c_int)] + [
+        (f, ctypes.c_void_p) for f in ("assignment", "group_id", "rank", "pos_key", "out",
+                                       "keys", "idx")]
+
+
+def launch_rank_align(assignment, group_id, rank, pos_key) -> torch.Tensor:
+    """Kernel H on CUDA tensors: returns the aligned assignment [p_max] int32
+    like rank_align_plain. p_max must be a power of two (rank_align pads)."""
+    device = assignment.device
+    p_max = assignment.shape[0] if assignment.dim() == 1 else -1
+    if p_max < 1 or p_max & (p_max - 1):
+        raise ValueError(f"rank_align: p_max {p_max} is not a power of two")
+    for name, t in (("assignment", assignment), ("group_id", group_id), ("rank", rank),
+                    ("pos_key", pos_key)):
+        _check_cuda(t, name, torch.int32, device, (p_max,))
+    out = torch.empty(p_max, dtype=torch.int32, device=device)
+    keys = torch.empty(2 * p_max, dtype=torch.int64, device=device)
+    idx = torch.empty(2 * p_max, dtype=torch.int32, device=device)
+    args = _RankAlignArgs(p_max=p_max, assignment=assignment.data_ptr(),
+                          group_id=group_id.data_ptr(), rank=rank.data_ptr(),
+                          pos_key=pos_key.data_ptr(), out=out.data_ptr(),
+                          keys=keys.data_ptr(), idx=idx.data_ptr())
+    lib = _lib("rank_align")
+    err = lib.rank_align_launch(ctypes.byref(args),
+                                torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["rank_align"] += 1
+    _raise_on(err, "rank_align launch")
+    return out

@@ -15,12 +15,23 @@ solver exception requeues the batch's device pods with backoff and feeds the
 circuit breaker (scheduler/breaker.py), which degrades the fast modes to the
 scan after `breaker_threshold` consecutive failures.
 
+Gangs (scheduler/gang.py, JAX batch.py :393-720, :914-1060), in every mode:
+the queue stages a PodGroup's members until quorum and admits them
+together; the solvers add the slice-packing bonus; after the solve a gang
+whose placements miss its quorum is vetoed whole BEFORE any assume, and a
+gang that loses a member at assume time releases every assumed sibling;
+ranked members are permuted onto ring order (kernel H, models/gangcover.py
+rank_align); a solver-vetoed gang tries a victim cover on one slice (kernel
+G, scheduler/gangpreempt.py), evicts through the store and parks until its
+victims are gone; otherwise it requeues as a unit with one shared backoff.
+
 Not in this slice (each raises or is named where it would act):
-  serial fallback classes, preemption, plugins ROADMAP.md queue 1 item 2
-  gangs                                       queue 1 item 3
+  serial fallback classes, per-pod preemption, plugins, QueueingHints
+                                              ROADMAP.md queue 1 item 2
   solver "auction"/"sinkhorn"                 queue 1 item 5
   flight recorder, pod traces, metrics, the solver's Warning event, the
-  native commit and pipelined binds           queue 1 item 7
+  native commit, pipelined binds and assume expiry
+                                              queue 1 item 7
 A pod whose class the tensorizer marks fallback_class (DRA claims,
 scheduling-relevant volumes, non-default PTS inclusion policies) fails
 unschedulable with a reason naming its ROADMAP item and is counted in
@@ -35,10 +46,11 @@ import dataclasses
 import logging
 import time
 from collections import deque
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..models.gangcover import alignment_groups, mean_neighbor_distance, rank_align
 from ..models.repair import repair_solve
 from ..models.waterfill import make_groups, waterfill_solve
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
@@ -47,6 +59,10 @@ from ..store import MODIFIED, APIStore, NotFoundError, pod_structural_clone
 from ..utils import Clock
 from .breaker import REPRESENTATIVE, SolverCircuitBreaker
 from .framework import Status
+from .gang import GangDirectory, gang_veto_mask, node_slice_positions, ring_lengths
+from .gangpreempt import GangPreemptor
+from .plugins.default_preemption import DefaultPreemption
+from .queue import QueuedPodInfo
 from .serial import NOT_PORTED, Scheduler
 
 SOLVERS = ("exact", "fast", "auto")
@@ -74,12 +90,17 @@ class BatchScheduler(Scheduler):
     torch.cuda.is_available() is false; "cpu" runs their plain versions.
     framework must be None: the scoring profile is the default plugin set
     that the solver encodes (custom profiles come with ROADMAP.md queue 1
-    item 2)."""
+    item 2). rank_align gates the rank-to-ring permutation of ranked gang
+    members; gang_preemption installs the gang victim cover;
+    pod_initial_backoff / pod_max_backoff set the queue's backoff (seconds,
+    the reference's defaults)."""
 
     def __init__(self, store: APIStore, framework=None, *, device="cuda",
                  batch_size: int = 4096, solver: str = "exact",
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
-                 clock: Optional[Clock] = None):
+                 rank_align: bool = True, gang_preemption: bool = True,
+                 clock: Optional[Clock] = None, pod_initial_backoff: float = 1.0,
+                 pod_max_backoff: float = 10.0):
         self.device = resolve_device(device)
         if framework is not None:
             raise NotImplementedError("custom scheduler frameworks are " + NOT_PORTED.format(2))
@@ -88,7 +109,8 @@ class BatchScheduler(Scheduler):
             if item is None:
                 raise ValueError(f"unknown solver {solver!r}")
             raise NotImplementedError(f"solver {solver!r} is " + NOT_PORTED.format(item))
-        super().__init__(store, clock=clock)
+        super().__init__(store, clock=clock, pod_initial_backoff=pod_initial_backoff,
+                         pod_max_backoff=pod_max_backoff)
         self.batch_size = batch_size
         self.solver = solver
         self.bind_chunk = 4096
@@ -111,6 +133,25 @@ class BatchScheduler(Scheduler):
         # with the assignment's copy to the host, so it includes device time)
         self.stage_seconds = {"tensorize": 0.0, "solve": 0.0, "commit": 0.0}
         self.solve_seconds: deque = deque(maxlen=1024)  # per batch
+        # gang scheduling: PodGroup quorums and placed members, fed by the
+        # watch plumbing in serial.py; the queue stages members until quorum
+        # and schedule_batch enforces the all-or-nothing veto. Inactive (one
+        # attribute read) until a PodGroup exists.
+        self.gangs = GangDirectory()
+        self.queue.set_gang_hooks(self.gangs.group_of, self.gangs.quorum_ready,
+                                  lambda: self.gangs.active)
+        self.gang_vetoes = 0  # gangs stripped before assume
+        # the gang dict of the last batch with gang members (the JAX flight
+        # record's "gang" entry: staged/vetoed/assume_vetoed/released/
+        # hopeless, cover stats, adjacency before and after rank alignment)
+        self.last_gang: Optional[Dict] = None
+        self.rank_align = rank_align
+        # gang preemption: a solver-vetoed gang tries a min-cost victim cover
+        # on one slice, executed by DefaultPreemption's victim half
+        self.preemption = (DefaultPreemption(store=store, recorder=self.recorder)
+                           if gang_preemption else None)
+        self.gangpreempt = GangPreemptor(self) if gang_preemption else None
+        self.preempt_victims_total = 0
 
     def schedule_cycle(self) -> int:
         return self.schedule_batch()
@@ -141,35 +182,94 @@ class BatchScheduler(Scheduler):
         batch = build_pod_batch(
             [qp.pod for qp in qps], snapshot, cluster, ns_labels=self._ns_labels,
             hard_pod_affinity_weight=HARD_POD_AFFINITY_WEIGHT,
-            reuse=self._tensor_cache, changed_nodes=changed_nodes)
+            reuse=self._tensor_cache, changed_nodes=changed_nodes, gangs=self.gangs)
         fallback_mask = batch.fallback_class[batch.class_of_pod]
-        device_idx = np.nonzero(~fallback_mask)[0]
-        fallback_idx = np.nonzero(fallback_mask)[0]
+        keep = ~self._strip_fallback_gangs(qps, batch, fallback_mask)
+        device_idx = np.nonzero(~fallback_mask & keep)[0]
+        fallback_idx = np.nonzero(fallback_mask & keep)[0]
         t1 = time.perf_counter()
         self.stage_seconds["tensorize"] += t1 - t0
 
         if device_idx.size:
             sub = _subset_batch(batch, device_idx)
+            has_gang = sub.gang_of_pod is not None and bool((sub.gang_of_pod >= 0).any())
             try:
-                assignment = self._solve_device(solver, cluster, batch, sub)
+                assignment = self._solve_device(solver, cluster, batch, sub, has_gang)
             except Exception as e:
                 # nothing is assumed yet: the device pods requeue as a unit
                 self._handle_solver_error(e, qps, device_idx)
                 assignment = None
             else:
                 self.breaker.record_success(self._solve_path, self.solver)
+            gang = None
+            if assignment is not None and has_gang:
+                assignment, gang = self._gang_veto(cluster, sub, assignment)
             t2 = time.perf_counter()
             self.stage_seconds["solve"] += t2 - t1
             self.solve_seconds.append(t2 - t1)
             if assignment is not None:
-                self._commit(qps, device_idx, assignment.tolist(), cluster.node_names)
+                self._commit(qps, device_idx, assignment, snapshot, cluster, sub, gang)
                 self.stage_seconds["commit"] += time.perf_counter() - t2
         for pi in fallback_idx.tolist():
             self.fallback_refused += 1
             self._handle_failure(qps[pi], Status.unschedulable(FALLBACK_REASON))
         return len(qps)
 
-    def _solve_device(self, solver, cluster, batch, sub) -> np.ndarray:
+    def _strip_fallback_gangs(self, qps, batch, fallback_mask) -> np.ndarray:
+        """A gang with a member whose class needs the serial fallback path
+        would not be placed all-or-nothing: every in-batch member of such a
+        gang fails unschedulable, with ONE Warning event naming the gangs.
+        Returns the stripped rows as a [P] bool mask."""
+        strip = np.zeros(len(qps), dtype=bool)
+        if batch.gang_of_pod is None:
+            return strip
+        gof = np.asarray(batch.gang_of_pod)
+        bad = np.unique(gof[(gof >= 0) & fallback_mask])
+        if not bad.size:
+            return strip
+        strip = np.isin(gof, bad)
+        names = ", ".join(batch.gang_keys[g] for g in bad.tolist())
+        self.gang_vetoes += int(bad.size)
+        rows = np.nonzero(strip)[0].tolist()
+        self.recorder.event(
+            qps[rows[0]].pod, "Warning", "GangVetoed",
+            f"gang(s) {names} vetoed: a member class requires serial-fallback "
+            "scheduling (volumes/DRA), where all-or-nothing placement cannot be enforced")
+        for pi in rows:
+            self._handle_failure(qps[pi], Status.unschedulable(
+                "gang member class requires serial-fallback scheduling; all-or-nothing "
+                "placement is only enforced on the batched path (gang vetoed)"))
+        return strip
+
+    def _gang_veto(self, cluster, sub, assignment):
+        """The all-or-nothing veto BEFORE any assume: a gang whose in-batch
+        placements plus members already placed miss min_member has every row
+        unplaced. Then the rank alignment of ranked members. Returns the new
+        assignment and the batch's gang state."""
+        gang_info = {"staged": self.queue.gang_staged_count(), "vetoed": 0,
+                     "assume_vetoed": 0, "released": 0, "hopeless": 0}
+        need = np.array([max(0, (self.gangs.min_member(k) or 0) - self.gangs.placed_count(k))
+                         for k in sub.gang_keys], dtype=np.int64)
+        veto, _satisfied = gang_veto_mask(assignment, np.asarray(sub.gang_of_pod), need)
+        # a gang needing more members than one solve can see is unsatisfiable
+        # by this configuration: park it with a diagnostic, never livelock
+        hopeless = set(np.nonzero(need > self.batch_size)[0].tolist())
+        solver_vetoed = set()
+        if veto.any():
+            # solver-vetoed gangs are the preemption candidates (an
+            # assume-time veto means the gang FIT: a race, not a room problem)
+            solver_vetoed = set(np.unique(sub.gang_of_pod[veto]).tolist())
+            self.gang_vetoes += len(solver_vetoed)
+            gang_info["vetoed"] = len(solver_vetoed)
+            assignment = np.where(veto, -1, assignment)
+        if (self.rank_align and sub.gang_rank is not None
+                and bool((np.asarray(sub.gang_rank) >= 0).any())):
+            assignment = self._rank_align_assignment(cluster, sub, assignment, gang_info)
+        self.last_gang = gang_info
+        return assignment, {"info": gang_info, "need": need, "veto": veto,
+                            "hopeless": hopeless, "solver_vetoed": solver_vetoed}
+
+    def _solve_device(self, solver, cluster, batch, sub, has_gang: bool) -> np.ndarray:
         """One device-batch solve under the (possibly breaker-degraded)
         solver mode. Returns the assignment [P] as host int32. Any exception
         propagates to the failure domain in schedule_batch.
@@ -193,8 +293,9 @@ class BatchScheduler(Scheduler):
         if use_fast:
             self._solve_path = "fast"
             assignment = waterfill_solve(inputs, make_groups(sub))
+        gang = has_gang and sub.gang_bonus is not None
         if use_repair:
-            solved = repair_solve(inputs, sub, d_max, has_gang=sub.gang_bonus is not None)
+            solved = repair_solve(inputs, sub, d_max, has_gang=gang)
             if solved is not None:
                 assignment, rstats = solved
                 self._note_repair(rstats)
@@ -205,7 +306,7 @@ class BatchScheduler(Scheduler):
             scan, _, _ = greedy_scan_solve(
                 inputs, d_max, has_ipa=bool(batch.ipa.has_any),
                 has_ct=bool(batch.ct_class.size), has_st=bool(batch.st_class.size),
-                has_gang=sub.gang_bonus is not None)
+                has_gang=gang)
             assignment = scan.cpu().numpy()
         return np.asarray(assignment, dtype=np.int32)
 
@@ -235,29 +336,168 @@ class BatchScheduler(Scheduler):
                     self.solver, self._solve_path, len(qps_dev),
                     "; circuit breaker OPEN" if tripped else "", exc_info=e)
 
-    def _commit(self, qps, device_idx, assign_list, node_names) -> None:
+    def _commit(self, qps, device_idx, assignment, snapshot, cluster, sub, gang) -> None:
         """Assume every placement first, then bind, then fail the rejects
-        (failing mid-loop would see capacity promised to not-yet-bound pods)."""
+        (failing mid-loop would see capacity promised to not-yet-bound pods),
+        then requeue the vetoed gangs."""
+        node_names = cluster.node_names
+        n = len(node_names)
+        assign_list = np.asarray(assignment).tolist()
+        sub_gang = np.asarray(sub.gang_of_pod).tolist() if gang is not None else None
+        veto_list = gang["veto"].tolist() if gang is not None else None
+        gang_requeue: Dict[int, List[QueuedPodInfo]] = {}
         to_bind = []
+        bind_gang: List[int] = []  # gang id per to_bind entry (gang batches only)
         rejected = []
         for j, pi in enumerate(device_idx.tolist()):
+            gid = sub_gang[j] if sub_gang is not None else -1
+            if veto_list is not None and veto_list[j]:
+                gang_requeue.setdefault(gid, []).append(qps[pi])
+                continue
             nidx = assign_list[j]
             if nidx < 0:
-                rejected.append(qps[pi])
+                if gid >= 0:
+                    # unplaced extra of a SATISFIED gang: it fails alone, and
+                    # no preemption is ever tried for part of a gang
+                    self._handle_failure(qps[pi], Status.unschedulable(
+                        f"0/{n} nodes are available (gang member; preemption skipped)",
+                        plugin="NodeResourcesFit"))
+                else:
+                    rejected.append(qps[pi])
             else:
                 qp = qps[pi]
                 to_bind.append((qp, node_names[nidx], pod_structural_clone(qp.pod)))
+                if sub_gang is not None:
+                    bind_gang.append(gid)
         if to_bind:
             bad = self.cache.assume_pods([(assumed, node) for _qp, node, assumed in to_bind])
+            bad_gangs = set()
             for i, msg in sorted(bad, reverse=True):
                 qp, _node, _assumed = to_bind.pop(i)
-                self._handle_failure(qp, Status.error(msg))
+                gid = bind_gang.pop(i) if bind_gang else -1
+                if gid >= 0:
+                    bad_gangs.add(gid)
+                    gang_requeue.setdefault(gid, []).append(qp)
+                else:
+                    self._handle_failure(qp, Status.error(msg))
+            if bad_gangs:
+                # all-or-nothing at assume time: a gang that lost a member
+                # releases every assumed sibling BEFORE any bind
+                released = []
+                for i in range(len(to_bind) - 1, -1, -1):
+                    gid = bind_gang[i]
+                    if gid in bad_gangs:
+                        qp, _node, assumed = to_bind.pop(i)
+                        bind_gang.pop(i)
+                        released.append(assumed)
+                        gang_requeue.setdefault(gid, []).append(qp)
+                for assumed in released:
+                    self.cache.forget_pod(assumed)
+                gang["info"]["assume_vetoed"] = len(bad_gangs)
+                gang["info"]["released"] = len(released)
+            # surviving members count toward quorum from assume on (our own
+            # bind confirmations bypass the event stream)
+            for i, (_qp, _node, assumed) in enumerate(to_bind):
+                if bind_gang and bind_gang[i] >= 0:
+                    self.gangs.note_assumed(assumed)
             for lo in range(0, len(to_bind), self.bind_chunk):
                 self._bind_chunk(to_bind[lo:lo + self.bind_chunk])
-        n = len(node_names)
         for qp in rejected:
             self._handle_failure(qp, Status.unschedulable(
                 f"0/{n} nodes are available", plugin="NodeResourcesFit"))
+        if gang_requeue:
+            info = gang["info"]
+            info["hopeless"] = sum(1 for g in gang_requeue if g in gang["hopeless"])
+            # gang preemption: solver-vetoed gangs get ONE victim-cover
+            # attempt; the context is built only when such a gang exists
+            ctx = None
+            if self.gangpreempt is not None and any(
+                    g in gang["solver_vetoed"] and g not in gang["hopeless"]
+                    for g in gang_requeue):
+                ctx = self.gangpreempt.build_ctx(snapshot, cluster, sub, assignment,
+                                                 gang["need"])
+            self._requeue_gangs(gang_requeue, sub.gang_keys or [], gang["hopeless"],
+                                gang["solver_vetoed"], ctx, info)
+
+    def _requeue_gangs(self, groups: Dict[int, List[QueuedPodInfo]], keys: List[str],
+                       hopeless, preempt_gids, preempt_ctx, gang_info: Dict) -> None:
+        """A vetoed (or assume-rolled-back) gang re-enters the queue AS A
+        UNIT, with one shared backoff expiry (add_gang_backoff) and one
+        FailedScheduling event per gang. A hopeless gang (min_member beyond
+        what one solve can see) parks unschedulable with a diagnostic. A
+        SOLVER-vetoed gang first tries a victim cover: a fired cover PARKS
+        the gang (not a failure); a veto or an inapplicable attempt falls
+        through to the unit requeue."""
+        for gid, members in groups.items():
+            key = keys[gid] if 0 <= gid < len(keys) else "<unknown>"
+            if gid in hopeless:
+                status = Status.unschedulable(
+                    f"pod group {key} needs more members than the solver batch size "
+                    f"({self.batch_size}) can place together; raise batch_size or lower "
+                    "minMember", plugin="GangScheduling")
+                for m in members:
+                    self._handle_failure(m, status)
+                continue
+            if preempt_ctx is not None and gid in preempt_gids:
+                got = self.gangpreempt.try_preempt(key, gid, members, preempt_ctx)
+                if got is not None and not got.get("vetoed"):
+                    gang_info["preempted"] = gang_info.get("preempted", 0) + 1
+                    gang_info["preempt_victims"] = (gang_info.get("preempt_victims", 0)
+                                                    + got["victims"])
+                    gang_info["cover_cost"] = gang_info.get("cover_cost", 0) + got["cost"]
+                    continue
+                if got is not None:
+                    gang_info["preempt_vetoed_partial"] = (
+                        gang_info.get("preempt_vetoed_partial", 0) + 1)
+            self.failed_count += len(members)
+            for m in members:
+                m.unschedulable_plugins = ("GangScheduling",)
+            self.recorder.event(
+                members[0].pod, "Warning", "FailedScheduling",
+                f"pod group {key}: {len(members)} member(s) cannot be placed together "
+                "(all-or-nothing); gang requeued")
+            self.queue.add_gang_backoff(members)
+
+    def _rank_align_assignment(self, cluster, sub, assignment, gang_info: Dict) -> np.ndarray:
+        """Within each (gang, class, request) group, where members are
+        interchangeable, permute WHICH member gets WHICH node so rank order
+        follows ring position (kernel H). The node multiset is untouched:
+        feasibility, capacity and the veto see the same placements. Records
+        the mean neighbor distance before and after in gang_info."""
+        slice_ids, pos = node_slice_positions(cluster)
+        if slice_ids is None:
+            return assignment  # no slice topology: adjacency is moot
+        a = np.asarray(assignment, dtype=np.int64)
+        gop = np.asarray(sub.gang_of_pod)
+        ranks = np.asarray(sub.gang_rank, dtype=np.int64)
+        groups = alignment_groups(gop, np.asarray(sub.class_of_pod), np.asarray(sub.req),
+                                  np.asarray(sub.req_nz))
+        # rank-less members order AFTER ranked siblings, by row
+        eff_rank = np.where(ranks >= 0, ranks, 1_000_000 + np.arange(len(ranks)))
+        # position key: slice-major ring position of the assigned node;
+        # unlabeled nodes after every labeled one, unplaced last
+        stride = cluster.n + 1
+        node_key = np.where(slice_ids >= 0, slice_ids * stride + np.maximum(pos, 0),
+                            2**28 + np.arange(cluster.n))
+        pos_key = np.where(a >= 0, node_key[np.maximum(a, 0)], 2**30)
+        aligned = rank_align(a, groups, eff_rank, pos_key, device=self.device)
+        ranked = ranks >= 0
+        ring_len = ring_lengths(slice_ids, pos)
+
+        def dist(assign):
+            ok = ranked & (assign >= 0)
+            sl = np.where(ok, slice_ids[np.maximum(assign, 0)], -1)
+            pp = np.where(ok, pos[np.maximum(assign, 0)], -1)
+            return mean_neighbor_distance(np.where(ranked, gop, -1).tolist(), ranks.tolist(),
+                                          sl.tolist(), pp.tolist(), ring_len)
+
+        pre, post = dist(a), dist(aligned)
+        if pre is not None:
+            gang_info["adjacency_pre"] = round(pre, 3)
+        if post is not None:
+            gang_info["adjacency_post"] = round(post, 3)
+        gang_info["rank_aligned"] = int((aligned != a).sum())
+        return aligned.astype(np.int32)
 
     def _bind_chunk(self, items) -> None:
         """One bind_many for a chunk of assumed placements, then the assume
@@ -274,6 +514,7 @@ class BatchScheduler(Scheduler):
                 self.scheduled_count += 1
             else:
                 self.cache.forget_pod(assumed)
+                self.gangs.note_forgotten(assumed)
                 self._handle_failure(qp, Status.error(msg))
         for i in self.cache.confirm_assumed_bulk(confirm):
             # assume expired or a foreign write got in first: ingest the
@@ -284,6 +525,57 @@ class BatchScheduler(Scheduler):
                 continue
             self._handle_pod(MODIFIED, cur)
 
+    # -- idle loops, resync, stats --------------------------------------------
+
+    def run_until_idle(self, max_cycles: int = 10_000) -> int:
+        """Drive batches until the active queue drains; before declaring idle,
+        pump events and run the parked-gang deadline sweep."""
+        n = 0
+        while n < max_cycles:
+            if self.schedule_batch() == 0:
+                self.pump_events()
+                self.sweep_expired_assumes()
+                if self.schedule_batch() == 0:
+                    break
+            n += 1
+        return n
+
+    def sweep_expired_assumes(self) -> List[str]:
+        """The gang preemptor's deadline: a cover whose victim deletions
+        stalled releases its parked gang to the normal retry ladder. The
+        cache's assume expiry comes with pipelined binds (ROADMAP.md queue 1
+        item 7); until then no assume expires and the list is empty."""
+        if self.gangpreempt is not None:
+            self.gangpreempt.sweep(self.clock.now())
+        return []
+
+    def resync_from_store(self) -> None:
+        """Rebuild all scheduler state from the store, as a restarted
+        scheduler would: a fresh cache and queue from the LIST, the tensor
+        cache and in-flight cover tracking dropped."""
+        self._tensor_cache = TensorCache()
+        if self.gangpreempt is not None:
+            self.gangpreempt.reset()
+        self.queue.clear()
+        self._rebuild_from_store(preserve_queue=False)
+
+    def _preemption_plugin(self) -> Optional[DefaultPreemption]:
+        """The victim executor the gang preemptor fires through."""
+        return self.preemption
+
+    def gang_stats(self) -> Optional[Dict]:
+        """The gang part of the JAX sched_stats(): None while no PodGroup
+        exists."""
+        if not self.gangs.active:
+            return None
+        return {"staged": self.queue.gang_staged_count(),
+                "parked": self.queue.gang_parked_count(),
+                "vetoes": self.gang_vetoes,
+                "quorum_expired_assumes": self.gangs.quorum_expired_count(self.cache.contains),
+                "preemption": (self.gangpreempt.stats()
+                               if self.gangpreempt is not None else None)}
+
+
 def _subset_batch(batch, idx):
     """View of a PodBatchTensors restricted to pod rows idx (class tables shared)."""
     return dataclasses.replace(
@@ -293,4 +585,6 @@ def _subset_batch(batch, idx):
         req=batch.req[idx],
         req_nz=batch.req_nz[idx],
         balanced_active=batch.balanced_active[idx],
+        gang_of_pod=None if batch.gang_of_pod is None else batch.gang_of_pod[idx],
+        gang_rank=None if batch.gang_rank is None else batch.gang_rank[idx],
     )

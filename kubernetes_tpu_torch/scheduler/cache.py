@@ -212,6 +212,11 @@ class Cache:
         with self._lock:
             return key in self._assumed
 
+    def contains(self, key: str) -> bool:
+        """Is the pod accounted (added or assumed) on some node?"""
+        with self._lock:
+            return key in self._pod_nodes
+
     # -- snapshotting (cache.go:186 UpdateSnapshot) ----------------------------
 
     def update_snapshot(self) -> Snapshot:

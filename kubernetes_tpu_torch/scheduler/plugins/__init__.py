@@ -1,1 +1,2 @@
-"""Plugin helpers the tensorizer shares with the (later) serial plugins."""
+"""Plugin helpers the tensorizer shares with the (later) serial plugins, and
+the victim-execution half of DefaultPreemption."""

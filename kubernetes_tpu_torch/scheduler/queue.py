@@ -5,9 +5,18 @@ pkg/scheduler/backend/queue/scheduling_queue.go — PriorityQueue :154,
 AddUnschedulableIfNotPresent :741, flushBackoffQCompleted :790, Pop :829,
 MoveAllToActiveOrBackoffQueue :1028; backoff_queue.go:64, initial 1s, max
 10s). Pop order is the default QueueSort: priority descending, then
-admission time, then admission sequence. Gang staging and parking come with
-gangs (ROADMAP.md queue 1 item 3); custom QueueSort plugins with the serial
-framework (item 2); the background flush loops with the daemon (item 7).
+admission time, then admission sequence. Custom QueueSort plugins come with
+the serial framework (ROADMAP.md queue 1 item 2); the background loop that
+calls the flushes with the daemon (item 7).
+
+Gang gating (scheduler/gang.py): with gang hooks installed, members of a
+PodGroup are held in a STAGING area, a fourth tier beside active, backoff
+and unschedulable, until the group reaches quorum (staged + already placed
+>= min_member); then the whole gang is admitted contiguously (one
+timestamp, consecutive sequence numbers) so a single solver batch sees it
+together. A failed gang re-enters through add_gang_backoff as a unit (one
+shared expiry); a gang whose victim cover fired waits in the PARKED tier
+until the preemptor releases it (scheduler/gangpreempt.py).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from ..utils import Clock
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0  # seconds (scheduler.go:252)
 DEFAULT_POD_MAX_BACKOFF = 10.0  # seconds (scheduler.go:253)
+FLUSH_UNSCHEDULABLE_TIMEOUT = 30.0  # scheduling_queue.go:91
 
 
 @dataclass
@@ -55,6 +65,31 @@ class SchedulingQueue:
         self._in_active: Dict[str, QueuedPodInfo] = {}
         self._backoff: List[Tuple[float, int, QueuedPodInfo]] = []
         self._unschedulable: Dict[str, QueuedPodInfo] = {}
+        # gang staging: group key -> {pod key: qp}. Hooks are installed by the
+        # batch scheduler (set_gang_hooks); without them, or while
+        # gang_active() is False, every gang path is skipped.
+        self._gang_of = None  # (pod) -> Optional[str]
+        self._gang_ready = None  # (group, staged_count) -> Optional[bool]
+        self._gang_active = None  # () -> bool
+        self._gang_staging: Dict[str, Dict[str, QueuedPodInfo]] = {}
+        # parked gangs (victim cover fired): off every retry loop until the
+        # preemptor releases them; still pending for the conservation check
+        self._gang_parked: Dict[str, Dict[str, QueuedPodInfo]] = {}
+
+    def set_gang_hooks(self, gang_of, gang_ready, gang_active) -> None:
+        """Install gang gating: gang_of(pod) names the pod's group (None for
+        non-members), gang_ready(group, staged) decides quorum, gang_active()
+        is the batch-level fast-out (False until any PodGroup exists)."""
+        with self._lock:
+            self._gang_of = gang_of
+            self._gang_ready = gang_ready
+            self._gang_active = gang_active
+
+    def _gang_gate(self):
+        """gang_of while gang gating is on, else None."""
+        if self._gang_active is not None and self._gang_active():
+            return self._gang_of
+        return None
 
     @staticmethod
     def _sort_key(qp: QueuedPodInfo):
@@ -76,11 +111,18 @@ class SchedulingQueue:
             return
         with self._lock:
             now = self._clock.now()
+            gang_of = self._gang_gate()
             for pod in pods:
                 qp = QueuedPodInfo(pod=pod, timestamp=now)
                 self._unschedulable.pop(qp.key, None)
-                if qp.key not in self._in_active:
-                    self._heap_push(qp)
+                if qp.key in self._in_active:
+                    continue
+                group = gang_of(pod) if gang_of is not None else None
+                if group is not None:
+                    for m in self._gang_stage(group, qp):
+                        self._heap_push(m)
+                    continue
+                self._heap_push(qp)
             self._lock.notify_all()
 
     def _push_active(self, qp: QueuedPodInfo) -> None:
@@ -90,11 +132,105 @@ class SchedulingQueue:
         if self._pre_enqueue is not None and not self._pre_enqueue(qp.pod):
             self._unschedulable[qp.key] = qp  # still gated: stay parked
             return
+        gang_of = self._gang_gate()
+        if gang_of is not None:
+            group = gang_of(qp.pod)
+            if group is not None:
+                for m in self._gang_stage(group, qp):
+                    self._heap_push(m)
+                return
         self._heap_push(qp)
 
     def _heap_push(self, qp: QueuedPodInfo) -> None:
         self._in_active[qp.key] = qp
         heapq.heappush(self._active, (self._sort_key(qp), next(self._seq), qp))
+
+    # -- gang staging (scheduler/gang.py) --------------------------------------
+
+    def _gang_stage(self, group: str, qp: QueuedPodInfo) -> List[QueuedPodInfo]:
+        """Stage one gang member; returns the members to admit NOW ([] while
+        the group is below quorum). Admitted members share one timestamp, so
+        with equal priorities they pop contiguously."""
+        self._gang_staging.setdefault(group, {})[qp.key] = qp
+        return self._gang_collect(group, requester=qp)
+
+    def _gang_collect(self, group: str,
+                      requester: Optional[QueuedPodInfo] = None) -> List[QueuedPodInfo]:
+        staged = self._gang_staging.get(group)
+        if (not staged or self._gang_ready is None
+                or not self._gang_ready(group, len(staged))):
+            return []
+        if self._pre_enqueue is not None:
+            # a gate may have closed on a member staged earlier: it breaks
+            # quorum and the gang keeps waiting
+            for key, m in list(staged.items()):
+                if m is requester:
+                    continue
+                if not self._pre_enqueue(m.pod):
+                    staged.pop(key)
+                    self._unschedulable[key] = m
+            if not staged or not self._gang_ready(group, len(staged)):
+                if not staged:
+                    self._gang_staging.pop(group, None)
+                return []
+        self._gang_staging.pop(group, None)
+        now = self._clock.now()
+        members = list(staged.values())
+        for m in members:
+            m.timestamp = now
+        return members
+
+    def reconsider_gangs(self) -> None:
+        """Re-evaluate every staged group's quorum (on PodGroup events and
+        membership changes: a created or raised PodGroup, or bound siblings,
+        can unblock members that arrived first)."""
+        with self._lock:
+            moved = False
+            for group in list(self._gang_staging):
+                for m in self._gang_collect(group):
+                    self._heap_push(m)
+                    moved = True
+            if moved:
+                self._lock.notify_all()
+
+    def park_gang(self, group: str, members: List[QueuedPodInfo]) -> None:
+        """Park a preempting gang: its victim cover fired and the deletions are
+        in flight. The members wait out of every retry loop until
+        release_parked_gang moves them back. Re-parking replaces."""
+        if not members:
+            return
+        with self._lock:
+            slot = self._gang_parked.setdefault(group, {})
+            for m in members:
+                slot[m.key] = m
+
+    def release_parked_gang(self, group: str) -> int:
+        """Move a parked gang back through the admission path: the members
+        re-stage under their group, reach quorum together and admit
+        contiguously, without a backoff wait. Returns the members released."""
+        with self._lock:
+            slot = self._gang_parked.pop(group, None)
+            if not slot:
+                return 0
+            now = self._clock.now()
+            for m in slot.values():
+                m.timestamp = now
+                self._push_active(m)
+            self._lock.notify_all()
+            return len(slot)
+
+    def add_gang_backoff(self, members: List[QueuedPodInfo]) -> None:
+        """Requeue a failed gang as a UNIT: every member enters the backoff
+        tier under ONE shared expiry (the slowest member's), so the gang
+        re-stages and re-admits together."""
+        if not members:
+            return
+        with self._lock:
+            now = self._clock.now()
+            ready = now + max(self._backoff_duration(m.attempts) for m in members)
+            for m in members:
+                m.timestamp = now
+                heapq.heappush(self._backoff, (ready, next(self._seq), m))
 
     def add_unschedulable(self, qp: QueuedPodInfo) -> None:
         """AddUnschedulableIfNotPresent (:741): failed pods wait for an event."""
@@ -149,6 +285,34 @@ class SchedulingQueue:
                 self._push_active(qp)
             self._lock.notify_all()
 
+    def flush_unschedulable_left_over(self) -> None:
+        """Pods unschedulable for longer than 30 s are requeued (:350). Gang
+        members staged under a group with NO PodGroup (deleted, or never
+        created) are released as ordinary pods after the same window; a
+        group with a live PodGroup below quorum keeps waiting."""
+        with self._lock:
+            now = self._clock.now()
+            moved = False
+            for key, qp in list(self._unschedulable.items()):
+                if now - qp.timestamp > FLUSH_UNSCHEDULABLE_TIMEOUT:
+                    self._unschedulable.pop(key)
+                    self._push_active(qp)
+                    moved = True
+            for group in list(self._gang_staging):
+                staged = self._gang_staging[group]
+                if (self._gang_ready is None
+                        or self._gang_ready(group, len(staged)) is not None):
+                    continue
+                for key, qp in list(staged.items()):
+                    if now - qp.timestamp > FLUSH_UNSCHEDULABLE_TIMEOUT:
+                        staged.pop(key)
+                        self._heap_push(qp)
+                        moved = True
+                if not staged:
+                    self._gang_staging.pop(group, None)
+            if moved:
+                self._lock.notify_all()
+
     # -- pop -------------------------------------------------------------------
 
     def pop_batch(self, max_n: int) -> List[QueuedPodInfo]:
@@ -176,6 +340,7 @@ class SchedulingQueue:
         requeue. Returns True if the pod was known to the queue."""
         with self._lock:
             key = pod.key
+            staged_in = None
             tracked = self._in_active.get(key) or self._unschedulable.get(key)
             if tracked is None:
                 for _, _, qp in self._backoff:
@@ -183,9 +348,33 @@ class SchedulingQueue:
                         tracked = qp
                         break
             if tracked is None:
+                for group, staged in self._gang_staging.items():
+                    if key in staged:
+                        tracked, staged_in = staged[key], group
+                        break
+            if tracked is None:
+                # parked for a victim cover: keep the object fresh but stay
+                # parked (the preemptor owns when the gang re-enters)
+                for parked in self._gang_parked.values():
+                    if key in parked:
+                        tracked = parked[key]
+                        break
+            if tracked is None:
                 return False
             spec_changed = tracked.pod.spec != pod.spec
+            labels_changed = tracked.pod.metadata.labels != pod.metadata.labels
             tracked.pod = pod
+            if (spec_changed or labels_changed) and staged_in is not None:
+                # labels carry gang membership: re-stage under the current
+                # group (or leave staging if no longer a member)
+                staged = self._gang_staging.get(staged_in)
+                if staged is not None:
+                    staged.pop(key, None)
+                    if not staged:
+                        self._gang_staging.pop(staged_in, None)
+                self._push_active(tracked)
+                self._lock.notify()
+                return True
             if spec_changed:
                 if key in self._unschedulable:
                     self._unschedulable.pop(key)
@@ -211,6 +400,11 @@ class SchedulingQueue:
     def delete_key(self, key: str) -> None:
         with self._lock:
             self._unschedulable.pop(key, None)
+            for tier in (self._gang_staging, self._gang_parked):
+                for group in list(tier):
+                    members = tier[group]
+                    if members.pop(key, None) is not None and not members:
+                        tier.pop(group, None)
             if self._in_active.pop(key, None) is not None:
                 self._active = [e for e in self._active if e[2].key != key]
                 heapq.heapify(self._active)
@@ -218,12 +412,45 @@ class SchedulingQueue:
                 self._backoff = [e for e in self._backoff if e[2].key != key]
                 heapq.heapify(self._backoff)
 
+    def clear(self) -> None:
+        """Drop every queued pod across all tiers (resync repopulates from a
+        fresh LIST)."""
+        with self._lock:
+            self._active.clear()
+            self._in_active.clear()
+            self._backoff.clear()
+            self._unschedulable.clear()
+            self._gang_staging.clear()
+            self._gang_parked.clear()
+
+    def _gang_tiers(self):
+        return itertools.chain(self._gang_staging.values(), self._gang_parked.values())
+
     def tracked_keys(self) -> List[str]:
-        """Keys of every pod the queue knows, across all three tiers."""
+        """Keys of every pod the queue knows, across all tiers (gang staging
+        and parking included)."""
         with self._lock:
             return (list(self._in_active) + [e[2].key for e in self._backoff]
-                    + list(self._unschedulable))
+                    + list(self._unschedulable)
+                    + [k for members in self._gang_tiers() for k in members])
 
     def unschedulable_pods(self) -> List[QueuedPodInfo]:
         with self._lock:
             return list(self._unschedulable.values())
+
+    # -- introspection ---------------------------------------------------------
+
+    def lengths(self) -> Tuple[int, int, int]:
+        """(active, backoff, unschedulable); staged and parked gang members
+        count as unschedulable (waiting, the same observable meaning)."""
+        with self._lock:
+            waiting = sum(len(m) for m in self._gang_tiers())
+            return len(self._active), len(self._backoff), len(self._unschedulable) + waiting
+
+    def gang_staged_count(self) -> int:
+        with self._lock:
+            return sum(len(s) for s in self._gang_staging.values())
+
+    def gang_parked_count(self) -> int:
+        with self._lock:
+            return sum(len(s) for s in self._gang_parked.values())

@@ -10,6 +10,14 @@ QueueingHints and preemption come with the serial framework and plugins
 (ROADMAP.md queue 1 item 2): until then every cluster event that could make
 a pod schedulable moves all unschedulable pods (the pre-hints behaviour of
 the reference queue), and PreEnqueue is the SchedulingGates rule.
+
+Gang plumbing (JAX serial.py :224-233, :397-414, :545-593): PodGroups are
+listed before pods so the initial backlog stages under known quorums; every
+pod event feeds the gang directory's placed counts, a membership change or a
+PodGroup event re-evaluates the staged gangs, and a DELETED pod checks a
+victim off the gang preemptor's in-flight covers. The directory and the
+preemptor are installed by BatchScheduler; each hook is gated on them.
+Failures are narrated as FailedScheduling events (api/events.py).
 """
 
 from __future__ import annotations
@@ -18,12 +26,15 @@ import itertools
 from typing import Dict, List, Optional
 
 from ..api import Pod
+from ..api.events import EventRecorder
+from ..api.podgroup import pod_group_key
 from ..api.types import DEFAULT_SCHEDULER_NAME, PodCondition
 from ..store import (ADDED, DELETED, MODIFIED, APIStore, CoalescedEvent, NotFoundError)
 from ..utils import Clock
 from .cache import Cache
 from .framework import Status
-from .queue import QueuedPodInfo, SchedulingQueue
+from .queue import (DEFAULT_POD_INITIAL_BACKOFF, DEFAULT_POD_MAX_BACKOFF, QueuedPodInfo,
+                    SchedulingQueue)
 
 _origin_seq = itertools.count()
 
@@ -34,19 +45,30 @@ class Scheduler:
     """Wires store watch -> cache + queue -> a scheduling cycle -> bind writes.
     Subclasses provide schedule_cycle()."""
 
-    WATCHED_KINDS = ("nodes", "pods", "namespaces")
+    WATCHED_KINDS = ("nodes", "pods", "namespaces", "podgroups")
 
-    def __init__(self, store: APIStore, clock: Optional[Clock] = None):
+    def __init__(self, store: APIStore, clock: Optional[Clock] = None,
+                 pod_initial_backoff: float = DEFAULT_POD_INITIAL_BACKOFF,
+                 pod_max_backoff: float = DEFAULT_POD_MAX_BACKOFF):
         self.store = store
         self.clock = clock or Clock()
         self.cache = Cache()
-        self.queue = SchedulingQueue(clock=self.clock, pre_enqueue=self._pre_enqueue)
+        self.queue = SchedulingQueue(clock=self.clock, initial_backoff=pod_initial_backoff,
+                                     max_backoff=pod_max_backoff,
+                                     pre_enqueue=self._pre_enqueue)
         # our own bind batches come back tagged with this origin and need no
         # re-ingest (the bind path confirmed their assumes already)
         self._bind_origin = f"scheduler-torch-{next(_origin_seq)}"
         self._watch = None
         self.scheduled_count = 0
         self.failed_count = 0
+        # event narration (EventRecorder, schedule_one.go:1008): best effort,
+        # aggregated, never blocks scheduling
+        self.recorder = EventRecorder(store, component="default-scheduler", clock=self.clock)
+        # gang directory and preemptor (scheduler/gang.py, gangpreempt.py),
+        # installed by BatchScheduler; every hook below is gated on them
+        self.gangs = None
+        self.gangpreempt = None
         # namespace labels for InterPodAffinity namespaceSelector
         self._ns_labels: Dict[str, Dict[str, str]] = {}
 
@@ -76,8 +98,16 @@ class Scheduler:
         lists, rv = self.store.list_many(self.WATCHED_KINDS)
         for n in lists["nodes"]:
             self.cache.add_node(n)
+        if self.gangs is not None:
+            # quorums must be known BEFORE pods are ingested, or the gang
+            # members of the initial backlog would all wait in staging
+            self.gangs.reset()
+            for pg in lists["podgroups"]:
+                self.gangs.observe_podgroup(ADDED, pg)
         known_pending = set()
         for p in lists["pods"]:
+            if self.gangs is not None:
+                self.gangs.observe_pod(ADDED, p)
             if p.spec.node_name:
                 if not p.is_terminal():
                     self.cache.add_pod(p)
@@ -159,12 +189,35 @@ class Scheduler:
             self._handle_pod(ev.type, ev.obj)
         elif ev.kind == "namespaces":
             self._ns_labels[ev.obj.metadata.name] = dict(ev.obj.metadata.labels)
+        elif ev.kind == "podgroups":
+            # a created or raised PodGroup can complete a staged gang's
+            # quorum; a delete orphans its members (they schedule as ordinary
+            # pods from then on)
+            if self.gangs is not None:
+                self.gangs.observe_podgroup(ev.type, ev.obj)
+                self.queue.reconsider_gangs()
+            self._move_for_event()
 
     def _handle_pod(self, etype: str, pod: Pod) -> None:
         # unassigned pods of another scheduler are not ours; bound pods
         # still feed the cache
         if not pod.spec.node_name and not self._responsible(pod):
             return
+        if etype == DELETED or pod.is_terminal():
+            # a terminating victim checks off its cover; the LAST one
+            # releases the parked gang to re-stage
+            gp = self.gangpreempt
+            if gp is not None and gp.has_waiting:
+                gp.note_pod_deleted(pod.key)
+        if self.gangs is not None:
+            # bound members count toward quorum, deletes and terminals free
+            # the slot (our own bind confirmations bypass this path: they
+            # were counted at assume)
+            self.gangs.observe_pod(etype, pod)
+            if (self.gangs.active and (etype == DELETED or pod.is_terminal()
+                                       or pod.spec.node_name) and pod_group_key(pod)):
+                # membership changed: a staged gang may have reached quorum
+                self.queue.reconsider_gangs()
         if pod.is_terminal() or etype == DELETED:
             if pod.spec.node_name:
                 self.cache.remove_pod(pod)
@@ -214,6 +267,7 @@ class Scheduler:
         qp.unschedulable_plugins = (status.plugin,) if status.plugin else ()
         self.queue.add_unschedulable(qp)
         message = status.message()
+        self.recorder.event(qp.pod, "Warning", "FailedScheduling", message)
 
         def set_cond(st):
             st.phase = "Pending"

@@ -119,9 +119,16 @@ class PodBatchTensors:
     # scheduling-relevant volumes, non-default PTS inclusion policies)
     fallback_class: np.ndarray  # [C] bool
 
-    # per-(class, node) gang slice-packing bonus; None for gang-free batches
-    # (gang scheduling is ROADMAP.md queue 1 item 3)
+    # gang rows (scheduler/gang.py): group id per pod (-1 = not a member),
+    # the group keys those ids index, and the per-(class, node) slice-packing
+    # score bonus. All None when the batch has no gang members: the solvers
+    # run their gang-free variants.
+    gang_of_pod: Optional[np.ndarray] = None  # [P] int32
+    gang_keys: Optional[List[str]] = None  # [G]
     gang_bonus: Optional[np.ndarray] = None  # [C, N] int32
+    # positional rank per gang member (-1 absent); None when no member
+    # carries one, and the rank-alignment pass is then skipped
+    gang_rank: Optional[np.ndarray] = None  # [P] int32
 
     @property
     def p(self) -> int:
@@ -387,14 +394,23 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
                     cluster: ClusterTensors, ns_labels=None,
                     hard_pod_affinity_weight: int = 1,
                     reuse: Optional[TensorCache] = None,
-                    changed_nodes: Optional[List[int]] = None) -> PodBatchTensors:
+                    changed_nodes: Optional[List[int]] = None,
+                    gangs=None) -> PodBatchTensors:
     """Group pods into classes, compile class tables, build PTS + IPA tensors.
 
     reuse + changed_nodes (from TensorCache.cluster_tensors) enable the
     incremental count path: when this batch registers the same selector
     classes as the previous one, per-node match counts are recomputed only
-    for changed nodes instead of scanning every bound pod."""
+    for changed nodes instead of scanning every bound pod.
+
+    gangs (a scheduler.gang.GangDirectory) threads group-id rows through the
+    batch: each pod's PodGroup index, its rank, and the per-class
+    slice-packing bonus. Skipped entirely while the directory is inactive
+    (no PodGroups)."""
     ns_labels = ns_labels or {}
+    gang_of_pod = gang_keys = gang_bonus = gang_rank = None
+    if gangs is not None and gangs.active:
+        gang_of_pod, gang_keys, gang_rank = gangs.batch_rows(pods)
     # pod-axis reuse: re-solving the SAME pending backlog skips the per-pod
     # signature/quantization loops (identity comparison of the pod lists)
     prev = getattr(reuse, "_last_batch", None) if reuse is not None else None
@@ -477,6 +493,15 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
         balanced_active = np.zeros(0, dtype=bool)
 
     tables = compile_class_tables(rep_pods, cluster.cols)
+
+    if gang_of_pod is not None:
+        # per-(class, node) packing bonus: classes are gang-exclusive (the
+        # gang label is part of pod_class_signature), so the bias rides the
+        # class axis like every other static score table
+        from ..scheduler.gang import gang_slice_bonus
+
+        gang_bonus = gang_slice_bonus(cluster, class_of_pod, np.asarray(req, dtype=np.int64),
+                                      tables.filter_ok, gang_of_pod, len(rep_pods))
 
     # -- topology keys + selector classes (shared by PTS + IPA) ----------------
     topo_key_idx: Dict[str, int] = {k: i for i, k in enumerate(cluster.topo_keys)}
@@ -617,6 +642,10 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
         class_matches_selcls=class_matches,
         ipa=ipa,
         fallback_class=fallback_class,
+        gang_of_pod=gang_of_pod,
+        gang_keys=gang_keys or None,
+        gang_bonus=gang_bonus,
+        gang_rank=gang_rank,
     )
     if reuse is not None:
         # the cached req vectors are only valid against the same resource-dim

@@ -1,11 +1,12 @@
 """In-memory API store: versioned objects, watches, atomic binds.
 
 The lean counterpart of `kubernetes_tpu/store/store.py` that the batch
-scheduler's exact path needs: create / create_many / get / update / delete /
-list / list_many / bind / bind_many / update_pod_status / watch, one
-monotonic resource version (RV) across kinds, bounded history for watch
-resume, and coalesced delivery of batched writes to watchers that opt in.
-Kinds are `nodes`, `pods` and `namespaces`; any other kind raises.
+scheduler needs: create / create_many / get / update / guaranteed_update /
+delete / delete_pods / list / list_many / bind / bind_many /
+update_pod_status / watch, one monotonic resource version (RV) across
+kinds, bounded history for watch resume, and coalesced delivery of batched
+writes to watchers that opt in. Kinds are `nodes`, `pods`, `namespaces`,
+`podgroups`, `poddisruptionbudgets` and `events`; any other kind raises.
 
 Columnar pod rows, shared-memory export, the lock-order graph, the native
 commit engine and chaos sites of the JAX package's store are not part of
@@ -25,7 +26,7 @@ ADDED = "ADDED"
 MODIFIED = "MODIFIED"
 DELETED = "DELETED"
 
-KINDS = ("nodes", "pods", "namespaces")
+KINDS = ("nodes", "pods", "namespaces", "podgroups", "poddisruptionbudgets", "events")
 
 
 class ConflictError(Exception):
@@ -223,10 +224,12 @@ class APIStore:
             self._emit(Event(ADDED, kind, _event_copy(obj), self._rv))
             return copy.deepcopy(obj)
 
-    def create_many(self, kind: str, objects: Iterable[Any],
-                    origin: Optional[str] = None) -> Tuple[int, List[Tuple[str, str]]]:
+    def create_many(self, kind: str, objects: Iterable[Any], origin: Optional[str] = None,
+                    consume: bool = False) -> Tuple[int, List[Tuple[str, str]]]:
         """Bulk create with ONE coalesced ADDED delivery; per-object failures
-        (AlreadyExists) do not abort the batch. Returns (created, errors)."""
+        (AlreadyExists) do not abort the batch. consume=True hands the
+        objects to the store (the caller never touches them again), which
+        skips the isolation copy. Returns (created, errors)."""
         errors: List[Tuple[str, str]] = []
         events: List[Event] = []
         with self._lock:
@@ -236,7 +239,8 @@ class APIStore:
                 if key in objs:
                     errors.append((key, f"{kind} {key} already exists"))
                     continue
-                obj = copy.deepcopy(obj)
+                if not consume:
+                    obj = copy.deepcopy(obj)
                 obj.metadata.resource_version = self._next_rv()
                 objs[key] = obj
                 events.append(Event(ADDED, kind, _event_copy(obj), self._rv))
@@ -267,6 +271,16 @@ class APIStore:
             self._emit(Event(MODIFIED, kind, _event_copy(obj), self._rv, old))
             return copy.deepcopy(obj)
 
+    def guaranteed_update(self, kind: str, key: str, mutate, max_retries: int = 16) -> Any:
+        """Read-modify-write with conflict retry (etcd3 GuaranteedUpdate)."""
+        for _ in range(max_retries):
+            updated = mutate(self.get(kind, key))
+            try:
+                return self.update(kind, updated)
+            except ConflictError:
+                continue
+        raise ConflictError(f"{kind} {key}: too many conflicts")
+
     def delete(self, kind: str, key: str) -> Any:
         with self._lock:
             objs = self._kind(kind)
@@ -278,16 +292,25 @@ class APIStore:
             self._emit(Event(DELETED, kind, obj, self._rv, old))
             return copy.deepcopy(obj)
 
-    def list(self, kind: str) -> Tuple[List[Any], int]:
-        """Consistent snapshot (copies) + the RV it is current to."""
+    def list(self, kind: str, predicate=None) -> Tuple[List[Any], int]:
+        """Consistent snapshot (copies of the objects `predicate` accepts, all
+        without one) + the RV it is current to."""
         with self._lock:
-            return [copy.deepcopy(o) for o in self._kind(kind).values()], self._rv
+            items = self._kind(kind).values()
+            if predicate is not None:
+                items = [o for o in items if predicate(o)]
+            return [copy.deepcopy(o) for o in items], self._rv
 
     def list_many(self, kinds: Iterable[str]) -> Tuple[Dict[str, List[Any]], int]:
         """Several kinds under one RV: the safe way to seed an informer."""
         with self._lock:
             return ({k: [copy.deepcopy(o) for o in self._kind(k).values()]
                      for k in kinds}, self._rv)
+
+    def history_events(self) -> List[Event]:
+        """The retained event history, oldest first."""
+        with self._lock:
+            return list(self._history)
 
     def resource_version(self) -> int:
         with self._lock:
@@ -331,6 +354,28 @@ class APIStore:
                 pods[key] = new
                 events.append(Event(MODIFIED, "pods", pod_bind_clone(new), self._rv, pod))
             self._emit_batch(MODIFIED, "pods", events, origin)
+        return len(events), errors
+
+    def delete_pods(self, keys: Iterable[str],
+                    origin: Optional[str] = None) -> Tuple[int, List[Tuple[str, str]]]:
+        """Batched pod delete: one critical section and one coalesced DELETED
+        delivery for a whole victim set. Each deleted pod's event carries a
+        structural clone at its post-delete RV with prev=old; per-key misses
+        (and duplicate keys) come back as errors without aborting the batch.
+        Returns (deleted, errors)."""
+        errors: List[Tuple[str, str]] = []
+        events: List[Event] = []
+        with self._lock:
+            pods = self._objects["pods"]
+            for key in keys:
+                old = pods.pop(key, None)
+                if old is None:
+                    errors.append((key, f"pods {key} not found"))
+                    continue
+                obj = pod_structural_clone(old)
+                obj.metadata.resource_version = self._next_rv()
+                events.append(Event(DELETED, "pods", obj, self._rv, old))
+            self._emit_batch(DELETED, "pods", events, origin)
         return len(events), errors
 
     def update_pod_status(self, namespace: str, name: str, mutate_status) -> Any:

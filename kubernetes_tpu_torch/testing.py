@@ -1,11 +1,12 @@
 """Fluent MakePod/MakeNode constructors for tests and the chip smoke
-(reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()). The
-same API as `kubernetes_tpu/testing.py`, so one workload generator can
-create the same objects for both packages."""
+(reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()), the
+PodGroup constructor and the pod-conservation check. The same API as
+`kubernetes_tpu/testing.py`, so one workload generator can create the same
+objects for both packages."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .api import (
     Affinity,
@@ -46,6 +47,16 @@ class MakePod:
 
     def labels(self, labels: Dict[str, str]) -> "MakePod":
         self._pod.metadata.labels.update(labels)
+        return self
+
+    def gang(self, group_name: str, rank: Optional[int] = None) -> "MakePod":
+        """Join the PodGroup `group_name` (in the pod's namespace); `rank` adds
+        the positional rank label the rank-alignment pass consumes."""
+        from .api.podgroup import POD_GROUP_LABEL, POD_GROUP_RANK_LABEL
+
+        self._pod.metadata.labels[POD_GROUP_LABEL] = group_name
+        if rank is not None:
+            self._pod.metadata.labels[POD_GROUP_RANK_LABEL] = str(rank)
         return self
 
     def req(self, requests: Dict[str, str], image: str = "", host_port: int = 0) -> "MakePod":
@@ -195,6 +206,16 @@ class MakeNode:
         self._node.metadata.labels.update(labels)
         return self
 
+    def tpu_slice(self, slice_id, index: Optional[int] = None) -> "MakeNode":
+        """Advertise the node's TPU slice (interconnect domain); `index` adds
+        the optional ring-position label."""
+        from .api.podgroup import LABEL_TPU_SLICE, LABEL_TPU_SLICE_INDEX
+
+        self._node.metadata.labels[LABEL_TPU_SLICE] = str(slice_id)
+        if index is not None:
+            self._node.metadata.labels[LABEL_TPU_SLICE_INDEX] = str(index)
+        return self
+
     def capacity(self, cap: Dict[str, str]) -> "MakeNode":
         cap = dict(cap)
         cap.setdefault("pods", "110")
@@ -220,3 +241,76 @@ class MakeNode:
 
     def obj(self) -> Node:
         return self._node
+
+
+def make_pod_group(name: str, min_member: int, namespace: str = "default"):
+    """A PodGroup (api/podgroup.py) with quorum min_member."""
+    from .api.podgroup import PodGroup, PodGroupSpec
+
+    return PodGroup(metadata=ObjectMeta(name=name, namespace=namespace, uid=new_uid()),
+                    spec=PodGroupSpec(min_member=min_member))
+
+
+def pod_conservation_report(store, scheduler, keys):
+    """Classify every submitted pod key at quiescence: each pod is exactly
+    one of bound / pending / terminally failed, never lost, never bound
+    twice. Returns {"bound", "pending", "failed", "lost", "double_bound",
+    "counts"}, the first five lists of keys.
+
+      bound         spec.node_name set in the store (the source of truth)
+      pending       unbound, non-terminal, and tracked by the queue (any
+                    tier, gang staging and parking included) or still
+                    assumed in the cache
+      failed        terminal phase
+      lost          none of the above
+      double_bound  bound more than once in the store's event history, or
+                    accounted on two nodes in the scheduler cache
+    """
+    pods = {p.key: p for p in store.list("pods")[0]}
+    queue_keys = set(scheduler.queue.tracked_keys())
+    bound, pending, failed, lost = [], [], [], []
+    for key in keys:
+        pod = pods.get(key)
+        if pod is None:
+            lost.append(key)
+        elif pod.spec.node_name:
+            bound.append(key)
+        elif pod.is_terminal():
+            failed.append(key)
+        elif key in queue_keys or scheduler.cache.is_assumed(key):
+            pending.append(key)
+        else:
+            lost.append(key)
+    keyset = set(keys)
+    # the store's history: unbound -> bound transitions per key
+    bind_counts: Dict[str, int] = {}
+    for ev in store.history_events():
+        if ev.kind != "pods" or ev.type != "MODIFIED":
+            continue
+        obj, prev = ev.obj, ev.prev
+        if obj.spec.node_name and (prev is None or not prev.spec.node_name) \
+                and obj.key in keyset:
+            bind_counts[obj.key] = bind_counts.get(obj.key, 0) + 1
+    double: List[str] = [k for k, n in bind_counts.items() if n > 1]
+    # the scheduler cache never accounts one pod on two nodes
+    seen: Dict[str, int] = {}
+    for ni in scheduler.cache.update_snapshot().node_info_list:
+        for pi in ni.pods:
+            if pi.pod.key in keyset:
+                seen[pi.pod.key] = seen.get(pi.pod.key, 0) + 1
+    double.extend(k for k, n in seen.items() if n > 1 and k not in double)
+    return {"bound": bound, "pending": pending, "failed": failed, "lost": lost,
+            "double_bound": double,
+            "counts": {"submitted": len(keys), "bound": len(bound), "pending": len(pending),
+                       "failed": len(failed), "lost": len(lost), "double_bound": len(double)}}
+
+
+def assert_pod_conservation(store, scheduler, keys):
+    """Raise AssertionError unless every submitted pod is conserved (0 lost,
+    0 bound twice). Returns the report."""
+    rep = pod_conservation_report(store, scheduler, keys)
+    assert not rep["lost"], (f"{len(rep['lost'])} pod(s) LOST (not bound, not queued, "
+                             f"not terminal): {rep['lost'][:10]}")
+    assert not rep["double_bound"], (f"{len(rep['double_bound'])} pod(s) DOUBLE-BOUND: "
+                                     f"{rep['double_bound'][:10]}")
+    return rep

@@ -3,10 +3,11 @@
 Run on the card with `python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py` (tests/conftest.py configures JAX, which the card's
 machine need not have; this file imports neither jax nor the JAX package).
-Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill) and
-kernel D (repair_check) are held against their plain PyTorch versions on
-the same card tensors, built by the port's own tensorizer or from seeded
-numpy inputs: exact equality.
+Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill),
+kernel D (repair_check), kernel G (cover_curve) and kernel H (rank_align)
+are held against their plain PyTorch versions on the same card tensors,
+built by the port's own tensorizer or from seeded numpy inputs: exact
+equality. The gang scheduler's card run is held against its CPU run.
 """
 
 import numpy as np
@@ -249,3 +250,168 @@ def test_kernel_d_rejects_wrong_input(cuda_device):
     bad[13] = dev_args[13][:, :3]
     with pytest.raises(ValueError, match="aff_ok"):
         rp.repair_check(*bad, d_max=d_max)
+
+
+# ---------------------------------------------------------------------------
+# kernel G (cover_curve) and kernel H (rank_align)
+# ---------------------------------------------------------------------------
+
+
+def _cover_args(seed, ns, k, r, device, pads=0, inelig=0.25, negative=False):
+    rng = np.random.default_rng(seed)
+    n_slots = 1 << max(0, ns - 1).bit_length()
+    k_max = 1 << max(0, k + pads - 1).bit_length()
+    free = np.zeros((n_slots, r), np.int32)
+    free[:ns] = rng.integers(-400 if negative else 0, 4000, size=(ns, r))
+    head = np.zeros(n_slots, np.int32)
+    head[:ns] = rng.integers(0, 110, size=ns)
+    elig = np.zeros(n_slots, bool)
+    elig[:ns] = rng.random(ns) >= inelig
+    vn = np.full(k_max, -1, np.int32)
+    vn[:k] = rng.integers(0, ns, size=k)
+    vr = np.zeros((k_max, r), np.int32)
+    vr[:k] = rng.integers(0, 2000, size=(k, r))
+    req = rng.integers(0, 3000, size=r).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (free, head, elig, vn, vr, req))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns,k,r,opts", [
+    (250, 1000, 3, {}),  # the main path's slice
+    (37, 0, 3, {"pads": 5}),  # k = 0 with pads
+    (200, 300, 4, {"pads": 200, "inelig": 0.5}),
+    (9, 40, 5, {"negative": True}),
+    (4000, 1000, 3, {}),  # above the JAX wrapper's 4M-element budget
+    (3, 3000, 1, {"inelig": 0.0}),  # k_max above one shared-memory tile
+])
+def test_kernel_g_matches_plain_on_card(cuda_device, ns, k, r, opts):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+    from kubernetes_tpu_torch.ops import kernels
+
+    args = _cover_args(ns + k + r, ns, k, r, cuda_device, **opts)
+    before = kernels.LAUNCHES["cover_curve"]
+    got = gcv.cover_curve(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cover_curve"] == before + 1
+    want = gcv.cover_curve_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    host = gcv.cover_curve_host(*(a.cpu().numpy() for a in args))
+    assert np.array_equal(got.cpu().numpy().astype(np.int64), host)
+
+
+@pytest.mark.gpu
+def test_kernel_g_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+
+    args = list(_cover_args(0, 8, 4, 3, cuda_device))
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(TypeError, match="free"):
+        gcv.cover_curve(*bad)
+    bad = list(args)
+    bad[4] = args[4][:, :2].contiguous()
+    with pytest.raises(ValueError, match="v_req"):
+        gcv.cover_curve(*bad)
+
+
+def _align_args(seed, p, p_max, device, ties):
+    rng = np.random.default_rng(seed)
+    a = np.full(p_max, -1, np.int32)
+    a[:p] = rng.integers(-1, 5000, size=p)
+    g = np.arange(p_max, dtype=np.int32) + np.int32(2**30)
+    g[:p] = rng.integers(-2, 9, size=p)
+    hi = 6 if ties else 1 << 30
+    rank = np.zeros(p_max, np.int32)
+    rank[:p] = rng.integers(-hi, hi, size=p)
+    pos = np.zeros(p_max, np.int32)
+    pos[:p] = np.where(a[:p] >= 0, rng.integers(0, hi, size=p), 2**30)
+    return tuple(torch.from_numpy(x).to(device) for x in (a, g, rank, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("p,p_max", [(1, 1), (2, 2), (50, 64), (4096, 4096), (3000, 4096),
+                                     (8000, 8192), (16384, 16384), (40000, 65536)])
+def test_kernel_h_matches_plain_on_card(cuda_device, p, p_max, ties):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+    from kubernetes_tpu_torch.ops import kernels
+
+    args = _align_args(p + int(ties), p, p_max, cuda_device, ties)
+    before = kernels.LAUNCHES["rank_align"]
+    got = gcv.rank_align_kernel(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rank_align"] == before + 1
+    want = gcv.rank_align_plain(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_h_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+
+    args = _align_args(0, 6, 8, cuda_device, False)
+    with pytest.raises(ValueError, match="power of two"):
+        gcv.rank_align_kernel(*(a[:6].contiguous() for a in args))
+    with pytest.raises(TypeError, match="rank"):
+        gcv.rank_align_kernel(args[0], args[1], args[2].long(), args[3])
+
+
+@pytest.mark.gpu
+def test_gang_wrappers_card_match_cpu(cuda_device):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+
+    rng = np.random.default_rng(4)
+    free = rng.integers(0, 40, size=(11, 3))
+    head = rng.integers(0, 9, size=11)
+    elig = rng.random(11) > 0.2
+    vn = rng.integers(0, 11, size=17)
+    vr = rng.integers(0, 9, size=(17, 3))
+    req = np.array([3, 0, 2])
+    assert np.array_equal(gcv.cover_curves(free, head, elig, vn, vr, req, device=cuda_device),
+                          gcv.cover_curves(free, head, elig, vn, vr, req, device="cpu"))
+    a = rng.integers(-1, 9, size=37)
+    g = rng.integers(0, 4, size=37).astype(np.int32)
+    r = rng.integers(0, 10, size=37)
+    k = np.where(a >= 0, rng.integers(0, 10, size=37), 2**30)
+    assert np.array_equal(gcv.rank_align(a, g, r, k, device=cuda_device),
+                          gcv.rank_align(a, g, r, k, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["exact", "fast"])
+def test_gang_scheduler_card_matches_cpu(cuda_device, solver):
+    """A ranked gang that fits one slice only after evictions, beside one
+    that fits free room: the card run evicts and places exactly as the CPU
+    run, through kernels G and H."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        store = APIStore()
+        for s in range(3):
+            for i in range(4):
+                store.create("nodes", tt.MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+                             .capacity({"cpu": "8", "memory": "32Gi"}).obj())
+                if s < 2:
+                    store.create("pods", tt.MakePod(f"low-{s}-{i}").priority(1 + s)
+                                 .req({"cpu": "6"}).node(f"node-{s}-{i}").obj())
+        sched = BatchScheduler(store, device=device, solver=solver)
+        sched.preemption.async_preparation = False
+        sched.sync()
+        kernels.reset_launch_counts()
+        for name, n in (("a", 8), ("b", 12), ("c", 8)):
+            store.create("podgroups", tt.make_pod_group(name, n))
+            store.create_many("pods", [tt.MakePod(f"{name}-{i}").gang(name, rank=n - 1 - i)
+                                       .priority(100).req({"cpu": "3"}).obj()
+                                       for i in range(n)])
+        for _ in range(6):
+            sched.run_until_idle()
+        if device.type == "cuda":
+            assert kernels.LAUNCHES["cover_curve"] > 0 and kernels.LAUNCHES["rank_align"] > 0
+        pods, _ = store.list("pods")
+        results.append(({p.metadata.name: p.spec.node_name for p in pods},
+                        sched.gangpreempt.stats()))
+    assert results[0] == results[1]
+    assert results[0][1]["preempted"] >= 1

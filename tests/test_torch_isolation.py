@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package.
 
-A subprocess runs one batch through the port on the CPU and reports what
+A subprocess runs one batch through the port on the CPU (exact and fast)
+and one gang through the victim cover and rank alignment, and reports what
 it imported; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -46,9 +47,35 @@ for solver in ("exact", "fast"):
     if solver == "fast":
         bound["repair_batches"] = sched.repair_totals["batches"]
         bound["last_path"] = sched._solve_path
+
+# a gang that fits one slice only after evicting lower-priority fillers:
+# the cover (kernel G's plain version), eviction, parking, release and the
+# rank alignment (kernel H's plain version)
+from kubernetes_tpu_torch.api.policy import PodDisruptionBudget
+from kubernetes_tpu_torch.testing import make_pod_group
+store = APIStore()
+for s in range(2):
+    for i in range(4):
+        store.create("nodes", MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+                     .capacity({"cpu": "8", "memory": "32Gi"}).obj())
+        store.create("pods", MakePod(f"low-{s}-{i}").priority(1).req({"cpu": "6"})
+                     .node(f"node-{s}-{i}").obj())
+sched = BatchScheduler(store, device="cpu", solver="fast")
+sched.preemption.async_preparation = False
+sched.sync()
+store.create("podgroups", make_pod_group("train", 8))
+store.create_many("pods", [MakePod(f"g-{i}").gang("train", rank=i).priority(100)
+                           .req({"cpu": "3"}).obj() for i in range(8)])
+for _ in range(5):
+    sched.run_until_idle()
+pods, _ = store.list("pods")
+bound["gang"] = sum(1 for p in pods if p.metadata.name.startswith("g-") and p.spec.node_name)
+bound["victims"] = sched.gangpreempt.stats()["victims"]
 print(json.dumps({"bound": bound,
                   "loaded": sorted(m for m in sys.modules
-                                   if m.startswith("kubernetes_tpu_torch.models")),
+                                   if m.startswith(("kubernetes_tpu_torch.models",
+                                                    "kubernetes_tpu_torch.api",
+                                                    "kubernetes_tpu_torch.scheduler"))),
                   "modules": sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
 """
@@ -59,9 +86,14 @@ def test_one_batch_imports_no_jax_and_no_jax_package():
                          text=True, timeout=300, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     # fast mode: the constrained batch rode repair, the constraint-free one waterfill
-    assert got["bound"] == {"exact": 9, "fast": 9, "repair_batches": 1, "last_path": "fast"}
-    assert {"kubernetes_tpu_torch.models.repair",
-            "kubernetes_tpu_torch.models.waterfill"} <= set(got["loaded"])
+    assert got["bound"] == {"exact": 9, "fast": 9, "repair_batches": 1, "last_path": "fast",
+                            "gang": 8, "victims": 4}
+    assert {"kubernetes_tpu_torch.models.repair", "kubernetes_tpu_torch.models.waterfill",
+            "kubernetes_tpu_torch.models.gangcover", "kubernetes_tpu_torch.scheduler.gang",
+            "kubernetes_tpu_torch.scheduler.gangpreempt",
+            "kubernetes_tpu_torch.scheduler.plugins.default_preemption",
+            "kubernetes_tpu_torch.api.podgroup", "kubernetes_tpu_torch.api.events",
+            "kubernetes_tpu_torch.api.policy"} <= set(got["loaded"])
     assert got["modules"] == []
 
 
@@ -103,3 +135,16 @@ def test_solver_wrappers_raise_for_other_devices():
     with pytest.raises(ValueError, match="device"):
         scatter_rows(meta, torch.empty(1, dtype=torch.int32, device="meta"),
                      torch.empty((1, 2), dtype=torch.int32, device="meta"))
+
+
+def test_gang_kernel_wrappers_raise_for_other_devices():
+    from kubernetes_tpu_torch.models.gangcover import cover_curve, rank_align_kernel
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="device"):
+        cover_curve(meta(4, 3), meta(4), meta(4, dtype=torch.bool), meta(2), meta(2, 3),
+                    meta(3))
+    with pytest.raises(ValueError, match="device"):
+        rank_align_kernel(meta(8), meta(8), meta(8), meta(8))

@@ -5,7 +5,10 @@ mixed ones. Each takes a testing module (`kubernetes_tpu.testing` or
 `kubernetes_tpu_torch.testing`, which share one MakePod/MakeNode API) and returns
 (nodes, pods[, pre-bound pods]), so the same objects can be built for the
 JAX package and for the port. This module imports neither jax nor the JAX
-package, so the card-only tests can use it on a machine without JAX.
+package when it is imported (only its JAX comparisons do, inside the test),
+so the card-only tests can use it on a machine without JAX. The chip
+smoke's gang workloads (chip_smoke.py gang_workloads, preempt_workloads)
+run here at a small size in both packages.
 """
 
 import random
@@ -339,3 +342,96 @@ def check_mirrors_after_churn(device):
         fresh = ttz.build_cluster_tensors(snap)
         for f in ttz.TensorCache.DEVICE_FIELDS:
             np.testing.assert_array_equal(getattr(cluster, f), getattr(fresh, f), err_msg=f)
+
+
+# -- the chip smoke's gang workloads at a small size, held against JAX ------------
+
+GANG_SIZES = {"nodes": 100, "batch": 4096, "gang_members": 5, "preempt_members": 8}
+
+
+def _schedulers(port):
+    """(store, make-scheduler) of one package, the JAX one without pipelined
+    binds (the port binds synchronously)."""
+    if port:
+        from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+        from kubernetes_tpu_torch.store import APIStore
+
+        return APIStore(), lambda store, **kw: BatchScheduler(store, device="cpu", **kw)
+    from kubernetes_tpu.scheduler import Framework
+    from kubernetes_tpu.scheduler.batch import BatchScheduler as JBatch
+    from kubernetes_tpu.scheduler.plugins import default_plugins
+    from kubernetes_tpu.store import APIStore as JStore
+
+    return JStore(), lambda store, **kw: JBatch(store, Framework(default_plugins()),
+                                                pipeline_binds=False, **kw)
+
+
+@pytest.mark.parametrize("solver", ["fast", "exact"])
+@pytest.mark.parametrize("name", ["GangScheduling_2k_250", "GangScheduling_5000"])
+def test_chip_smoke_gang_workloads_match_jax(name, solver):
+    import chip_smoke
+
+    import kubernetes_tpu.testing as jt
+
+    maps = []
+    for port, m in ((False, jt), (True, tt)):
+        nodes, gangs, batch = chip_smoke.gang_workloads(GANG_SIZES)(m)[name]
+        store, make = _schedulers(port)
+        store.create_many("nodes", nodes)
+        sched = make(store, batch_size=batch, solver=solver)
+        sched.sync()
+        for pg, _ms in gangs:
+            store.create("podgroups", pg)
+        store.create_many("pods", [p for _pg, ms in gangs for p in ms])
+        sched.run_until_idle()
+        pods, _ = store.list("pods")
+        assert all(p.spec.node_name for p in pods) and sched.gang_vetoes == 0
+        maps.append({p.metadata.name: p.spec.node_name for p in pods})
+    assert maps[0] == maps[1]
+
+
+@pytest.mark.parametrize("name", ["GangPreemption", "GangPreemption_5000"])
+def test_chip_smoke_preempt_workloads_match_jax(name):
+    """The cover evicts the same victims and the gang lands on the same nodes;
+    the uncoverable gang is vetoed in both with no further eviction."""
+    import time
+
+    import chip_smoke
+
+    import kubernetes_tpu.testing as jt
+
+    outs = []
+    for port, m in ((False, jt), (True, tt)):
+        nodes, bound, n_gang, n_big = chip_smoke.preempt_workloads(GANG_SIZES)(m)[name]
+        store, make = _schedulers(port)
+        store.create_many("nodes", nodes)
+        store.create_many("pods", bound)
+        sched = make(store, batch_size=1024, solver="fast", pod_initial_backoff=0.05,
+                     pod_max_backoff=0.2)
+        sched.sync()
+        w = store.watch(kind="pods", maxsize=100_000)
+        for gname, n in (("gp", n_gang), ("gbig", n_big)):
+            pg, members = chip_smoke.gang_pods(gname, n, "3", prio=100, m=m)
+            store.create("podgroups", pg)
+            store.create_many("pods", members)
+            deadline = time.time() + 10.0
+            while time.time() < deadline:
+                sched.run_until_idle()
+                sched.queue.flush_backoff_completed()
+                sched.pump_events()
+                if sum(1 for p in store.list("pods")[0]
+                       if p.metadata.name.startswith("gp-") and p.spec.node_name) >= n_gang:
+                    break
+                time.sleep(0.02)
+        pods, _ = store.list("pods")
+        deleted = sorted(ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED")
+        stats = sched.gangpreempt.stats()
+        outs.append((deleted, {p.metadata.name: p.spec.node_name for p in pods
+                               if not p.metadata.name.startswith("low-")},
+                     stats["preempted"], stats["victims"]))
+    assert outs[0] == outs[1]
+    deleted, placement, preempted, victims = outs[1]
+    assert preempted == 1 and victims == len(deleted) > 0
+    assert sum(1 for k, v in placement.items() if k.startswith("gp-") and v) == len(
+        [k for k in placement if k.startswith("gp-")])
+    assert not any(v for k, v in placement.items() if k.startswith("gbig-"))
