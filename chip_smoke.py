@@ -66,6 +66,38 @@ Phases, each printing one JSON line:
              the host curve, the gang binds whole on that slice, the second
              gang is vetoed with zero further evictions, pods are conserved,
              kernel G launched, and a CPU rerun evicts and places the same
+  kernel_J   the feasibility-row kernel against feasibility_rows_plain: (a)
+             TransportMixed's 8 group rows x 5,000 nodes, (b) 512 pod rows,
+             (c) over-committed nodes (free < 0), zero-alloc dimensions, used
+             host ports and rows nothing fits; exact equality
+  kernel_E   the auction-phase kernel against _auction_phase_plain: (a) the
+             first Transport_50k batch (G = 1, supply 4,096 far above one
+             node) at the first and the final eps, (b) a TransportMixed batch
+             (G = 8), (c) scarce capacity, equal levels (holder/bid ties), a
+             NEG_INF row, a warm price, the max_rounds cut and G = 2,100 (2G
+             beyond the shared-memory keys); exact x, price, level, rounds
+  kernel_F   the Sinkhorn kernel against _sinkhorn_iters_plain on the
+             Transport_50k and TransportMixed batch problems and on ample,
+             scarce, all-infeasible-row and warm-g problems: f and g after 60
+             iterations, and the plan from the same duals, to a relative
+             error of 1e-5 (|a - b| / max(|b|, 1e-6)), and the 60-iteration
+             plan to 1e-4 (PLAN_TOL)
+  main_path_transport
+             BatchScheduler(solver="auction" and "sinkhorn") on Transport_50k
+             (5,000 nodes of 16 cpu / 64Gi / 110 pods, 50,000 pods of
+             500m/1Gi: 13 batches of one group, warm duals across them) and
+             TransportMixed (5,000 nodes of 8 cpu / 16Gi, even ones
+             disk=ssd, 10,000 pods in four shapes, every fourth with
+             nodeSelector disk=ssd: 8 groups a batch): every pod bound, no
+             over-commit, ssd pods on ssd nodes, the transport path with no
+             solver failure, kernels J and E/F launched; a CPU rerun places
+             the auction identically and the sinkhorn the same count; the
+             initial-state utility beside fast and exact on the same card
+  transport_direct
+             one transport_solve per method on the 50,000 pods (G = 1) and
+             on the 100k-pod / 10k-node two-shape problem (bench.py:2594),
+             unsharded: pods/s, the kernels' device time, and the plain
+             versions' solution on the card (auction identical)
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -77,7 +109,8 @@ Sizes are scheduler_perf's SchedulingBasic 5000Nodes_10000Pods and the
 TopologySpreading shape (test/integration/scheduler_perf/misc/
 performance-config.yaml), nodes 8 cpu / 32Gi / 110 pods; the gang shapes
 are the JAX package's gang rungs (bench.py:1529-1660) and their scale-up
-to those 5,000 nodes. Inputs are made from --seed. --small runs every phase
+to those 5,000 nodes; the transport shapes are the JAX Transport rung's
+(bench.py:2561-2640) and the reference's node-selector test at that size. Inputs are made from --seed. --small runs every phase
 at a reduced size.
 """
 
@@ -101,6 +134,9 @@ KERNEL_C_SRC = "kubernetes_tpu_torch/csrc/waterfill.cu"
 KERNEL_D_SRC = "kubernetes_tpu_torch/csrc/repair_check.cu"
 KERNEL_G_SRC = "kubernetes_tpu_torch/csrc/cover_curve.cu"
 KERNEL_H_SRC = "kubernetes_tpu_torch/csrc/rank_align.cu"
+KERNEL_J_SRC = "kubernetes_tpu_torch/csrc/feasibility_rows.cu"
+KERNEL_E_SRC = "kubernetes_tpu_torch/csrc/auction_phase.cu"
+KERNEL_F_SRC = "kubernetes_tpu_torch/csrc/sinkhorn.cu"
 
 
 def emit(obj) -> None:
@@ -1454,6 +1490,571 @@ def phase_kernel_h(device, sizes, seed):
     return err, lines["a_16_gangs_of_256"]
 
 
+# ---------------------------------------------------------------------------
+# transport: kernels J, E, F and the auction/sinkhorn main path
+# ---------------------------------------------------------------------------
+
+SHAPES = [("100m", "128Mi"), ("250m", "512Mi"), ("500m", "1Gi"), ("1000m", "2Gi")]
+
+
+def transport_nodes(n, cpu="16", mem="64Gi", ssd=False):
+    """n nodes of cpu / mem / 110 pods; with ssd, even-indexed nodes carry
+    disk=ssd (the NodeAffinity rung's label)."""
+    from kubernetes_tpu_torch.testing import MakeNode
+
+    out = []
+    for i in range(n):
+        labels = {HOST: f"node-{i}"}
+        if ssd and i % 2 == 0:
+            labels["disk"] = "ssd"
+        out.append(MakeNode(f"node-{i}").labels(labels)
+                   .capacity({"cpu": cpu, "memory": mem, "pods": "110"}).obj())
+    return out
+
+
+def transport_workloads(sizes):
+    """name -> a function making (nodes, pods). Transport_50k: the JAX
+    rung's shape (bench.py:2574-2577), 5,000 nodes of 16 cpu / 64Gi / 110
+    pods and 50,000 pods of 500m/1Gi, one group a batch. TransportMixed: the
+    reference's heterogeneous node-selector test (tests/test_transport.py:119)
+    at 5,000 nodes of its 8 cpu / 16Gi / 110 pods: 10,000 pods in four
+    shapes, every fourth pod with nodeSelector disk=ssd (8 groups a batch)."""
+    from kubernetes_tpu_torch.testing import MakePod
+
+    def t50k():
+        return (transport_nodes(sizes["nodes"]),
+                [MakePod(f"tr-{i}").req({"cpu": "500m", "memory": "1Gi"}).obj()
+                 for i in range(sizes["transport_pods"])])
+
+    def mixed():
+        pods = []
+        for i in range(sizes["mixed_transport_pods"]):
+            cpu, mem = SHAPES[(i // 4) % 4]
+            b = MakePod(f"tm-{i}").req({"cpu": cpu, "memory": mem})
+            if i % 4 == 0:
+                b = b.node_selector({"disk": "ssd"})
+            pods.append(b.obj())
+        return transport_nodes(sizes["nodes"], "8", "16Gi", ssd=True), pods
+
+    return {"Transport_50k": t50k, "TransportMixed": mixed}
+
+
+def tensorize_groups(nodes, pods, device, bound=()):
+    """The port's host pipeline for one batch plus its groups: (inputs,
+    d_max, batch, groups, node names)."""
+    from kubernetes_tpu_torch.models.waterfill import make_groups
+    from kubernetes_tpu_torch.ops.solver import make_inputs
+    from kubernetes_tpu_torch.scheduler.cache import Cache
+    from kubernetes_tpu_torch.snapshot.tensorizer import TensorCache, build_pod_batch
+
+    cache = Cache()
+    for n in nodes:
+        cache.add_node(n)
+    for p in bound:
+        cache.add_pod(p)
+    snap = cache.update_snapshot()
+    cluster, _ = TensorCache().cluster_tensors(snap)
+    batch = build_pod_batch(pods, snap, cluster)
+    inputs, d_max = make_inputs(cluster, batch, device)
+    return inputs, d_max, batch, make_groups(batch), list(cluster.node_names)
+
+
+def group_problem(nodes, pods, device):
+    from kubernetes_tpu_torch.models.transport import build_group_problem
+
+    inputs, _, _, groups, names = tensorize_groups(nodes, pods, device)
+    return build_group_problem(inputs, groups), inputs, groups, names
+
+
+def rel_err(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    if a.numel() == 0:
+        return 0.0
+    return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
+
+
+def kernel_j_work(inp, clss):
+    """(bytes, operations): the node state read once, each row's request
+    read once and each class row the rows use (filter, napref, taint, image
+    score, ports) read once, the [Rw, N] bool and int32 written once; ~40
+    integer operations a (row, node) cell plus 2 a port column."""
+    n, r = inp.alloc.shape
+    pt = inp.class_ports.shape[1]
+    rows = clss.shape[0]
+    classes = int(clss.clamp(min=0).unique().numel())
+    nbytes = n * r * 4 * 3 + n * 4 * 2 + n * pt + rows * (r * 8 + 5) \
+        + classes * (pt + n * (1 + 4 + 4 + 4)) + rows * n * (1 + 4)
+    return nbytes, rows * n * (40 + 2 * pt)
+
+
+def phase_kernel_j(device, sizes, seed):
+    import torch
+
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.solver import feasibility_rows, feasibility_rows_plain
+    from kubernetes_tpu_torch.testing import MakeNode, MakePod
+
+    wl = transport_workloads(sizes)
+    nodes_m, pods_m = wl["TransportMixed"]()
+    inp_m, _, _, groups_m, _ = tensorize_groups(nodes_m, pods_m[:sizes["batch"]], device)
+    reps = torch.tensor([int(m[0]) for m, _ in groups_m], device=device)
+    # edge cases: over-committed nodes (free < 0), nodes without memory
+    # (a zero-alloc dimension), used host ports, and rows nothing fits
+    rng = random.Random(seed)
+    edge_nodes = []
+    for i in range(300):
+        cap = {"cpu": str(rng.choice([2, 4, 8])), "pods": str(rng.choice([3, 110]))}
+        if i % 5:
+            cap["memory"] = f"{rng.choice([4, 16])}Gi"
+        edge_nodes.append(MakeNode(f"e-{i}").labels({"disk": "ssd" if i % 3 else "hdd"})
+                          .capacity(cap).obj())
+    bound = []
+    for i in range(0, 300, 7):
+        b = MakePod(f"hog-{i}").req({"cpu": "9"}, host_port=8080 + i % 2).obj()
+        b.spec.node_name = f"e-{i}"
+        bound.append(b)
+    edge_pods = []
+    for i in range(120):
+        kind = i % 4
+        b = MakePod(f"q-{i}").req({"cpu": f"{rng.choice([100, 500, 1500])}m",
+                                   "memory": f"{rng.choice([256, 2048])}Mi"})
+        if kind == 1:
+            b = MakePod(f"q-{i}").req({"cpu": "200m"}, host_port=8080 + i % 3)
+        elif kind == 2:
+            b = MakePod(f"q-{i}").req({"cpu": "64", "memory": "512Gi"})  # fits nowhere
+        elif kind == 3:
+            b = b.node_selector({"disk": "ssd"})
+        edge_pods.append(b.obj())
+    inp_e, _, _, _, _ = tensorize_groups(edge_nodes, edge_pods, device, bound=bound)
+    cases = {
+        "a_transport_mixed_groups": (inp_m, inp_m.req[reps].contiguous(),
+                                     inp_m.req_nz[reps].contiguous(),
+                                     inp_m.class_of_pod[reps].contiguous(),
+                                     inp_m.balanced_active[reps].contiguous()),
+        "b_first_512_pods": (inp_m, inp_m.req[:512].contiguous(), inp_m.req_nz[:512].contiguous(),
+                             inp_m.class_of_pod[:512].contiguous(),
+                             inp_m.balanced_active[:512].contiguous()),
+        "c_overcommit_zero_alloc_ports_infeasible": (inp_e, inp_e.req, inp_e.req_nz,
+                                                     inp_e.class_of_pod, inp_e.balanced_active),
+    }
+    err, lines = 0, {}
+    for name, args in cases.items():
+        before = kernels.LAUNCHES["feasibility_rows"]
+        got = feasibility_rows(*args)
+        sync(device)
+        launched = kernels.LAUNCHES["feasibility_rows"] - before
+        ref = feasibility_rows_plain(*args)
+        sync(device)
+        e = int((got[1].long() - ref[1].long()).abs().max()) if got[1].numel() else 0
+        e = max(e, int((got[0] != ref[0]).sum()))
+        equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        line = {"phase": "kernel_J", "case": name, "rows": args[1].shape[0],
+                "nodes": args[0].alloc.shape[0], "equal": equal, "max_abs_err": e,
+                "launches": launched, "feasible_cells": int(got[0].sum()),
+                "infeasible_rows": int((~got[0].any(dim=1)).sum())}
+        err = max(err, e)
+        check(equal, f"kernel J differs from its plain version on case {name}")
+        check(device.type != "cuda" or launched == 1, f"kernel J did not launch on case {name}")
+        if name.startswith("a_"):
+            line["ms"] = timed_ms(lambda: feasibility_rows(*args), 200, device)
+            line["plain_ms"] = timed_ms(lambda: feasibility_rows_plain(*args), 20, device)
+            line["device_ms"] = device_ms(lambda: feasibility_rows(*args),
+                                          ("feasibility_rows",), device)
+            nbytes, ops = kernel_j_work(args[0], args[3])
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"{args[1].shape[0]} rows x {args[0].alloc.shape[0]} nodes"
+        if name.startswith("c_"):
+            check(line["infeasible_rows"] > 0, "case c has no all-infeasible row")
+            check(bool((inp_e.alloc[:, 1] == 0).any()), "case c has no zero-alloc node")
+            check(bool(((inp_e.alloc - inp_e.used) < 0).any()), "case c has no negative free")
+            check(bool(inp_e.node_ports.any()), "case c has no used port")
+        emit(line)
+        lines[name] = line
+    return err, lines["a_transport_mixed_groups"]
+
+
+def synthetic_problem(seed, device, **kw):
+    """The seeded [G, N] problem of the CPU tests (testing.transport_problem)
+    as tensors on `device`."""
+    import torch
+
+    from kubernetes_tpu_torch.testing import transport_problem
+
+    return {k: torch.from_numpy(v).to(device) for k, v in transport_problem(seed, **kw).items()}
+
+
+def phase_args(p, price0=None):
+    """_auction_phase's arguments (cold x and level) for a GroupProblem or a
+    synthetic problem's dict."""
+    import torch
+
+    from kubernetes_tpu_torch.models.transport import NEG_INF
+
+    if not isinstance(p, dict):
+        p = dict(utility=p.utility, jcap=p.jcap, supply=p.supply, slots=p.slots, req=p.req,
+                 free=(p.alloc - p.used).contiguous())
+    g, n = p["utility"].shape
+    dev = p["utility"].device
+    price = torch.zeros(n, device=dev) if price0 is None else price0.to(dev)
+    return (p["utility"], p["jcap"], p["supply"], p["slots"], p["req"], p["free"],
+            torch.zeros((g, n), dtype=torch.int32, device=dev), price,
+            torch.full((g, n), float(NEG_INF), device=dev))
+
+
+def kernel_e_work(args, rounds, candidates):
+    """(bytes, operations) for one phase on these inputs: every input read
+    once, x/price/level written once; per round the bids (~6 operations a
+    [G, N] cell for the value and its top-16 selection) and the accepted
+    candidates (~4R + 8 operations each), for the rounds this run took."""
+    g, n = args[0].shape
+    r = args[4].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + g * n * 8 + n * 4
+    return nbytes, rounds * (g * n * 6 + candidates * (4 * r + 8))
+
+
+def phase_kernel_e(device, sizes, seed):
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    wl = transport_workloads(sizes)
+    nodes_t, pods_t = wl["Transport_50k"]()
+    prob_t, _, _, _ = group_problem(nodes_t, pods_t[:sizes["batch"]], device)
+    nodes_m, pods_m = wl["TransportMixed"]()
+    prob_m, _, _, _ = group_problem(nodes_m, pods_m[:sizes["batch"]], device)
+    eps0 = max(float(torch.where(prob_t.feasible, prob_t.utility, 0.0).max()) / 8.0, 0.9)
+    warm = torch.from_numpy(np.random.default_rng(seed).integers(0, 5, size=64)
+                            .astype(np.float32))
+    cases = {
+        "a_transport_50k_batch_first_phase": (phase_args(prob_t), eps0, 400),
+        "a_transport_50k_batch_final_phase": (phase_args(prob_t), 0.9, 400),
+        "b_transport_mixed_batch": (phase_args(prob_m), 0.9, 400),
+        "c_scarce": (phase_args(synthetic_problem(seed + 1, device, g=5, n=300,
+                                                            scarce=True)), 0.9, 400),
+        "c_equal_levels": (phase_args(synthetic_problem(seed + 2, device, g=8, n=64,
+                                                                  ties=True)), 0.9, 400),
+        "c_neg_inf_row": (phase_args(synthetic_problem(seed + 3, device, g=5, n=64,
+                                                                 dead_group=True)), 3.0, 400),
+        "c_warm_price": (phase_args(synthetic_problem(seed + 4, device, g=4, n=64,
+                                                                ties=True), warm), 0.9, 400),
+        "c_max_rounds_cut": (phase_args(synthetic_problem(seed + 5, device, g=5, n=300,
+                                                                    scarce=True)), 0.9, 3),
+        "c_2g_beyond_shared_memory": (phase_args(synthetic_problem(
+            seed + 6, device, g=2100, n=40, supply_hi=8)), 0.9, 4),
+    }
+    err, lines = 0, {}
+    for name, (args, eps, max_rounds) in cases.items():
+        before = kernels.LAUNCHES["auction_phase"]
+        got = ttr._auction_phase(*args, eps, max_rounds)
+        sync(device)
+        launched = kernels.LAUNCHES["auction_phase"] - before
+        ref = ttr._auction_phase_plain(*args, eps, max_rounds)
+        sync(device)
+        e = max(int((got[0].long() - ref[0].long()).abs().max()),
+                float((got[1] - ref[1]).abs().max()), float((got[2] - ref[2]).abs().max()),
+                abs(got[3] - ref[3]))
+        equal = (all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3]))
+                 and got[3] == ref[3])
+        g, n = args[0].shape
+        line = {"phase": "kernel_E", "case": name, "G": g, "N": n, "eps": eps,
+                "max_rounds": max_rounds, "rounds": got[3], "units": int(got[0].sum()),
+                "supply": int(args[2].sum()), "equal": equal, "max_abs_err": e,
+                "launches": launched}
+        err = max(err, e)
+        check(equal, f"kernel E differs from its plain version on case {name}")
+        check(device.type != "cuda" or launched == 1, f"kernel E did not launch on case {name}")
+        if name == "a_transport_50k_batch_first_phase":
+            line["ms"] = timed_ms(lambda: ttr._auction_phase(*args, eps, max_rounds), 20, device)
+            line["plain_ms"] = timed_ms(lambda: ttr._auction_phase_plain(*args, eps, max_rounds),
+                                        2, device, warmup=0)
+            line["device_ms"] = device_ms(lambda: ttr._auction_phase(*args, eps, max_rounds),
+                                          ("au_",), device, iters=10)
+            # candidates per round: holders and bidders the accept step walks
+            nbytes, ops = kernel_e_work(args, got[3], 2 * min(16, n) * g)
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"G {g} x N {n}, supply {int(args[2].sum())}, {got[3]} rounds"
+        emit(line)
+        lines[name] = line
+    return err, lines["a_transport_50k_batch_first_phase"]
+
+
+# The 60-iteration Sinkhorn plan against its plain version: the largest
+# reading so far is 1.53e-5 (a scarce warm problem, the card against its
+# plain version and XLA against torch on the CPU), so a bound of 1e-4.
+PLAN_TOL = 1e-4
+
+
+def kernel_f_work(args, iters):
+    """(bytes, operations): inputs read once, f/g/plan written once; the
+    formula's operations: z = (C + mask) / eps once (2 a cell); per
+    iteration g / eps once a node and f / eps once a group, and in each of
+    the two passes 5 a cell (the shift, the max, the subtraction, the exp,
+    the sum) and ~6 a row or column (log, shift, clamp); the plan's ~6 a
+    cell."""
+    g, n = args[0].shape
+    nbytes = sum(t.numel() * t.element_size() for t in args) + (g + n + g * n) * 4
+    return nbytes, g * n * 2 + iters * (2 * g * n * 5 + 7 * (g + n)) + g * n * 6
+
+
+def phase_kernel_f(device, sizes, seed):
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    wl = transport_workloads(sizes)
+    nodes_t, pods_t = wl["Transport_50k"]()
+    prob_t, _, _, _ = group_problem(nodes_t, pods_t[:sizes["batch"]], device)
+    nodes_m, pods_m = wl["TransportMixed"]()
+    prob_m, _, _, _ = group_problem(nodes_m, pods_m[:sizes["batch"]], device)
+
+    def from_problem(p, warm=False):
+        g, n = p.utility.shape
+        g0 = (torch.from_numpy(np.random.default_rng(seed).random(n).astype(np.float32)) * 50
+              if warm else torch.zeros(n))
+        return (p.utility, p.feasible, p.supply, ttr._effective_cap(p).contiguous(),
+                torch.zeros(g, device=p.utility.device), g0.to(p.utility.device))
+
+    def from_synthetic(t, warm=False):
+        g, n = t["utility"].shape
+        rng = np.random.default_rng(seed + 3)
+        cap = np.maximum(t["slots"].cpu().numpy().astype(np.float32)
+                         - rng.random(n).astype(np.float32), 0)
+        g0 = (rng.random(n) * 50).astype(np.float32) if warm else np.zeros(n, np.float32)
+        return (t["utility"], t["feasible"], t["supply"], torch.from_numpy(cap).to(device),
+                torch.zeros(g, device=device), torch.from_numpy(g0).to(device))
+
+    cases = {
+        "a_transport_50k_batch": from_problem(prob_t),
+        "b_transport_mixed_batch": from_problem(prob_m),
+        "c_ample": from_synthetic(synthetic_problem(seed + 7, device, g=3, n=300)),
+        "c_scarce": from_synthetic(synthetic_problem(seed + 8, device, g=5, n=300, scarce=True,
+                                                     supply_hi=200)),
+        "c_all_infeasible_row": from_synthetic(synthetic_problem(seed + 9, device, g=4, n=300,
+                                                                 dead_group=True)),
+        "c_warm_g": from_synthetic(synthetic_problem(seed + 10, device, g=5, n=300, scarce=True,
+                                                     supply_hi=200), warm=True),
+        "c_warm_g_mixed": from_problem(prob_m, warm=True),
+    }
+    err, lines = 0.0, {}
+    for name, args in cases.items():
+        before = kernels.LAUNCHES["sinkhorn"]
+        got = ttr._sinkhorn_iters(*args, 2.0, 60)
+        sync(device)
+        launched = kernels.LAUNCHES["sinkhorn"] - before
+        ref = ttr._sinkhorn_iters_plain(*args, 2.0, 60)
+        sync(device)
+        # the duals after 60 iterations and the plan from the same duals to
+        # 1e-5; the 60-iteration plan to PLAN_TOL (the plan's exp turns a
+        # dual drift d of a few ulps into a relative error ~d / eps)
+        same = tuple(args[:4]) + (ref[0], ref[1])
+        got0 = ttr._sinkhorn_iters(*same, 2.0, 0)
+        ref0 = ttr._sinkhorn_iters_plain(*same, 2.0, 0)
+        sync(device)
+        errs = {"f": rel_err(got[0], ref[0]), "g": rel_err(got[1], ref[1]),
+                "plan_same_duals": rel_err(got0[2], ref0[2])}
+        worst = max(errs.values())
+        g, n = args[0].shape
+        plan_err = rel_err(got[2], ref[2])
+        line = {"phase": "kernel_F", "case": name, "G": g, "N": n, "rel_err": errs,
+                "plan_60_iterations_rel_err": plan_err, "plan_60_iterations_tolerance": PLAN_TOL,
+                "max_rel_err": worst, "tolerance": 1e-5, "launches": launched,
+                "plan_mass": float(got[2].sum())}
+        err = max(err, worst)
+        check(worst <= 1e-5, f"kernel F differs from its plain version on case {name}: {errs}")
+        check(plan_err <= PLAN_TOL, f"kernel F's 60-iteration plan differs from its plain "
+              f"version on case {name}: {plan_err}")
+        check(device.type != "cuda" or launched == 1, f"kernel F did not launch on case {name}")
+        if name.startswith("b_"):
+            line["ms"] = timed_ms(lambda: ttr._sinkhorn_iters(*args, 2.0, 60), 20, device)
+            line["plain_ms"] = timed_ms(lambda: ttr._sinkhorn_iters_plain(*args, 2.0, 60), 5,
+                                        device)
+            line["device_ms"] = device_ms(lambda: ttr._sinkhorn_iters(*args, 2.0, 60), ("sk_",),
+                                          device, iters=10)
+            nbytes, ops = kernel_f_work(args, 60)
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"G {g} x N {n}, 60 iterations"
+        emit(line)
+        lines[name] = line
+    return err, lines["b_transport_mixed_batch"]
+
+
+def initial_utility(nodes, pods, placement, device):
+    """The reference rung's quality column: the sum over bound pods of their
+    row score (kernel J's C) on their node against the initial state."""
+    from kubernetes_tpu_torch.models.transport import _group_rows
+
+    inputs, _, batch, groups, names = tensorize_groups(nodes, pods, device)
+    _, util = _group_rows(inputs, groups)
+    util = util.cpu().numpy()
+    index = {nm: i for i, nm in enumerate(names)}
+    total = 0
+    for gi, (members, _cls) in enumerate(groups):
+        for p in members.tolist():
+            node = placement.get(batch.pods[p].metadata.name)
+            if node:
+                total += int(util[gi, index[node]])
+    return total
+
+
+def check_ssd(name, placed):
+    off = [p.metadata.name for p in placed if p.spec.node_selector
+           and int(p.spec.node_name.rsplit("-", 1)[1]) % 2]
+    check(not off, f"{name}: {len(off)} ssd pods off the ssd nodes, e.g. {off[:3]}")
+
+
+def phase_main_path_transport(device, sizes, card):
+    import torch
+
+    from kubernetes_tpu_torch.ops import kernels
+
+    out = {}
+    for name, build in transport_workloads(sizes).items():
+        nodes, pods = build()
+        quality = {}
+        for solver in ("auction", "sinkhorn"):
+            store, sched, got, launches, create_s, sched_s = drive_main_path(
+                name, nodes, pods, device, sizes["batch"], solver=solver)
+            placed = [p for p in got if p.spec.node_name]
+            check(len(placed) == len(pods),
+                  f"{name} {solver}: {len(placed)}/{len(pods)} pods bound through the store")
+            check_no_overcommit(placed, nodes)
+            check_ssd(name, placed)
+            br = sched.breaker
+            check(br.failures_total == 0 and sched._solve_path == solver,
+                  f"{name} {solver}: path {sched._solve_path}, solver failures "
+                  f"{br.failures_total}: {sched.last_solver_error}")
+            if device.type == "cuda":
+                check(launches["feasibility_rows"] > 0, f"{name} {solver}: kernel J never launched")
+                kernel = "auction_phase" if solver == "auction" else "sinkhorn"
+                check(launches[kernel] > 0, f"{name} {solver}: {kernel} never launched")
+            card_map = {p.metadata.name: p.spec.node_name for p in got}
+            t0 = time.perf_counter()
+            nodes_c, pods_c = build()
+            _, sched_c, got_c, _, _, _ = drive_main_path(name, nodes_c, pods_c,
+                                                         torch.device("cpu"), sizes["batch"],
+                                                         solver=solver)
+            cpu_s = time.perf_counter() - t0
+            placed_c = [p for p in got_c if p.spec.node_name]
+            check_no_overcommit(placed_c, nodes_c)
+            cpu_map = {p.metadata.name: p.spec.node_name for p in got_c}
+            differ = [k for k in card_map if card_map[k] != cpu_map.get(k)]
+            if solver == "auction":
+                check(not differ, f"{name} auction: {len(differ)} placements differ from the CPU "
+                                  f"run, e.g. {[(k, card_map[k], cpu_map[k]) for k in differ[:3]]}")
+            else:
+                check(len(placed_c) == len(placed), f"{name} sinkhorn: {len(placed)} bound on "
+                                                    f"the card, {len(placed_c)} on the CPU")
+            quality[solver] = initial_utility(nodes, pods, card_map, device)
+            line = {"phase": "main_path_transport", "workload": name, "solver": solver,
+                    "nodes": len(nodes), "pods": len(pods), "bound": len(placed),
+                    "batches": sched.batches_solved, "launches": launches,
+                    "pods_per_s": len(pods) / sched_s, "schedule_s": sched_s,
+                    "create_s": create_s,
+                    "solve_s_per_batch": sum(sched.solve_seconds) / len(sched.solve_seconds),
+                    "stage_seconds": sched.stage_seconds,
+                    "rounds_last_batch": sched.transport_state.iterations,
+                    "initial_state_utility": quality[solver], "cpu_rerun_s": cpu_s,
+                    "cpu_map_equal": not differ, "cpu_map_differs": len(differ),
+                    "last_path": sched._solve_path, "breaker": br.describe(), "card": card}
+            emit(line)
+            out[f"{name}/{solver}"] = line
+        # the comparison partners on the same card: fast and exact
+        partners = {}
+        for solver in ("fast", "exact"):
+            nodes_x, pods_x = build()
+            _, sched_x, got_x, _, _, sched_s_x = drive_main_path(
+                name, nodes_x, pods_x, device, sizes["batch"], solver=solver)
+            check(all(p.spec.node_name for p in got_x), f"{name} {solver}: pods left unbound")
+            partners[solver] = {
+                "pods_per_s": len(pods_x) / sched_s_x, "schedule_s": sched_s_x,
+                "stage_seconds": sched_x.stage_seconds,
+                "initial_state_utility": initial_utility(
+                    nodes_x, pods_x, {p.metadata.name: p.spec.node_name for p in got_x}, device)}
+        emit({"phase": "main_path_transport_partners", "workload": name, "partners": partners,
+              "transport_utility": quality, "card": card})
+        for solver in ("auction", "sinkhorn"):
+            out[f"{name}/{solver}"]["partners"] = partners
+    kernels.reset_launch_counts()
+    return out
+
+
+def plain_transport(fn):
+    """Run fn with the transport module's three device functions swapped for
+    their plain versions (on whatever device the tensors are)."""
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops.solver import feasibility_rows_plain
+
+    saved = (ttr._auction_phase, ttr._sinkhorn_iters, ttr.feasibility_rows)
+    ttr._auction_phase, ttr._sinkhorn_iters = ttr._auction_phase_plain, ttr._sinkhorn_iters_plain
+    ttr.feasibility_rows = feasibility_rows_plain
+    try:
+        return fn()
+    finally:
+        ttr._auction_phase, ttr._sinkhorn_iters, ttr.feasibility_rows = saved
+
+
+def phase_transport_direct(device, sizes, card):
+    """One transport_solve at the JAX rung's one-call shapes: the 50,000
+    pods of Transport_50k (G = 1) and the 100k/10k two-shape problem
+    (bench.py:2594-2599, unsharded on one card); the card's solution held
+    against the plain versions' on the card."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.transport import transport_solve
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing import MakePod
+
+    nodes_t, pods_t = transport_workloads(sizes)["Transport_50k"]()
+    big_pods = [MakePod(f"ts-{i}").req({"cpu": "500m" if i % 2 else "250m", "memory": "1Gi"})
+                .obj() for i in range(sizes["direct_pods"])]
+    out = {}
+    for name, nodes, pods in (("Transport_50k_one_call", nodes_t, pods_t),
+                              ("Transport_100k_10k", transport_nodes(sizes["direct_nodes"]),
+                               big_pods)):
+        inputs, _, _, groups, names = tensorize_groups(nodes, pods, device)
+        for method in ("auction", "sinkhorn"):
+            def solve():
+                return transport_solve(inputs, groups, method=method, node_names=names)
+
+            solve()  # warm-up: the first call's allocations
+            sync(device)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            a, state = solve()
+            sync(device)
+            dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            dev_ms = device_ms(solve, ("au_", "sk_", "feasibility_rows"), device, iters=2)
+            t1 = time.perf_counter()
+            a_plain, _ = plain_transport(solve)
+            sync(device)
+            plain_s = time.perf_counter() - t1
+            placed, placed_plain = int((a >= 0).sum()), int((a_plain >= 0).sum())
+            same = bool(np.array_equal(a, a_plain))
+            if method == "auction":
+                check(same, f"{name} auction: the card's assignment differs from the plain one")
+            else:
+                check(placed == placed_plain,
+                      f"{name} sinkhorn: {placed} placed on the card, {placed_plain} plain")
+            line = {"phase": "transport_direct", "problem": name, "method": method,
+                    "nodes": len(nodes), "pods": len(pods), "groups": len(groups),
+                    "placed": placed, "solve_s": dt, "pods_per_s": len(pods) / dt,
+                    "kernel_device_ms": dev_ms, "launches": launches,
+                    "iterations": state.iterations, "plain_s": plain_s,
+                    "plain_assignment_equal": same, "card": card}
+            emit(line)
+            out[f"{name}/{method}"] = line
+    kernels.reset_launch_counts()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1479,12 +2080,16 @@ def main(argv=None) -> int:
     sizes = ({"nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
               "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500,
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
-              "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096}
+              "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
+              "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
+              "direct_nodes": 1000}
              if args.small else
              {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
-              "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096})
+              "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
+              "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
+              "direct_nodes": 10000})
     try:
         info = phase_device(device)
         phase_build()
@@ -1494,16 +2099,25 @@ def main(argv=None) -> int:
         err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
         err_g, line_g = phase_kernel_g(device, sizes, args.seed)
         err_h, line_h = phase_kernel_h(device, sizes, args.seed)
+        err_j, line_j = phase_kernel_j(device, sizes, args.seed)
+        err_e, line_e = phase_kernel_e(device, sizes, args.seed)
+        err_f, line_f = phase_kernel_f(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
         fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
         gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
         preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
+        transport = phase_main_path_transport(device, sizes, info["nvidia_smi"])
+        phase_transport_direct(device, sizes, info["nvidia_smi"])
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # A and B: the exact main path (SchedulingBasic); C and D: the fast main
     # path, summed over its four workloads; G: the gang preemption path, H:
-    # the gang path, each summed over its runs (counts reset before each run)
+    # the gang path; J: the transport path's four runs, E: its auction runs,
+    # F: its sinkhorn runs; each summed over its runs (counts reset before
+    # each run)
+    transport_sum = {k: sum(ln["launches"][k] for ln in transport.values())
+                     for k in ("feasibility_rows", "auction_phase", "sinkhorn")}
     launches = main["SchedulingBasic"]["launches"]
     kernels = [
         {"name": "greedy_scan", "route": "cuda", "source": KERNEL_A_SRC,
@@ -1547,6 +2161,30 @@ def main(argv=None) -> int:
          "library": "none: no single PyTorch call computes the aligned permutation "
                     "(two lexsorts and a scatter)",
          "checked": True, "shape": line_h["shape"]},
+        {"name": "feasibility_rows", "route": "cuda", "source": KERNEL_J_SRC,
+         "replaces": "kubernetes_tpu/parallel/sharded.py:108",
+         "launches": transport_sum["feasibility_rows"], "max_abs_err": err_j,
+         "ms": line_j["ms"], "plain_ms": line_j["plain_ms"], "bound_ms": line_j["bound_ms"],
+         "bound_by": line_j["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call computes the filtered, normalized rows",
+         "checked": True, "shape": line_j["shape"]},
+        {"name": "auction_phase", "route": "cuda", "source": KERNEL_E_SRC,
+         "replaces": "kubernetes_tpu/models/transport.py:130",
+         "launches": transport_sum["auction_phase"], "max_abs_err": err_e, "ms": line_e["ms"],
+         "plain_ms": line_e["plain_ms"], "bound_ms": line_e["bound_ms"],
+         "bound_by": line_e["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call runs an auction phase",
+         "checked": True, "shape": line_e["shape"]},
+        {"name": "sinkhorn", "route": "cuda", "source": KERNEL_F_SRC,
+         "replaces": "kubernetes_tpu/models/transport.py:326",
+         "launches": transport_sum["sinkhorn"], "max_abs_err": err_f, "ms": line_f["ms"],
+         "plain_ms": line_f["plain_ms"], "bound_ms": line_f["bound_ms"],
+         "bound_by": line_f["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call runs the 60 iterations "
+                    "(torch.logsumexp is one of their reductions)",
+         "tolerance": "relative 1e-5 on f, g and the plan from the same duals, "
+                      "1e-4 on the 60-iteration plan",
+         "checked": True, "shape": line_f["shape"]},
     ]
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:

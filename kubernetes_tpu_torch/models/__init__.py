@@ -1,3 +1,4 @@
 """L5 — the fast-mode solvers, waterfill (kernel C) and propose-and-repair
-(kernel D), and the gang kernels, victim cover (G) and rank alignment (H).
-Import them from their modules."""
+(kernel D), the gang kernels, victim cover (G) and rank alignment (H), and
+the transport solvers, auction (kernel E) and Sinkhorn (kernel F), on the
+rows of kernel J. Import them from their modules."""

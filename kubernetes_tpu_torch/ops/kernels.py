@@ -17,6 +17,9 @@ it happens and nowhere else).
   repair_check  kernel D, csrc/repair_check.cu  <- models/repair.py repair_check
   cover_curve   kernel G, csrc/cover_curve.cu   <- models/gangcover.py cover_curve
   rank_align    kernel H, csrc/rank_align.cu    <- models/gangcover.py rank_align_kernel
+  feasibility_rows  kernel J, csrc/feasibility_rows.cu  <- ops/solver.py feasibility_rows
+  auction_phase     kernel E, csrc/auction_phase.cu     <- models/transport.py _auction_phase
+  sinkhorn          kernel F, csrc/sinkhorn.cu          <- models/transport.py _sinkhorn_iters
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"greedy_scan": "greedy_scan.cu", "row_scatter": "row_scatter.cu",
            "waterfill": "waterfill.cu", "repair_check": "repair_check.cu",
-           "cover_curve": "cover_curve.cu", "rank_align": "rank_align.cu"}
+           "cover_curve": "cover_curve.cu", "rank_align": "rank_align.cu",
+           "feasibility_rows": "feasibility_rows.cu", "auction_phase": "auction_phase.cu",
+           "sinkhorn": "sinkhorn.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -106,7 +111,7 @@ def _bind_args_entry(lib: ctypes.CDLL, name: str, struct) -> None:
     size.argtypes = []
     size.restype = ctypes.c_int
     if size() != ctypes.sizeof(struct):
-        raise RuntimeError(f"{struct.__name__} layout differs between csrc/{SOURCES[name]} "
+        raise RuntimeError(f"{struct.__name__} layout differs between its csrc/ source "
                            "and ops/kernels.py")
 
 
@@ -135,8 +140,25 @@ def _lib(name: str) -> ctypes.CDLL:
             _bind_args_entry(lib, name, _CoverCurveArgs)
             lib.cover_curve_max_r.argtypes = []
             lib.cover_curve_max_r.restype = ctypes.c_int
-        else:
+        elif name == "rank_align":
             _bind_args_entry(lib, name, _RankAlignArgs)
+        elif name == "feasibility_rows":
+            _bind_args_entry(lib, name, _FeasRowsArgs)
+        elif name == "auction_phase":
+            _bind_args_entry(lib, "auction", _AuctionArgs)  # the phase start
+            lib.auction_rounds_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                                  ctypes.c_void_p]
+            lib.auction_rounds_launch.restype = ctypes.c_int
+            lib.auction_max_r.argtypes = []
+            lib.auction_max_r.restype = ctypes.c_int
+        else:
+            lib.sinkhorn_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.sinkhorn_launch.restype = ctypes.c_int
+            lib.sinkhorn_args_size.argtypes = []
+            lib.sinkhorn_args_size.restype = ctypes.c_int
+            if lib.sinkhorn_args_size() != ctypes.sizeof(_SinkhornArgs):
+                raise RuntimeError("SinkhornArgs layout differs between "
+                                   "csrc/sinkhorn.cu and ops/kernels.py")
         _LIBS[name] = lib
     return lib
 
@@ -544,3 +566,190 @@ def launch_rank_align(assignment, group_id, rank, pos_key) -> torch.Tensor:
     LAUNCHES["rank_align"] += 1
     _raise_on(err, "rank_align launch")
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel J
+# ---------------------------------------------------------------------------
+
+_FR_PTRS = ("alloc", "used", "used_nz", "pod_count", "max_pods", "filter_ok", "napref_raw",
+            "has_napref", "taint_cnt", "img_score", "class_ports", "node_ports",
+            "reqs", "req_nzs", "clss", "bals", "feas", "total")
+
+
+class _FeasRowsArgs(ctypes.Structure):
+    _fields_ = ([(d, ctypes.c_int) for d in ("Rw", "N", "R", "C", "Pt")]
+                + [(f, ctypes.c_void_p) for f in _FR_PTRS])
+
+
+def launch_feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
+    """Kernel J on CUDA tensors: returns (feas [Rw, N] bool, total [Rw, N]
+    int32) like feasibility_rows_plain. The inputs are not modified."""
+    device = inp.alloc.device
+    n, r = inp.alloc.shape if inp.alloc.dim() == 2 else (-1, -1)
+    c = inp.filter_ok.shape[0]
+    pt = inp.class_ports.shape[1] if inp.class_ports.dim() == 2 else -1
+    rw = reqs.shape[0] if reqs.dim() == 2 else -1
+    if n < 1 or r < 2:
+        raise ValueError("feasibility_rows: needs at least one node and the cpu/memory columns")
+    for name, t, dtype, shape in (
+            ("alloc", inp.alloc, torch.int32, (n, r)), ("used", inp.used, torch.int32, (n, r)),
+            ("used_nz", inp.used_nz, torch.int32, (n, r)),
+            ("pod_count", inp.pod_count, torch.int32, (n,)),
+            ("max_pods", inp.max_pods, torch.int32, (n,)),
+            ("filter_ok", inp.filter_ok, torch.bool, (c, n)),
+            ("napref_raw", inp.napref_raw, torch.int32, (c, n)),
+            ("has_napref", inp.has_napref, torch.bool, (c,)),
+            ("taint_cnt", inp.taint_cnt, torch.int32, (c, n)),
+            ("img_score", inp.img_score, torch.int32, (c, n)),
+            ("class_ports", inp.class_ports, torch.bool, (c, pt)),
+            ("node_ports", inp.node_ports, torch.bool, (n, pt)),
+            ("reqs", reqs, torch.int32, (rw, r)), ("req_nzs", req_nzs, torch.int32, (rw, r)),
+            ("clss", clss, torch.int32, (rw,)), ("bals", bals, torch.bool, (rw,))):
+        _check_cuda(t, name, dtype, device, shape)
+    feas = torch.empty((rw, n), dtype=torch.bool, device=device)
+    total = torch.empty((rw, n), dtype=torch.int32, device=device)
+    if rw == 0:
+        return feas, total
+    ptrs = dict(alloc=inp.alloc, used=inp.used, used_nz=inp.used_nz, pod_count=inp.pod_count,
+                max_pods=inp.max_pods, filter_ok=inp.filter_ok, napref_raw=inp.napref_raw,
+                has_napref=inp.has_napref, taint_cnt=inp.taint_cnt, img_score=inp.img_score,
+                class_ports=inp.class_ports, node_ports=inp.node_ports, reqs=reqs,
+                req_nzs=req_nzs, clss=clss, bals=bals, feas=feas, total=total)
+    args = _FeasRowsArgs(Rw=rw, N=n, R=r, C=c, Pt=pt)
+    for f in _FR_PTRS:
+        t = ptrs[f]
+        setattr(args, f, t.data_ptr() if t.numel() else None)
+    lib = _lib("feasibility_rows")
+    err = lib.feasibility_rows_launch(ctypes.byref(args),
+                                      torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["feasibility_rows"] += 1
+    _raise_on(err, "feasibility_rows launch")
+    return feas, total
+
+
+# ---------------------------------------------------------------------------
+# kernel E
+# ---------------------------------------------------------------------------
+
+_AU_INTS = ("G", "N", "R", "K", "max_rounds", "key_cap", "keys_in_smem", "accept_blocks")
+_AU_PTRS = ("utility", "jcap", "supply", "slots", "req", "free", "x0", "price0", "level0",
+            "x", "price", "level", "bid_units", "bid_level", "xsum", "xsum_next", "ctrl",
+            "keys_g", "vals_g")
+
+# the accept step's candidate keys stay in shared memory up to this many
+# (12 bytes each); beyond, a global slice per block of a grid this wide
+_AU_SMEM_KEYS = 4096
+_AU_GLOBAL_BLOCKS = 264
+# rounds enqueued between two reads of the device's loop flag
+AUCTION_ROUNDS_PER_CHECK = 8
+
+
+class _AuctionArgs(ctypes.Structure):
+    _fields_ = ([(d, ctypes.c_int) for d in _AU_INTS] + [("eps", ctypes.c_float)]
+                + [(f, ctypes.c_void_p) for f in _AU_PTRS])
+
+
+def launch_auction_phase(utility, jcap, supply, slots, req, free, x0, price0, level0,
+                         eps: float, max_rounds: int):
+    """Kernel E on CUDA tensors: one eps-phase of the forward auction.
+    Returns (x [G, N] int32, price [N] float32, level [G, N] float32, rounds
+    int) like _auction_phase_plain. The rounds run on the device; the host
+    reads the loop flag every AUCTION_ROUNDS_PER_CHECK rounds (a round whose
+    flag is clear does nothing). The inputs are not modified."""
+    device = utility.device
+    if utility.dim() != 2 or req.dim() != 2:
+        raise ValueError("auction_phase: utility must be [G, N] and req [G, R]")
+    g, n = utility.shape
+    r = req.shape[1]
+    if g < 1 or n < 1:
+        raise ValueError("auction_phase: needs at least one group and one node")
+    for name, t, dtype, shape in (
+            ("utility", utility, torch.float32, (g, n)), ("jcap", jcap, torch.int32, (g, n)),
+            ("supply", supply, torch.int32, (g,)), ("slots", slots, torch.int32, (n,)),
+            ("req", req, torch.int32, (g, r)), ("free", free, torch.int32, (n, r)),
+            ("x0", x0, torch.int32, (g, n)), ("price0", price0, torch.float32, (n,)),
+            ("level0", level0, torch.float32, (g, n))):
+        _check_cuda(t, name, dtype, device, shape)
+    lib = _lib("auction_phase")
+    if not 1 <= r <= lib.auction_max_r():
+        raise ValueError(f"auction_phase: R = {r} outside [1, {lib.auction_max_r()}]")
+    key_cap = 1 << (2 * g - 1).bit_length()
+    in_smem = key_cap <= _AU_SMEM_KEYS
+    blocks = n if in_smem else min(n, _AU_GLOBAL_BLOCKS)
+    buf = dict(
+        x=torch.empty((g, n), dtype=torch.int32, device=device),
+        price=torch.empty(n, dtype=torch.float32, device=device),
+        level=torch.empty((g, n), dtype=torch.float32, device=device),
+        bid_units=torch.empty((g, n), dtype=torch.int32, device=device),
+        bid_level=torch.empty((g, n), dtype=torch.float32, device=device),
+        xsum=torch.empty(g, dtype=torch.int32, device=device),
+        xsum_next=torch.empty(g, dtype=torch.int32, device=device),
+        ctrl=torch.empty(3, dtype=torch.int32, device=device),
+        keys_g=None if in_smem else torch.empty(blocks * key_cap, dtype=torch.int64,
+                                                device=device),
+        vals_g=None if in_smem else torch.empty(blocks * key_cap, dtype=torch.int32,
+                                                device=device))
+    ptrs = dict(utility=utility, jcap=jcap, supply=supply, slots=slots, req=req, free=free,
+                x0=x0, price0=price0, level0=level0, **buf)
+    args = _AuctionArgs(G=g, N=n, R=r, K=min(16, n), max_rounds=int(max_rounds),
+                        key_cap=key_cap, keys_in_smem=int(in_smem), accept_blocks=blocks,
+                        eps=float(eps))
+    for f in _AU_PTRS:
+        t = ptrs[f]
+        setattr(args, f, t.data_ptr() if t is not None else None)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.auction_launch(ctypes.byref(args), stream)
+    LAUNCHES["auction_phase"] += 1
+    _raise_on(err, "auction_phase init launch")
+    ctrl = buf["ctrl"]
+    launched = 0
+    while launched < max_rounds and int(ctrl[0]):
+        chunk = min(AUCTION_ROUNDS_PER_CHECK, max_rounds - launched)
+        _raise_on(lib.auction_rounds_launch(ctypes.byref(args), chunk, stream),
+                  "auction_phase rounds launch")
+        launched += chunk
+    return buf["x"], buf["price"], buf["level"], int(ctrl[1])
+
+
+# ---------------------------------------------------------------------------
+# kernel F
+# ---------------------------------------------------------------------------
+
+_SK_PTRS = ("utility", "feasible", "supply", "cap", "f", "g", "plan")
+
+
+class _SinkhornArgs(ctypes.Structure):
+    _fields_ = ([("G", ctypes.c_int), ("N", ctypes.c_int), ("eps", ctypes.c_float)]
+                + [(f, ctypes.c_void_p) for f in _SK_PTRS])
+
+
+def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, iters: int):
+    """Kernel F on CUDA tensors: `iters` row/column passes and the plan,
+    launched back to back with no host sync. Returns (f [G], g [N], plan
+    [G, N]) float32 like _sinkhorn_iters_plain. The inputs are not
+    modified."""
+    device = utility.device
+    if utility.dim() != 2:
+        raise ValueError("sinkhorn: utility must be [G, N]")
+    g, n = utility.shape
+    if g < 1 or n < 1:
+        raise ValueError("sinkhorn: needs at least one group and one node")
+    for name, t, dtype, shape in (
+            ("utility", utility, torch.float32, (g, n)), ("feasible", feasible, torch.bool, (g, n)),
+            ("supply", supply, torch.int32, (g,)), ("cap", cap, torch.float32, (n,)),
+            ("f0", f0, torch.float32, (g,)), ("g0", g0, torch.float32, (n,))):
+        _check_cuda(t, name, dtype, device, shape)
+    f = torch.empty_like(f0).copy_(f0)
+    gg = torch.empty_like(g0).copy_(g0)
+    plan = torch.empty((g, n), dtype=torch.float32, device=device)
+    args = _SinkhornArgs(G=g, N=n, eps=float(eps), utility=utility.data_ptr(),
+                         feasible=feasible.data_ptr(), supply=supply.data_ptr(),
+                         cap=cap.data_ptr(), f=f.data_ptr(), g=gg.data_ptr(),
+                         plan=plan.data_ptr())
+    lib = _lib("sinkhorn")
+    err = lib.sinkhorn_launch(ctypes.byref(args), int(iters),
+                              torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["sinkhorn"] += 1
+    _raise_on(err, "sinkhorn launch")
+    return f, gg, plan

@@ -269,6 +269,54 @@ def _dom_node_count(per_node, topo_row, d_max):
     return _per_node(_segment_sum(per_node, topo_row, d_max), topo_row, d_max)
 
 
+def pod_row_feasibility_score(inp: SolverInputs, req, req_nz, cls, bal_active):
+    """F[N] bool, C[N] int32 for one pod row against the *initial* snapshot
+    state (no intra-batch dynamics): filter_ok, fit, the node/class port
+    conflict; LeastAllocated + Balanced + 2 NodeAffinity + 3 TaintToleration
+    + ImageLocality (default_plugins.go:30, minus the dynamic PTS/IPA terms,
+    whose batches callers route to the scan). The plain version of one row
+    of kernel J (reference ops/solver.py:238)."""
+    cls = max(int(cls), 0)
+    feas = inp.filter_ok[cls].clone()
+    feas &= fit_feasible(inp.alloc, inp.used, inp.pod_count, inp.max_pods, req)
+    feas &= ~(inp.node_ports & inp.class_ports[cls][None, :]).any(dim=1)
+    alloc2 = inp.alloc[:, :2]
+    least = least_allocated_score(alloc2, inp.used_nz[:, :2], req_nz[:2])
+    bal = balanced_score(alloc2, inp.used[:, :2], req[:2], bal_active)
+    napref = torch.where(inp.has_napref[cls],
+                         default_normalize(inp.napref_raw[cls], feas, reverse=False), 0)
+    taint = default_normalize(inp.taint_cnt[cls], feas, reverse=True)
+    total = least + bal + 2 * napref + 3 * taint + inp.img_score[cls]
+    return feas, total.to(torch.int32)
+
+
+def feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
+    """F[Rw, N] bool and C[Rw, N] int32: pod_row_feasibility_score for each
+    of Rw rows (the vmap of the reference's feasibility_cost_matrices and
+    transport _group_rows). CPU tensors run the plain version; CUDA tensors
+    launch kernel J; any other device raises."""
+    dev = inp.alloc.device
+    if dev.type == "cpu":
+        return feasibility_rows_plain(inp, reqs, req_nzs, clss, bals)
+    if dev.type == "cuda":
+        from .kernels import launch_feasibility_rows
+
+        return launch_feasibility_rows(inp, reqs, req_nzs, clss, bals)
+    raise ValueError(f"feasibility_rows: no implementation for device {dev}")
+
+
+def feasibility_rows_plain(inp: SolverInputs, reqs, req_nzs, clss, bals):
+    """Plain PyTorch version of kernel J: one pod_row_feasibility_score per
+    row (class ids read on the host once)."""
+    n = inp.alloc.shape[0]
+    rw = reqs.shape[0]
+    feas = torch.empty((rw, n), dtype=torch.bool, device=inp.alloc.device)
+    total = torch.empty((rw, n), dtype=torch.int32, device=inp.alloc.device)
+    for i, cls in enumerate(clss.tolist()):
+        feas[i], total[i] = pod_row_feasibility_score(inp, reqs[i], req_nzs[i], cls, bals[i])
+    return feas, total
+
+
 # ---------------------------------------------------------------------------
 # the greedy scan solver
 # ---------------------------------------------------------------------------

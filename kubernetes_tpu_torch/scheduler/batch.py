@@ -10,10 +10,17 @@ solver inputs, and the solver places the batch:
               kernel C); constrained batches: propose-and-repair
               (models/repair.py, kernels C and D, kernel A for the residual);
               a declined shape runs the scan
+  auction,    constraint-free, gang-free batches: the group transportation
+  sinkhorn    problem (models/transport.py: rows by kernel J, the auction's
+              phases by kernel E or the Sinkhorn iterations by kernel F,
+              host rounding and repair), warm-started from the duals of the
+              previous batch (`transport_state`, remapped by node name); a
+              batch whose classes declare host ports is declined and runs
+              the scan, as do constrained and gang batches
 The assignments are assumed into the cache and bound through the store. A
 solver exception requeues the batch's device pods with backoff and feeds the
-circuit breaker (scheduler/breaker.py), which degrades the fast modes to the
-scan after `breaker_threshold` consecutive failures.
+circuit breaker (scheduler/breaker.py), which degrades every mode but exact
+to the scan after `breaker_threshold` consecutive failures.
 
 Gangs (scheduler/gang.py, JAX batch.py :393-720, :914-1060), in every mode:
 the queue stages a PodGroup's members until quorum and admits them
@@ -28,7 +35,8 @@ victims are gone; otherwise it requeues as a unit with one shared backoff.
 Not in this slice (each raises or is named where it would act):
   serial fallback classes, per-pod preemption, plugins, QueueingHints
                                               ROADMAP.md queue 1 item 2
-  solver "auction"/"sinkhorn"                 queue 1 item 5
+  transport over a node-axis mesh (several cards)
+                                              queue 1 item 6
   flight recorder, pod traces, metrics, the solver's Warning event, the
   native commit, pipelined binds and assume expiry
                                               queue 1 item 7
@@ -52,6 +60,7 @@ import numpy as np
 
 from ..models.gangcover import alignment_groups, mean_neighbor_distance, rank_align
 from ..models.repair import repair_solve
+from ..models.transport import transport_solve
 from ..models.waterfill import make_groups, waterfill_solve
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
 from ..snapshot.tensorizer import TensorCache, build_pod_batch
@@ -65,8 +74,8 @@ from .plugins.default_preemption import DefaultPreemption
 from .queue import QueuedPodInfo
 from .serial import NOT_PORTED, Scheduler
 
-SOLVERS = ("exact", "fast", "auto")
-SOLVER_ROADMAP = {"auction": 5, "sinkhorn": 5, "native": 7}
+SOLVERS = ("exact", "fast", "auto", "auction", "sinkhorn")
+SOLVER_ROADMAP = {"native": 7}
 
 # InterPodAffinity's hardPodAffinityWeight at its default (the plugin
 # argument becomes configurable with the plugins, ROADMAP.md queue 1 item 2)
@@ -85,7 +94,10 @@ class BatchScheduler(Scheduler):
 
     solver: "exact" (default: the scan, bit-parity with the serial
     scheduler), "fast" (waterfill for constraint-free batches,
-    propose-and-repair for constrained ones) or "auto" (the same routing).
+    propose-and-repair for constrained ones), "auto" (the same routing), or
+    "auction" / "sinkhorn" (the transport solvers for constraint-free,
+    gang-free batches without host ports; the scan for the others).
+    "native" raises naming its ROADMAP item.
     device: "cuda" (default) runs the kernels on the card and raises where
     torch.cuda.is_available() is false; "cpu" runs their plain versions.
     framework must be None: the scoring profile is the default plugin set
@@ -125,6 +137,7 @@ class BatchScheduler(Scheduler):
         # executing when it raised): what the breaker is fed
         self._solve_path = "exact"
         self.last_solver_error: Optional[str] = None
+        self.transport_state = None  # warm duals carried across batches
         # propose-and-repair: the last batch's RepairStats + running totals
         self._last_repair = None
         self.repair_totals = {"batches": 0, "rounds": 0, "proposed": 0, "repaired": 0,
@@ -282,6 +295,7 @@ class BatchScheduler(Scheduler):
         constraint_free = not batch.has_constraints
         use_fast = solver in ("fast", "auto") and constraint_free
         use_repair = solver in ("fast", "auto") and not constraint_free
+        use_transport = solver in ("auction", "sinkhorn") and constraint_free and not has_gang
         if use_repair:
             self._solve_path = "repair"
         elif not constraint_free:
@@ -290,6 +304,15 @@ class BatchScheduler(Scheduler):
         views = self._tensor_cache.device_views(cluster, self.device)
         inputs, d_max = make_inputs(cluster, sub, self.device, views=views)
         assignment = None
+        if use_transport:
+            self._solve_path = solver
+            solved = transport_solve(inputs, make_groups(sub), method=solver,
+                                     state=self.transport_state,
+                                     node_names=cluster.node_names)
+            if solved is not None:
+                assignment, self.transport_state = solved
+            else:
+                self._solve_path = "exact"  # declined (host ports): the scan takes it
         if use_fast:
             self._solve_path = "fast"
             assignment = waterfill_solve(inputs, make_groups(sub))

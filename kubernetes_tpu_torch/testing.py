@@ -1,12 +1,15 @@
 """Fluent MakePod/MakeNode constructors for tests and the chip smoke
 (reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()), the
-PodGroup constructor and the pod-conservation check. The same API as
+PodGroup constructor, the pod-conservation check, and a seeded [G, N]
+transportation problem for the transport kernels' checks. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from .api import (
     Affinity,
@@ -314,3 +317,31 @@ def assert_pod_conservation(store, scheduler, keys):
     assert not rep["double_bound"], (f"{len(rep['double_bound'])} pod(s) DOUBLE-BOUND: "
                                      f"{rep['double_bound'][:10]}")
     return rep
+
+
+def transport_problem(seed, g, n, r=3, ties=False, scarce=False, dead_group=False,
+                      supply_hi=60):
+    """A seeded [G, N] transportation problem as numpy arrays: utility
+    (integer-valued float32; 4 distinct values with ties, so levels tie),
+    feasibility, free (negative on some nodes), requests (zero on some
+    resources), slots, and jcap and supply derived as build_group_problem
+    derives them; scarce shrinks free and slots below the demand."""
+    rng = np.random.default_rng(seed)
+    hi = 4 if ties else 400
+    utility = rng.integers(0, hi, size=(g, n)).astype(np.float32)
+    feasible = rng.random((g, n)) < 0.8
+    free = rng.integers(-300, 2000 if scarce else 9000, size=(n, r)).astype(np.int32)
+    req = rng.integers(50, 1500, size=(g, r)).astype(np.int32)
+    req[rng.random((g, r)) < 0.2] = 0
+    slots = rng.integers(0, 6 if scarce else 40, size=n).astype(np.int32)
+    per = np.where(req[:, None, :] > 0,
+                   np.floor_divide(free[None], np.maximum(req[:, None, :], 1)), 2**30)
+    jcap = np.minimum(per.min(axis=2), slots[None, :])
+    jcap = np.where(feasible, np.maximum(jcap, 0), 0).astype(np.int32)
+    if dead_group:  # a group with no feasible node: its v row is all NEG_INF
+        feasible[0] = False
+        jcap[0] = 0
+    supply = rng.integers(0, supply_hi, size=g).astype(np.int32)
+    supply[0] = max(int(supply[0]), 1)
+    return dict(utility=utility, feasible=feasible, jcap=jcap, supply=supply, slots=slots,
+                req=req, free=free)

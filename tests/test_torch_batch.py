@@ -1,15 +1,19 @@
 """The port's BatchScheduler(device="cpu") against the JAX package's
 BatchScheduler over identical stores: the same {pod: node} map on every
 workload of tests/test_batch_parity.py and on seeded mixed workloads (one
-batch and many small batches), in the exact, fast and auto modes. Also: an
-injected solver exception requeues the batch with backoff and trips the
-circuit breaker exactly as in JAX, a fallback-class pod is refused with the
-reason that names its ROADMAP item, unported options raise, and the port's
-store keeps its contract.
+batch and many small batches), in the exact, fast, auto, auction and
+sinkhorn modes (the transport modes' warm duals crossing batches too; a
+host-port, constrained or gang batch under them runs the scan as in JAX).
+Also: an injected solver exception (waterfill, or transport_solve)
+requeues the batch with backoff and trips the circuit breaker exactly as
+in JAX, a fallback-class pod is refused with the reason that names its
+ROADMAP item, unported options raise, and the port's store keeps its
+contract.
 """
 
 import random
 
+import numpy as np
 import pytest
 from test_torch_workloads import MIXED_WORKLOADS, PARITY_WORKLOADS, ZONE, unpack, wl_seeded_mixed
 
@@ -133,7 +137,7 @@ def test_device_rejects_fail_unschedulable():
     assert sum(1 for p in pods if p.spec.node_name) == 2
 
 
-@pytest.mark.parametrize("solver,item", [("native", 7), ("auction", 5), ("sinkhorn", 5)])
+@pytest.mark.parametrize("solver,item", [("native", 7)])
 def test_unported_solvers_raise_with_roadmap_item(solver, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         TBatch(TStore(), device="cpu", solver=solver)
@@ -166,12 +170,13 @@ def test_fast_mode_repair_totals_match_jax():
     assert tsched._last_repair.as_dict() == jsched._last_repair.as_dict()
 
 
-def _breaker_run(port: bool, monkeypatch, threshold=2):
-    """Both packages: a fast-mode scheduler whose waterfill raises for the
-    first three cycles; then the fault is removed and three more pods
-    arrive. Returns the breaker/queue/placement state after each of five
-    cycles (the clock steps 11 s, past the pod backoff, between cycles;
-    the cooldown is 15 s)."""
+def _breaker_run(port: bool, monkeypatch, threshold=2, solver="fast"):
+    """Both packages: a scheduler whose fast-path solver (waterfill for
+    fast, transport_solve for auction/sinkhorn) raises for the first three
+    cycles; then the fault is removed and three more pods arrive. Returns
+    the breaker/queue/placement state after each of five cycles (the clock
+    steps 11 s, past the pod backoff, between cycles; the cooldown is 15 s)."""
+    import kubernetes_tpu.models.transport as jtr
     import kubernetes_tpu.models.waterfill as jwf
     import kubernetes_tpu_torch.scheduler.batch as tbatch
 
@@ -183,13 +188,14 @@ def _breaker_run(port: bool, monkeypatch, threshold=2):
     store = TStore() if port else JStore()
     for i in range(4):
         store.create("nodes", mod.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj())
+    target = "waterfill_solve" if solver == "fast" else "transport_solve"
     if port:
-        monkeypatch.setattr(tbatch, "waterfill_solve", boom)
-        sched = TBatch(store, device="cpu", solver="fast", clock=clock,
+        monkeypatch.setattr(tbatch, target, boom)
+        sched = TBatch(store, device="cpu", solver=solver, clock=clock,
                        breaker_threshold=threshold, breaker_cooldown_s=15.0)
     else:
-        monkeypatch.setattr(jwf, "waterfill_solve", boom)
-        sched = JBatch(store, Framework(default_plugins()), solver="fast", clock=clock,
+        monkeypatch.setattr(jwf if solver == "fast" else jtr, target, boom)
+        sched = JBatch(store, Framework(default_plugins()), solver=solver, clock=clock,
                        breaker_threshold=threshold, breaker_cooldown_s=15.0,
                        pipeline_binds=False)
     sched.sync()
@@ -231,6 +237,93 @@ def test_injected_solver_error_requeues_and_trips_breaker_like_jax(monkeypatch):
     # after the cooldown one half-open probe of the fast path closes it
     assert got[3][0]["state"] == "closed" and got[3][0]["recoveries"] == 1
     assert got[3][1] == "fast" and all(got[3][3].values())
+
+
+@pytest.mark.parametrize("solver", ["auction", "sinkhorn"])
+def test_injected_transport_error_requeues_and_trips_breaker_like_jax(monkeypatch, solver):
+    """A transport fault requeues the batch with backoff and trips the
+    breaker to the scan; the half-open probe of the transport solver closes
+    it again, crediting the transport path."""
+    want = _breaker_run(False, monkeypatch, solver=solver)
+    got = _breaker_run(True, monkeypatch, solver=solver)
+    assert [t[0] for t in got] == [t[0] for t in want]
+    assert [t[1] for t in got] == [t[1] for t in want]
+    assert [t[3] for t in got] == [t[3] for t in want]
+    assert got[0][1] == solver and len(got[0][2]) == 6 and not any(got[0][3].values())
+    assert got[1][0]["state"] == "open" and got[1][0]["trips"] == 1
+    assert got[2][1] == "exact" and all(got[2][3].values())
+    assert got[3][0]["state"] == "closed" and got[3][0]["recoveries"] == 1
+    assert got[3][1] == solver and all(got[3][3].values())
+
+
+TRANSPORT_WORKLOADS = [w for w in PARITY_WORKLOADS
+                       if w.__name__ in ("wl_basic_fit_spread", "wl_heterogeneous",
+                                         "wl_node_selector_affinity")]
+
+
+@pytest.mark.parametrize("solver", ["auction", "sinkhorn"])
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_transport_modes_match_jax(workload, solver):
+    """One batch: the transport solver's map equals JAX's; constrained
+    batches and host-port batches run the scan in both packages."""
+    want, jsched = run_pkg(workload, port=False, solver=solver)
+    got, tsched = assert_same_placements(workload, solver=solver)
+    assert tsched._solve_path == jsched._solve_path
+    assert tsched._solve_path in (solver, "exact")
+    assert tsched.breaker.failures_total == 0
+    if tsched._solve_path == solver:
+        assert tsched.transport_state.iterations == jsched.transport_state.iterations
+        np.testing.assert_array_equal(tsched.transport_state.price,
+                                      jsched.transport_state.price)
+    else:
+        assert tsched.transport_state is None and jsched.transport_state is None
+
+
+@pytest.mark.parametrize("solver", ["auction", "sinkhorn"])
+@pytest.mark.parametrize("workload", TRANSPORT_WORKLOADS, ids=lambda w: w.__name__)
+def test_transport_modes_small_batches_match_jax(workload, solver):
+    """Many small batches and create waves: the warm duals cross batches
+    (remapped by node name) in both packages."""
+    want, jsched = run_pkg(workload, port=False, solver=solver, batch_size=7, rounds=3)
+    got, tsched = run_pkg(workload, port=True, solver=solver, batch_size=7, rounds=3)
+    assert got == want
+    assert tsched.batches_solved == jsched.batches_solved >= 3
+    assert tsched.transport_state.iterations == jsched.transport_state.iterations
+    if solver == "auction":
+        np.testing.assert_array_equal(tsched.transport_state.price,
+                                      jsched.transport_state.price)
+
+
+def test_host_port_batch_declines_transport_to_the_scan_like_jax():
+    host_ports = next(w for w in PARITY_WORKLOADS if w.__name__ == "wl_host_ports")
+    for solver in ("auction", "sinkhorn"):
+        got, tsched = assert_same_placements(host_ports, solver=solver)
+        assert tsched._solve_path == "exact" and tsched.transport_state is None
+        assert tsched.breaker.failures_total == 0
+
+
+@pytest.mark.parametrize("solver", ["auction", "sinkhorn"])
+def test_constrained_and_gang_batches_take_the_scan_under_transport(solver):
+    """A PTS-constrained batch, and a gang batch, run the scan under the
+    transport modes in both packages (same end states)."""
+    from test_torch_gang import assert_same_end_state
+
+    pts = next(w for w in PARITY_WORKLOADS if w.__name__ == "wl_pts_do_not_schedule")
+    got, tsched = assert_same_placements(pts, solver=solver)
+    assert tsched._solve_path == "exact" and tsched.transport_state is None
+
+    def gang(env):
+        env.nodes(6, cpu="8", slices=2)
+        sched = env.make_sched()
+        env.pg("train", 4)
+        env.store.create_many("pods", env.gang_pods(4, "train"))
+        env.drive()
+        return sched._solve_path, sched.transport_state is None
+
+    got_state, tenv = assert_same_end_state(gang, solver=solver)  # paths equal too
+    assert len([v for v in got_state["placement"].values() if v]) == 4
+    assert tenv.sched._solve_path == "exact" and tenv.sched.transport_state is None
 
 
 def test_custom_framework_raises():

@@ -4,10 +4,13 @@ Run on the card with `python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py` (tests/conftest.py configures JAX, which the card's
 machine need not have; this file imports neither jax nor the JAX package).
 Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill),
-kernel D (repair_check), kernel G (cover_curve) and kernel H (rank_align)
-are held against their plain PyTorch versions on the same card tensors,
-built by the port's own tensorizer or from seeded numpy inputs: exact
-equality. The gang scheduler's card run is held against its CPU run.
+kernel D (repair_check), kernel G (cover_curve), kernel H (rank_align),
+kernel J (feasibility_rows) and kernel E (auction_phase) are held against
+their plain PyTorch versions on the same card tensors, built by the port's
+own tensorizer or from seeded numpy inputs: exact equality; kernel F
+(sinkhorn) to a relative error of 1e-5 (|a - b| / max(|b|, 1e-6): expf/logf
+and the reduction order). The gang and transport schedulers' card runs are
+held against their CPU runs.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ import kubernetes_tpu_torch.testing as tt
 from kubernetes_tpu_torch.ops import solver as tsolver
 from kubernetes_tpu_torch.scheduler.cache import Cache
 from kubernetes_tpu_torch.snapshot import tensorizer as ttz
+from kubernetes_tpu_torch.testing import transport_problem
 
 
 @pytest.fixture
@@ -415,3 +419,206 @@ def test_gang_scheduler_card_matches_cpu(cuda_device, solver):
                         sched.gangpreempt.stats()))
     assert results[0] == results[1]
     assert results[0][1]["preempted"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# kernel J (feasibility_rows), kernel E (auction_phase), kernel F (sinkhorn)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_kernel_j_matches_plain_on_card(cuda_device, workload):
+    from kubernetes_tpu_torch.ops import kernels
+
+    inp, _, _ = port_inputs(workload, cuda_device)
+    args = (inp, inp.req, inp.req_nz, inp.class_of_pod, inp.balanced_active)
+    before = kernels.LAUNCHES["feasibility_rows"]
+    got = tsolver.feasibility_rows(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["feasibility_rows"] == before + 1
+    want = tsolver.feasibility_rows_plain(*args)
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_kernel_j_rejects_wrong_input(cuda_device):
+    inp, _, _ = port_inputs(PARITY_WORKLOADS[0], cuda_device)
+    with pytest.raises(TypeError, match="reqs"):
+        tsolver.feasibility_rows(inp, inp.req.long(), inp.req_nz, inp.class_of_pod,
+                                 inp.balanced_active)
+    with pytest.raises(ValueError, match="clss"):
+        tsolver.feasibility_rows(inp, inp.req, inp.req_nz, inp.class_of_pod[:1],
+                                 inp.balanced_active)
+
+
+def _phase_args(p, device, price0=None):
+    g, n = p["utility"].shape
+    t = {k: torch.from_numpy(v).to(device) for k, v in p.items()}
+    price0 = torch.zeros(n) if price0 is None else torch.from_numpy(price0)
+    return (t["utility"], t["jcap"], t["supply"], t["slots"], t["req"], t["free"],
+            torch.zeros((g, n), dtype=torch.int32, device=device), price0.to(device),
+            torch.full((g, n), -1e30, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [40.0, 0.9])
+@pytest.mark.parametrize("case", [
+    dict(g=3, n=24), dict(g=5, n=24, scarce=True), dict(g=3, n=24, ties=True),
+    dict(g=1, n=400, supply_hi=5000), dict(g=5, n=24, dead_group=True), dict(g=2, n=10),
+    dict(g=8, n=300, ties=True, scarce=True), dict(g=2100, n=40, supply_hi=8)],
+    ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_kernel_e_matches_plain_on_card(cuda_device, case, eps):
+    """Exact x, price, level and rounds; g=2100 puts 2G past the kernel's
+    shared-memory key capacity (the global-memory merge), over 4 rounds (the
+    plain version walks its 4,200 rows one by one)."""
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    p = transport_problem(case["g"] + case["n"], **case)
+    args = _phase_args(p, cuda_device)
+    max_rounds = 4 if case["g"] > 2048 else 400
+    before = kernels.LAUNCHES["auction_phase"]
+    got = ttr._auction_phase(*args, eps, max_rounds)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["auction_phase"] == before + 1
+    want = ttr._auction_phase_plain(*args, eps, max_rounds)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[3] == want[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [1, 2, 9])
+def test_kernel_e_warm_price_and_round_cut_on_card(cuda_device, max_rounds):
+    from kubernetes_tpu_torch.models import transport as ttr
+
+    p = transport_problem(5, g=4, n=64, ties=True)
+    price0 = np.random.default_rng(1).integers(0, 5, size=64).astype(np.float32)
+    args = _phase_args(p, cuda_device, price0)
+    got = ttr._auction_phase(*args, 0.9, max_rounds)
+    want = ttr._auction_phase_plain(*args, 0.9, max_rounds)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3] <= max_rounds
+
+
+@pytest.mark.gpu
+def test_kernel_e_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import transport as ttr
+
+    args = list(_phase_args(transport_problem(0, g=2, n=8), cuda_device))
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(TypeError, match="utility"):
+        ttr._auction_phase(*bad, 1.0, 5)
+    bad = list(args)
+    bad[5] = args[5][:, :2].contiguous()
+    with pytest.raises(ValueError, match="free"):
+        ttr._auction_phase(*bad, 1.0, 5)
+
+
+def rel_err(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    if a.numel() == 0:
+        return 0.0
+    return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("case", [dict(g=3, n=24), dict(g=5, n=300, scarce=True, supply_hi=200),
+                                  dict(g=4, n=24, dead_group=True),
+                                  dict(g=1, n=5000, supply_hi=4096)],
+                         ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_kernel_f_matches_plain_on_card(cuda_device, case, warm):
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    p = transport_problem(case["g"] * 7 + case["n"], **case)
+    rng = np.random.default_rng(3)
+    g, n = p["utility"].shape
+    cap = np.maximum(p["slots"].astype(np.float32) - rng.random(n).astype(np.float32), 0)
+    g0 = (rng.random(n) * 50).astype(np.float32) if warm else np.zeros(n, np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (
+        p["utility"], p["feasible"], p["supply"], cap, np.zeros(g, np.float32), g0)]
+    before = kernels.LAUNCHES["sinkhorn"]
+    got = ttr._sinkhorn_iters(*args, 2.0, 60)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sinkhorn"] == before + 1
+    want = ttr._sinkhorn_iters_plain(*args, 2.0, 60)
+    assert all(a.dtype == torch.float32 for a in got)
+    # the duals after 60 iterations; the 60-iteration plan to 1e-4 (the
+    # plan's exp turns a dual drift d of a few ulps into a relative error
+    # ~d / eps: 1.53e-5 read on the scarce warm case) and the plan from the
+    # same duals to 1e-5
+    assert rel_err(got[0], want[0]) <= 1e-5 and rel_err(got[1], want[1]) <= 1e-5
+    assert rel_err(got[2], want[2]) <= 1e-4
+    same = args[:4] + [want[0], want[1]]
+    got0 = ttr._sinkhorn_iters(*same, 2.0, 0)
+    want0 = ttr._sinkhorn_iters_plain(*same, 2.0, 0)
+    assert torch.equal(got0[0], want[0]) and torch.equal(got0[1], want[1])
+    assert rel_err(got0[2], want0[2]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_kernel_f_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import transport as ttr
+
+    args = [torch.zeros((2, 4), device=cuda_device), torch.ones((2, 4), dtype=torch.bool,
+                                                              device=cuda_device),
+            torch.ones(2, dtype=torch.int32, device=cuda_device),
+            torch.ones(4, device=cuda_device), torch.zeros(2, device=cuda_device),
+            torch.zeros(4, device=cuda_device)]
+    bad = list(args)
+    bad[2] = args[2].long()
+    with pytest.raises(TypeError, match="supply"):
+        ttr._sinkhorn_iters(*bad, 2.0, 3)
+    bad = list(args)
+    bad[5] = args[5][:3].contiguous()
+    with pytest.raises(ValueError, match="g0"):
+        ttr._sinkhorn_iters(*bad, 2.0, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["auction", "sinkhorn"])
+def test_transport_scheduler_card_matches_cpu(cuda_device, solver):
+    """Several batches (warm duals across them) of a node-selector mix: the
+    card run through kernels J and E or F places as the CPU run."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        store = APIStore()
+        for i in range(40):
+            store.create("nodes", tt.MakeNode(f"n{i}").labels({"disk": "ssd" if i % 2 == 0
+                                                                else "hdd"})
+                         .capacity({"cpu": "8", "memory": "16Gi", "pods": "30"}).obj())
+        sched = BatchScheduler(store, device=device, solver=solver, batch_size=64)
+        sched.sync()
+        kernels.reset_launch_counts()
+        shapes = [("100m", "128Mi"), ("250m", "512Mi"), ("500m", "1Gi"), ("1000m", "2Gi")]
+        pods = []
+        for i in range(300):
+            b = tt.MakePod(f"p{i}").req({"cpu": shapes[i % 4][0], "memory": shapes[i % 4][1]})
+            if i % 4 == 0:
+                b = b.node_selector({"disk": "ssd"})
+            pods.append(b.obj())
+        store.create_many("pods", pods)
+        sched.run_until_idle()
+        if device.type == "cuda":
+            assert kernels.LAUNCHES["feasibility_rows"] > 0
+            assert kernels.LAUNCHES["auction_phase" if solver == "auction" else "sinkhorn"] > 0
+        got, _ = store.list("pods")
+        results.append(({p.metadata.name: p.spec.node_name for p in got},
+                        sched._solve_path, sched.breaker.failures_total))
+    assert results[0][1] == results[1][1] == solver
+    assert results[0][2] == results[1][2] == 0
+    card, cpu = results[0][0], results[1][0]
+    assert sum(1 for v in card.values() if v) == sum(1 for v in cpu.values() if v) == 300
+    if solver == "auction":
+        assert card == cpu

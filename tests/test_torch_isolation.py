@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package.
 
-A subprocess runs one batch through the port on the CPU (exact and fast)
-and one gang through the victim cover and rank alignment, and reports what
+A subprocess runs one batch through the port on the CPU (exact, fast and
+auction), one auction batch with its warm duals, and one gang through the
+victim cover and rank alignment, and reports what
 it imported; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -27,7 +28,7 @@ from kubernetes_tpu_torch.store import APIStore
 from kubernetes_tpu_torch.testing import MakeNode, MakePod
 
 bound = {}
-for solver in ("exact", "fast"):
+for solver in ("exact", "fast", "auction"):
     store = APIStore()
     for i in range(4):
         store.create("nodes", MakeNode(f"n{i}").labels({"topology.kubernetes.io/zone": f"z{i % 2}"})
@@ -47,6 +48,21 @@ for solver in ("exact", "fast"):
     if solver == "fast":
         bound["repair_batches"] = sched.repair_totals["batches"]
         bound["last_path"] = sched._solve_path
+
+# one constraint-free batch through the auction (kernels J and E's plain
+# versions) with its warm duals
+store = APIStore()
+for i in range(4):
+    store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "4", "memory": "8Gi"}).obj())
+for i in range(10):
+    store.create("pods", MakePod(f"t{i}").req({"cpu": "500m", "memory": "1Gi"}).obj())
+sched = BatchScheduler(store, device="cpu", solver="auction")
+sched.sync()
+sched.run_until_idle()
+pods, _ = store.list("pods")
+bound["auction_batch"] = sum(1 for p in pods if p.spec.node_name)
+bound["auction_path"] = sched._solve_path
+bound["auction_duals"] = len(sched.transport_state.price)
 
 # a gang that fits one slice only after evicting lower-priority fillers:
 # the cover (kernel G's plain version), eviction, parking, release and the
@@ -87,8 +103,10 @@ def test_one_batch_imports_no_jax_and_no_jax_package():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     # fast mode: the constrained batch rode repair, the constraint-free one waterfill
     assert got["bound"] == {"exact": 9, "fast": 9, "repair_batches": 1, "last_path": "fast",
-                            "gang": 8, "victims": 4}
+                            "auction": 9, "auction_batch": 10, "auction_path": "auction",
+                            "auction_duals": 4, "gang": 8, "victims": 4}
     assert {"kubernetes_tpu_torch.models.repair", "kubernetes_tpu_torch.models.waterfill",
+            "kubernetes_tpu_torch.models.transport",
             "kubernetes_tpu_torch.models.gangcover", "kubernetes_tpu_torch.scheduler.gang",
             "kubernetes_tpu_torch.scheduler.gangpreempt",
             "kubernetes_tpu_torch.scheduler.plugins.default_preemption",
@@ -148,3 +166,22 @@ def test_gang_kernel_wrappers_raise_for_other_devices():
                     meta(3))
     with pytest.raises(ValueError, match="device"):
         rank_align_kernel(meta(8), meta(8), meta(8), meta(8))
+
+
+def test_transport_kernel_wrappers_raise_for_other_devices():
+    from kubernetes_tpu_torch.models.transport import _auction_phase, _sinkhorn_iters
+    from kubernetes_tpu_torch.ops.solver import SolverInputs, feasibility_rows
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    f32, b = torch.float32, torch.bool
+    with pytest.raises(ValueError, match="device"):
+        _auction_phase(meta(2, 4, dtype=f32), meta(2, 4), meta(2), meta(4), meta(2, 3),
+                       meta(4, 3), meta(2, 4), meta(4, dtype=f32), meta(2, 4, dtype=f32), 1.0, 5)
+    with pytest.raises(ValueError, match="device"):
+        _sinkhorn_iters(meta(2, 4, dtype=f32), meta(2, 4, dtype=b), meta(2), meta(4, dtype=f32),
+                        meta(2, dtype=f32), meta(4, dtype=f32), 2.0, 3)
+    inp = SolverInputs(**{f: meta(1) for f in SolverInputs._fields if f != "gang_bonus"})
+    with pytest.raises(ValueError, match="device"):
+        feasibility_rows(inp, meta(1, 3), meta(1, 3), meta(1), meta(1, dtype=b))
