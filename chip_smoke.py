@@ -98,6 +98,25 @@ Phases, each printing one JSON line:
              on the 100k-pod / 10k-node two-shape problem (bench.py:2594),
              unsharded: pods/s, the kernels' device time, and the plain
              versions' solution on the card (auction identical)
+  main_path_defrag
+             Defrag_5000, the JAX Defrag rung (bench.py:1757-1930) at the gang
+             phases' 5,000 nodes: 20 slices of 250 nodes of 8 cpu / 32Gi /
+             110 pods, a bound 3-cpu priority-1 filler on every node, a
+             PodGroup of 250 ranked 6-cpu priority-100 members, under
+             BatchScheduler(solver="fast"). ON: enable_rebalancer(0.25, 64 a
+             wave, 256 a cycle, ceiling 50), cycles until one migrates
+             nothing, then the gang; OFF: no rebalancer, the gang admits
+             through the victim cover. Gates: the gang bound on both legs, ON
+             0 victims and OFF more, ON migrated and no cycle over 256, a
+             donor slice wholly drained, conservation through resolve_keys,
+             kernel I launched, and the ON leg's maps, cycles and migration
+             chain equal to a CPU rerun
+  kernel_I   the defrag-assign kernel against defrag_assign_plain: (a) the
+             Defrag_5000 cycle's own tensors (n_slots 8,192, v_max 256, R 3),
+             (b) the cap, 1,024 seeded victims on 5,000 nodes, some
+             unplaceable, (c) ties, headroom 0, no target, pad rows and
+             slots, negative free, a wrapping waste sum, (d) n_slots 32,768
+             x R 4, beyond the shared-memory path; exact equality
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -110,7 +129,8 @@ TopologySpreading shape (test/integration/scheduler_perf/misc/
 performance-config.yaml), nodes 8 cpu / 32Gi / 110 pods; the gang shapes
 are the JAX package's gang rungs (bench.py:1529-1660) and their scale-up
 to those 5,000 nodes; the transport shapes are the JAX Transport rung's
-(bench.py:2561-2640) and the reference's node-selector test at that size. Inputs are made from --seed. --small runs every phase
+(bench.py:2561-2640) and the reference's node-selector test at that size;
+Defrag_5000 is the JAX Defrag rung scaled to those 5,000 nodes. Inputs are made from --seed. --small runs every phase
 at a reduced size.
 """
 
@@ -137,6 +157,7 @@ KERNEL_H_SRC = "kubernetes_tpu_torch/csrc/rank_align.cu"
 KERNEL_J_SRC = "kubernetes_tpu_torch/csrc/feasibility_rows.cu"
 KERNEL_E_SRC = "kubernetes_tpu_torch/csrc/auction_phase.cu"
 KERNEL_F_SRC = "kubernetes_tpu_torch/csrc/sinkhorn.cu"
+KERNEL_I_SRC = "kubernetes_tpu_torch/csrc/defrag_assign.cu"
 
 
 def emit(obj) -> None:
@@ -342,16 +363,24 @@ def device_ms(fn, prefixes, device, iters=50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if ev.key.removeprefix("void ").startswith(tuple(prefixes)):
-            total_us += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / iters / 1e3 if total_us else None
+    # a trace has once come back without the kernel's device events (the
+    # same call traced alone had them): take a second trace before giving up
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        keys = []
+        for ev in prof.key_averages():
+            keys.append((ev.key[:60], ev.count))
+            if ev.key.removeprefix("void ").startswith(tuple(prefixes)):
+                total_us += getattr(ev, "self_device_time_total",
+                                    getattr(ev, "self_cuda_time_total", 0.0))
+        if total_us:
+            return total_us / iters / 1e3
+        print(f"chip_smoke: the profiler saw no {prefixes} kernel: {keys[:12]}", file=sys.stderr)
+    return None
 
 
 def sync(device):
@@ -2055,6 +2084,295 @@ def phase_transport_direct(device, sizes, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the rebalancer: Defrag_5000 (ON and OFF legs) and kernel I
+# ---------------------------------------------------------------------------
+
+DEFRAG_BUDGET_WAVE, DEFRAG_BUDGET_CYCLE = 64, 256
+
+
+def defrag_cluster(sizes, m=None):
+    """Defrag_5000 (the JAX Defrag rung, bench.py:1757-1930, at the gang
+    phases' 5,000 nodes): 20 TPU slices of nodes of 8 cpu / 32Gi / 110 pods
+    (MakeNode(...).tpu_slice(s, index=i)), one bound 3-cpu priority-1 filler
+    on every node, and a PodGroup of one slice's worth of ranked 6-cpu
+    priority-100 members, which no node can host as the cluster starts.
+    Returns (nodes, fillers, (PodGroup, members))."""
+    m = _testing(m)
+    per = sizes["nodes"] // 20
+    nodes = [m.MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+             .capacity({"cpu": "8", "memory": "32Gi", "pods": "110"}).obj()
+             for s in range(20) for i in range(per)]
+    fillers = [m.MakePod(f"low-{s}-{i}").priority(1).req({"cpu": "3"}).node(f"node-{s}-{i}")
+               .obj() for s in range(20) for i in range(per)]
+    return nodes, fillers, gang_pods("train", per, "6", prio=100, m=m)
+
+
+class DefragInputs:
+    """Records kernel I's padded inputs (clones) while the main path runs, so
+    kernel_I can hold the kernel to its plain version on the very tensors the
+    Defrag_5000 cycle gave it. The wrapped call is defrag_plan's own call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import kubernetes_tpu_torch.models.defrag as dfg
+
+        self._real = real = dfg.defrag_assign
+
+        def recording(*args):
+            self.calls.append(tuple(a.clone() for a in args))
+            return real(*args)
+
+        dfg.defrag_assign = recording
+        return self
+
+    def __exit__(self, *exc):
+        import kubernetes_tpu_torch.models.defrag as dfg
+
+        dfg.defrag_assign = self._real
+
+
+def defrag_leg(sizes, device, rebalance):
+    """One leg of Defrag_5000 through the entry points a user calls:
+    BatchScheduler(device=..., solver="fast"), on the ON leg
+    enable_rebalancer(...) and cycle() until a cycle migrates nothing, then
+    the gang driven as the rung's drive does (run_until_idle, which paces
+    the rebalancer at idle, backoff flushes, event pumps)."""
+    from kubernetes_tpu_torch.obs import tracebuf
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+    from kubernetes_tpu_torch.testing import pod_conservation_report
+
+    nodes, fillers, (pg, members) = defrag_cluster(sizes)
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    store.create_many("pods", fillers)
+    sched = BatchScheduler(store, device=device.type, solver="fast", pod_initial_backoff=0.05,
+                           pod_max_backoff=0.2)
+    sched.sync()
+    gc.collect()
+    kernels.reset_launch_counts()
+    out = {"cycles": [], "consolidate_s": 0.0}
+    rb = None
+    if rebalance:
+        rb = sched.enable_rebalancer(frag_threshold=0.25, budget_per_wave=DEFRAG_BUDGET_WAVE,
+                                     budget_per_cycle=DEFRAG_BUDGET_CYCLE, priority_ceiling=50)
+        real_cycle = rb.cycle
+
+        def audited_cycle():  # every cycle, the idle path's included, is audited
+            res = real_cycle()
+            out["cycles"].append(res)
+            return res
+
+        rb.cycle = audited_cycle
+        # the trace ring times every cycle (a span each), the idle path's too
+        buf = tracebuf.arm()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            r = rb.cycle()
+            sched.pump_events()
+            if not r.get("migrations"):
+                break
+        sync(device)
+        out["consolidate_s"] = time.perf_counter() - t0
+        out["map_after_cycles"] = {p.metadata.name: p.spec.node_name
+                                   for p in store.list("pods")[0]}
+        out["chain_after_cycles"] = sorted(rb._moves.items())
+        out["consolidation_cycles"] = len(out["cycles"])
+        out["stats_after_cycles"] = rb.stats()
+    store.create("podgroups", pg)
+    t0 = time.perf_counter()
+    store.create_many("pods", members)
+    want = len(members)
+    bound = 0
+    deadline = time.perf_counter() + 120.0
+    while time.perf_counter() < deadline:
+        sched.run_until_idle()
+        sched.queue.flush_backoff_completed()
+        sched.pump_events()
+        bound = sum(1 for p in store.list("pods")[0]
+                    if p.metadata.name.startswith("train-") and p.spec.node_name)
+        if bound >= want:
+            break
+        time.sleep(0.02)
+    sync(device)
+    out["admission_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["bound"], out["members"] = bound, want
+    out["victims"] = sched.gangpreempt.stats()["victims"]
+    live = {p.key for p in store.list("pods")[0]}
+    filler_keys = [f.key for f in fillers]
+    if rb is not None:
+        tracebuf.disarm()
+        out["cycle_ms"] = [ev["dur"] / 1e3 for ev in buf.events() if ev["name"] == "cycle"]
+        out["trace"] = buf.status()
+        filler_keys = rb.resolve_keys(filler_keys)
+        out["stats"] = rb.stats()
+        out["chain"] = sorted(rb._moves.items())
+        rb.release()
+    # fillers the OFF leg's cover evicted are gone by design; the rest, and
+    # every gang member, must be bound exactly once
+    out["deleted_fillers"] = sum(1 for k in filler_keys if k not in live)
+    rep = pod_conservation_report(store, sched, [p.key for p in members]
+                                  + [k for k in filler_keys if k in live])
+    out["conservation"] = rep["counts"]
+    out["map"] = {p.metadata.name: p.spec.node_name for p in store.list("pods")[0]}
+    out["slice_pods"] = {}
+    for p in store.list("pods")[0]:
+        if p.spec.node_name:
+            s = p.spec.node_name.split("-")[1]
+            out["slice_pods"][s] = out["slice_pods"].get(s, 0) + 1
+    out["stage_seconds"] = dict(sched.stage_seconds)
+    out["batches"] = sched.batches_solved
+    sched.stop()
+    return out
+
+
+def phase_main_path_defrag(device, sizes, card, inputs):
+    import torch
+
+    t0 = time.perf_counter()
+    with inputs:
+        on = defrag_leg(sizes, device, True)
+    on_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    off = defrag_leg(sizes, device, False)
+    off_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = defrag_leg(sizes, torch.device("cpu"), True)
+    cpu_s = time.perf_counter() - t0
+    per = sizes["nodes"] // 20
+    for name, leg in (("ON", on), ("OFF", off)):
+        check(leg["bound"] == leg["members"],
+              f"Defrag_5000 {name}: {leg['bound']}/{leg['members']} gang members bound")
+        c = leg["conservation"]
+        check(c["lost"] == 0 and c["double_bound"] == 0,
+              f"Defrag_5000 {name}: conservation {c}")
+    check(on["victims"] == 0 and on["deleted_fillers"] == 0,
+          f"Defrag_5000 ON evicted {on['victims']} victims ({on['deleted_fillers']} fillers gone)")
+    check(off["victims"] > 0 and off["deleted_fillers"] == off["victims"],
+          f"Defrag_5000 OFF: {off['victims']} victims, {off['deleted_fillers']} fillers gone")
+    check(on["stats"]["migrations"] > 0, "Defrag_5000 ON migrated nothing")
+    over = [r.get("migrations", 0) for r in on["cycles"]
+            if r.get("migrations", 0) > DEFRAG_BUDGET_CYCLE]
+    check(not over, f"Defrag_5000 ON: cycles over the {DEFRAG_BUDGET_CYCLE} budget: {over}")
+    # the donor slice drains wholly (with 20 slices the score stays high by
+    # construction, so the rung's frag_after < 0.25 does not carry over)
+    after = {}
+    for name, node in on["map_after_cycles"].items():
+        s = node.split("-")[1]
+        after[s] = after.get(s, 0) + 1
+    empty = [s for s in range(20) if after.get(str(s), 0) == 0]
+    check(empty, f"Defrag_5000 ON: no slice drained by the consolidation cycles: {after}")
+    if device.type == "cuda":
+        check(on["launches"]["defrag_assign"] > 0, "Defrag_5000 ON: kernel I never launched")
+    check(on["map_after_cycles"] == cpu["map_after_cycles"]
+          and on["chain_after_cycles"] == cpu["chain_after_cycles"]
+          and on["map"] == cpu["map"] and on["chain"] == cpu["chain"]
+          and on["cycles"] == cpu["cycles"],
+          "Defrag_5000 ON: the CPU rerun migrated or placed differently")
+    migrations = on["stats_after_cycles"]["migrations"]
+    lines = {}
+    for name, leg, seconds in (("ON", on, on_s), ("OFF", off, off_s)):
+        line = {"phase": "main_path_defrag", "workload": "Defrag_5000", "leg": name,
+                "nodes": 20 * per, "slices": 20, "fillers": 20 * per, "gang": leg["members"],
+                "bound": leg["bound"], "victims": leg["victims"],
+                "admission_s": leg["admission_s"], "conservation": leg["conservation"],
+                "launches": leg["launches"], "batches": leg["batches"],
+                "stage_seconds": leg["stage_seconds"], "pods_per_slice": leg["slice_pods"],
+                "leg_s": seconds, "card": card}
+        if name == "ON":
+            cyc = leg["cycles"]
+            line.update({
+                "frag_before": cyc[0]["frag"], "frag_after": cyc[leg["consolidation_cycles"] - 1]
+                ["frag"], "consolidation_cycles": leg["consolidation_cycles"],
+                "consolidation_migrations": migrations,
+                "consolidate_s": leg["consolidate_s"],
+                "pods_moved_per_s": migrations / leg["consolidate_s"],
+                "drained_slices": empty, "cycles": cyc, "cycle_ms": leg["cycle_ms"],
+                "trace": leg["trace"], "rebalance": leg["stats"],
+                "budget_per_wave": DEFRAG_BUDGET_WAVE, "budget_per_cycle": DEFRAG_BUDGET_CYCLE,
+                "cpu_rerun_s": cpu_s, "cpu_equal": True})
+        emit(line)
+        lines[name] = line
+    return lines
+
+
+def kernel_i_work(args):
+    """(bytes, operations): inputs read once, the targets written once; per
+    victim and slot the fit test and the waste sum (2R) and the key, mask
+    and argmin (3): v_max * n_slots * (2R + 3)."""
+    free, head, ok, v_req, valid = args
+    n_slots, r = free.shape
+    v_max = v_req.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + v_max * 4
+    return nbytes, v_max * n_slots * (2 * r + 3)
+
+
+def phase_kernel_i(device, sizes, seed, inputs):
+    import numpy as np
+    import torch
+
+    import kubernetes_tpu_torch.testing as tt
+    from kubernetes_tpu_torch.models import defrag as dfg
+    from kubernetes_tpu_torch.ops import kernels
+
+    check(inputs.calls, "kernel_I: the Defrag_5000 ON leg planned nothing")
+
+    def t(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+
+    cases = {"a_defrag_5000_cycle": inputs.calls[0],
+             "b_cap_1024_victims": t(tt.defrag_problem(seed, sizes["nodes"],
+                                                       dfg.DEFRAG_MAX_VICTIMS))}
+    for name, arrays in sorted(tt.defrag_edge_cases().items()):
+        cases[f"c_{name}"] = t(arrays)
+    cases["d_global_state"] = t(tt.defrag_problem(seed + 1, 30000, sizes["defrag_wide_v"], r=4,
+                                                  n_slots=32768))
+    err, lines = 0, {}
+    for name, args in cases.items():
+        before = kernels.LAUNCHES["defrag_assign"]
+        got = dfg.defrag_assign(*args)
+        sync(device)
+        launched = kernels.LAUNCHES["defrag_assign"] - before
+        ref = dfg.defrag_assign_plain(*args)
+        sync(device)
+        e = int((got.long() - ref.long()).abs().max())
+        equal = got.dtype == ref.dtype and bool((got == ref).all())
+        n_slots, r = args[0].shape
+        v_max = args[3].shape[0]
+        real = int(args[4].sum())
+        line = {"phase": "kernel_I", "case": name, "n_slots": n_slots, "v_max": v_max, "R": r,
+                "victims": real, "placed": int((got >= 0).sum()),
+                "unplaceable": real - int((got >= 0).sum()),
+                "state_bytes": n_slots * (r + 1) * 4, "equal": equal, "max_abs_err": e,
+                "launches": launched}
+        err = max(err, e)
+        check(equal, f"kernel I differs from its plain version on case {name}")
+        check(device.type != "cuda" or launched == 1, f"kernel I did not launch on case {name}")
+        if name[0] in "ab":
+            iters = 20 if name[0] == "a" else 10
+            line["ms"] = timed_ms(lambda: dfg.defrag_assign(*args), iters, device)
+            line["plain_ms"] = timed_ms(lambda: dfg.defrag_assign_plain(*args), 2, device,
+                                        warmup=0)
+            line["device_ms"] = device_ms(lambda: dfg.defrag_assign(*args), ("defrag_assign",),
+                                          device, iters=iters)
+            nbytes, ops = kernel_i_work(args)
+            line["bytes"], line["ops"] = nbytes, ops
+            line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
+            line["shape"] = f"n_slots {n_slots}, v_max {v_max}, R {r}"
+        emit(line)
+        lines[name] = line
+    check(lines["b_cap_1024_victims"]["unplaceable"] > 0,
+          "kernel_I case b has no unplaceable victim")
+    check(lines["d_global_state"]["state_bytes"] > 227 * 1024,
+          "kernel_I case d does not leave the shared-memory path")
+    return err, lines["a_defrag_5000_cycle"], lines["b_cap_1024_victims"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2082,14 +2400,14 @@ def main(argv=None) -> int:
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
-              "direct_nodes": 1000}
+              "direct_nodes": 1000, "defrag_wide_v": 64}
              if args.small else
              {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
-              "direct_nodes": 10000})
+              "direct_nodes": 10000, "defrag_wide_v": 256})
     try:
         info = phase_device(device)
         phase_build()
@@ -2108,14 +2426,17 @@ def main(argv=None) -> int:
         preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
         transport = phase_main_path_transport(device, sizes, info["nvidia_smi"])
         phase_transport_direct(device, sizes, info["nvidia_smi"])
+        inputs = DefragInputs()
+        defrag = phase_main_path_defrag(device, sizes, info["nvidia_smi"], inputs)
+        err_i, line_i, line_i_cap = phase_kernel_i(device, sizes, args.seed, inputs)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # A and B: the exact main path (SchedulingBasic); C and D: the fast main
     # path, summed over its four workloads; G: the gang preemption path, H:
     # the gang path; J: the transport path's four runs, E: its auction runs,
-    # F: its sinkhorn runs; each summed over its runs (counts reset before
-    # each run)
+    # F: its sinkhorn runs; I: the Defrag_5000 legs; each summed over its
+    # runs (counts reset before each run)
     transport_sum = {k: sum(ln["launches"][k] for ln in transport.values())
                      for k in ("feasibility_rows", "auction_phase", "sinkhorn")}
     launches = main["SchedulingBasic"]["launches"]
@@ -2185,6 +2506,14 @@ def main(argv=None) -> int:
          "tolerance": "relative 1e-5 on f, g and the plan from the same duals, "
                       "1e-4 on the 60-iteration plan",
          "checked": True, "shape": line_f["shape"]},
+        {"name": "defrag_assign", "route": "cuda", "source": KERNEL_I_SRC,
+         "replaces": "kubernetes_tpu/models/defrag.py:99",
+         "launches": sum(ln["launches"]["defrag_assign"] for ln in defrag.values()),
+         "max_abs_err": err_i, "ms": line_i["ms"], "plain_ms": line_i["plain_ms"],
+         "bound_ms": line_i["bound_ms"], "bound_by": line_i["bound_by"], "library_ms": None,
+         "library": "none: no single PyTorch call runs the sequential best-fit",
+         "checked": True, "shape": line_i["shape"], "cap_ms": line_i_cap["ms"],
+         "cap_bound_ms": line_i_cap["bound_ms"], "cap_shape": line_i_cap["shape"]},
     ]
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:

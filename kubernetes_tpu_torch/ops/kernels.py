@@ -20,6 +20,7 @@ it happens and nowhere else).
   feasibility_rows  kernel J, csrc/feasibility_rows.cu  <- ops/solver.py feasibility_rows
   auction_phase     kernel E, csrc/auction_phase.cu     <- models/transport.py _auction_phase
   sinkhorn          kernel F, csrc/sinkhorn.cu          <- models/transport.py _sinkhorn_iters
+  defrag_assign     kernel I, csrc/defrag_assign.cu     <- models/defrag.py defrag_assign
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ SOURCES = {"greedy_scan": "greedy_scan.cu", "row_scatter": "row_scatter.cu",
            "waterfill": "waterfill.cu", "repair_check": "repair_check.cu",
            "cover_curve": "cover_curve.cu", "rank_align": "rank_align.cu",
            "feasibility_rows": "feasibility_rows.cu", "auction_phase": "auction_phase.cu",
-           "sinkhorn": "sinkhorn.cu"}
+           "sinkhorn": "sinkhorn.cu", "defrag_assign": "defrag_assign.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -151,6 +152,12 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.auction_rounds_launch.restype = ctypes.c_int
             lib.auction_max_r.argtypes = []
             lib.auction_max_r.restype = ctypes.c_int
+        elif name == "defrag_assign":
+            _bind_args_entry(lib, name, _DefragArgs)
+            lib.defrag_assign_max_r.argtypes = []
+            lib.defrag_assign_max_r.restype = ctypes.c_int
+            lib.defrag_assign_uses_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.defrag_assign_uses_smem.restype = ctypes.c_int
         else:
             lib.sinkhorn_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.sinkhorn_launch.restype = ctypes.c_int
@@ -753,3 +760,54 @@ def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, it
     LAUNCHES["sinkhorn"] += 1
     _raise_on(err, "sinkhorn launch")
     return f, gg, plan
+
+
+# ---------------------------------------------------------------------------
+# kernel I
+# ---------------------------------------------------------------------------
+
+
+class _DefragArgs(ctypes.Structure):
+    _fields_ = ([(d, ctypes.c_int) for d in ("n_slots", "v_max", "R", "use_smem")]
+                + [(f, ctypes.c_void_p) for f in ("free", "headroom", "target_ok", "v_req",
+                                                  "v_valid", "out", "scratch")])
+
+
+def launch_defrag_assign(free, headroom, target_ok, v_req, v_valid) -> torch.Tensor:
+    """Kernel I on CUDA tensors: returns the target per victim [v_max] int32
+    like defrag_assign_plain. The carried state sits in shared memory where
+    n_slots * (R + 1) int32 fit, else in a global scratch copy this wrapper
+    allocates. The inputs are not modified."""
+    device = free.device
+    if free.dim() != 2:
+        raise ValueError("defrag_assign: free must be [n_slots, R]")
+    n_slots, r = free.shape
+    v_max = v_req.shape[0] if v_req.dim() == 2 else -1
+    if n_slots < 1:
+        raise ValueError("defrag_assign: needs at least one slot")
+    for name, t, dtype, shape in (
+            ("free", free, torch.int32, (n_slots, r)),
+            ("headroom", headroom, torch.int32, (n_slots,)),
+            ("target_ok", target_ok, torch.bool, (n_slots,)),
+            ("v_req", v_req, torch.int32, (v_max, r)),
+            ("v_valid", v_valid, torch.bool, (v_max,))):
+        _check_cuda(t, name, dtype, device, shape)
+    lib = _lib("defrag_assign")
+    if not 1 <= r <= lib.defrag_assign_max_r():
+        raise ValueError(f"defrag_assign: R = {r} outside [1, {lib.defrag_assign_max_r()}]")
+    out = torch.empty(v_max, dtype=torch.int32, device=device)
+    if v_max == 0:
+        return out
+    use_smem = lib.defrag_assign_uses_smem(n_slots, r)
+    scratch = (None if use_smem else
+               torch.empty(n_slots * (r + 1), dtype=torch.int32, device=device))
+    args = _DefragArgs(n_slots=n_slots, v_max=v_max, R=r, use_smem=use_smem,
+                       free=free.data_ptr(), headroom=headroom.data_ptr(),
+                       target_ok=target_ok.data_ptr(), v_req=v_req.data_ptr(),
+                       v_valid=v_valid.data_ptr(), out=out.data_ptr(),
+                       scratch=None if scratch is None else scratch.data_ptr())
+    err = lib.defrag_assign_launch(ctypes.byref(args),
+                                   torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["defrag_assign"] += 1
+    _raise_on(err, "defrag_assign launch")
+    return out

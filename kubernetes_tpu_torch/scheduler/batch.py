@@ -32,13 +32,19 @@ rank_align); a solver-vetoed gang tries a victim cover on one slice (kernel
 G, scheduler/gangpreempt.py), evicts through the store and parks until its
 victims are gone; otherwise it requeues as a unit with one shared backoff.
 
+The background rebalancer (scheduler/rebalance.py, kernel I) attaches with
+enable_rebalancer(); run_until_idle paces it from its idle path and
+rebalance_stats() publishes its totals. The `solver.solve` FaultInject site
+fires in _solve_device once the path is routed, before any device work.
+
 Not in this slice (each raises or is named where it would act):
   serial fallback classes, per-pod preemption, plugins, QueueingHints
                                               ROADMAP.md queue 1 item 2
   transport over a node-axis mesh (several cards)
                                               queue 1 item 6
   flight recorder, pod traces, metrics, the solver's Warning event, the
-  native commit, pipelined binds and assume expiry
+  native commit, pipelined binds and assume expiry, sched_stats(), the
+  partitioned scheduler (partition_index stays None)
                                               queue 1 item 7
 A pod whose class the tensorizer marks fallback_class (DRA claims,
 scheduling-relevant volumes, non-default PTS inclusion policies) fails
@@ -58,6 +64,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..chaos import faultinject
 from ..models.gangcover import alignment_groups, mean_neighbor_distance, rank_align
 from ..models.repair import repair_solve
 from ..models.transport import transport_solve
@@ -165,6 +172,12 @@ class BatchScheduler(Scheduler):
                            if gang_preemption else None)
         self.gangpreempt = GangPreemptor(self) if gang_preemption else None
         self.preempt_victims_total = 0
+        # a shard pipeline of a partitioned scheduler sets its index (item
+        # 7); None is a standalone scheduler, which sees the whole cluster
+        self.partition_index: Optional[int] = None
+        # background rebalancer (scheduler/rebalance.py): installed by
+        # enable_rebalancer(); run_until_idle's idle path paces it
+        self.rebalancer = None
 
     def schedule_cycle(self) -> int:
         return self.schedule_batch()
@@ -300,6 +313,10 @@ class BatchScheduler(Scheduler):
             self._solve_path = "repair"
         elif not constraint_free:
             self._solve_path = "exact"  # the scan owns constrained batches
+        # routed BEFORE the injected fire, so a fault attributes to the path
+        # the batch would have run (a constrained fast-mode batch: repair)
+        if faultinject.ACTIVE is not None:
+            faultinject.ACTIVE.fire("solver.solve")
         # cluster tensors ride the device mirrors (kernel B)
         views = self._tensor_cache.device_views(cluster, self.device)
         inputs, d_max = make_inputs(cluster, sub, self.device, views=views)
@@ -552,16 +569,34 @@ class BatchScheduler(Scheduler):
 
     def run_until_idle(self, max_cycles: int = 10_000) -> int:
         """Drive batches until the active queue drains; before declaring idle,
-        pump events and run the parked-gang deadline sweep."""
+        pump events and run the parked-gang deadline sweep; at idle, let an
+        attached rebalancer take a paced cycle."""
         n = 0
         while n < max_cycles:
             if self.schedule_batch() == 0:
                 self.pump_events()
                 self.sweep_expired_assumes()
                 if self.schedule_batch() == 0:
+                    # idle: migrations emit create/delete events, so loop
+                    # once more to ingest them before declaring idle for real
+                    if self.rebalancer is not None:
+                        r = self.rebalancer.maybe_cycle()
+                        if r is not None and r.get("migrations"):
+                            n += 1
+                            continue
                     break
             n += 1
         return n
+
+    def enable_rebalancer(self, **kwargs):
+        """Attach a background Rebalancer (scheduler/rebalance.py); kwargs
+        pass through to its constructor. run_until_idle's idle path paces it
+        through maybe_cycle(), and rebalance_stats() publishes its totals.
+        Returns it."""
+        from .rebalance import Rebalancer
+
+        self.rebalancer = Rebalancer(self, **kwargs)
+        return self.rebalancer
 
     def sweep_expired_assumes(self) -> List[str]:
         """The gang preemptor's deadline: a cover whose victim deletions
@@ -597,6 +632,12 @@ class BatchScheduler(Scheduler):
                 "quorum_expired_assumes": self.gangs.quorum_expired_count(self.cache.contains),
                 "preemption": (self.gangpreempt.stats()
                                if self.gangpreempt is not None else None)}
+
+    def rebalance_stats(self) -> Optional[Dict]:
+        """The rebalance part of the JAX sched_stats(): the fragmentation
+        score and the migration/wave/abort totals; None until
+        enable_rebalancer()."""
+        return self.rebalancer.stats() if self.rebalancer is not None else None
 
 
 def _subset_batch(batch, idx):

@@ -1,7 +1,8 @@
 """Fluent MakePod/MakeNode constructors for tests and the chip smoke
 (reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()), the
-PodGroup constructor, the pod-conservation check, and a seeded [G, N]
-transportation problem for the transport kernels' checks. The same API as
+PodGroup constructor, the pod-conservation check, a seeded [G, N]
+transportation problem for the transport kernels' checks, and seeded and
+edge-case defrag-assignment problems for kernel I's. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
@@ -345,3 +346,71 @@ def transport_problem(seed, g, n, r=3, ties=False, scarce=False, dead_group=Fals
     supply[0] = max(int(supply[0]), 1)
     return dict(utility=utility, feasible=feasible, jcap=jcap, supply=supply, slots=slots,
                 req=req, free=free)
+
+
+def defrag_problem(seed, ns, v, r=3, n_slots=None, v_max=None, zero_frac=0.1,
+                   not_target=0.1):
+    """Seeded padded arguments of one defrag_assign call, as numpy arrays
+    (free [n_slots, R] int32, headroom [n_slots] int32, target_ok [n_slots]
+    bool, v_req [v_max, R] int32, v_valid [v_max] bool): ns nodes of
+    heterogeneous free capacity (millicore / MiB magnitudes, a few slightly
+    negative), headroom 0-8 and a share that is not a target; v victims in
+    drain order with mixed requests, a share of them zero and a few larger
+    than any node (unplaceable). Pads as defrag_plan does (n_slots and
+    v_max default to the powers of two)."""
+    from .models.gangcover import _pow2
+
+    rng = np.random.default_rng(seed)
+    n_slots = n_slots or _pow2(ns)
+    v_max = v_max or _pow2(v)
+    free = np.zeros((n_slots, r), np.int32)
+    free[:ns] = rng.integers(-200, 8000, size=(ns, r))
+    head = np.zeros(n_slots, np.int32)
+    head[:ns] = rng.integers(0, 9, size=ns)
+    ok = np.zeros(n_slots, bool)
+    ok[:ns] = rng.random(ns) >= not_target
+    v_req = np.zeros((v_max, r), np.int32)
+    v_req[:v] = rng.integers(0, 4000, size=(v, r))
+    v_req[:v][rng.random(v) < zero_frac] = 0
+    v_req[:v][rng.random(v) < 0.03] = 9000  # above every node
+    valid = np.zeros(v_max, bool)
+    valid[:v] = True
+    return free, head, ok, v_req, valid
+
+
+def defrag_edge_cases():
+    """Kernel I's parity traps as named padded problems (numpy, as
+    defrag_problem): identical nodes (ties to the lowest index), headroom 0,
+    no target at all, pad rows between real victims and pad slots, negative
+    free, and a waste sum that wraps int32 (a wrapped negative waste wins the
+    argmin, as in XLA)."""
+    cases = {}
+    free = np.full((16, 3), 4000, np.int32)
+    head = np.full(16, 2, np.int32)
+    ok = np.ones(16, bool)
+    v_req = np.tile(np.array([[1000, 1000, 0]], np.int32), (32, 1))
+    v_req[5] = 0
+    cases["ties"] = (free, head, ok, v_req, np.ones(32, bool))
+    head0 = head.copy()
+    head0[::2] = 0
+    cases["headroom_0"] = (free, head0, ok, v_req, np.ones(32, bool))
+    cases["no_target"] = (free, head, np.zeros(16, bool), v_req, np.ones(32, bool))
+    free_p = free.copy()
+    free_p[10:] = 0
+    ok_p = ok.copy()
+    ok_p[10:] = False
+    valid = np.ones(32, bool)
+    valid[1::3] = False
+    cases["pad_rows_and_slots"] = (free_p, head, ok_p, v_req, valid)
+    rng = np.random.default_rng(7)
+    free_n = rng.integers(-3000, 3000, size=(64, 2)).astype(np.int32)
+    v_n = rng.integers(-10, 1500, size=(64, 2)).astype(np.int32)
+    cases["negative_free"] = (free_n, rng.integers(0, 3, size=64).astype(np.int32),
+                              rng.random(64) > 0.2, v_n, np.ones(64, bool))
+    free_w = np.full((8, 3), 2**30 + 5, np.int32)
+    free_w[3] = 100
+    v_w = np.zeros((4, 3), np.int32)
+    v_w[:, 0] = 1
+    cases["wrapping_sum"] = (free_w, np.full(8, 3, np.int32), np.ones(8, bool), v_w,
+                             np.array([True, True, True, False]))
+    return cases

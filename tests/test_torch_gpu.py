@@ -5,12 +5,13 @@ tests/test_torch_gpu.py` (tests/conftest.py configures JAX, which the card's
 machine need not have; this file imports neither jax nor the JAX package).
 Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill),
 kernel D (repair_check), kernel G (cover_curve), kernel H (rank_align),
-kernel J (feasibility_rows) and kernel E (auction_phase) are held against
+kernel J (feasibility_rows), kernel E (auction_phase) and kernel I
+(defrag_assign) are held against
 their plain PyTorch versions on the same card tensors, built by the port's
 own tensorizer or from seeded numpy inputs: exact equality; kernel F
 (sinkhorn) to a relative error of 1e-5 (|a - b| / max(|b|, 1e-6): expf/logf
-and the reduction order). The gang and transport schedulers' card runs are
-held against their CPU runs.
+and the reduction order). The gang and transport schedulers' card runs, and the
+rebalancer's, are held against their CPU runs.
 """
 
 import numpy as np
@@ -622,3 +623,105 @@ def test_transport_scheduler_card_matches_cpu(cuda_device, solver):
     assert sum(1 for v in card.values() if v) == sum(1 for v in cpu.values() if v) == 300
     if solver == "auction":
         assert card == cpu
+
+
+# ---------------------------------------------------------------------------
+# kernel I (defrag_assign) and the rebalancer
+# ---------------------------------------------------------------------------
+
+
+def _defrag_check(args, device):
+    from kubernetes_tpu_torch.models import defrag as dfg
+    from kubernetes_tpu_torch.ops import kernels
+
+    t = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args)
+    before = kernels.LAUNCHES["defrag_assign"]
+    got = dfg.defrag_assign(*t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["defrag_assign"] == before + 1
+    want = dfg.defrag_assign_plain(*t)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns,v,r,n_slots", [
+    (5000, 250, 3, None),  # (a) the main path's shape: n_slots 8,192, v_max 256
+    (5000, 1024, 3, None),  # (b) the cap, DEFRAG_MAX_VICTIMS victims
+    (5000, 700, 4, None),
+    (20000, 300, 4, 32768),  # (d) beyond the shared-memory path: the global copy
+    (3, 9, 1, None),
+], ids=["a_main_path", "b_cap", "b_r4", "d_global_state", "tiny"])
+def test_kernel_i_matches_plain_on_card(cuda_device, ns, v, r, n_slots):
+    args = tt.defrag_problem(ns + v + r, ns, v, r=r, n_slots=n_slots)
+    got = _defrag_check(args, cuda_device)
+    if v >= 250:  # some victims placed, some unplaceable
+        assert (got[:v] >= 0).any() and (got[:v] < 0).any()
+    from kubernetes_tpu_torch.models.defrag import defrag_assign_host
+
+    free, head, ok, v_req, _valid = args
+    assert np.array_equal(got[:v], defrag_assign_host(free, head, ok, v_req[:v]))
+    assert (got[v:] == -1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(tt.defrag_edge_cases()))
+def test_kernel_i_edge_cases_on_card(cuda_device, name):
+    """(c): ties, headroom 0, no target, pad rows and slots, negative free,
+    a wrapping waste sum."""
+    _defrag_check(tt.defrag_edge_cases()[name], cuda_device)
+
+
+@pytest.mark.gpu
+def test_kernel_i_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.models import defrag as dfg
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in tt.defrag_problem(0, 8, 4)]
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(TypeError, match="free"):
+        dfg.defrag_assign(*bad)
+    bad = list(args)
+    bad[3] = args[3][:, :2].contiguous()
+    with pytest.raises(ValueError, match="v_req"):
+        dfg.defrag_assign(*bad)
+    bad = list(args)
+    bad[2] = args[2].cpu()
+    with pytest.raises(ValueError, match="target_ok"):
+        dfg.defrag_assign(*bad)
+
+
+@pytest.mark.gpu
+def test_rebalancer_card_matches_cpu(cuda_device):
+    """One fragmented cluster consolidated on the card (kernel I) and on the
+    CPU (the plain version): the same cycles, stats and {pod: node} map."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    def run(device):
+        store = APIStore()
+        for s in range(4):
+            for i in range(16):
+                store.create("nodes", tt.MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+                             .capacity({"cpu": "8", "memory": "32Gi", "pods": "110"}).obj())
+                store.create("pods", tt.MakePod(f"low-{s}-{i}").priority(1 + i % 3)
+                             .req({"cpu": f"{1 + (s + i) % 4}", "memory": "1Gi"})
+                             .node(f"node-{s}-{i}").obj())
+        sched = BatchScheduler(store, device=device, solver="fast")
+        sched.sync()
+        rb = sched.enable_rebalancer(frag_threshold=0.1, budget_per_wave=8,
+                                     budget_per_cycle=24, priority_ceiling=50)
+        cycles = []
+        for _ in range(6):
+            cycles.append(rb.cycle())
+            sched.pump_events()
+        rb.release()
+        return (cycles, rb.stats(), sorted(rb._moves.items()),
+                sorted((p.metadata.name, p.spec.node_name) for p in store.list("pods")[0]))
+
+    before = kernels.LAUNCHES["defrag_assign"]
+    card = run(cuda_device)
+    assert kernels.LAUNCHES["defrag_assign"] > before
+    assert card == run(torch.device("cpu"))
+    assert card[1]["migrations"] > 0

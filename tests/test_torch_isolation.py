@@ -3,7 +3,8 @@
 A subprocess runs one batch through the port on the CPU (exact, fast and
 auction), one auction batch with its warm duals, and one gang through the
 victim cover and rank alignment, and reports what
-it imported; a static pass over every module of kubernetes_tpu_torch and
+it imported; another consolidates a fragmented cluster with the rebalancer
+(kernel I's plain version) under an armed fault injector and trace buffer; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
 """
@@ -115,6 +116,53 @@ def test_one_batch_imports_no_jax_and_no_jax_package():
     assert got["modules"] == []
 
 
+_REBALANCE = r"""
+import json, sys
+import kubernetes_tpu_torch.chaos.faultinject as fi
+import kubernetes_tpu_torch.obs.tracebuf as tb
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod
+
+store = APIStore()
+for s in range(2):
+    for i in range(4):
+        store.create("nodes", MakeNode(f"node-{s}-{i}").tpu_slice(s, index=i)
+                     .capacity({"cpu": "8", "memory": "32Gi", "pods": "110"}).obj())
+        store.create("pods", MakePod(f"low-{s}-{i}").priority(1).req({"cpu": "3"})
+                     .node(f"node-{s}-{i}").obj())
+sched = BatchScheduler(store, device="cpu", solver="fast")
+sched.sync()
+rb = sched.enable_rebalancer(frag_threshold=0.25, budget_per_wave=2, budget_per_cycle=8,
+                             priority_ceiling=50)
+buf = tb.arm()
+fi.arm([fi.FaultPlan("rebalance.cycle", "fail", count=1, match="wave-1")])
+first = rb.cycle()
+fi.disarm()
+sched.run_until_idle()
+print(json.dumps({"first": first["migrations"], "stats": sched.rebalance_stats()["migrations"],
+                  "events": buf.status()["trace_events_total"],
+                  "loaded": sorted(m for m in sys.modules if m.startswith((
+                      "kubernetes_tpu_torch.chaos", "kubernetes_tpu_torch.obs",
+                      "kubernetes_tpu_torch.models", "kubernetes_tpu_torch.scheduler"))),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_rebalancer_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _REBALANCE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    # the wave-1 fault stops the first cycle after one wave; the idle path
+    # then moves the other two fillers
+    assert (got["first"], got["stats"]) == (2, 4) and got["events"] >= 4
+    assert {"kubernetes_tpu_torch.chaos.faultinject", "kubernetes_tpu_torch.obs.tracebuf",
+            "kubernetes_tpu_torch.models.defrag",
+            "kubernetes_tpu_torch.scheduler.rebalance"} <= set(got["loaded"])
+    assert got["modules"] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -166,6 +214,17 @@ def test_gang_kernel_wrappers_raise_for_other_devices():
                     meta(3))
     with pytest.raises(ValueError, match="device"):
         rank_align_kernel(meta(8), meta(8), meta(8), meta(8))
+
+
+def test_defrag_wrapper_raises_for_other_devices():
+    from kubernetes_tpu_torch.models.defrag import defrag_assign
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="device"):
+        defrag_assign(meta(8, 3), meta(8), meta(8, dtype=torch.bool), meta(4, 3),
+                      meta(4, dtype=torch.bool))
 
 
 def test_transport_kernel_wrappers_raise_for_other_devices():
