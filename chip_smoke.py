@@ -7,14 +7,29 @@ Phases, each printing one JSON line:
   device     card name, count, nvidia-smi name and power limit
   build      nvcc builds every kernel from csrc/, one nvcc per source, all
              started together (ptxas register, shared-memory and spill lines)
-  kernel_A   the greedy-scan kernel against greedy_scan_solve_plain on the
-             card, on tensors the port's tensorizer built from seeded
-             inputs: (a) SchedulingBasic 5,000 nodes x 10,000 pods,
-             (b) TopologySpreading 5,000 nodes / 10 zones x 5,000 pods,
-             (c) a mixed case that turns on all four gates; exact equality
-             of assignment, used and pod_count
-  kernel_B   the row-scatter kernel against scatter_rows_plain /
-             scatter_cols_plain after seeded churn rounds; exact equality
+  kernel_A   the greedy-scan kernel (one thread-block cluster) against
+             greedy_scan_solve_plain on the card, on tensors the port's
+             tensorizer built from seeded inputs: (a) SchedulingBasic 5,000
+             nodes x 10,000 pods, (b) TopologySpreading 5,000 nodes / 10
+             zones x 5,000 pods, (c) a mixed case that turns on all four
+             gates; then seeded synthetic cases (testing.scan_problem): one
+             node, seven, a node count no multiple of the cluster size,
+             identical nodes (ties across CTA boundaries to the lowest
+             index), pods that fit nowhere, the hostname key (d_max = N) and
+             70,000 nodes (the global-scratch path); exact equality of
+             assignment, used and pod_count; each line gives the cluster
+             plan and us a pod step. kernel_A_timing: the main path's 5,000 x
+             4,096 batch (one node a thread) and device time
+  kernel_B   the mirror-scatter kernel: one mirror (scatter_rows /
+             scatter_cols) against scatter_rows_plain / scatter_cols_plain,
+             and the fused form (every mirror in one launch) against
+             scatter_mirrors_plain, after seeded churn rounds (k = 1 and k = N
+             among them, with and without the selector-class columns);
+             exact equality; one call (one descriptor, on rows packed as
+             [k, 1 + 3]) against Tensor.index_copy_, and one
+             incremental device_views (SchedulingBasic's five fields,
+             TopologySpreading's with its columns) against the library route
+             on the same pinned copy, wall and device times
   kernel_C   the waterfill kernel against waterfill_group_plain on the card,
              on tensorizer inputs: (a) SchedulingBasic 5,000 nodes, a
              4,096-pod group, (b) a 10,000-pod group (k_slots 16,384, the
@@ -30,7 +45,8 @@ Phases, each printing one JSON line:
   main_path  APIStore -> BatchScheduler(device="cuda", solver="exact") ->
              run_until_idle on the SchedulingBasic and TopologySpreading
              shapes: every pod bound through the store, no node
-             over-committed, zone skew <= 1, kernel launch counts > 0
+             over-committed, zone skew <= 1, kernel launch counts > 0 (kernel
+             B: one launch per incremental batch), solve seconds a batch
   main_path_fast
              BatchScheduler(solver="fast") on SchedulingBasic,
              TopologySpreading, PodAntiAffinity and PodAffinity (and
@@ -143,6 +159,8 @@ import random
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ZONE = "topology.kubernetes.io/zone"
 HOST = "kubernetes.io/hostname"
@@ -350,11 +368,11 @@ def timed_ms(fn, iters, device, warmup=1):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, prefixes, device, iters=50):
+def device_ms(fn, prefixes, device, iters=50, contains=False):
     """Device time per call of fn (ms): the summed durations of the CUDA
-    kernels whose names start with one of `prefixes`, from a torch.profiler
-    trace of `iters` calls; None on the CPU or when the trace holds no such
-    kernel (the time is then not measured)."""
+    kernels whose names start with (contains: hold) one of `prefixes`, from
+    a torch.profiler trace of `iters` calls; None on the CPU or when the
+    trace holds no such kernel (the time is then not measured)."""
     import torch
 
     if device.type != "cuda":
@@ -374,7 +392,9 @@ def device_ms(fn, prefixes, device, iters=50):
         keys = []
         for ev in prof.key_averages():
             keys.append((ev.key[:60], ev.count))
-            if ev.key.removeprefix("void ").startswith(tuple(prefixes)):
+            name = ev.key.removeprefix("void ")
+            if (any(x in name for x in prefixes) if contains
+                    else name.startswith(tuple(prefixes))):
                 total_us += getattr(ev, "self_device_time_total",
                                     getattr(ev, "self_cuda_time_total", 0.0))
         if total_us:
@@ -419,6 +439,14 @@ def phase_build():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas})
 
 
+def scan_plan():
+    from kubernetes_tpu_torch.ops import kernels
+
+    plan = kernels.LAST_SCAN_PLAN
+    return {k: plan.get(k) for k in ("cluster_size", "ctas", "threads", "nodes_per_cta",
+                                     "smem_bytes", "in_smem", "global_bytes_per_cta")}
+
+
 def compare_a(name, inp, d_max, gates, device, plain_pods, iters):
     from kubernetes_tpu_torch.ops.solver import greedy_scan_solve, greedy_scan_solve_plain
 
@@ -439,24 +467,46 @@ def compare_a(name, inp, d_max, gates, device, plain_pods, iters):
     line = {"phase": "kernel_A", "case": name, "nodes": inp.alloc.shape[0], "pods": p,
             "plain_pods": pp, "gates": gates, "d_max": d_max, "equal": equal,
             "max_abs_err": err, "placed_of_plain_pods": placed,
-            "kernel_ms_all_pods": round(kernel_ms, 4), "plain_s": round(plain_s, 3)}
+            "kernel_ms_all_pods": kernel_ms, "us_per_pod_step": kernel_ms * 1e3 / max(p, 1),
+            "plan": scan_plan(), "plain_s": round(plain_s, 3)}
     if pp < p:
         line["note"] = f"plain version compared on the first {pp} of {p} pods"
     emit(line)
     check(equal, f"kernel A differs from its plain version on case {name}")
-    return err
+    return err, got[0].cpu()
+
+
+def scan_edge_cases(sizes, seed):
+    """Kernel A's cluster edge cases as seeded synthetic problems
+    (kubernetes_tpu_torch.testing.scan_problem, every gate on): one node and
+    seven (fewer than the cluster's CTAs), a node count that is no multiple
+    of the cluster size, identical nodes (every argmax ties across CTA
+    boundaries), pods that fit nowhere, the hostname key (d_max = N: the
+    domain tables in global memory) and a node axis past shared memory (the
+    global-scratch path)."""
+    n = sizes["nodes"]
+    return [("d_one_node", dict(n=1, p=16)), ("e_seven_nodes", dict(n=7, p=48)),
+            ("f_n_not_multiple", dict(n=n // 5 + 3, p=200)),
+            ("g_identical_ties", dict(n=n, p=512, identical=True)),
+            ("h_fits_nowhere", dict(n=64, p=60, huge_every=3)),
+            ("i_hostname_key", dict(n=n + 3, p=256)),
+            ("j_global_scratch", dict(n=sizes["scan_global_nodes"], p=24))]
 
 
 def phase_kernel_a(device, sizes, seed):
     import numpy as np
     import torch
 
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
+    from kubernetes_tpu_torch.testing import scan_problem
+
     n, p_basic, p_spread, p_mixed = sizes["nodes"], sizes["basic"], sizes["spread"], sizes["mixed"]
     errs = []
     inp_a, d_a, g_a, _ = tensorize(make_nodes(n), basic_pods(p_basic), device)
-    errs.append(compare_a("a_scheduling_basic", inp_a, d_a, g_a, device, sizes["plain"], 3))
+    errs.append(compare_a("a_scheduling_basic", inp_a, d_a, g_a, device, sizes["plain"], 3)[0])
     inp_b, d_b, g_b, _ = tensorize(make_nodes(n, zones=10), spread_pods(p_spread), device)
-    errs.append(compare_a("b_topology_spreading", inp_b, d_b, g_b, device, sizes["plain"], 3))
+    errs.append(compare_a("b_topology_spreading", inp_b, d_b, g_b, device, sizes["plain"], 3)[0])
     # mixed: pre-bound anti-affine holders seed the holder groups (rule 1 and
     # the symmetric score); a synthetic gang-bonus row turns on the last gate
     from kubernetes_tpu_torch.testing import MakePod
@@ -474,7 +524,23 @@ def phase_kernel_a(device, sizes, seed):
     inp_c = inp_c._replace(gang_bonus=torch.from_numpy(bonus).to(device))
     g_c = dict(g_c, has_gang=True)
     check(all(g_c.values()), f"mixed case does not turn on every gate: {g_c}")
-    errs.append(compare_a("c_mixed_all_gates", inp_c, d_c, g_c, device, sizes["plain"], 3))
+    errs.append(compare_a("c_mixed_all_gates", inp_c, d_c, g_c, device, sizes["plain"], 3)[0])
+    all_gates = dict(has_ipa=True, has_ct=True, has_st=True, has_gang=True)
+    for name, kw in scan_edge_cases(sizes, seed):
+        f, d_max = scan_problem(seed + kw["n"], **kw)
+        gates = dict(all_gates, has_gang=f["gang_bonus"] is not None)
+        inp = solver_inputs_from_numpy(f, device)
+        err, got = compare_a(name, inp, d_max, gates, device, kw["p"], 1)
+        errs.append(err)
+        if name == "g_identical_ties":
+            k = min(kw["n"], kw["p"])
+            check(got[:k].tolist() == list(range(k)),
+                  "kernel A: identical nodes did not tie to the lowest index")
+        if name == "h_fits_nowhere":
+            check(bool((got[::3] == -1).all()), "kernel A placed a pod that fits nowhere")
+        if name == "j_global_scratch" and device.type == "cuda":
+            check("class_rows" not in kernels.LAST_SCAN_PLAN["in_smem"],
+                  "kernel A case j does not leave shared memory")
 
     # the main path's shape: the first batch_size pods of SchedulingBasic
     k = min(sizes["batch"], p_basic)
@@ -482,25 +548,32 @@ def phase_kernel_a(device, sizes, seed):
     from kubernetes_tpu_torch.ops.solver import greedy_scan_solve, greedy_scan_solve_plain
 
     ms = timed_ms(lambda: greedy_scan_solve(first, d_a, **g_a), 5, device)
+    plan = scan_plan()
+    dev_ms = device_ms(lambda: greedy_scan_solve(first, d_a, **g_a), ["greedy_scan_kernel"],
+                       device, iters=3)
     plain_ms = timed_ms(lambda: greedy_scan_solve_plain(first, d_a, **g_a), 1, device, warmup=0)
     nbytes, ops = kernel_a_work(first, d_a, g_a)
     b_ms, b_by = bound_ms(nbytes, ops)
     timing = {"phase": "kernel_A_timing", "shape": f"{first.alloc.shape[0]} nodes x {k} pods",
-              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-              "bound_ms": b_ms, "bound_by": b_by}
+              "ms": ms, "us_per_pod_step": ms * 1e3 / k, "device_ms": dev_ms,
+              "plan": plan, "plain_ms": plain_ms,
+              "bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
     emit(timing)
     return max(errs), timing
 
 
 def phase_kernel_b(device, sizes, seed):
-    import numpy as np
     import torch
 
+    from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.snapshot.tensorizer import (
-        scatter_cols, scatter_cols_plain, scatter_rows, scatter_rows_plain)
+        MirrorSegment, TensorCache, pack_mirror_rows, scatter_cols, scatter_cols_plain,
+        scatter_mirrors_plain, scatter_rows, scatter_rows_plain)
+    from kubernetes_tpu_torch.testing import mirror_churn_rounds
 
     rng = np.random.default_rng(seed)
     n, r, sc = sizes["nodes"], 3, 4
+    # single-mirror entry (scatter_rows / scatter_cols: one descriptor)
     base = rng.integers(0, 1 << 20, size=(n, r), dtype=np.int32)
     rows_k = rng.integers(0, 1 << 20, size=n, dtype=np.int32)
     cols_m = rng.integers(0, 100, size=(sc, n), dtype=np.int32)
@@ -525,23 +598,147 @@ def phase_kernel_b(device, sizes, seed):
     for key in dst:
         err = max(err, int((dst[key].long() - ref[key].long()).abs().max()))
     equal = all(bool((dst[key] == ref[key]).all()) for key in dst)
-    # timing at the main path's shape: one [N, 3] field, batch_size dirty rows
+    # fused: seeded churn rounds, k = 1 and k = N among them, with and
+    # without the selector-class columns; kernel B against its plain version
+    fused_equal = True
+    for with_sc in (False, True):
+        ks = [n // 2, 1, n, *rng.integers(1, n, size=4).tolist()]
+        rounds = mirror_churn_rounds(seed + int(with_sc), n, r, sc, rounds=len(ks), ks=ks)
+        cl, _ = next(rounds)
+        names = list(TensorCache.DEVICE_FIELDS) + (["selcls_count"] if with_sc else [])
+        got = {f: torch.from_numpy(getattr(cl, f).copy()).to(device) for f in names}
+        want = {f: t.clone() for f, t in got.items()}
+        for cl, rows in rounds:
+            packed, segs = pack_mirror_rows(cl, rows, with_sc)
+            dev_packed = torch.from_numpy(packed).to(device)
+            if device.type == "cuda":
+                mset = kernels.MirrorSet([(got[g.name], g.offset, g.width, g.col_mode)
+                                          for g in segs], packed.shape[1])
+                kernels.launch_mirror_scatter(mset, dev_packed, len(rows))
+            else:
+                scatter_mirrors_plain([got[g.name] for g in segs], dev_packed, segs)
+            scatter_mirrors_plain([want[g.name] for g in segs], dev_packed, segs)
+        sync(device)
+        for f in names:
+            err = max(err, int((got[f].long() - want[f].long()).abs().max()))
+            fused_equal &= bool((got[f] == want[f]).all())
+            fused_equal &= bool((got[f].cpu().numpy() == getattr(cl, f)).all())
+
+    # (a) one call at the main path's shape: one [N, 3] field, batch_size
+    # rows, already packed as [k, 1 + 3] (indices in column 0) and scattered
+    # with a one-descriptor set; index_copy_ takes the same rows and values
     k = min(sizes["batch"], n)
     idx = torch.from_numpy(np.sort(rng.choice(n, size=k, replace=False)).astype(np.int32)).to(device)
     src = torch.from_numpy(rng.integers(0, 1 << 20, size=(k, r), dtype=np.int32)).to(device)
     idx_long = idx.long()
-    ms = timed_ms(lambda: scatter_rows(dst["2d"], idx, src), 200, device)
+    one = torch.cat([idx.view(k, 1), src], dim=1)
+    if device.type == "cuda":
+        mset_one = kernels.MirrorSet([(dst["2d"], 1, r, False)], 1 + r)
+
+        def one_call():
+            kernels.launch_mirror_scatter(mset_one, one, k)
+    else:
+        def one_call():
+            scatter_mirrors_plain([dst["2d"]], one, [MirrorSegment("alloc", 1, r, False)])
+    ms = timed_ms(one_call, 200, device)
     plain_ms = timed_ms(lambda: scatter_rows_plain(ref["2d"], idx, src), 200, device)
     library_ms = timed_ms(lambda: ref["2d"].index_copy_(0, idx_long, src), 200, device)
+    ms_again = timed_ms(one_call, 200, device)
+    sync(device)
+    check(bool((dst["2d"] == ref["2d"]).all()),
+          "kernel B (one descriptor) differs from index_copy_")
+    dev_ms = device_ms(one_call, ["mirror_scatter_kernel"], device)
+    lib_dev_ms = device_ms(lambda: ref["2d"].index_copy_(0, idx_long, src), ["index"], device,
+                           contains=True)
     nbytes = k * 4 + 2 * k * r * 4  # indices + source read, destination rows written
     b_ms, b_by = bound_ms(nbytes, 0)
-    line = {"phase": "kernel_B", "nodes": n, "rounds": 8, "equal": equal, "max_abs_err": err,
-            "timing_shape": f"[{n},{r}] int32, {k} rows", "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_call": "Tensor.index_copy_",
-            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by}
+    # (b) the whole mirror update of one incremental batch at the main
+    # path's shape (batch_size dirty rows of N): SchedulingBasic's five
+    # fields, and TopologySpreading's with its selector-class columns
+    batches = {}
+    for name, n_sc in (("SchedulingBasic", 0), ("TopologySpreading", 1)):
+        cl, _ = next(mirror_churn_rounds(seed, n, r, max(n_sc, 1)))
+        if not n_sc:
+            cl.selcls_count = np.zeros((0, n), np.int32)
+        batches[name] = batch_update_times(cl, k, device, rng)
+    line = {"phase": "kernel_B", "nodes": n, "rounds": 8, "equal": equal,
+            "fused_equal": fused_equal, "max_abs_err": err,
+            "timing_shape": f"[{n},{r}] int32, {k} rows packed [{k},{1 + r}], one descriptor",
+            "ms": ms, "ms_again": ms_again,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": lib_dev_ms, "library_call": "Tensor.index_copy_",
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "batch": batches}
     emit(line)
-    check(equal, "kernel B differs from its plain version")
+    check(equal, "kernel B (one mirror) differs from its plain version")
+    check(fused_equal, "kernel B (fused) differs from its plain version")
+    check(all(b["same_mirrors"] for b in batches.values()),
+          "kernel B: the fused batch update and the library route differ")
+    if device.type == "cuda":
+        check(all(b["launches_per_batch"] == 1 for b in batches.values()),
+              f"kernel B: an incremental batch is not one launch: {batches}")
     return err, line
+
+
+def batch_update_times(cl, k, device, rng, iters=50):
+    """Wall ms of one incremental TensorCache.device_views (the dirty set,
+    pack, one pinned copy, one kernel-B launch, synchronized) against the
+    library route through the same path (the same pack and copy, then
+    index_copy_ per field and index_copy_(1, ...) for the columns), both
+    device times, and kernel B's launches per batch."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.snapshot.tensorizer import TensorCache
+
+    class LibraryRoute(TensorCache):
+        def _scatter_packed(self, packed, segs):
+            idx = packed[:, 0].long()
+            for t, g in zip(self._mirrors(segs), segs):
+                part = packed[:, g.offset:g.offset + g.width]
+                if g.col_mode:
+                    t.index_copy_(1, idx, part.t())
+                elif t.dim() == 1:
+                    t.index_copy_(0, idx, part[:, 0])
+                else:
+                    t.index_copy_(0, idx, part)
+
+    row_sets = [np.sort(rng.choice(cl.alloc.shape[0], size=k, replace=False)).tolist()
+                for _ in range(4)]
+
+    def route(cache):
+        cache.device_views(cl, device)
+        step = [0]
+
+        def one():
+            cache._dirty_rows.update(row_sets[step[0] % 4])
+            step[0] += 1
+            return cache.device_views(cl, device)
+
+        return one
+
+    ours, library = route(TensorCache()), route(LibraryRoute())
+
+    def wall(fn):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            sync(device)
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    before = kernels.LAUNCHES["row_scatter"]
+    views = ours()
+    launches = kernels.LAUNCHES["row_scatter"] - before
+    lib_views = library()
+    sync(device)
+    same = all(bool((views[f] == lib_views[f]).all()) for f in views)
+    names = sorted(views)
+    return {"k": k, "fields": names, "ms": wall(ours), "library_ms": wall(library),
+            "ms_again": wall(ours), "library_ms_again": wall(library),
+            "launches_per_batch": launches, "same_mirrors": same,
+            "device_ms": device_ms(ours, ["mirror_scatter_kernel"], device, iters=20),
+            "library_device_ms": device_ms(library, ["index"], device, iters=20, contains=True)}
 
 
 # ---------------------------------------------------------------------------
@@ -882,7 +1079,8 @@ def phase_main_path(device, sizes, card):
         check_no_overcommit(placed, nodes)
         line = {"phase": "main_path", "workload": name, "nodes": n, "pods": len(pods),
                 "bound": len(placed), "batches": sched.batches_solved,
-                "launches": launches, "pods_per_s": len(pods) / sched_s,
+                "launches": launches, "row_scatter_launches": launches["row_scatter"],
+                "pods_per_s": len(pods) / sched_s,
                 "schedule_s": sched_s, "create_s": create_s,
                 "solve_s_per_batch": sum(sched.solve_seconds) / max(len(sched.solve_seconds), 1),
                 "stage_seconds": sched.stage_seconds, "card": card}
@@ -2400,14 +2598,14 @@ def main(argv=None) -> int:
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
-              "direct_nodes": 1000, "defrag_wide_v": 64}
+              "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000}
              if args.small else
              {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
-              "direct_nodes": 10000, "defrag_wide_v": 256})
+              "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000})
     try:
         info = phase_device(device)
         phase_build()
@@ -2445,13 +2643,19 @@ def main(argv=None) -> int:
          "replaces": "kubernetes_tpu/ops/solver.py:265", "launches": launches["greedy_scan"],
          "max_abs_err": err_a, "ms": timing_a["ms"], "plain_ms": timing_a["plain_ms"],
          "bound_ms": timing_a["bound_ms"], "bound_by": timing_a["bound_by"],
-         "library_ms": None, "checked": True, "shape": timing_a["shape"]},
+         "library_ms": None, "checked": True, "shape": timing_a["shape"],
+         "device_ms": timing_a["device_ms"], "us_per_pod_step": timing_a["us_per_pod_step"],
+         "cluster_size": timing_a["plan"]["cluster_size"],
+         "threads_per_cta": timing_a["plan"]["threads"]},
         {"name": "row_scatter", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": "kubernetes_tpu/snapshot/tensorizer.py:399",
          "launches": launches["row_scatter"], "max_abs_err": err_b, "ms": line_b["ms"],
          "plain_ms": line_b["plain_ms"], "bound_ms": line_b["bound_ms"],
          "bound_by": line_b["bound_by"], "library_ms": line_b["library_ms"],
-         "checked": True, "shape": line_b["timing_shape"]},
+         "checked": True, "shape": line_b["timing_shape"], "device_ms": line_b["device_ms"],
+         "library_device_ms": line_b["library_device_ms"],
+         "batch_ms": {k: v["ms"] for k, v in line_b["batch"].items()},
+         "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()}},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),

@@ -12,7 +12,8 @@ CUDA error, and count their launches in LAUNCHES (a launch is counted where
 it happens and nowhere else).
 
   greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
-  row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py scatter_rows/_cols
+  row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py TensorCache.device_views
+                                                  (scatter_mirrors, scatter_rows/_cols)
   waterfill     kernel C, csrc/waterfill.cu     <- models/waterfill.py waterfill_group
   repair_check  kernel D, csrc/repair_check.cu  <- models/repair.py repair_check
   cover_curve   kernel G, csrc/cover_curve.cu   <- models/gangcover.py cover_curve
@@ -35,7 +36,7 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-from .solver import FIELD_DTYPES, SolverInputs
+from .solver import FIELD_DTYPES, SolverInputs, scan_class_rows, scan_key_domains
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -122,17 +123,23 @@ def _lib(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
         if name == "greedy_scan":
-            lib.greedy_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            lib.greedy_scan_launch.restype = ctypes.c_int
-            lib.greedy_scan_args_size.argtypes = []
-            lib.greedy_scan_args_size.restype = ctypes.c_int
-            if lib.greedy_scan_args_size() != ctypes.sizeof(_GreedyScanArgs):
-                raise RuntimeError("GreedyScanArgs layout differs between "
+            _bind_args_entry(lib, name, _GreedyScanArgs)
+            lib.greedy_scan_plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            lib.greedy_scan_plan.restype = ctypes.c_int
+            lib.greedy_scan_plan_size.argtypes = []
+            lib.greedy_scan_plan_size.restype = ctypes.c_int
+            if lib.greedy_scan_plan_size() != ctypes.sizeof(_GreedyScanPlan):
+                raise RuntimeError("GreedyScanPlan layout differs between "
                                    "csrc/greedy_scan.cu and ops/kernels.py")
         elif name == "row_scatter":
-            lib.row_scatter_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            lib.row_scatter_launch.restype = ctypes.c_int
+            lib.mirror_scatter_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                                  ctypes.c_void_p]
+            lib.mirror_scatter_launch.restype = ctypes.c_int
+            lib.mirror_set_size.argtypes = []
+            lib.mirror_set_size.restype = ctypes.c_int
+            if lib.mirror_set_size() != ctypes.sizeof(_MirrorSet):
+                raise RuntimeError("MirrorSet layout differs between csrc/row_scatter.cu and "
+                                   "ops/kernels.py")
         elif name == "waterfill":
             _bind_args_entry(lib, name, _WaterfillArgs)
         elif name == "repair_check":
@@ -191,19 +198,17 @@ def _raise_on(err: int, what: str) -> None:
 # kernel A
 # ---------------------------------------------------------------------------
 
-_INT_DIMS = ("P", "N", "R", "C", "Pt", "SC", "G", "Ct", "St", "RAm", "RNm", "PPm", "Em",
-             "Sm", "d_max", "has_ipa", "has_ct", "has_st", "has_gang")
+_INT_DIMS = ("P", "N", "R", "C", "Pt", "SC", "G", "Kk", "Ct", "St", "RAm", "RNm", "PPm", "Em",
+             "Sm", "d_max", "has_ipa", "has_ct", "has_st")
 _PTR_FIELDS = (
-    "used", "used_nz", "pod_count", "dyn_selcls", "dyn_grp", "port_used",
-    "alloc", "max_pods", "filter_ok", "aff_ok", "napref_raw", "has_napref", "taint_cnt",
-    "img_score", "class_ports", "topo_id", "class_matches_selcls",
-    "ct_class", "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains", "ct_self_match",
-    "st_class", "st_key", "st_sel", "st_max_skew",
+    "used", "used_nz", "pod_count", "port_used", "alloc", "max_pods", "class_rows",
+    "class_flags", "key_domains", "aff_ok", "class_ports", "topo_id", "selcls_count", "grp_count",
+    "class_matches_selcls", "ct_class", "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains",
+    "ct_self_match", "st_class", "st_key", "st_sel", "st_max_skew",
     "ra_key", "ra_sel", "rn_key", "rn_sel", "pp_key", "pp_sel", "pp_weight",
     "grp_key", "class_holds_grp", "ea_grp", "sym_grp", "sym_weight",
     "class_self_ok", "class_has_ra", "req", "req_nz", "class_of_pod", "balanced_active",
-    "gang_bonus", "assignment", "feas", "ignored", "st_sum", "ipa_raw", "ra_pos", "ra_keys",
-    "dom_global")
+    "assignment", "gscratch")
 
 
 class _GreedyScanArgs(ctypes.Structure):
@@ -211,16 +216,26 @@ class _GreedyScanArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _PTR_FIELDS])
 
 
-# largest dynamic shared memory the domain scratch may take before it moves
-# to global memory (the card allows 227 KB per block)
-_MAX_DOM_SMEM = 160 * 1024
+class _GreedyScanPlan(ctypes.Structure):
+    _fields_ = ([(d, ctypes.c_int) for d in ("cs", "threads", "chunk", "smem_bytes", "in_smem",
+                                             "n_tables")]
+                + [("gbytes", ctypes.c_longlong)])
+
+
+# csrc/greedy_scan.cu's shared-memory regions, in the order they claim it
+SCAN_REGIONS = ("pod_rows", "node", "used", "used_nz", "pod_count", "alloc", "max_pods", "st_flags",
+                "class_rows", "ports", "domain_tables")
+# the last launch's plan: cluster size, threads and shared memory per CTA,
+# the regions in shared memory (the rest in the global scratch)
+LAST_SCAN_PLAN: Dict[str, object] = {}
 
 
 def launch_greedy_scan(inp: SolverInputs, d_max: int, has_ipa: bool, has_ct: bool,
                        has_st: bool, has_gang: bool):
     """Kernel A on CUDA tensors: returns (assignment [P] int32, used [N, R],
     pod_count [N]) like greedy_scan_solve_plain. The carried state is scratch
-    copied from the inputs; the inputs are not modified."""
+    copied from the inputs; the inputs are not modified. One launch is one
+    thread-block cluster."""
     device = inp.alloc.device
     n, r = inp.alloc.shape
     c = inp.filter_ok.shape[0]
@@ -268,37 +283,37 @@ def launch_greedy_scan(inp: SolverInputs, d_max: int, has_ipa: bool, has_ct: boo
         return torch.empty_like(src).copy_(src)
 
     used, used_nz, pod_count = scratch(inp.used), scratch(inp.used_nz), scratch(inp.pod_count)
-    dyn_selcls, dyn_grp = scratch(inp.selcls_count), scratch(inp.grp_count)
     port_used = scratch(inp.node_ports)
     assignment = torch.empty(p, dtype=torch.int32, device=device)
-    per_node = {k: torch.empty(n, dtype=torch.int32, device=device)
-                for k in ("feas", "ignored", "ipa_raw", "ra_pos", "ra_keys")}
-    st_sum = torch.empty(n, dtype=torch.float32, device=device)
-    dom_bytes = 2 * (d_max + 1) * 4
-    dom_global = None
-    smem = dom_bytes
-    if dom_bytes > _MAX_DOM_SMEM:
-        dom_global = torch.empty(2 * (d_max + 1), dtype=torch.int32, device=device)
-        smem = 0
-
-    args = _GreedyScanArgs(
-        P=p, N=n, R=r, C=c, Pt=pt, SC=sc, G=g, Ct=ct, St=st,
-        RAm=inp.ra_key.shape[1], RNm=inp.rn_key.shape[1], PPm=inp.pp_key.shape[1],
-        Em=inp.ea_grp.shape[1], Sm=inp.sym_grp.shape[1], d_max=d_max,
-        has_ipa=int(has_ipa), has_ct=int(has_ct), has_st=int(has_st), has_gang=int(has_gang))
-    carried = dict(used=used, used_nz=used_nz, pod_count=pod_count, dyn_selcls=dyn_selcls,
-                   dyn_grp=dyn_grp, port_used=port_used, assignment=assignment,
-                   st_sum=st_sum, dom_global=dom_global, **per_node)
-    for f in _PTR_FIELDS:
-        t = carried[f] if f in carried else getattr(inp, f)
-        if f == "gang_bonus" and not has_gang:
-            t = None
-        setattr(args, f, t.data_ptr() if t is not None else None)
     if p == 0:
         return assignment, used, pod_count
+    class_rows, class_flags = scan_class_rows(inp, has_gang)
+    args = _GreedyScanArgs(
+        P=p, N=n, R=r, C=c, Pt=pt, SC=sc, G=g, Kk=kk, Ct=ct, St=st,
+        RAm=inp.ra_key.shape[1], RNm=inp.rn_key.shape[1], PPm=inp.pp_key.shape[1],
+        Em=inp.ea_grp.shape[1], Sm=inp.sym_grp.shape[1], d_max=d_max,
+        has_ipa=int(has_ipa), has_ct=int(has_ct), has_st=int(has_st))
+    ptrs = dict(used=used, used_nz=used_nz, pod_count=pod_count, port_used=port_used,
+                class_rows=class_rows, class_flags=class_flags,
+                key_domains=scan_key_domains(inp.topo_id),
+                balanced_active=inp.balanced_active.to(torch.int32), assignment=assignment)
+    for f in _PTR_FIELDS[:-1]:
+        t = ptrs[f] if f in ptrs else getattr(inp, f)
+        setattr(args, f, t.data_ptr() if t.numel() else None)
     lib = _lib("greedy_scan")
-    err = lib.greedy_scan_launch(ctypes.byref(args), smem,
-                                 torch.cuda.current_stream(device).cuda_stream)
+    plan = _GreedyScanPlan()
+    _raise_on(lib.greedy_scan_plan(ctypes.byref(args), ctypes.byref(plan)), "greedy_scan plan")
+    gscratch = None
+    if plan.gbytes:
+        gscratch = torch.empty(plan.cs * plan.gbytes, dtype=torch.uint8, device=device)
+        args.gscratch = gscratch.data_ptr()
+    LAST_SCAN_PLAN.clear()
+    LAST_SCAN_PLAN.update(
+        cluster_size=plan.cs, ctas=plan.cs, threads=plan.threads, nodes_per_cta=plan.chunk,
+        smem_bytes=plan.smem_bytes, domain_tables=plan.n_tables,
+        global_bytes_per_cta=plan.gbytes,
+        in_smem=[nm for i, nm in enumerate(SCAN_REGIONS) if plan.in_smem >> i & 1])
+    err = lib.greedy_scan_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES["greedy_scan"] += 1
     _raise_on(err, "greedy_scan launch")
     return assignment, used, pod_count
@@ -309,33 +324,117 @@ def launch_greedy_scan(inp: SolverInputs, d_max: int, has_ipa: bool, has_ct: boo
 # ---------------------------------------------------------------------------
 
 
+class _MirrorDesc(ctypes.Structure):
+    _fields_ = [("dst", ctypes.c_void_p), ("width", ctypes.c_int), ("offset", ctypes.c_int),
+                ("col_mode", ctypes.c_int), ("n_cols", ctypes.c_int)]
+
+
+MAX_MIRRORS = 8
+
+
+class _MirrorSet(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("W", ctypes.c_int), ("d", _MirrorDesc * MAX_MIRRORS)]
+
+
+_I32 = torch.int32
+# the current stream's handle as an int without building a Stream object
+# (the call Triton's launcher makes); the public call where torch lacks it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_handle(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+class MirrorSet:
+    """Kernel B's descriptors for one set of device mirrors: checked once,
+    when the mirrors are allocated or change, then reused by every fused
+    launch. `segments` is a list of (mirror, offset, width, col_mode): the
+    mirror's slice of the packed rows [k, W], whose column 0 holds the row
+    indices. Row mode: mirror [N, width] (or [N] for width 1); column mode:
+    mirror [width, N]."""
+
+    def __init__(self, segments, W: int):
+        if not 1 <= len(segments) <= MAX_MIRRORS:
+            raise ValueError(f"mirror_scatter: 1 to {MAX_MIRRORS} mirrors, got {len(segments)}")
+        device = segments[0][0].device
+        if device.type != "cuda":
+            raise ValueError(f"mirror_scatter: mirrors on {device}, expected a CUDA device")
+        self.device = device
+        self.W = W
+        self.key = self.key_of(segments, W)
+        self.struct = _MirrorSet(n=len(segments), W=W)
+        for m, (dst, offset, width, col_mode) in enumerate(segments):
+            _check_cuda(dst, f"mirror {m}", _I32, device)
+            if col_mode:
+                if dst.dim() != 2 or dst.shape[0] != width:
+                    raise ValueError(f"mirror {m}: column mode needs [{width}, N], got "
+                                     f"{tuple(dst.shape)}")
+            elif (dst.dim() == 2 and dst.shape[1] != width) or dst.dim() not in (1, 2) or (
+                    dst.dim() == 1 and width != 1):
+                raise ValueError(f"mirror {m}: row mode needs [N, {width}], got "
+                                 f"{tuple(dst.shape)}")
+            if not (1 <= offset and offset + width <= W):
+                raise ValueError(f"mirror {m}: segment [{offset}, {offset + width}) outside "
+                                 f"the packed row [1, {W})")
+            self.struct.d[m] = _MirrorDesc(dst=dst.data_ptr(), width=width, offset=offset,
+                                           col_mode=int(bool(col_mode)),
+                                           n_cols=dst.shape[1] if col_mode else 0)
+
+    @staticmethod
+    def key_of(segments, W: int):
+        """What the descriptors depend on: a set is reused while this holds."""
+        return (W,) + tuple((t.data_ptr(), tuple(t.shape), o, w, c) for t, o, w, c in segments)
+
+
+def launch_mirror_scatter(mset: MirrorSet, packed: torch.Tensor, k: int) -> None:
+    """Kernel B, fused: one launch writes rows 0..k-1 of `packed` ([>= k, W]
+    int32 on the mirrors' device) into every mirror of `mset`. Only the
+    packed buffer and the count are checked here (the mirrors were checked
+    when the set was built). Row indices are produced by the host tensorizer
+    and are not re-checked on the device."""
+    if not (packed.dtype is _I32 and packed.device == mset.device and packed.dim() == 2
+            and packed.shape[1] == mset.W and packed.is_contiguous()
+            and 0 <= k <= packed.shape[0]):
+        _check_cuda(packed, "packed", _I32, mset.device)
+        raise ValueError(f"mirror_scatter: packed {tuple(packed.shape)} does not hold {k} rows "
+                         f"of width {mset.W}")
+    if k == 0:
+        return
+    err = _lib("row_scatter").mirror_scatter_launch(ctypes.byref(mset.struct), packed.data_ptr(),
+                                                    k, _stream_handle(packed.get_device()))
+    LAUNCHES["row_scatter"] += 1
+    _raise_on(err, "mirror_scatter launch")
+
+
 def launch_row_scatter(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
                        cols: bool) -> None:
-    """Kernel B on CUDA tensors, in place: rows (dst[idx[i]] = src[i]) or
-    columns (dst[:, idx[i]] = src[:, i]). Index values are produced by the
-    host tensorizer and are not re-checked on the device."""
+    """Kernel B with one mirror, in place: rows (dst[idx[i]] = src[i]) or
+    columns (dst[:, idx[i]] = src[:, i]). The same launch as the fused form,
+    with one descriptor, on [idx | src] packed on the device. Index values
+    are produced by the host tensorizer and are not re-checked on the
+    device."""
     device = dst.device
     k = idx.shape[0]
-    _check_cuda(idx, "idx", torch.int32, device, (k,))
-    _check_cuda(dst, "dst", torch.int32, device)
     if cols:
         if dst.dim() != 2:
             raise ValueError("row_scatter: column mode needs a 2-D dst")
-        w, n_cols = dst.shape
-        _check_cuda(src, "src", torch.int32, device, (w, k))
+        w = dst.shape[0]
+        want = (w, k)
     else:
         if dst.dim() not in (1, 2):
             raise ValueError("row_scatter: row mode needs a 1-D or 2-D dst")
         w = dst.shape[1] if dst.dim() == 2 else 1
-        n_cols = 0
-        _check_cuda(src, "src", torch.int32, device, (k, w) if dst.dim() == 2 else (k,))
+        want = (k, w) if dst.dim() == 2 else (k,)
+    _check_cuda(idx, "idx", _I32, device, (k,))
+    _check_cuda(src, "src", _I32, device, want)
     if k == 0 or w == 0:
         return
-    lib = _lib("row_scatter")
-    err = lib.row_scatter_launch(dst.data_ptr(), idx.data_ptr(), src.data_ptr(), k, w, n_cols,
-                                 int(cols), torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES["row_scatter"] += 1
-    _raise_on(err, "row_scatter launch")
+    mset = MirrorSet([(dst, 1, w, cols)], 1 + w)
+    packed = torch.cat([idx.view(k, 1), src.t() if cols else src.view(k, w)], dim=1)
+    launch_mirror_scatter(mset, packed, k)
 
 
 # ---------------------------------------------------------------------------

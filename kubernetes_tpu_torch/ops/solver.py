@@ -13,8 +13,8 @@ Two implementations of the same function:
                            step vectorized over nodes; the per-class term
                            tables (vmap in the JAX version) become explicit
                            loops over the class's active terms.
-  kernel A                 csrc/greedy_scan.cu, one launch per batch
-                           (ops/kernels.py launch_greedy_scan).
+  kernel A                 csrc/greedy_scan.cu, one cluster launch per
+                           batch (ops/kernels.py launch_greedy_scan).
 `greedy_scan_solve` sends CPU tensors to the plain version and CUDA tensors
 to the kernel; it never falls back from one to the other.
 
@@ -339,6 +339,34 @@ def greedy_scan_solve(inp: SolverInputs, d_max: int, has_ipa: bool = True,
 
         return launch_greedy_scan(inp, d_max, has_ipa, has_ct, has_st, has_gang)
     raise ValueError(f"greedy_scan_solve: no implementation for device {dev}")
+
+
+def scan_class_rows(inp: SolverInputs, has_gang: bool = False):
+    """Kernel A's per-class inputs, computed once per launch by its wrapper.
+
+    rows [C, N, 4] int32: filter_ok, napref_raw, taint_cnt and img_score
+    (plus gang_bonus when has_gang, a wrapping int32 sum: the two are only
+    ever added into the total), so one 16-byte copy stages a node's class
+    row. flags [C] int32: 1 = the class's preferred node affinity needs its
+    max over the feasible set (has_napref and a positive entry), 2 = the
+    taint row has a positive entry (else mx_taint is 0 whatever the
+    feasible set), 4 = the class has a preferred or symmetric IPA term
+    (else its IPA score is 0)."""
+    img = inp.img_score + inp.gang_bonus if has_gang else inp.img_score
+    rows = torch.stack([inp.filter_ok.to(torch.int32), inp.napref_raw, inp.taint_cnt,
+                        img.to(torch.int32)], dim=-1).contiguous()
+    napref = inp.has_napref & (inp.napref_raw > 0).any(dim=1)
+    taint = (inp.taint_cnt > 0).any(dim=1)
+    ipa = (inp.pp_key >= 0).any(dim=1) | (inp.sym_grp >= 0).any(dim=1)
+    flags = (napref.to(torch.int32) | (taint.to(torch.int32) << 1)
+             | (ipa.to(torch.int32) << 2))
+    return rows, flags
+
+
+def scan_key_domains(topo_id: torch.Tensor) -> torch.Tensor:
+    """[Kk] int32: 1 + the largest domain id of each topology key (0 for a
+    key no node carries), so kernel A scans only a key's own domains."""
+    return (topo_id.max(dim=1).values + 1).clamp(min=0).to(torch.int32)
 
 
 def greedy_scan_solve_plain(inp: SolverInputs, d_max: int, has_ipa: bool = True,

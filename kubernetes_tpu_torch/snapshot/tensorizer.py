@@ -5,8 +5,8 @@ numpy and behaves identically: NodeInfo-equivalent struct-of-arrays
 (allocatable/requested [N,R], dictionary-encoded labels, topology-value ids,
 per-constraint count tensors), mirroring the generation-diff stream of
 cache.go:186. `TensorCache.device_views` keeps torch mirrors of the node
-tensors on the device and updates them by scattering only the dirty rows
-(kernel B, `csrc/row_scatter.cu`, through `scatter_rows`).
+tensors on the device and updates them by scattering only the dirty rows,
+every mirror in one launch of kernel B (`csrc/row_scatter.cu`).
 
 Quantization (int32 everywhere — exact, no float rounding at feasibility
 boundaries):
@@ -21,13 +21,14 @@ boundaries):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..api import Pod, Resource, compute_pod_resource_request
 from ..api.resources import CPU, EPHEMERAL_STORAGE, MEMORY
+from ..ops.kernels import MirrorSet, launch_mirror_scatter, launch_row_scatter
 from ..ops.solver import resolve_device, to_device
 from ..scheduler.framework import Snapshot
 from ..scheduler.plugins.helpers import pts_effective_selector
@@ -149,6 +150,70 @@ class PodBatchTensors:
 # ---------------------------------------------------------------------------
 
 
+class MirrorSegment(NamedTuple):
+    """One mirror's columns in the packed dirty rows [k, W] (column 0 holds
+    the row indices)."""
+
+    name: str
+    offset: int
+    width: int
+    col_mode: bool  # the mirror is [width, N] and takes the rows as columns
+
+
+def mirror_layout(r: int, sc: int = 0) -> Tuple[List[MirrorSegment], int]:
+    """Segments of the packed rows for the DEVICE_FIELDS ([N, R] x 3, [N] x 2)
+    and, when sc > 0, selcls_count ([SC, N], column mode); returns
+    (segments, W) with W = 3 + 3R + SC."""
+    segs, off = [], 1
+    for name, width in (("alloc", r), ("used", r), ("used_nz", r), ("pod_count", 1),
+                        ("max_pods", 1)):
+        segs.append(MirrorSegment(name, off, width, False))
+        off += width
+    if sc:
+        segs.append(MirrorSegment("selcls_count", off, sc, True))
+        off += sc
+    return segs, off
+
+
+def pack_mirror_rows(cluster: ClusterTensors, rows: np.ndarray, with_selcls: bool,
+                     out: Optional[np.ndarray] = None):
+    """The dirty rows of every mirror in one int32 buffer [k, W], in one
+    numpy pass over the cluster arrays: the row index, then each segment of
+    mirror_layout. `out` (at least k * W int32) is filled in place when
+    given. Returns (packed [k, W], segments)."""
+    sc = cluster.selcls_count.shape[0] if with_selcls else 0
+    segs, w = mirror_layout(cluster.alloc.shape[1], sc)
+    k = len(rows)
+    packed = (np.empty((k, w), np.int32) if out is None
+              else out.reshape(-1)[:k * w].reshape(k, w))
+    packed[:, 0] = rows
+    for seg in segs:
+        src = getattr(cluster, seg.name)
+        part = packed[:, seg.offset:seg.offset + seg.width]
+        if seg.col_mode:
+            part[:] = src[:, rows].T
+        elif src.ndim == 1:
+            part[:, 0] = src[rows]
+        else:
+            part[:] = src[rows]
+    return packed, segs
+
+
+def scatter_mirrors_plain(dsts: Sequence[torch.Tensor], packed: torch.Tensor,
+                          layout: Sequence[MirrorSegment]) -> None:
+    """Plain version of kernel B, fused form: for each mirror, per-field
+    index assignment of its segment of the packed rows (rows in column 0)."""
+    rows = packed[:, 0].long()
+    for dst, seg in zip(dsts, layout):
+        part = packed[:, seg.offset:seg.offset + seg.width]
+        if seg.col_mode:
+            dst[:, rows] = part.t()
+        elif dst.dim() == 1:
+            dst[rows] = part[:, 0]
+        else:
+            dst[rows] = part
+
+
 def scatter_rows_plain(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> None:
     """dst[rows[i], ...] = src[i, ...] in place (plain version of kernel B)."""
     dst[rows.long()] = src
@@ -160,25 +225,23 @@ def scatter_cols_plain(dst: torch.Tensor, cols: torch.Tensor, src: torch.Tensor)
 
 
 def scatter_rows(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> None:
-    """Row scatter: the plain version for CPU tensors, kernel B on CUDA."""
-    if dst.device.type == "cpu":
-        scatter_rows_plain(dst, rows, src)
-    elif dst.device.type == "cuda":
-        from ..ops.kernels import launch_row_scatter
-
+    """Row scatter into one mirror: the plain version for CPU tensors,
+    kernel B (one descriptor) on CUDA."""
+    if dst.is_cuda:
         launch_row_scatter(dst, rows, src, cols=False)
+    elif dst.device.type == "cpu":
+        scatter_rows_plain(dst, rows, src)
     else:
         raise ValueError(f"scatter_rows: no implementation for device {dst.device}")
 
 
 def scatter_cols(dst: torch.Tensor, cols: torch.Tensor, src: torch.Tensor) -> None:
-    """Column scatter: the plain version for CPU tensors, kernel B on CUDA."""
-    if dst.device.type == "cpu":
-        scatter_cols_plain(dst, cols, src)
-    elif dst.device.type == "cuda":
-        from ..ops.kernels import launch_row_scatter
-
+    """Column scatter into one mirror: the plain version for CPU tensors,
+    kernel B (one descriptor) on CUDA."""
+    if dst.is_cuda:
         launch_row_scatter(dst, cols, src, cols=True)
+    elif dst.device.type == "cpu":
+        scatter_cols_plain(dst, cols, src)
     else:
         raise ValueError(f"scatter_cols: no implementation for device {dst.device}")
 
@@ -221,6 +284,12 @@ class TensorCache:
         self._device_selcls_host = None  # the host array the mirror tracks
         self._dirty_rows: set = set()
         self._dirty_all = True
+        # kernel B's pinned staging buffer, its device copy, the event after
+        # the last copy, and the mirrors' checked descriptors
+        self._stage_host: Optional[torch.Tensor] = None
+        self._stage_dev: Optional[torch.Tensor] = None
+        self._stage_event = None
+        self._mirror_set = None
         # previous PodBatchTensors (pod-axis reuse for same-backlog re-solves)
         self._last_batch = None
 
@@ -302,43 +371,81 @@ class TensorCache:
     def device_views(self, cluster: ClusterTensors, device) -> Dict[str, torch.Tensor]:
         """Device-resident cluster tensors, updated incrementally: a full
         rebuild uploads once; afterwards only dirty node rows (accumulated
-        across passes) are scattered into the mirrors by kernel B, so
-        per-batch host->device traffic scales with the diff. The packed dirty
-        rows cross with a plain copy; the scatter is the kernel. The mirrors
-        are updated in place (the JAX version rebinds new arrays). Returns
-        {field: tensor} for make_inputs(views=...)."""
+        across passes) reach the device: packed into one buffer (every
+        mirror's row segments, and the selector-class columns where that
+        mirror is reused), one host-to-device copy, one kernel-B launch. The
+        mirrors are updated in place (the JAX version rebinds new arrays).
+        Returns {field: tensor} for make_inputs(views=...)."""
         device = resolve_device(device)
-        dirty = sorted(self._dirty_rows)
+        dirty = bool(self._dirty_rows)
         full_upload = (self._dirty_all or not self._device
                        or self._device["alloc"].device != device)
         if full_upload:
             self._device = {f: to_device(getattr(cluster, f), device, torch.int32)
                             for f in self.DEVICE_FIELDS}
-        elif dirty:
-            rows_np = np.asarray(dirty, dtype=np.int32)
-            rows = torch.from_numpy(rows_np).to(device)
-            for f in self.DEVICE_FIELDS:
-                src = to_device(getattr(cluster, f)[rows_np], device, torch.int32)
-                scatter_rows(self._device[f], rows, src)
-        out = dict(self._device)
         # selector-class counts: same treatment, keyed by host-array identity
         # (build_pod_batch reuses the array in place on the incremental path)
         sc = cluster.selcls_count
+        sc_fresh = bool(sc.size) and (
+            full_upload or self._device_selcls is None
+            or self._device_selcls_host is not sc
+            or tuple(self._device_selcls.shape) != sc.shape)
+        if sc_fresh:
+            self._device_selcls = to_device(sc, device, torch.int32)
+            self._device_selcls_host = sc
+        if dirty and not full_upload:
+            self._scatter_dirty(cluster, device, bool(sc.size) and not sc_fresh)
+        out = dict(self._device)
         if sc.size:
-            if (full_upload or self._device_selcls is None
-                    or self._device_selcls_host is not sc
-                    or tuple(self._device_selcls.shape) != sc.shape):
-                self._device_selcls = to_device(sc, device, torch.int32)
-                self._device_selcls_host = sc
-            elif dirty:
-                cols_np = np.asarray(dirty, dtype=np.int32)
-                cols = torch.from_numpy(cols_np).to(device)
-                src = to_device(sc[:, cols_np], device, torch.int32)
-                scatter_cols(self._device_selcls, cols, src)
             out["selcls_count"] = self._device_selcls
         self._dirty_rows.clear()
         self._dirty_all = False
         return out
+
+    def _scatter_dirty(self, cluster: ClusterTensors, device, with_selcls: bool) -> None:
+        """One fused scatter of the dirty rows (ascending) into every mirror."""
+        rows = np.fromiter(self._dirty_rows, dtype=np.int64, count=len(self._dirty_rows))
+        rows.sort()
+        if device.type == "cpu":
+            packed, segs = pack_mirror_rows(cluster, rows, with_selcls)
+            scatter_mirrors_plain(self._mirrors(segs), torch.from_numpy(packed), segs)
+            return
+        w = mirror_layout(cluster.alloc.shape[1],
+                          cluster.selcls_count.shape[0] if with_selcls else 0)[1]
+        k = len(rows)
+        # the pinned staging buffer must not be repacked while the previous
+        # batch's copy may still read it: wait on the event recorded after
+        # that copy (the copy is non_blocking)
+        if self._stage_event is not None:
+            self._stage_event.synchronize()
+        if self._stage_host is None or self._stage_host.numel() < k * w:
+            cap = max(k * w, 2 * (0 if self._stage_host is None else self._stage_host.numel()))
+            self._stage_host = torch.empty(cap, dtype=torch.int32, pin_memory=True)
+            self._stage_dev = torch.empty(cap, dtype=torch.int32, device=device)
+            self._stage_event = torch.cuda.Event()
+        elif self._stage_dev.device != device:
+            self._stage_dev = torch.empty(self._stage_host.numel(), dtype=torch.int32,
+                                          device=device)
+        _packed, segs = pack_mirror_rows(cluster, rows, with_selcls,
+                                         out=self._stage_host.numpy())
+        dev = self._stage_dev[:k * w].view(k, w)
+        dev.copy_(self._stage_host[:k * w].view(k, w), non_blocking=True)
+        self._stage_event.record()
+        self._scatter_packed(dev, segs)
+
+    def _scatter_packed(self, packed: torch.Tensor, segs: Sequence[MirrorSegment]) -> None:
+        """Kernel B: the packed rows on the card into every mirror, one
+        launch (the mirrors' descriptors are rebuilt only when a mirror
+        changes)."""
+        segments = [(t, s.offset, s.width, s.col_mode)
+                    for t, s in zip(self._mirrors(segs), segs)]
+        key = MirrorSet.key_of(segments, packed.shape[1])
+        if self._mirror_set is None or self._mirror_set.key != key:
+            self._mirror_set = MirrorSet(segments, packed.shape[1])
+        launch_mirror_scatter(self._mirror_set, packed, packed.shape[0])
+
+    def _mirrors(self, segs: Sequence[MirrorSegment]) -> List[torch.Tensor]:
+        return [self._device_selcls if s.col_mode else self._device[s.name] for s in segs]
 
 
 def build_cluster_tensors(snapshot: Snapshot, extra_resource_dims: Sequence[str] = ()) -> ClusterTensors:

@@ -1,13 +1,15 @@
 """Fluent MakePod/MakeNode constructors for tests and the chip smoke
 (reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()), the
 PodGroup constructor, the pod-conservation check, a seeded [G, N]
-transportation problem for the transport kernels' checks, and seeded and
-edge-case defrag-assignment problems for kernel I's. The same API as
+transportation problem for the transport kernels' checks, seeded and
+edge-case defrag-assignment problems for kernel I's, seeded greedy-scan
+problems for kernel A's and seeded mirror churn for kernel B's. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -414,3 +416,135 @@ def defrag_edge_cases():
     cases["wrapping_sum"] = (free_w, np.full(8, 3, np.int32), np.ones(8, bool), v_w,
                              np.array([True, True, True, False]))
     return cases
+
+
+def scan_problem(seed, n, p, c=4, r=3, zones=5, hostname=True, identical=False,
+                 huge_every=7, gang=True):
+    """A seeded greedy-scan problem as numpy arrays keyed by SolverInputs
+    field, and its d_max: n nodes with heterogeneous capacity and load, c
+    classes with filter/affinity rows, preferred node affinity and taint
+    counts (some classes with all-zero rows), host ports, topology keys zone
+    (zones domains) and, when hostname, a hostname key (d_max = n) with some
+    nodes missing a label, selector-class and holder-group counts, every
+    inter-pod-affinity table family, DoNotSchedule (some with minDomains)
+    and ScheduleAnyway spread rows, and p pods, every huge_every-th one
+    larger than any node. identical gives n identical nodes, one class and
+    no constraint terms (argmax ties everywhere). Any n >= 1 works, so the
+    card tests can reach shapes the tensorizer would take long to build."""
+    rng = np.random.default_rng(seed)
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+
+    pt, sc, g, kk = 2, 3, 2, 2 if hostname else 1
+    if identical:
+        c = 1
+        alloc = np.tile(np.array([[8000, 32768, 0] + [4] * (r - 3)], np.int32)[:, :r], (n, 1))
+        used = np.zeros((n, r), np.int32)
+        used_nz = np.zeros((n, r), np.int32)
+        pod_count = np.zeros(n, np.int32)
+        max_pods = np.full(n, 110, np.int32)
+    else:
+        alloc = np.stack([ints(2000, 16001, n), ints(4096, 65537, n), ints(0, 3, n) * 1000]
+                         + [ints(0, 5, n) for _ in range(r - 3)], axis=1)[:, :r]
+        used = (alloc * rng.random((n, r)) * 0.6).astype(np.int32)
+        used_nz = np.maximum(used, np.array([100, 200, 0] + [0] * (r - 3), np.int32)[:r])
+        used_nz = np.minimum(used_nz, alloc)
+        pod_count = ints(0, 12, n)
+        max_pods = ints(10, 111, n)
+    topo = [np.arange(n, dtype=np.int32) % max(zones, 1)]
+    if hostname:
+        topo.append(np.arange(n, dtype=np.int32))
+    topo_id = np.stack(topo)
+    if not identical:
+        topo_id[rng.random(topo_id.shape) < 0.04] = -1
+    d_max = max(int(topo_id.max()) + 1, 1)
+
+    def table(m, lo, hi, pad=0.4):
+        t = ints(lo, hi, (c, m))
+        if not identical:
+            t[rng.random((c, m)) < pad] = -1
+        else:
+            t[:] = -1
+        return t
+
+    f = {}
+    f.update(alloc=alloc, used=used, used_nz=used_nz, pod_count=pod_count, max_pods=max_pods)
+    f["filter_ok"] = np.ones((c, n), bool) if identical else rng.random((c, n)) < 0.92
+    f["aff_ok"] = np.ones((c, n), bool) if identical else rng.random((c, n)) < 0.9
+    f["napref_raw"] = np.zeros((c, n), np.int32) if identical else ints(0, 60, (c, n))
+    f["has_napref"] = np.zeros(c, bool) if identical else rng.random(c) < 0.6
+    f["taint_cnt"] = np.zeros((c, n), np.int32) if identical else ints(0, 3, (c, n)) * (
+        rng.random((c, n)) < 0.2)
+    if not identical:
+        f["napref_raw"][0] = 0  # a class whose rows need no extrema
+        f["taint_cnt"][0] = 0
+    f["img_score"] = np.zeros((c, n), np.int32) if identical else ints(0, 25, (c, n))
+    f["class_ports"] = np.zeros((c, pt), bool) if identical else rng.random((c, pt)) < 0.25
+    f["node_ports"] = np.zeros((n, pt), bool) if identical else rng.random((n, pt)) < 0.05
+    f["topo_id"] = topo_id
+    f["selcls_count"] = np.zeros((sc, n), np.int32) if identical else ints(0, 3, (sc, n)) * (
+        rng.random((sc, n)) < 0.3)
+    f["class_matches_selcls"] = ints(0, 2, (c, sc))
+    ct = 0 if identical else 3
+    st = 0 if identical else 2
+    f["ct_class"] = ints(0, c, ct) if ct else np.full(1, -1, np.int32)
+    f["ct_key"] = ints(0, kk, max(ct, 1)) if ct else np.zeros(1, np.int32)
+    f["ct_sel"] = ints(0, sc, max(ct, 1)) if ct else np.zeros(1, np.int32)
+    f["ct_max_skew"] = ints(1, 4, max(ct, 1))
+    f["ct_min_domains"] = ints(0, 2, max(ct, 1)) * ints(2, 7, max(ct, 1))
+    f["ct_self_match"] = ints(0, 2, max(ct, 1))
+    f["st_class"] = ints(0, c, st) if st else np.full(1, -1, np.int32)
+    f["st_key"] = ints(0, kk, max(st, 1)) if st else np.zeros(1, np.int32)
+    f["st_sel"] = ints(0, sc, max(st, 1)) if st else np.zeros(1, np.int32)
+    f["st_max_skew"] = ints(1, 4, max(st, 1))
+    f["st_self_match"] = ints(0, 2, max(st, 1))
+    f["ra_key"], f["ra_sel"] = table(2, 0, kk, pad=0.75), ints(0, sc, (c, 2))
+    f["rn_key"], f["rn_sel"] = table(2, 0, kk, pad=0.6), ints(0, sc, (c, 2))
+    f["pp_key"], f["pp_sel"] = table(3, 0, kk), ints(0, sc, (c, 3))
+    f["pp_weight"] = ints(-50, 51, (c, 3))
+    f["grp_key"] = ints(0, kk, g)
+    f["grp_count"] = np.zeros((g, n), np.int32) if identical else ints(0, 2, (g, n)) * (
+        rng.random((g, n)) < 0.1)
+    f["class_holds_grp"] = ints(0, 2, (c, g))
+    f["ea_grp"] = table(2, 0, g, pad=0.6)
+    f["sym_grp"] = table(2, 0, g)
+    f["sym_weight"] = ints(-30, 31, (c, 2))
+    f["class_self_ok"] = rng.random(c) < 0.5
+    f["class_has_ra"] = (f["ra_key"] >= 0).any(axis=1)
+    req = np.stack([ints(0, 1500, p), ints(0, 3000, p), ints(0, 2, p) * 500]
+                   + [ints(0, 2, p) for _ in range(r - 3)], axis=1)[:, :r]
+    if identical:
+        req = np.tile(np.array([[500, 1024, 0] + [0] * (r - 3)], np.int32)[:, :r], (p, 1))
+    elif huge_every:
+        req[::huge_every, 0] = 10**6  # fits nowhere
+    f["req"] = req.astype(np.int32)
+    f["req_nz"] = np.maximum(req, np.array([100, 200, 0] + [0] * (r - 3))[:r]).astype(np.int32)
+    f["class_of_pod"] = ints(0, c, p)
+    f["balanced_active"] = (req[:, 0] != 0) | (req[:, 1] != 0)
+    f["gang_bonus"] = ints(0, 40, (c, n)) if gang and not identical else None
+    return f, d_max
+
+
+def mirror_churn_rounds(seed, n, r=3, sc=4, rounds=6, ks=None):
+    """Seeded host cluster arrays (the DEVICE_FIELDS and selcls_count) and
+    churn rounds over them: yields (cluster, dirty rows) after each round
+    rewrote those rows. ks fixes the dirty count per round (default: seeded,
+    1 to n); the arrays are changed in place, as the tensorizer does."""
+    rng = np.random.default_rng(seed)
+    cl = SimpleNamespace(
+        alloc=rng.integers(0, 1 << 20, size=(n, r)).astype(np.int32),
+        used=rng.integers(0, 1 << 20, size=(n, r)).astype(np.int32),
+        used_nz=rng.integers(0, 1 << 20, size=(n, r)).astype(np.int32),
+        pod_count=rng.integers(0, 110, size=n).astype(np.int32),
+        max_pods=rng.integers(0, 111, size=n).astype(np.int32),
+        selcls_count=rng.integers(0, 50, size=(sc, n)).astype(np.int32))
+    for i in range(rounds):
+        k = ks[i % len(ks)] if ks else int(rng.integers(1, n + 1))
+        rows = np.sort(rng.choice(n, size=k, replace=False))
+        for f in ("alloc", "used", "used_nz"):
+            getattr(cl, f)[rows] = rng.integers(-(1 << 30), 1 << 30, size=(k, r))
+        cl.pod_count[rows] = rng.integers(0, 110, size=k)
+        cl.max_pods[rows] = rng.integers(0, 111, size=k)
+        cl.selcls_count[:, rows] = rng.integers(0, 50, size=(sc, k))
+        yield cl, rows

@@ -14,6 +14,8 @@ and the reduction order). The gang and transport schedulers' card runs, and the
 rebalancer's, are held against their CPU runs.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -80,6 +82,74 @@ def test_kernel_a_rejects_wrong_dtype(cuda_device):
         tsolver.greedy_scan_solve(inp._replace(req=inp.req.long()), d_max, **gates)
 
 
+def _scan_on_card(f, d_max, device, gates):
+    """Kernel A and its plain version on the same card tensors of a seeded
+    scan_problem; exact equality of all three outputs."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
+
+    if not gates["has_gang"]:
+        f = dict(f, gang_bonus=None)
+    inp = solver_inputs_from_numpy(f, device)
+    before = kernels.LAUNCHES["greedy_scan"]
+    got = tsolver.greedy_scan_solve(inp, d_max, **gates)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["greedy_scan"] == before + 1
+    ref = tsolver.greedy_scan_solve_plain(inp, d_max, **gates)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    return got[0].cpu(), dict(kernels.LAST_SCAN_PLAN)
+
+
+ALL_GATES = dict(has_ipa=True, has_ct=True, has_st=True, has_gang=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,kw", [
+    (1, 12, {}),  # one node: every CTA but the first owns none
+    (7, 40, {}),  # fewer nodes than the cluster's CTAs
+    (33, 60, {}),  # not a multiple of the cluster size
+    (1000, 200, {"hostname": False}),
+    (5003, 96, {}),  # the hostname key: d_max = N, the domain tables in global memory
+    (70000, 24, {}),  # a CTA's share past shared memory: the global-scratch path
+], ids=lambda x: str(x) if not isinstance(x, dict) else ",".join(x) or "all")
+def test_kernel_a_cluster_shapes_on_card(cuda_device, n, p, kw):
+    assignment, plan = _scan_on_card(*tt.scan_problem(11 + n, n, p, **kw), cuda_device,
+                                     ALL_GATES)
+    assert plan["cluster_size"] in (8, 16)
+    assert (assignment == -1).any() and (assignment >= 0).any()
+    if n >= 5003:
+        assert "domain_tables" not in plan["in_smem"]
+    if n == 70000:
+        assert {"st_flags", "class_rows", "domain_tables"}.isdisjoint(plan["in_smem"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 100, 5000])
+def test_kernel_a_identical_nodes_tie_to_lowest_index(cuda_device, n):
+    """Identical nodes: every step's best score ties across CTA boundaries
+    and the lowest index must win (the first pods land on nodes 0, 1, ...)."""
+    p = min(2 * n, 300)
+    assignment, _ = _scan_on_card(*tt.scan_problem(3, n, p, identical=True), cuda_device,
+                                  dict(ALL_GATES, has_gang=False))
+    assert assignment[: min(n, p)].tolist() == list(range(min(n, p)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gates", list(itertools.product([False, True], repeat=4)),
+                         ids=lambda g: "ipa{}-ct{}-st{}-gang{}".format(*map(int, g)))
+def test_kernel_a_every_gate_combination_on_card(cuda_device, gates):
+    has = dict(zip(("has_ipa", "has_ct", "has_st", "has_gang"), gates))
+    _scan_on_card(*tt.scan_problem(5, 300, 150), cuda_device, has)
+
+
+@pytest.mark.gpu
+def test_kernel_a_pod_that_fits_nowhere_on_card(cuda_device):
+    f, d_max = tt.scan_problem(8, 64, 30, huge_every=3)
+    assignment, _ = _scan_on_card(f, d_max, cuda_device, ALL_GATES)
+    assert (assignment[::3] == -1).all()
+
+
 @pytest.mark.gpu
 def test_device_mirrors_on_card_after_churn(cuda_device):
     from kubernetes_tpu_torch.ops import kernels
@@ -113,6 +183,97 @@ def test_kernel_b_matches_plain_on_card(cuda_device, seed):
     want = mat.clone()
     ttz.scatter_cols_plain(want, idx, src)
     assert torch.equal(got.cpu(), want)
+
+
+def _fused_mirrors(cl, device, with_selcls):
+    fields = list(ttz.TensorCache.DEVICE_FIELDS) + (["selcls_count"] if with_selcls else [])
+    return {f: torch.from_numpy(getattr(cl, f).copy()).to(device) for f in fields}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_selcls", [False, True])
+@pytest.mark.parametrize("n,ks", [(1000, None), (777, [1]), (500, [500]), (5000, [4096])],
+                         ids=["seeded_k", "k1", "k_n", "main_path_shape"])
+def test_kernel_b_fused_matches_plain_after_churn(cuda_device, n, ks, with_selcls):
+    """One fused launch per round writes every mirror as the per-field
+    plain scatters do (exact), k = 1 and k = N included."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    gen = tt.mirror_churn_rounds(3, n, ks=ks)
+    cl, rows = next(gen)
+    got, want = _fused_mirrors(cl, cuda_device, with_selcls), _fused_mirrors(cl, "cpu",
+                                                                             with_selcls)
+    for cl, rows in gen:
+        packed, segs = ttz.pack_mirror_rows(cl, rows, with_selcls)
+        mset = kernels.MirrorSet([(got[s.name], s.offset, s.width, s.col_mode) for s in segs],
+                                 packed.shape[1])
+        before = kernels.LAUNCHES["row_scatter"]
+        kernels.launch_mirror_scatter(mset, torch.from_numpy(packed).to(cuda_device),
+                                      len(rows))
+        assert kernels.LAUNCHES["row_scatter"] == before + 1
+        idx = torch.from_numpy(rows.astype(np.int32))
+        for s in segs:
+            src = torch.from_numpy(np.ascontiguousarray(getattr(cl, s.name)[..., rows]
+                                                        if s.col_mode else
+                                                        getattr(cl, s.name)[rows]))
+            (ttz.scatter_cols_plain if s.col_mode else ttz.scatter_rows_plain)(
+                want[s.name], idx, src)
+    torch.cuda.synchronize()
+    for f in got:
+        assert torch.equal(got[f].cpu(), want[f]), f
+
+
+@pytest.mark.gpu
+def test_device_views_one_launch_per_incremental_batch(cuda_device):
+    """An incremental device_views is one kernel-B launch (the five fields
+    and the selector-class columns together) and equals a fresh upload."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops import kernels
+
+    gen = tt.mirror_churn_rounds(9, 300)
+    cl, _ = next(gen)
+    tc = ttz.TensorCache()
+    cluster = SimpleNamespace(**vars(cl))
+    tc.device_views(cluster, cuda_device)
+    for cl, rows in gen:
+        cluster.__dict__.update(vars(cl))
+        tc._dirty_rows.update(rows.tolist())
+        before = kernels.LAUNCHES["row_scatter"]
+        views = tc.device_views(cluster, cuda_device)
+        assert kernels.LAUNCHES["row_scatter"] == before + 1
+        for f in list(ttz.TensorCache.DEVICE_FIELDS) + ["selcls_count"]:
+            np.testing.assert_array_equal(views[f].cpu().numpy(), getattr(cluster, f), err_msg=f)
+
+
+@pytest.mark.gpu
+def test_kernel_b_rejects_wrong_input(cuda_device):
+    from kubernetes_tpu_torch.ops import kernels
+
+    cl, rows = next(tt.mirror_churn_rounds(4, 64))
+    mirrors = _fused_mirrors(cl, cuda_device, True)
+    packed, segs = ttz.pack_mirror_rows(cl, rows, True)
+    args = [(mirrors[s.name], s.offset, s.width, s.col_mode) for s in segs]
+    with pytest.raises(TypeError, match="mirror 0"):
+        kernels.MirrorSet([(mirrors["alloc"].long(),) + args[0][1:]] + args[1:], packed.shape[1])
+    with pytest.raises(ValueError, match="mirror 5"):  # a column mirror of the wrong height
+        kernels.MirrorSet(args[:5] + [(mirrors["selcls_count"][:2].contiguous(),) + args[5][1:]],
+                          packed.shape[1])
+    mset = kernels.MirrorSet(args, packed.shape[1])
+    dev = torch.from_numpy(packed).to(cuda_device)
+    with pytest.raises(TypeError, match="packed"):
+        kernels.launch_mirror_scatter(mset, dev.long(), len(rows))
+    with pytest.raises(ValueError, match="width"):
+        kernels.launch_mirror_scatter(mset, dev[:, 1:].contiguous(), len(rows))
+    with pytest.raises(ValueError, match="rows"):
+        kernels.launch_mirror_scatter(mset, dev, len(rows) + 1)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="src"):
+        ttz.scatter_rows(mirrors["alloc"], idx, torch.zeros((3, 2), dtype=torch.int32,
+                                                             device=cuda_device))
+    with pytest.raises(TypeError, match="idx"):
+        ttz.scatter_rows(mirrors["alloc"], idx.long(), torch.zeros((3, 3), dtype=torch.int32,
+                                                                  device=cuda_device))
 
 
 @pytest.mark.gpu

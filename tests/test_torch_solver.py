@@ -25,6 +25,7 @@ from kubernetes_tpu.scheduler.cache import Cache as JCache
 from kubernetes_tpu.snapshot.tensorizer import build_cluster_tensors as j_build_cluster
 from kubernetes_tpu.snapshot.tensorizer import build_pod_batch as j_build_batch
 from kubernetes_tpu.utils import FakeClock
+import kubernetes_tpu_torch.testing as tt
 from kubernetes_tpu_torch.ops import solver as tsolver
 from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
 
@@ -197,3 +198,19 @@ def test_pts_counts_and_domain_valid(seed):
     want_v = jsolver.pts_domain_valid(jnp.asarray(aff), jnp.asarray(topo), d_max)
     got_v = tsolver.pts_domain_valid(torch.from_numpy(aff), torch.from_numpy(topo), d_max)
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+@pytest.mark.parametrize("seed,n,p,kw", [
+    (0, 1, 6, {}), (1, 7, 30, {}), (2, 40, 50, {}), (3, 60, 40, {"hostname": False}),
+    (4, 30, 40, {"identical": True})], ids=["n1", "n7", "n40_hostname", "n60_zones",
+                                            "identical"])
+def test_plain_scan_matches_jax_on_seeded_problems(seed, n, p, kw):
+    """The seeded synthetic problems kernel A's card tests use
+    (testing.scan_problem: every constraint family, pods that fit nowhere,
+    identical nodes) give the same solve in the plain version and the JAX
+    package."""
+    f, d_max = tt.scan_problem(seed, n, p, **kw)
+    gates = dict(has_ipa=True, has_ct=True, has_st=True, has_gang=f["gang_bonus"] is not None)
+    inp = jsolver.SolverInputs(**{k: (None if v is None else jnp.asarray(v))
+                                  for k, v in f.items()})
+    assert_same_solve(inp, d_max, gates, f)

@@ -5,7 +5,10 @@ once for each package; build_cluster_tensors, build_pod_batch and
 make_inputs must give identical arrays, field by field (exact equality,
 same dtype). The device mirrors (TensorCache.device_views) must equal a
 fresh upload of the host arrays after churn, in the manner of
-tests/test_tensor_cache.py. Kernel B on the card: tests/test_torch_gpu.py.
+tests/test_tensor_cache.py, and the JAX package's device views; the packed
+fused scatter (kernel B's plain version) must equal per-field scatters, and
+kernel A's per-class precompute must equal numpy. Kernel B on the card:
+tests/test_torch_gpu.py.
 """
 
 import numpy as np
@@ -180,3 +183,112 @@ def test_scatter_plain_versions():
                      torch.tensor([[7, 8], [9, 10]], dtype=torch.int32))
     assert cols.tolist() == [[8, 0, 0, 7], [10, 0, 0, 9]]
 
+
+
+@pytest.mark.parametrize("with_selcls", [False, True])
+@pytest.mark.parametrize("n,ks", [(50, None), (40, [1]), (30, [30]), (200, [7, 150])],
+                         ids=["seeded_k", "k1", "k_n", "mixed_k"])
+def test_scatter_mirrors_plain_matches_per_field(n, ks, with_selcls):
+    """pack_mirror_rows + scatter_mirrors_plain write every mirror as one
+    per-field scatter each (scatter_rows_plain, scatter_cols_plain)."""
+    gen = tt.mirror_churn_rounds(n + 1, n, ks=ks)
+    cl, _ = next(gen)
+    names = list(ttz.TensorCache.DEVICE_FIELDS) + (["selcls_count"] if with_selcls else [])
+    fused = {f: torch.from_numpy(getattr(cl, f).copy()) for f in names}
+    per_field = {f: t.clone() for f, t in fused.items()}
+    for cl, rows in gen:
+        packed, segs = ttz.pack_mirror_rows(cl, rows, with_selcls)
+        assert packed.dtype == np.int32 and packed.shape == (len(rows), segs[-1].offset
+                                                             + segs[-1].width)
+        assert [s.name for s in segs] == names
+        np.testing.assert_array_equal(packed[:, 0], rows)
+        ttz.scatter_mirrors_plain([fused[s.name] for s in segs], torch.from_numpy(packed), segs)
+        idx = torch.from_numpy(rows.astype(np.int32))
+        for f in names:
+            host = getattr(cl, f)
+            if f == "selcls_count":
+                ttz.scatter_cols_plain(per_field[f], idx, torch.from_numpy(host[:, rows]))
+            else:
+                ttz.scatter_rows_plain(per_field[f], idx, torch.from_numpy(host[rows]))
+    for f in names:
+        assert torch.equal(fused[f], per_field[f]), f
+        np.testing.assert_array_equal(fused[f].numpy(), getattr(cl, f), err_msg=f)
+
+
+def test_mirror_layout_and_packing_buffer():
+    segs, w = ttz.mirror_layout(4, 3)
+    assert w == 3 + 3 * 4 + 3
+    assert [(s.offset, s.width, s.col_mode) for s in segs] == [
+        (1, 4, False), (5, 4, False), (9, 4, False), (13, 1, False), (14, 1, False),
+        (15, 3, True)]
+    assert ttz.mirror_layout(3)[1] == 12
+    cl, rows = next(tt.mirror_churn_rounds(2, 20, r=4, sc=3, ks=[6]))
+    buf = np.full(200, -7, np.int32)
+    packed, _ = ttz.pack_mirror_rows(cl, rows, True, out=buf)
+    assert np.shares_memory(packed, buf) and (buf[6 * w:] == -7).all()
+    np.testing.assert_array_equal(packed, ttz.pack_mirror_rows(cl, rows, True)[0])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_device_views_cpu_matches_jax_after_churn(seed):
+    """The port's TensorCache.device_views on the CPU (one fused plain
+    scatter a batch) gives the JAX package's device views after seeded
+    churn, selector-class columns included."""
+    caches = {"jax": (JCache(clock=JFakeClock()), jtz.TensorCache(), jt, jtz),
+              "port": (TCache(), ttz.TensorCache(), tt, ttz)}
+    for cache, _tc, mod, _tz in caches.values():
+        for i in range(24):
+            cache.add_node(mod.MakeNode(f"n{i}").labels({ZONE: f"z{i % 4}"})
+                           .capacity({"cpu": "8", "memory": "16Gi", "pods": "50"}).obj())
+    rng = np.random.default_rng(seed)
+    for step in range(5):
+        placements = rng.integers(0, 24, size=int(rng.integers(1, 9))).tolist()
+        views = {}
+        for key, (cache, tc, mod, tz) in caches.items():
+            for j, nidx in enumerate(placements):
+                p = mod.MakePod(f"b{step}-{j}").labels({"app": "w" if j % 2 else "v"}).req(
+                    {"cpu": "300m", "memory": "700Mi"}).obj()
+                p.spec.node_name = f"n{nidx}"
+                cache.add_pod(p)
+            snap = cache.update_snapshot()
+            cluster, changed = tc.cluster_tensors(snap)
+            pods = [mod.MakePod(f"q{step}-{j}").labels({"app": "w"}).req({"cpu": "100m"})
+                    .topology_spread(1, ZONE, "DoNotSchedule", {"app": "w"})
+                    .pod_anti_affinity(ZONE, {"app": "v"}).obj()
+                    for j in range(3)]
+            tz.build_pod_batch(pods, snap, cluster, reuse=tc, changed_nodes=changed)
+            views[key] = tc.device_views(cluster) if key == "jax" else tc.device_views(cluster,
+                                                                                          CPU)
+        assert set(views["port"]) == set(views["jax"])
+        assert "selcls_count" in views["port"]
+        for f in views["jax"]:
+            assert_same_array(f, views["port"][f].numpy(), np.asarray(views["jax"][f]))
+
+
+@pytest.mark.parametrize("gang", [False, True])
+@pytest.mark.parametrize("seed", range(3))
+def test_scan_class_rows_matches_numpy(seed, gang):
+    """Kernel A's per-class precompute (ops/solver.py scan_class_rows)
+    against numpy: the packed rows and the extrema / IPA-term flags."""
+    f, _ = tt.scan_problem(seed, 40, 10, c=5, gang=gang)
+    f["napref_raw"][2] = -3  # no positive entry: needs no max
+    f["has_napref"][1] = False
+    inp = solver_inputs_from_numpy(f, CPU)
+    rows, flags = tsolver.scan_class_rows(inp, has_gang=gang)
+    img = f["img_score"] + (f["gang_bonus"] if gang else 0)
+    want = np.stack([f["filter_ok"].astype(np.int32), f["napref_raw"], f["taint_cnt"], img],
+                    axis=-1).astype(np.int32)
+    assert rows.dtype == torch.int32 and rows.is_contiguous()
+    np.testing.assert_array_equal(rows.numpy(), want)
+    want_flags = ((f["has_napref"] & (f["napref_raw"] > 0).any(axis=1)).astype(np.int32)
+                  | ((f["taint_cnt"] > 0).any(axis=1).astype(np.int32) << 1)
+                  | (((f["pp_key"] >= 0).any(axis=1) | (f["sym_grp"] >= 0).any(axis=1))
+                     .astype(np.int32) << 2))
+    assert flags.dtype == torch.int32
+    np.testing.assert_array_equal(flags.numpy(), want_flags)
+    assert not flags[0] & 3 and not flags[1] & 1 and not flags[2] & 1
+    topo = f["topo_id"].copy()
+    topo[0] = -1  # a key no node carries
+    kd = tsolver.scan_key_domains(torch.from_numpy(topo))
+    assert kd.dtype == torch.int32
+    np.testing.assert_array_equal(kd.numpy(), np.maximum(topo.max(axis=1) + 1, 0))
