@@ -86,18 +86,25 @@ Phases, each printing one JSON line:
              TransportMixed's 8 group rows x 5,000 nodes, (b) 512 pod rows,
              (c) over-committed nodes (free < 0), zero-alloc dimensions, used
              host ports and rows nothing fits; exact equality
-  kernel_E   the auction-phase kernel against _auction_phase_plain: (a) the
-             first Transport_50k batch (G = 1, supply 4,096 far above one
-             node) at the first and the final eps, (b) a TransportMixed batch
-             (G = 8), (c) scarce capacity, equal levels (holder/bid ties), a
-             NEG_INF row, a warm price, the max_rounds cut and G = 2,100 (2G
-             beyond the shared-memory keys); exact x, price, level, rounds
-  kernel_F   the Sinkhorn kernel against _sinkhorn_iters_plain on the
-             Transport_50k and TransportMixed batch problems and on ample,
-             scarce, all-infeasible-row and warm-g problems: f and g after 60
+  kernel_E   the auction-phase kernel (one thread-block cluster a phase)
+             against _auction_phase_plain: (a) the first Transport_50k batch
+             (G = 1, supply 4,096 far above one node) at the first and the
+             final eps, (b) a TransportMixed batch (G = 8), (c) scarce
+             capacity, equal levels (holder/bid ties), a NEG_INF row, a warm
+             price, the max_rounds cut, a warm x0 that overfills nodes and
+             G = 2,100 (the exchange and the candidates in global memory);
+             exact x, price, level, rounds; each line gives the CUDA launches
+             and host syncs of the call and the cluster plan, the timed case
+             us a round
+  kernel_F   the Sinkhorn kernel (one thread-block cluster a call) against
+             _sinkhorn_iters_plain on the Transport_50k and TransportMixed
+             batch problems and on ample, scarce, all-infeasible-row and
+             warm-g problems, G 128 x N 10,000 (z in global memory) and G
+             2,100 x N 40 (the exchange in global memory): f and g after 60
              iterations, and the plan from the same duals, to a relative
              error of 1e-5 (|a - b| / max(|b|, 1e-6)), and the 60-iteration
-             plan to 1e-4 (PLAN_TOL)
+             plan to 1e-4 (PLAN_TOL); launches, host syncs and the plan per
+             line, the timed case us an iteration
   main_path_transport
              BatchScheduler(solver="auction" and "sinkhorn") on Transport_50k
              (5,000 nodes of 16 cpu / 64Gi / 110 pods, 50,000 pods of
@@ -108,7 +115,9 @@ Phases, each printing one JSON line:
              over-commit, ssd pods on ssd nodes, the transport path with no
              solver failure, kernels J and E/F launched; a CPU rerun places
              the auction identically and the sinkhorn the same count; the
-             initial-state utility beside fast and exact on the same card
+             initial-state utility beside fast and exact on the same card;
+             the solve stage per batch split into the kernels' device time
+             (CUDA events around each E/F and J call) and the rest
   transport_direct
              one transport_solve per method on the 50,000 pods (G = 1) and
              on the 100k-pod / 10k-node two-shape problem (bench.py:2594),
@@ -401,6 +410,58 @@ def device_ms(fn, prefixes, device, iters=50, contains=False):
             return total_us / iters / 1e3
         print(f"chip_smoke: the profiler saw no {prefixes} kernel: {keys[:12]}", file=sys.stderr)
     return None
+
+
+class KernelClock:
+    """While active, each call of the named launch wrappers of
+    kubernetes_tpu_torch.ops.kernels is bracketed by two CUDA events on the
+    current stream; ms() gives the summed event time per wrapper (the kernels'
+    device time, with nothing else queued between the events). A no-op off
+    the card."""
+
+    def __init__(self, device, names=("launch_auction_phase", "launch_sinkhorn_iters",
+                                      "launch_feasibility_rows")):
+        self.device, self.names, self.events, self.saved = device, names, {}, {}
+
+    def __enter__(self):
+        import torch
+
+        from kubernetes_tpu_torch.ops import kernels
+
+        if self.device.type != "cuda":
+            return self
+        for name in self.names:
+            fn = self.saved[name] = getattr(kernels, name)
+            pairs = self.events.setdefault(name, [])
+
+            def timed(*args, _fn=fn, _pairs=pairs, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args, **kw)
+                end.record()
+                _pairs.append((start, end))
+                return out
+
+            setattr(kernels, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from kubernetes_tpu_torch.ops import kernels
+
+        for name, fn in self.saved.items():
+            setattr(kernels, name, fn)
+        self.saved = {}
+        return False
+
+    def ms(self):
+        import torch
+
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.synchronize()
+        return {name.removeprefix("launch_"): sum(a.elapsed_time(b) for a, b in pairs)
+                for name, pairs in self.events.items()}
 
 
 def sync(device):
@@ -1911,9 +1972,9 @@ def synthetic_problem(seed, device, **kw):
     return {k: torch.from_numpy(v).to(device) for k, v in transport_problem(seed, **kw).items()}
 
 
-def phase_args(p, price0=None):
-    """_auction_phase's arguments (cold x and level) for a GroupProblem or a
-    synthetic problem's dict."""
+def phase_args(p, price0=None, start=None):
+    """_auction_phase's arguments for a GroupProblem or a synthetic problem's
+    dict: cold x and level, or start = (x0, level0) as numpy arrays."""
     import torch
 
     from kubernetes_tpu_torch.models.transport import NEG_INF
@@ -1924,9 +1985,23 @@ def phase_args(p, price0=None):
     g, n = p["utility"].shape
     dev = p["utility"].device
     price = torch.zeros(n, device=dev) if price0 is None else price0.to(dev)
-    return (p["utility"], p["jcap"], p["supply"], p["slots"], p["req"], p["free"],
-            torch.zeros((g, n), dtype=torch.int32, device=dev), price,
-            torch.full((g, n), float(NEG_INF), device=dev))
+    if start is None:
+        x0 = torch.zeros((g, n), dtype=torch.int32, device=dev)
+        level0 = torch.full((g, n), float(NEG_INF), device=dev)
+    else:
+        x0, level0 = (torch.from_numpy(a).to(dev) for a in start)
+    return (p["utility"], p["jcap"], p["supply"], p["slots"], p["req"], p["free"], x0, price,
+            level0)
+
+
+def cluster_counts(kernels, name, before):
+    """(CUDA launches, host syncs) of the wrapper `name` since `before`."""
+    return (kernels.CUDA_LAUNCHES[name] - before[0], kernels.HOST_SYNCS[name] - before[1])
+
+
+def plan_summary(plan):
+    return {k: plan.get(k) for k in ("cluster_size", "threads", "nodes_per_cta", "smem_bytes",
+                                     "in_smem", "in_global", "global_bytes_per_cta", "exchange")}
 
 
 def kernel_e_work(args, rounds, candidates):
@@ -1946,12 +2021,14 @@ def phase_kernel_e(device, sizes, seed):
 
     from kubernetes_tpu_torch.models import transport as ttr
     from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.testing import overfilled_start, transport_problem
 
     wl = transport_workloads(sizes)
     nodes_t, pods_t = wl["Transport_50k"]()
     prob_t, _, _, _ = group_problem(nodes_t, pods_t[:sizes["batch"]], device)
     nodes_m, pods_m = wl["TransportMixed"]()
     prob_m, _, _, _ = group_problem(nodes_m, pods_m[:sizes["batch"]], device)
+    overfilled = overfilled_start(transport_problem(seed + 11, g=5, n=300, scarce=True), seed)
     eps0 = max(float(torch.where(prob_t.feasible, prob_t.utility, 0.0).max()) / 8.0, 0.9)
     warm = torch.from_numpy(np.random.default_rng(seed).integers(0, 5, size=64)
                             .astype(np.float32))
@@ -1969,15 +2046,21 @@ def phase_kernel_e(device, sizes, seed):
                                                                 ties=True), warm), 0.9, 400),
         "c_max_rounds_cut": (phase_args(synthetic_problem(seed + 5, device, g=5, n=300,
                                                                     scarce=True)), 0.9, 3),
+        "c_warm_x0_overfill": (phase_args(synthetic_problem(seed + 11, device, g=5, n=300,
+                                                            scarce=True), start=overfilled),
+                               0.9, 400),
         "c_2g_beyond_shared_memory": (phase_args(synthetic_problem(
             seed + 6, device, g=2100, n=40, supply_hi=8)), 0.9, 4),
     }
     err, lines = 0, {}
     for name, (args, eps, max_rounds) in cases.items():
         before = kernels.LAUNCHES["auction_phase"]
+        counts = (kernels.CUDA_LAUNCHES["auction_phase"], kernels.HOST_SYNCS["auction_phase"])
         got = ttr._auction_phase(*args, eps, max_rounds)
         sync(device)
         launched = kernels.LAUNCHES["auction_phase"] - before
+        cuda_launches, host_syncs = cluster_counts(kernels, "auction_phase", counts)
+        plan = plan_summary(kernels.LAST_AUCTION_PLAN) if device.type == "cuda" else None
         ref = ttr._auction_phase_plain(*args, eps, max_rounds)
         sync(device)
         e = max(int((got[0].long() - ref[0].long()).abs().max()),
@@ -1989,16 +2072,24 @@ def phase_kernel_e(device, sizes, seed):
         line = {"phase": "kernel_E", "case": name, "G": g, "N": n, "eps": eps,
                 "max_rounds": max_rounds, "rounds": got[3], "units": int(got[0].sum()),
                 "supply": int(args[2].sum()), "equal": equal, "max_abs_err": e,
-                "launches": launched}
+                "launches": launched, "cuda_launches": cuda_launches, "host_syncs": host_syncs,
+                "plan": plan}
         err = max(err, e)
         check(equal, f"kernel E differs from its plain version on case {name}")
-        check(device.type != "cuda" or launched == 1, f"kernel E did not launch on case {name}")
+        check(device.type != "cuda" or (launched, cuda_launches, host_syncs) == (1, 1, 1),
+              f"kernel E on case {name}: {launched} wrapper calls, {cuda_launches} CUDA "
+              f"launches, {host_syncs} host syncs (want one each)")
+        if device.type == "cuda" and name == "c_2g_beyond_shared_memory":
+            check("exchange" in plan["in_global"], f"kernel E's plan for G 2,100: {plan}")
         if name == "a_transport_50k_batch_first_phase":
             line["ms"] = timed_ms(lambda: ttr._auction_phase(*args, eps, max_rounds), 20, device)
             line["plain_ms"] = timed_ms(lambda: ttr._auction_phase_plain(*args, eps, max_rounds),
                                         2, device, warmup=0)
             line["device_ms"] = device_ms(lambda: ttr._auction_phase(*args, eps, max_rounds),
-                                          ("au_",), device, iters=10)
+                                          ("auction_phase_kernel",), device, iters=10)
+            line["us_per_round"] = line["ms"] * 1e3 / max(got[3], 1)
+            if line["device_ms"] is not None:
+                line["device_us_per_round"] = line["device_ms"] * 1e3 / max(got[3], 1)
             # candidates per round: holders and bidders the accept step walks
             nbytes, ops = kernel_e_work(args, got[3], 2 * min(16, n) * g)
             line["bytes"], line["ops"] = nbytes, ops
@@ -2007,6 +2098,18 @@ def phase_kernel_e(device, sizes, seed):
         emit(line)
         lines[name] = line
     return err, lines["a_transport_50k_batch_first_phase"]
+
+
+def f_exchange_groups(device):
+    """Groups whose row-maximum and partial slots (2 x CS x G x 4 bytes at N
+    40) exceed a CTA's shared memory: 2,100 on a 16-CTA cluster, 3,600 on an
+    8-CTA one (below 4,096, where torch would split the column sums across
+    blocks)."""
+    if device.type != "cuda":
+        return 2100
+    from kubernetes_tpu_torch.ops import kernels
+
+    return 2100 if kernels._cluster_size(kernels._lib("sinkhorn"), "sinkhorn") == 16 else 3600
 
 
 # The 60-iteration Sinkhorn plan against its plain version: the largest
@@ -2067,13 +2170,20 @@ def phase_kernel_f(device, sizes, seed):
         "c_warm_g": from_synthetic(synthetic_problem(seed + 10, device, g=5, n=300, scarce=True,
                                                      supply_hi=200), warm=True),
         "c_warm_g_mixed": from_problem(prob_m, warm=True),
+        "c_z_beyond_shared_memory": from_synthetic(synthetic_problem(
+            seed + 12, device, g=128, n=10000, scarce=True, supply_hi=200)),
+        "c_exchange_beyond_shared_memory": from_synthetic(synthetic_problem(
+            seed + 13, device, g=f_exchange_groups(device), n=40, supply_hi=50)),
     }
     err, lines = 0.0, {}
     for name, args in cases.items():
         before = kernels.LAUNCHES["sinkhorn"]
+        counts = (kernels.CUDA_LAUNCHES["sinkhorn"], kernels.HOST_SYNCS["sinkhorn"])
         got = ttr._sinkhorn_iters(*args, 2.0, 60)
         sync(device)
         launched = kernels.LAUNCHES["sinkhorn"] - before
+        cuda_launches, host_syncs = cluster_counts(kernels, "sinkhorn", counts)
+        plan = plan_summary(kernels.LAST_SINKHORN_PLAN) if device.type == "cuda" else None
         ref = ttr._sinkhorn_iters_plain(*args, 2.0, 60)
         sync(device)
         # the duals after 60 iterations and the plan from the same duals to
@@ -2091,18 +2201,27 @@ def phase_kernel_f(device, sizes, seed):
         line = {"phase": "kernel_F", "case": name, "G": g, "N": n, "rel_err": errs,
                 "plan_60_iterations_rel_err": plan_err, "plan_60_iterations_tolerance": PLAN_TOL,
                 "max_rel_err": worst, "tolerance": 1e-5, "launches": launched,
+                "cuda_launches": cuda_launches, "host_syncs": host_syncs, "plan": plan,
                 "plan_mass": float(got[2].sum())}
         err = max(err, worst)
         check(worst <= 1e-5, f"kernel F differs from its plain version on case {name}: {errs}")
         check(plan_err <= PLAN_TOL, f"kernel F's 60-iteration plan differs from its plain "
               f"version on case {name}: {plan_err}")
-        check(device.type != "cuda" or launched == 1, f"kernel F did not launch on case {name}")
+        check(device.type != "cuda" or (launched, cuda_launches, host_syncs) == (1, 1, 0),
+              f"kernel F on case {name}: {launched} wrapper calls, {cuda_launches} CUDA "
+              f"launches, {host_syncs} host syncs (want 1, 1, 0)")
+        if device.type == "cuda" and name.endswith("beyond_shared_memory"):
+            region = "z" if name.startswith("c_z") else "exchange"
+            check(region in plan["in_global"], f"kernel F's plan on case {name}: {plan}")
         if name.startswith("b_"):
             line["ms"] = timed_ms(lambda: ttr._sinkhorn_iters(*args, 2.0, 60), 20, device)
             line["plain_ms"] = timed_ms(lambda: ttr._sinkhorn_iters_plain(*args, 2.0, 60), 5,
                                         device)
-            line["device_ms"] = device_ms(lambda: ttr._sinkhorn_iters(*args, 2.0, 60), ("sk_",),
-                                          device, iters=10)
+            line["device_ms"] = device_ms(lambda: ttr._sinkhorn_iters(*args, 2.0, 60),
+                                          ("sinkhorn_kernel",), device, iters=10)
+            line["us_per_iteration"] = line["ms"] * 1e3 / 60
+            if line["device_ms"] is not None:
+                line["device_us_per_iteration"] = line["device_ms"] * 1e3 / 60
             nbytes, ops = kernel_f_work(args, 60)
             line["bytes"], line["ops"] = nbytes, ops
             line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
@@ -2136,6 +2255,20 @@ def check_ssd(name, placed):
     check(not off, f"{name}: {len(off)} ssd pods off the ssd nodes, e.g. {off[:3]}")
 
 
+def solve_split(sched, kernel_ms):
+    """The solve stage per batch (ms, host clock) split into the kernels'
+    device time (CUDA events, KernelClock) and the rest: the host's problem
+    build, rounding, repair and assignment, and the wrappers' own work."""
+    n = len(sched.solve_seconds)
+    solve_ms = sum(sched.solve_seconds) * 1e3 / max(n, 1)
+    out = {"batches": n, "solve_ms_per_batch": solve_ms}
+    if kernel_ms is not None:
+        per = {k: v / max(n, 1) for k, v in kernel_ms.items()}
+        out["kernel_device_ms_per_batch"] = per
+        out["rest_ms_per_batch"] = solve_ms - sum(per.values())
+    return out
+
+
 def phase_main_path_transport(device, sizes, card):
     import torch
 
@@ -2146,8 +2279,12 @@ def phase_main_path_transport(device, sizes, card):
         nodes, pods = build()
         quality = {}
         for solver in ("auction", "sinkhorn"):
-            store, sched, got, launches, create_s, sched_s = drive_main_path(
-                name, nodes, pods, device, sizes["batch"], solver=solver)
+            with KernelClock(device) as clock:
+                store, sched, got, launches, create_s, sched_s = drive_main_path(
+                    name, nodes, pods, device, sizes["batch"], solver=solver)
+            cluster = {"cuda_launches": dict(kernels.CUDA_LAUNCHES),
+                       "host_syncs": dict(kernels.HOST_SYNCS)}
+            split = solve_split(sched, clock.ms())
             placed = [p for p in got if p.spec.node_name]
             check(len(placed) == len(pods),
                   f"{name} {solver}: {len(placed)}/{len(pods)} pods bound through the store")
@@ -2185,6 +2322,7 @@ def phase_main_path_transport(device, sizes, card):
                     "pods_per_s": len(pods) / sched_s, "schedule_s": sched_s,
                     "create_s": create_s,
                     "solve_s_per_batch": sum(sched.solve_seconds) / len(sched.solve_seconds),
+                    "solve_split": split, **cluster,
                     "stage_seconds": sched.stage_seconds,
                     "rounds_last_batch": sched.transport_state.iterations,
                     "initial_state_utility": quality[solver], "cpu_rerun_s": cpu_s,
@@ -2258,7 +2396,8 @@ def phase_transport_direct(device, sizes, card):
             sync(device)
             dt = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
-            dev_ms = device_ms(solve, ("au_", "sk_", "feasibility_rows"), device, iters=2)
+            dev_ms = device_ms(solve, ("auction_phase_kernel", "sinkhorn_kernel",
+                                       "feasibility_rows"), device, iters=2)
             t1 = time.perf_counter()
             a_plain, _ = plain_transport(solve)
             sync(device)
@@ -2699,7 +2838,9 @@ def main(argv=None) -> int:
          "plain_ms": line_e["plain_ms"], "bound_ms": line_e["bound_ms"],
          "bound_by": line_e["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs an auction phase",
-         "checked": True, "shape": line_e["shape"]},
+         "checked": True, "shape": line_e["shape"], "device_ms": line_e["device_ms"],
+         "us_per_round": line_e["us_per_round"], "cuda_launches_per_call": line_e["cuda_launches"],
+         "host_syncs_per_call": line_e["host_syncs"], "plan": line_e["plan"]},
         {"name": "sinkhorn", "route": "cuda", "source": KERNEL_F_SRC,
          "replaces": "kubernetes_tpu/models/transport.py:326",
          "launches": transport_sum["sinkhorn"], "max_abs_err": err_f, "ms": line_f["ms"],
@@ -2709,7 +2850,10 @@ def main(argv=None) -> int:
                     "(torch.logsumexp is one of their reductions)",
          "tolerance": "relative 1e-5 on f, g and the plan from the same duals, "
                       "1e-4 on the 60-iteration plan",
-         "checked": True, "shape": line_f["shape"]},
+         "checked": True, "shape": line_f["shape"], "device_ms": line_f["device_ms"],
+         "us_per_iteration": line_f["us_per_iteration"],
+         "cuda_launches_per_call": line_f["cuda_launches"],
+         "host_syncs_per_call": line_f["host_syncs"], "plan": line_f["plan"]},
         {"name": "defrag_assign", "route": "cuda", "source": KERNEL_I_SRC,
          "replaces": "kubernetes_tpu/models/defrag.py:99",
          "launches": sum(ln["launches"]["defrag_assign"] for ln in defrag.values()),

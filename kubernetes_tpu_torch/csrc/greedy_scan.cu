@@ -83,12 +83,11 @@
 // terms use explicit _rn intrinsics and the file is built with --fmad=false
 // (no contraction of a*b+c into an FMA); jnp.round is rintf (half to even).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "cluster_exchange.cuh"
 
 // at most 512 threads a CTA, so a thread may hold 128 registers (a wider
 // CTA walks its nodes strided)
@@ -193,38 +192,6 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 
 __device__ __forceinline__ int op_ident(int op) {
   return op == OP_SUM ? 0 : (op == OP_MAX ? INT_MIN : INT_MAX);
-}
-
-// ---- the cluster exchange: st.async into the receiving CTA's slot, which
-// completes bytes on the receiver's mbarrier; the receiver waits on its own
-// mbarrier (no cluster-wide barrier) ----
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ unsigned remote_addr(unsigned addr, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_async_b64(unsigned raddr, unsigned long long v, unsigned rbar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
-               ::"r"(raddr), "l"(v), "r"(rbar) : "memory");
-}
-__device__ __forceinline__ void st_async_v4(unsigned raddr, int4 v, unsigned rbar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
-               ::"r"(raddr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rbar) : "memory");
-}
-// one arrival plus `bytes` expected: arms the barrier's current phase
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p; }\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
@@ -400,9 +367,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const unsigned bar_arg = smem_addr(&slots.bar[0]), bar_ext = smem_addr(&slots.bar[2]);
   const unsigned arg_bytes = (unsigned)(cs * 8), ext_bytes = (unsigned)(cs * 32);
   if (tid == 0) {
-    for (int b = 0; b < 4; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&slots.bar[b])));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int b = 0; b < 4; ++b) mbar_init(smem_addr(&slots.bar[b]));
+    mbar_init_fence();
     for (int b = 0; b < 2; ++b) {
       mbar_expect(bar_arg + 8 * b, arg_bytes);
       mbar_expect(bar_ext + 8 * b, ext_bytes);
@@ -981,49 +947,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 static int g_cluster_size = 0;
 static int g_cluster_error = 0;
 
-static cudaLaunchConfig_t cluster_config(int cs, int threads, int smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 // 16 CTAs where the card can hold such a cluster at the largest launch this
 // file makes (MAX_THREADS threads, SMEM_BUDGET bytes each), else the portable 8.
 // Returns the size, or 0 with the CUDA error kept for greedy_scan_plan.
 extern "C" int greedy_scan_cluster_size() {
   if (g_cluster_size || g_cluster_error) return g_cluster_size;
-  cudaError_t e = cudaFuncSetAttribute(greedy_scan_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BUDGET);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(greedy_scan_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) {
-    g_cluster_error = (int)e;
-    return 0;
-  }
-  const int sizes[2] = {16, 8};
-  for (int k = 0; k < 2; ++k) {
-    cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(sizes[k], MAX_THREADS, SMEM_BUDGET, 0, attr);
-    int n_clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&n_clusters, (const void*)greedy_scan_kernel, &cfg);
-    if (e == cudaSuccess && n_clusters >= 1) {
-      g_cluster_size = sizes[k];
-      return g_cluster_size;
-    }
-    cudaGetLastError();  // a refused query leaves no sticky error
-  }
-  g_cluster_error = e != cudaSuccess ? (int)e : (int)cudaErrorUnsupportedLimit;
-  return 0;
+  g_cluster_size = choose_cluster_size(greedy_scan_kernel, MAX_THREADS, SMEM_BUDGET,
+                                       &g_cluster_error);
+  return g_cluster_size;
 }
 
 static long long align16(long long x) { return (x + 15) & ~15ll; }

@@ -2,14 +2,19 @@
 
 Each `csrc/*.cu` source has a plain C interface and is compiled on first use
 by nvcc for sm_90a into its own shared library under `build/torch_kernels/`
-(named by a hash of source and flags, so an edited source rebuilds), then
-loaded with ctypes. The build uses only the sources in this checkout; a
-missing nvcc or a failed build raises.
+(named by a hash of the source, the `csrc/*.cuh` headers it includes and the
+flags, so an edited source or header rebuilds), then loaded with ctypes. The
+build uses only the sources in this checkout; a missing nvcc or a failed
+build raises.
 
 The launch wrappers check device, dtype, shape and contiguity, launch on
 torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
-it happens and nowhere else).
+it happens and nowhere else). Kernels E and F also count the CUDA kernels
+their C entry launched (CUDA_LAUNCHES) and their wrapper's reads of device
+memory from the host (HOST_SYNCS). A, E and F are one thread-block cluster
+each (csrc/cluster_exchange.cuh); E's and F's layout is planned here
+(auction_plan, sinkhorn_plan) from the shape and the cluster size.
 
   greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
   row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py TensorCache.device_views
@@ -27,8 +32,10 @@ it happens and nowhere else).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -49,12 +56,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0}
+HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CUDA_LAUNCHES, HOST_SYNCS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -68,10 +78,30 @@ def _nvcc() -> str:
                        "csrc/ at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(path: Path, seen=None) -> list:
+    """`path` and every file of its directory that it includes with quotes,
+    transitively, each once, in include order."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if not dep.is_file():
+            raise FileNotFoundError(f"{path.name} includes {dep.name}, which is not in {path.parent}")
+        _sources_of(dep, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for f in _sources_of(CSRC / SOURCES[name]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
@@ -117,6 +147,30 @@ def _bind_args_entry(lib: ctypes.CDLL, name: str, struct) -> None:
                            "and ops/kernels.py")
 
 
+def _bind_cluster_entry(lib: ctypes.CDLL, name: str, args_prefix: str, struct) -> None:
+    """A cluster kernel's entries: `<name>_launch(const Args*, stream, int*
+    launched)`, `<name>_cluster_size()` and the layout check."""
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    launch.restype = ctypes.c_int
+    for fn in (f"{name}_cluster_size", f"{args_prefix}_args_size"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    if getattr(lib, f"{args_prefix}_args_size")() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{struct.__name__} layout differs between csrc/{SOURCES[name]} "
+                           "and ops/kernels.py")
+
+
+def _cluster_size(lib: ctypes.CDLL, name: str) -> int:
+    """The kernel's cluster size (16 or 8, chosen once per process by the
+    library); raises with the CUDA error if the card refuses both."""
+    cs = getattr(lib, f"{name}_cluster_size")()
+    if cs <= 0:
+        raise RuntimeError(f"{name}: the card schedules no cluster of 16 or 8 CTAs "
+                           f"(CUDA error {-cs})")
+    return cs
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
@@ -153,10 +207,7 @@ def _lib(name: str) -> ctypes.CDLL:
         elif name == "feasibility_rows":
             _bind_args_entry(lib, name, _FeasRowsArgs)
         elif name == "auction_phase":
-            _bind_args_entry(lib, "auction", _AuctionArgs)  # the phase start
-            lib.auction_rounds_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                                  ctypes.c_void_p]
-            lib.auction_rounds_launch.restype = ctypes.c_int
+            _bind_cluster_entry(lib, name, "auction", _AuctionArgs)
             lib.auction_max_r.argtypes = []
             lib.auction_max_r.restype = ctypes.c_int
         elif name == "defrag_assign":
@@ -166,13 +217,7 @@ def _lib(name: str) -> ctypes.CDLL:
             lib.defrag_assign_uses_smem.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.defrag_assign_uses_smem.restype = ctypes.c_int
         else:
-            lib.sinkhorn_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            lib.sinkhorn_launch.restype = ctypes.c_int
-            lib.sinkhorn_args_size.argtypes = []
-            lib.sinkhorn_args_size.restype = ctypes.c_int
-            if lib.sinkhorn_args_size() != ctypes.sizeof(_SinkhornArgs):
-                raise RuntimeError("SinkhornArgs layout differs between "
-                                   "csrc/sinkhorn.cu and ops/kernels.py")
+            _bind_cluster_entry(lib, name, name, _SinkhornArgs)
         _LIBS[name] = lib
     return lib
 
@@ -735,34 +780,131 @@ def launch_feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
 
 
 # ---------------------------------------------------------------------------
+# the layout of kernels E and F (one thread-block cluster each)
+# ---------------------------------------------------------------------------
+
+# shared memory a cluster kernel's CTA may take (AU_/SK_SMEM_BUDGET in csrc/)
+CLUSTER_SMEM_BUDGET = 220 * 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _place(sizes: Dict[str, int], cluster_wide=("exchange",)) -> Dict[str, object]:
+    """Regions in their order of claim: each in shared memory while it fits
+    the budget, else in the CTA's slice of a global scratch buffer (a region
+    in `cluster_wide` instead goes to one global array of the cluster)."""
+    off, goff, smem, gbytes = {}, {}, 0, 0
+    for name, size in sizes.items():
+        if smem + size <= CLUSTER_SMEM_BUDGET:
+            off[name], goff[name] = smem, 0
+            smem += size
+        else:
+            off[name], goff[name] = -1, (0 if name in cluster_wide else gbytes)
+            if name not in cluster_wide:
+                gbytes += size
+    return dict(off=off, goff=goff, smem_bytes=smem, global_bytes_per_cta=gbytes,
+                in_smem=[k for k in sizes if off[k] >= 0],
+                in_global=[k for k in sizes if off[k] < 0],
+                exchange="st.async" if off["exchange"] >= 0 else "global + barrier.cluster",
+                exchange_bytes=sizes["exchange"])
+
+
+def _plan_line(plan: Dict[str, object]) -> Dict[str, object]:
+    return {k: v for k, v in plan.items() if k not in ("off", "goff")}
+
+
+def _check_all(device: torch.device, checks) -> None:
+    """_check_cuda over (name, tensor, dtype, shape), with one cheap test of
+    each first (the wrappers of E and F run several times a batch)."""
+    for name, t, dtype, shape in checks:
+        if not (t.dtype is dtype and t.device == device and t.shape == shape
+                and t.is_contiguous()):
+            _check_cuda(t, name, dtype, device, shape)
+
+
+def _args_template(struct, plan: Dict[str, object], regions, **ints) -> bytes:
+    """A launch's fixed fields (sizes, the plan's offsets) as the bytes of
+    `struct`, to copy per call."""
+    args = struct(cs=plan["cluster_size"], threads=plan["threads"], chunk=plan["nodes_per_cta"],
+                  smem_bytes=plan["smem_bytes"], gbytes=plan["global_bytes_per_cta"], **ints)
+    for i, region in enumerate(regions):
+        args.off[i], args.goff[i] = plan["off"][region], plan["goff"][region]
+    return bytes(args)
+
+
+# ---------------------------------------------------------------------------
 # kernel E
 # ---------------------------------------------------------------------------
 
-_AU_INTS = ("G", "N", "R", "K", "max_rounds", "key_cap", "keys_in_smem", "accept_blocks")
-_AU_PTRS = ("utility", "jcap", "supply", "slots", "req", "free", "x0", "price0", "level0",
-            "x", "price", "level", "bid_units", "bid_level", "xsum", "xsum_next", "ctrl",
-            "keys_g", "vals_g")
+AUCTION_THREADS = 256
+_AU_LIST = 17  # entries a CTA sends per group a round: its K + 1 best
+# csrc/auction_phase.cu's regions, in the order they claim shared memory
+AUCTION_REGIONS = ("groups", "nodes", "exchange", "lists", "cells", "candidates")
+# the last launch's plan (shared with the plan cache: not to be modified)
+LAST_AUCTION_PLAN: Dict[str, object] = {}
 
-# the accept step's candidate keys stay in shared memory up to this many
-# (12 bytes each); beyond, a global slice per block of a grid this wide
-_AU_SMEM_KEYS = 4096
-_AU_GLOBAL_BLOCKS = 264
-# rounds enqueued between two reads of the device's loop flag
-AUCTION_ROUNDS_PER_CHECK = 8
+
+@functools.lru_cache(maxsize=64)
+def auction_plan(g: int, n: int, r: int, cs: int) -> Dict[str, object]:
+    """Kernel E's layout for a [G, N] problem with R resources on a cluster of
+    `cs` CTAs: CTA c owns the nodes c, c + cs, ... (ceil(N / cs) at most).
+    The plan is cached by shape; callers must not modify it. Regions (bytes a CTA):
+    groups (supply, the row-sum replica and its change, req), nodes (price,
+    slots, the walk flags and list, free), exchange (two parities of cs x G
+    lists of 17 16-byte entries), lists (a lane's 17 sorted keys, for every
+    lane), cells (x, level, utility, jcap and the round's bids for G x chunk
+    cells), candidates (a warp's 2G ranked keys)."""
+    chunk = -(-n // cs)
+    warps = AUCTION_THREADS // 32
+    sizes = {"groups": _align16((3 + r) * g * 4), "nodes": _align16((4 + r) * chunk * 4),
+             "exchange": 2 * cs * g * _AU_LIST * 16, "lists": warps * 32 * _AU_LIST * 8,
+             "cells": _align16(6 * g * chunk * 4),
+             "candidates": warps * 2 * g * 16}
+    return dict(cluster_size=cs, threads=AUCTION_THREADS, nodes_per_cta=chunk, **_place(sizes))
+
+
+_AU_INTS = ("G", "N", "R", "K", "max_rounds", "cs", "threads", "chunk", "smem_bytes")
+_AU_IN = ("utility", "jcap", "supply", "slots", "req", "free", "x0", "price0", "level0")
+_AU_PTRS = ("utility", "jcap", "supply", "slots", "req", "free", "x0", "price0", "level0",
+            "x", "price", "level", "rounds", "gscratch", "xslots")
 
 
 class _AuctionArgs(ctypes.Structure):
-    _fields_ = ([(d, ctypes.c_int) for d in _AU_INTS] + [("eps", ctypes.c_float)]
+    _fields_ = ([(d, ctypes.c_int) for d in _AU_INTS]
+                + [("off", ctypes.c_int * len(AUCTION_REGIONS)),
+                   ("goff", ctypes.c_longlong * len(AUCTION_REGIONS)),
+                   ("gbytes", ctypes.c_longlong), ("eps", ctypes.c_float)]
                 + [(f, ctypes.c_void_p) for f in _AU_PTRS])
+
+
+@functools.lru_cache(maxsize=64)
+def _auction_launch(g: int, n: int, r: int, cs: int):
+    plan = auction_plan(g, n, r, cs)
+    return (plan, _args_template(_AuctionArgs, plan, AUCTION_REGIONS, G=g, N=n, R=r, K=min(16, n)),
+            _plan_line(plan))
+
+
+def _cluster_scratch(plan: Dict[str, object], device: torch.device):
+    """(per-CTA global slices, the cluster's global exchange array) the plan
+    needs, as uint8 tensors or None."""
+    cs = plan["cluster_size"]
+    gscratch = (torch.empty(cs * plan["global_bytes_per_cta"], dtype=torch.uint8, device=device)
+                if plan["global_bytes_per_cta"] else None)
+    xslots = (torch.empty(plan["exchange_bytes"], dtype=torch.uint8, device=device)
+              if plan["off"]["exchange"] < 0 else None)
+    return gscratch, xslots
 
 
 def launch_auction_phase(utility, jcap, supply, slots, req, free, x0, price0, level0,
                          eps: float, max_rounds: int):
     """Kernel E on CUDA tensors: one eps-phase of the forward auction.
     Returns (x [G, N] int32, price [N] float32, level [G, N] float32, rounds
-    int) like _auction_phase_plain. The rounds run on the device; the host
-    reads the loop flag every AUCTION_ROUNDS_PER_CHECK rounds (a round whose
-    flag is clear does nothing). The inputs are not modified."""
+    int) like _auction_phase_plain. One launch of one cluster runs every
+    round on the device; the host reads `rounds` once, at the end. The
+    inputs are not modified."""
+    global LAST_AUCTION_PLAN
     device = utility.device
     if utility.dim() != 2 or req.dim() != 2:
         raise ValueError("auction_phase: utility must be [G, N] and req [G, R]")
@@ -770,70 +912,164 @@ def launch_auction_phase(utility, jcap, supply, slots, req, free, x0, price0, le
     r = req.shape[1]
     if g < 1 or n < 1:
         raise ValueError("auction_phase: needs at least one group and one node")
-    for name, t, dtype, shape in (
-            ("utility", utility, torch.float32, (g, n)), ("jcap", jcap, torch.int32, (g, n)),
-            ("supply", supply, torch.int32, (g,)), ("slots", slots, torch.int32, (n,)),
-            ("req", req, torch.int32, (g, r)), ("free", free, torch.int32, (n, r)),
-            ("x0", x0, torch.int32, (g, n)), ("price0", price0, torch.float32, (n,)),
-            ("level0", level0, torch.float32, (g, n))):
-        _check_cuda(t, name, dtype, device, shape)
+    inputs = (utility, jcap, supply, slots, req, free, x0, price0, level0)
+    _check_all(device, zip(_AU_IN, inputs, (
+        torch.float32, torch.int32, torch.int32, torch.int32, torch.int32, torch.int32,
+        torch.int32, torch.float32, torch.float32),
+        ((g, n), (g, n), (g,), (n,), (g, r), (n, r), (g, n), (n,), (g, n))))
     lib = _lib("auction_phase")
     if not 1 <= r <= lib.auction_max_r():
         raise ValueError(f"auction_phase: R = {r} outside [1, {lib.auction_max_r()}]")
-    key_cap = 1 << (2 * g - 1).bit_length()
-    in_smem = key_cap <= _AU_SMEM_KEYS
-    blocks = n if in_smem else min(n, _AU_GLOBAL_BLOCKS)
-    buf = dict(
-        x=torch.empty((g, n), dtype=torch.int32, device=device),
-        price=torch.empty(n, dtype=torch.float32, device=device),
-        level=torch.empty((g, n), dtype=torch.float32, device=device),
-        bid_units=torch.empty((g, n), dtype=torch.int32, device=device),
-        bid_level=torch.empty((g, n), dtype=torch.float32, device=device),
-        xsum=torch.empty(g, dtype=torch.int32, device=device),
-        xsum_next=torch.empty(g, dtype=torch.int32, device=device),
-        ctrl=torch.empty(3, dtype=torch.int32, device=device),
-        keys_g=None if in_smem else torch.empty(blocks * key_cap, dtype=torch.int64,
-                                                device=device),
-        vals_g=None if in_smem else torch.empty(blocks * key_cap, dtype=torch.int32,
-                                                device=device))
-    ptrs = dict(utility=utility, jcap=jcap, supply=supply, slots=slots, req=req, free=free,
-                x0=x0, price0=price0, level0=level0, **buf)
-    args = _AuctionArgs(G=g, N=n, R=r, K=min(16, n), max_rounds=int(max_rounds),
-                        key_cap=key_cap, keys_in_smem=int(in_smem), accept_blocks=blocks,
-                        eps=float(eps))
-    for f in _AU_PTRS:
-        t = ptrs[f]
+    plan, template, line = _auction_launch(g, n, r, _cluster_size(lib, "auction_phase"))
+    gscratch, xslots = _cluster_scratch(plan, device)
+    x = torch.empty((g, n), dtype=torch.int32, device=device)
+    price = torch.empty(n, dtype=torch.float32, device=device)
+    level = torch.empty((g, n), dtype=torch.float32, device=device)
+    rounds_t = torch.empty(1, dtype=torch.int32, device=device)
+    args = _AuctionArgs.from_buffer_copy(template)
+    args.max_rounds, args.eps = int(max_rounds), float(eps)
+    for f, t in zip(_AU_PTRS, inputs + (x, price, level, rounds_t, gscratch, xslots)):
         setattr(args, f, t.data_ptr() if t is not None else None)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.auction_launch(ctypes.byref(args), stream)
+    LAST_AUCTION_PLAN = line
+    launched = ctypes.c_int(0)
+    err = lib.auction_phase_launch(ctypes.byref(args), _stream_handle(utility.get_device()),
+                                   ctypes.byref(launched))
     LAUNCHES["auction_phase"] += 1
-    _raise_on(err, "auction_phase init launch")
-    ctrl = buf["ctrl"]
-    launched = 0
-    while launched < max_rounds and int(ctrl[0]):
-        chunk = min(AUCTION_ROUNDS_PER_CHECK, max_rounds - launched)
-        _raise_on(lib.auction_rounds_launch(ctypes.byref(args), chunk, stream),
-                  "auction_phase rounds launch")
-        launched += chunk
-    return buf["x"], buf["price"], buf["level"], int(ctrl[1])
+    CUDA_LAUNCHES["auction_phase"] += launched.value
+    _raise_on(err, "auction_phase launch")
+    rounds = int(rounds_t)  # the phase's one host read
+    HOST_SYNCS["auction_phase"] += 1
+    return x, price, level, rounds
 
 
 # ---------------------------------------------------------------------------
 # kernel F
 # ---------------------------------------------------------------------------
 
-_SK_PTRS = ("utility", "feasible", "supply", "cap", "f", "g", "plan")
+SINKHORN_MAX_THREADS = 512
+SINKHORN_MAX_Y = 16  # column threads a column's sum is split over (SK_MAX_Y in csrc/)
+# csrc/sinkhorn.cu's regions, in the order they claim shared memory
+SINKHORN_REGIONS = ("groups", "nodes", "exchange", "z")
+# the last launch's plan (shared with the plan cache: not to be modified)
+LAST_SINKHORN_PLAN: Dict[str, object] = {}
+
+
+def _last_pow2(n: int) -> int:
+    return 1 << (max(int(n), 1).bit_length() - 1)
+
+
+def _reduce_block(dim0: int, dim1: int, max_threads: int):
+    """ATen's ReduceConfig::set_block_dimension: (block width, height)."""
+    d0 = _last_pow2(dim0) if dim0 < max_threads else max_threads
+    d1 = _last_pow2(dim1) if dim1 < max_threads else max_threads
+    bw = min(d0, 32)
+    bh = min(d1, max_threads // bw)
+    return min(d0, max_threads // bh), bh
+
+
+def sinkhorn_order(g: int, n: int) -> Dict[str, object]:
+    """The order in which torch's CUDA sum (ATen Reduce.cuh, setReduceConfig)
+    adds a contiguous float32 [G, N] over dim 1 (a row) and dim 0 (a
+    column), which kernel F's sums follow so that its duals match the plain
+    version's on the card bit for bit where they can.
+
+    Row: `bw` x `by` threads share a row (by > 1 when the row is split
+    across warps); thread t = x + bw * y takes, when `vec` (N >= 128),
+    the float4 vectors t, t + W, ... (W = bw * by) into four accumulators
+    (element i of a vector into accumulator i) plus, for x < N % 4 and y 0,
+    the tail element 4 * (N // 4) + x into accumulator 0; else the elements
+    t, t + W, ... into accumulator s % 4 (s its place in the thread's
+    sequence). A thread's partial is ((a0 + a1) + a2) + a3; the partials are
+    summed over x by a stride-halving tree (offsets bw/2 .. 1, lower index
+    on the left), then over y the same way. Column: `cy` threads share a
+    column; thread y takes rows y, y + cy, ... into accumulator s % 4, then
+    the same combine and a stride-halving tree over y. `exact` is False
+    where torch would add a misaligned row's head (N % 4 != 0: rows
+    g * N % 4 != 0 start mid-vector), split a sum across blocks (N >= 256
+    W, G >= 256 cy) or a column over more than 16 threads: there F keeps
+    this order (cy capped at 16) and agrees to rounding."""
+    vec = n >= 128
+    bw, bh = _reduce_block(n // 4 if vec else n, g, 512)
+    by = bh if -(-n // bw) >= min(bh * 16, 256) else 1
+    ovs = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    _, cbh = _reduce_block(n // ovs, g, 512 // ovs)
+    cy = cbh if g >= min(cbh * 16, 256) else 1
+    exact = ((not vec or n % 4 == 0) and -(-n // (bw * by)) < 256
+             and -(-g // cy) < 256 and cy <= SINKHORN_MAX_Y)
+    return dict(vec=vec, bw=bw, by=by, cy=min(cy, SINKHORN_MAX_Y), exact=exact)
+
+
+def _sinkhorn_counts(order: Dict[str, object], n: int, cs: int) -> list:
+    """Nodes per CTA: CTA c < min(cs, bw) owns the row threads x = c, c + cx,
+    ... (cx = min(cs, bw)) for every y, and the nodes they add."""
+    bw, by, vec = order["bw"], order["by"], order["vec"]
+    w, cx = bw * by, min(cs, bw)
+    v = n // 4
+    out = []
+    for c in range(cs):
+        total = 0
+        if c < cx:
+            for y in range(by):
+                for x in range(c, bw, cx):
+                    t = x + bw * y
+                    if vec:
+                        total += 4 * max(0, -(-(v - t) // w)) + (1 if y == 0 and x < n - 4 * v else 0)
+                    else:
+                        total += max(0, -(-(n - t) // w))
+        out.append(total)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def sinkhorn_plan(g: int, n: int, cs: int) -> Dict[str, object]:
+    """Kernel F's layout for a [G, N] problem on a cluster of `cs` CTAs. A
+    CTA owns the nodes of its row threads (sinkhorn_order), at most
+    `nodes_per_cta`, one thread a node up to 512 threads. The plan is cached
+    by shape; callers must not modify it. Regions (bytes a
+    CTA): groups (f, f / eps, log supply, the row maxima, the row threads'
+    four accumulators and offsets), nodes
+    (g, g / eps, log cap, the node index), exchange (cs x G row maxima and
+    cs x G x by row partials), z (G x nodes_per_cta)."""
+    order = sinkhorn_order(g, n)
+    bw, by = order["bw"], order["by"]
+    cx = min(cs, bw)
+    owned = (bw // cx) * by  # row threads a CTA owns
+    chunk = max(1, max(_sinkhorn_counts(order, n, cs)))
+    threads = min(SINKHORN_MAX_THREADS, max(64, -(-chunk // 32) * 32))
+    sizes = {"groups": _align16((4 * g + 4 * g * owned + owned + 1) * 4),
+             "nodes": _align16(4 * chunk * 4),
+             "exchange": cs * g * 4 + cs * g * by * 4,
+             "z": _align16(g * chunk * 4)}
+    return dict(cluster_size=cs, threads=threads, nodes_per_cta=chunk, row_threads_per_cta=owned,
+                order=order, **_place(sizes))
+
+
+_SK_INTS = ("G", "N", "iters", "cs", "threads", "chunk", "smem_bytes", "vec", "bw", "by", "cy")
+_SK_PTRS = ("utility", "feasible", "supply", "cap", "f0", "g0", "f", "g", "plan", "gscratch",
+            "xslots")
+
+
+@functools.lru_cache(maxsize=64)
+def _sinkhorn_launch(g: int, n: int, cs: int):
+    plan = sinkhorn_plan(g, n, cs)
+    order = plan["order"]
+    return (plan, _args_template(_SinkhornArgs, plan, SINKHORN_REGIONS, G=g, N=n,
+                                 vec=int(order["vec"]), bw=order["bw"], by=order["by"],
+                                 cy=order["cy"]), _plan_line(plan))
 
 
 class _SinkhornArgs(ctypes.Structure):
-    _fields_ = ([("G", ctypes.c_int), ("N", ctypes.c_int), ("eps", ctypes.c_float)]
+    _fields_ = ([(d, ctypes.c_int) for d in _SK_INTS]
+                + [("off", ctypes.c_int * len(SINKHORN_REGIONS)),
+                   ("goff", ctypes.c_longlong * len(SINKHORN_REGIONS)),
+                   ("gbytes", ctypes.c_longlong), ("eps", ctypes.c_float)]
                 + [(f, ctypes.c_void_p) for f in _SK_PTRS])
 
 
 def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, iters: int):
-    """Kernel F on CUDA tensors: `iters` row/column passes and the plan,
-    launched back to back with no host sync. Returns (f [G], g [N], plan
-    [G, N]) float32 like _sinkhorn_iters_plain. The inputs are not
+    """Kernel F on CUDA tensors: `iters` row/column passes and the plan in
+    one launch of one cluster, with no host sync. Returns (f [G], g [N],
+    plan [G, N]) float32 like _sinkhorn_iters_plain. The inputs are not
     modified."""
     device = utility.device
     if utility.dim() != 2:
@@ -841,24 +1077,31 @@ def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, it
     g, n = utility.shape
     if g < 1 or n < 1:
         raise ValueError("sinkhorn: needs at least one group and one node")
-    for name, t, dtype, shape in (
-            ("utility", utility, torch.float32, (g, n)), ("feasible", feasible, torch.bool, (g, n)),
-            ("supply", supply, torch.int32, (g,)), ("cap", cap, torch.float32, (n,)),
-            ("f0", f0, torch.float32, (g,)), ("g0", g0, torch.float32, (n,))):
-        _check_cuda(t, name, dtype, device, shape)
-    f = torch.empty_like(f0).copy_(f0)
-    gg = torch.empty_like(g0).copy_(g0)
-    plan = torch.empty((g, n), dtype=torch.float32, device=device)
-    args = _SinkhornArgs(G=g, N=n, eps=float(eps), utility=utility.data_ptr(),
-                         feasible=feasible.data_ptr(), supply=supply.data_ptr(),
-                         cap=cap.data_ptr(), f=f.data_ptr(), g=gg.data_ptr(),
-                         plan=plan.data_ptr())
+    if iters < 0:
+        raise ValueError(f"sinkhorn: iters {iters} < 0")
+    global LAST_SINKHORN_PLAN
+    inputs = (utility, feasible, supply, cap, f0, g0)
+    _check_all(device, zip(("utility", "feasible", "supply", "cap", "f0", "g0"), inputs,
+                           (torch.float32, torch.bool, torch.int32, torch.float32, torch.float32,
+                            torch.float32), ((g, n), (g, n), (g,), (n,), (g,), (n,))))
     lib = _lib("sinkhorn")
-    err = lib.sinkhorn_launch(ctypes.byref(args), int(iters),
-                              torch.cuda.current_stream(device).cuda_stream)
+    plan, template, line = _sinkhorn_launch(g, n, _cluster_size(lib, "sinkhorn"))
+    gscratch, xslots = _cluster_scratch(plan, device)
+    f = torch.empty(g, dtype=torch.float32, device=device)
+    gg = torch.empty(n, dtype=torch.float32, device=device)
+    out_plan = torch.empty((g, n), dtype=torch.float32, device=device)
+    args = _SinkhornArgs.from_buffer_copy(template)
+    args.iters, args.eps = int(iters), float(eps)
+    for name, t in zip(_SK_PTRS, inputs + (f, gg, out_plan, gscratch, xslots)):
+        setattr(args, name, t.data_ptr() if t is not None else None)
+    LAST_SINKHORN_PLAN = line
+    launched = ctypes.c_int(0)
+    err = lib.sinkhorn_launch(ctypes.byref(args), _stream_handle(utility.get_device()),
+                              ctypes.byref(launched))
     LAUNCHES["sinkhorn"] += 1
+    CUDA_LAUNCHES["sinkhorn"] += launched.value
     _raise_on(err, "sinkhorn launch")
-    return f, gg, plan
+    return f, gg, out_plan
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Fluent MakePod/MakeNode constructors for tests and the chip smoke
 (reference: pkg/scheduler/testing/wrappers.go st.MakePod()/MakeNode()), the
 PodGroup constructor, the pod-conservation check, a seeded [G, N]
-transportation problem for the transport kernels' checks, seeded and
+transportation problem for the transport kernels' checks (with a warm start
+that overfills nodes, and a test-only numpy model of kernel E's round that
+accepts only where bids landed), seeded and
 edge-case defrag-assignment problems for kernel I's, seeded greedy-scan
 problems for kernel A's and seeded mirror churn for kernel B's. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
@@ -348,6 +350,108 @@ def transport_problem(seed, g, n, r=3, ties=False, scarce=False, dead_group=Fals
     supply[0] = max(int(supply[0]), 1)
     return dict(utility=utility, feasible=feasible, jcap=jcap, supply=supply, slots=slots,
                 req=req, free=free)
+
+
+def overfilled_start(problem, seed, nodes=3):
+    """A warm (x0, level0) for transport_problem's problem: on `nodes` nodes
+    every feasible group holds several units, more than the node's slots
+    and free admit (so the first round's knapsack must drop some), one cell
+    holds a negative count, and the held cells carry seeded levels (one of
+    them NEG_INF); every other cell is empty with a stale level."""
+    rng = np.random.default_rng(seed)
+    g, n = problem["utility"].shape
+    x0 = np.zeros((g, n), np.int32)
+    level0 = rng.integers(-50, 400, size=(g, n)).astype(np.float32)
+    for j in rng.choice(n, size=min(nodes, n), replace=False):
+        x0[:, j] = np.where(problem["feasible"][:, j],
+                            int(problem["slots"][j]) + rng.integers(1, 5, size=g), 0)
+    x0[rng.integers(g), rng.integers(n)] = -2
+    held = np.argwhere(x0 > 0)
+    if len(held):
+        level0[tuple(held[0])] = np.float32(-1e30)
+    return x0, level0
+
+
+def auction_phase_touched(utility, jcap, supply, slots, req, free, x0, price0, level0,
+                          eps, max_rounds, cs=16):
+    """Test-only numpy model of kernel E's round (not on any main path):
+    the nodes are dealt round robin to cs CTAs; a bidding group's K + 1 best
+    nodes are merged from each CTA's own K + 1 best (value desc, lowest index
+    on ties), and the accept step walks only the nodes that got
+    a bid, plus, in round 1, every node whose x0 is not zero; every other
+    node keeps its holders, level and price. In round 1 every empty cell's
+    level becomes NEG_INF, as the reference's fold gives it. Returns (x, price,
+    level, rounds) as _auction_phase_plain does."""
+    f32 = np.float32
+    utility = np.asarray(utility, f32)
+    jcap, supply, slots = (np.asarray(a, np.int64) for a in (jcap, supply, slots))
+    req, free = np.asarray(req, np.int64), np.asarray(free, np.int64)
+    x = np.array(x0, np.int64)
+    price, level = np.array(price0, f32), np.array(level0, f32)
+    g, n = utility.shape
+    neg = f32(-1e30)
+    half = f32(neg / f32(2))
+    k = min(16, n)
+    walk = set(np.nonzero((x != 0).any(axis=0))[0].tolist())
+    rounds, progress = 0, True
+
+    def best(v, nodes):  # value desc, lowest index on ties (+0.0 == -0.0)
+        return sorted(nodes, key=lambda j: (-float(v[j]), j))[:k + 1]
+
+    while (supply - x.sum(axis=1) > 0).any() and progress and rounds < max_rounds:
+        unassigned = supply - x.sum(axis=1)
+        v = np.where(jcap > x, utility - price[None, :], neg).astype(f32)
+        if rounds == 0:
+            level = np.where(x == 0, neg, level).astype(f32)
+        bids = {}  # node -> [(row, units, level)]
+        progress = False
+        for gi in range(g):
+            if unassigned[gi] <= 0:
+                continue
+            lists = [best(v[gi], range(c, n, cs)) for c in range(cs)]
+            merged = best(v[gi], [j for lst in lists for j in lst])
+            top, vk = merged[:k], v[gi, merged[:k]]
+            v_next = v[gi, merged[k]] if n > k else neg
+            if v_next <= half:
+                v_next = vk[k - 1] if vk[k - 1] > half else vk[0]
+            if not vk[0] > half:
+                continue
+            run = 0
+            for t, j in enumerate(top):
+                avail = max(int(jcap[gi, j] - x[gi, j]), 0) if vk[t] > half else 0
+                units = min(max(int(unassigned[gi]) - run, 0), avail)
+                run += avail
+                if units > 0:
+                    progress = True
+                    beta = f32(f32(utility[gi, j] - v_next) + f32(eps))
+                    bids.setdefault(j, []).append((g + gi, units, max(neg, beta)))
+                    walk.add(j)
+        for j in sorted(walk):
+            cands = [(gi, int(x[gi, j]), level[gi, j]) for gi in range(g) if x[gi, j] > 0]
+            cands += bids.get(j, [])
+            cands.sort(key=lambda c: (-float(c[2]), c[0]))  # stable: holders first
+            used = np.zeros(req.shape[1], np.int64)
+            count, top_rej = 0, None
+            x[:, j] = 0
+            level[:, j] = neg
+            for row, u, lv in cands:
+                gi = row if row < g else row - g
+                rq = req[gi]
+                fit = min([int((free[j, r] - used[r]) // rq[r]) for r in range(len(rq))
+                           if rq[r] > 0] + [2**30, int(slots[j]) - count])
+                kk = min(max(fit, 0), u) if lv > half else 0
+                used += kk * rq
+                count += kk
+                if u - kk > 0:
+                    top_rej = lv if top_rej is None else max(top_rej, lv)
+                if kk > 0:
+                    level[gi, j] = lv if x[gi, j] == 0 else min(level[gi, j], lv)
+                    x[gi, j] += kk
+            if top_rej is not None:
+                price[j] = max(price[j], top_rej)
+        walk = set()
+        rounds += 1
+    return x.astype(np.int32), price, level, rounds
 
 
 def defrag_problem(seed, ns, v, r=3, n_slots=None, v_max=None, zero_frac=0.1,

@@ -5,8 +5,8 @@ tests/test_torch_gpu.py` (tests/conftest.py configures JAX, which the card's
 machine need not have; this file imports neither jax nor the JAX package).
 Kernel A (greedy_scan), kernel B (row_scatter), kernel C (waterfill),
 kernel D (repair_check), kernel G (cover_curve), kernel H (rank_align),
-kernel J (feasibility_rows), kernel E (auction_phase) and kernel I
-(defrag_assign) are held against
+kernel J (feasibility_rows), kernel E (auction_phase, one thread-block
+cluster a phase) and kernel I (defrag_assign) are held against
 their plain PyTorch versions on the same card tensors, built by the port's
 own tensorizer or from seeded numpy inputs: exact equality; kernel F
 (sinkhorn) to a relative error of 1e-5 (|a - b| / max(|b|, 1e-6): expf/logf
@@ -742,6 +742,138 @@ def test_kernel_f_rejects_wrong_input(cuda_device):
     bad[5] = args[5][:3].contiguous()
     with pytest.raises(ValueError, match="g0"):
         ttr._sinkhorn_iters(*bad, 2.0, 3)
+
+
+# kernels E and F are one thread-block cluster a call: the shapes around the
+# cluster (fewer nodes than CTAs, a node count no multiple of it, ties across
+# CTA boundaries), the round cuts, a warm start that overfills nodes, and the
+# layouts whose regions leave shared memory; one CUDA launch a call (and, for
+# E, one host read)
+
+
+def _counts(kernels, name):
+    return (kernels.LAUNCHES[name], kernels.CUDA_LAUNCHES[name], kernels.HOST_SYNCS[name])
+
+
+def _cluster_auction(args, eps, max_rounds):
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    before = _counts(kernels, "auction_phase")
+    got = ttr._auction_phase(*args, eps, max_rounds)
+    torch.cuda.synchronize()
+    after = _counts(kernels, "auction_phase")
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 1)
+    want = ttr._auction_phase_plain(*args, eps, max_rounds)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[3] == want[3]
+    return got, dict(kernels.LAST_AUCTION_PLAN)
+
+
+E_CLUSTER_CASES = {
+    "n1": dict(g=2, n=1), "n7": dict(g=3, n=7), "n300_ragged": dict(g=5, n=300, scarce=True),
+    "n5000_g1": dict(g=1, n=5000, supply_hi=4096), "g12_n500": dict(g=12, n=500, scarce=True),
+    "identical_utilities": dict(g=4, n=600, supply_hi=200),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [40.0, 0.9])
+@pytest.mark.parametrize("case", sorted(E_CLUSTER_CASES))
+def test_kernel_e_cluster_shapes_on_card(cuda_device, case, eps):
+    p = transport_problem(len(case), **E_CLUSTER_CASES[case])
+    if case == "identical_utilities":  # top-16 ties span CTAs: lowest indices win
+        p["utility"][:] = 7.0
+    _, plan = _cluster_auction(_phase_args(p, cuda_device), eps, 400)
+    assert plan["nodes_per_cta"] == -(-p["utility"].shape[1] // plan["cluster_size"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [0, 1, 2, 3])
+def test_kernel_e_round_cuts_on_card(cuda_device, max_rounds):
+    p = transport_problem(21, g=6, n=300, scarce=True)
+    got, _ = _cluster_auction(_phase_args(p, cuda_device), 0.9, max_rounds)
+    assert got[3] <= max_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [1, 2, 400])
+@pytest.mark.parametrize("seed", range(3))
+def test_kernel_e_overfilled_warm_start_on_card(cuda_device, seed, max_rounds):
+    """An x0 that overfills nodes (and a negative cell): round 1 re-walks
+    every node that holds units, as the reference's knapsack does."""
+    p = transport_problem(30 + seed, g=5, n=300, scarce=True)
+    x0, level0 = tt.overfilled_start(p, seed)
+    args = list(_phase_args(p, cuda_device))
+    args[6], args[8] = (torch.from_numpy(a).to(cuda_device) for a in (x0, level0))
+    _cluster_auction(tuple(args), 0.9, max_rounds)
+
+
+@pytest.mark.gpu
+def test_kernel_e_global_exchange_on_card(cuda_device):
+    """G 2,100: the exchange and the candidates leave shared memory."""
+    p = transport_problem(40, g=2100, n=40, supply_hi=8)
+    _, plan = _cluster_auction(_phase_args(p, cuda_device), 0.9, 4)
+    assert "exchange" in plan["in_global"] and "candidates" in plan["in_global"]
+
+
+def _cluster_sinkhorn(p, device, warm, iters=60):
+    from kubernetes_tpu_torch.models import transport as ttr
+    from kubernetes_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(5)
+    g, n = p["utility"].shape
+    cap = np.maximum(p["slots"].astype(np.float32) - rng.random(n).astype(np.float32), 0)
+    g0 = (rng.random(n) * 50).astype(np.float32) if warm else np.zeros(n, np.float32)
+    args = [torch.from_numpy(a).to(device) for a in (
+        p["utility"], p["feasible"], p["supply"], cap, np.zeros(g, np.float32), g0)]
+    before = _counts(kernels, "sinkhorn")
+    got = ttr._sinkhorn_iters(*args, 2.0, iters)
+    torch.cuda.synchronize()
+    after = _counts(kernels, "sinkhorn")
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 1, 0)
+    plan = dict(kernels.LAST_SINKHORN_PLAN)
+    want = ttr._sinkhorn_iters_plain(*args, 2.0, iters)
+    assert rel_err(got[0], want[0]) <= 1e-5 and rel_err(got[1], want[1]) <= 1e-5
+    assert rel_err(got[2], want[2]) <= 1e-4
+    same = args[:4] + [want[0], want[1]]
+    got0 = ttr._sinkhorn_iters(*same, 2.0, 0)
+    want0 = ttr._sinkhorn_iters_plain(*same, 2.0, 0)
+    assert torch.equal(got0[0], want[0]) and torch.equal(got0[1], want[1])
+    assert rel_err(got0[2], want0[2]) <= 1e-5
+    return plan
+
+
+F_CLUSTER_CASES = {
+    "n1": dict(g=3, n=1), "n7": dict(g=2, n=7), "n300_ragged": dict(g=8, n=300, scarce=True),
+    "g1_n10000": dict(g=1, n=10000, supply_hi=4096),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("case", sorted(F_CLUSTER_CASES))
+def test_kernel_f_cluster_shapes_on_card(cuda_device, case, warm):
+    p = transport_problem(len(case) + 50, **F_CLUSTER_CASES[case])
+    plan = _cluster_sinkhorn(p, cuda_device, warm)
+    assert plan["order"]["exact"]  # torch's order, so the duals match bit for bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("region", ["z", "exchange"])
+def test_kernel_f_regions_beyond_shared_memory_on_card(cuda_device, region):
+    """G 128 x N 10,000 puts z in the global slice; at N 40 the slots
+    of 2,100 groups (16 CTAs) or 3,600 (8 CTAs) leave shared memory."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    if region == "z":
+        case = dict(g=128, n=10000, scarce=True)
+    else:
+        cs = kernels._cluster_size(kernels._lib("sinkhorn"), "sinkhorn")
+        case = dict(g=2100 if cs == 16 else 3600, n=40)
+    plan = _cluster_sinkhorn(transport_problem(60, supply_hi=200, **case), cuda_device, True)
+    assert region in plan["in_global"]
 
 
 @pytest.mark.gpu
