@@ -30,13 +30,15 @@ Phases, each printing one JSON line:
              incremental device_views (SchedulingBasic's five fields,
              TopologySpreading's with its columns) against the library route
              on the same pinned copy, wall and device times
-  kernel_C   the waterfill kernel against waterfill_group_plain on the card,
-             on tensorizer inputs: (a) SchedulingBasic 5,000 nodes, a
-             4,096-pod group, (b) a 10,000-pod group (k_slots 16,384, the
-             global sort path), (c) host ports, preferred node affinity,
-             taints, a seeded gang row and a group below the 256-slot floor,
-             (d) a node over-committed by a bound pod (free < 0); exact
-             equality of k_per_node and chosen_nodes in order
+  kernel_C   the waterfill kernel (one thread-block cluster a group) against
+             waterfill_group_plain on the card, on tensorizer inputs: (a)
+             SchedulingBasic 5,000 nodes, a 4,096-pod group, (b) a
+             10,000-pod group (k_slots 16,384), (c) host ports, preferred
+             node affinity, taints, a seeded gang row and a group below the
+             256-slot floor, (d) a node over-committed by a bound pod (free <
+             0); exact equality of k_per_node and chosen_nodes in order; each
+             line gives the CUDA launches of the call (1), the cluster plan
+             and the device time
   kernel_D   the repair-check kernel against repair_check_plain on seeded
              placed batches (TopologySpreading, hostname anti-affinity, and a
              mixed batch with all four kinds and minDomains), under all four
@@ -53,13 +55,18 @@ Phases, each printing one JSON line:
              solver="auto" on SchedulingBasic): every pod bound, every
              constraint holding, no breaker failure, kernels C and D
              launched where the workload routes to them, and the same
-             {pod: node} map as a rerun on the CPU (the plain versions);
+             {pod: node} map as a rerun on the CPU (the plain versions),
+             kernel C's host reads a batch (one in waterfill_solve, two a
+             propose call in repair);
              SchedulingBasic and TopologySpreading also run the exact mode
              right after, as the fast mode's comparison partner
   kernel_G   the gang cover-curve kernel against cover_curve_plain: (a) one
              250-node slice (n_slots 256) with 1,000 victims (k_max 1,024),
              (b) k = 0, pad victims and ineligible nodes, (c) a shape above
-             the JAX wrapper's 4,000,000-element budget; exact equality
+             the JAX wrapper's 4,000,000-element budget, (d) one cover
+             attempt of GangPreemption_5000's 20 slices through
+             cover_curves_batched (one launch, one read) beside the
+             per-slice route; exact equality
   kernel_H   the rank-align kernel against rank_align_plain: (a) p_max 4,096,
              16 gangs of 256 ranked members at shuffled positions, (b) ties,
              unplaced members and non-members, (c) p_max 16,384 (the global
@@ -81,7 +88,9 @@ Phases, each printing one JSON line:
              events are exactly the min-cost cover the script computes with
              the host curve, the gang binds whole on that slice, the second
              gang is vetoed with zero further evictions, pods are conserved,
-             kernel G launched, and a CPU rerun evicts and places the same
+             kernel G launched at most once a cover attempt (reported: its
+             launches an attempt), the covers of 6 and 799 victims, and a CPU
+             rerun evicts and places the same
   kernel_J   the feasibility-row kernel against feasibility_rows_plain: (a)
              TransportMixed's 8 group rows x 5,000 nodes, (b) 512 pod rows,
              (c) over-committed nodes (free < 0), zero-alloc dimensions, used
@@ -852,9 +861,11 @@ def compare_c(name, args, kw, device, iters):
     from kubernetes_tpu_torch.ops import kernels
 
     before = kernels.LAUNCHES["waterfill"]
+    cuda_before = kernels.CUDA_LAUNCHES["waterfill"]
     got = waterfill_group(*args, **kw)
     sync(device)
     launched = kernels.LAUNCHES["waterfill"] - before
+    cuda_launched = kernels.CUDA_LAUNCHES["waterfill"] - cuda_before
     ref = waterfill_group_plain(*args, **kw)
     sync(device)
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, ref))
@@ -868,11 +879,16 @@ def compare_c(name, args, kw, device, iters):
             "j_max": kw["j_max"], "k_slots": kw["k_slots"], "has_port": args[7],
             "has_gang": kw["has_gang"], "equal": equal, "max_abs_err": err, "placed": placed,
             "chosen_in_order": int((got[1] >= 0).sum()), "launches": launched,
-            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "cuda_launches": cuda_launched, "plan": dict(kernels.LAST_WATERFILL_PLAN),
+            "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms(lambda: waterfill_group(*args, **kw), ("waterfill_kernel",),
+                                   device, iters=20),
+            "bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
     emit(line)
     check(equal, f"kernel C differs from its plain version on case {name}")
-    check(device.type != "cuda" or launched == 1, f"kernel C did not launch on case {name}")
+    check(device.type != "cuda" or launched == cuda_launched == 1,
+          f"kernel C did not launch once on case {name}: {launched} calls, "
+          f"{cuda_launched} CUDA launches")
     check(placed > 0 and placed == line["chosen_in_order"], f"kernel C placed nothing on {name}")
     return line
 
@@ -1081,6 +1097,10 @@ def phase_kernel_d(device, sizes, seed):
     return max(errs), timing
 
 
+# the last drive_main_path run's kernels.CUDA_LAUNCHES and HOST_SYNCS
+RUN_COUNTS = {}
+
+
 def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=()):
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
@@ -1104,6 +1124,8 @@ def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound
     sync(device)
     t2 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
+    RUN_COUNTS.update(cuda_launches=dict(kernels.CUDA_LAUNCHES),
+                      host_syncs=dict(kernels.HOST_SYNCS))
     sched.stop()
     bound, _ = store.list("pods")
     return store, sched, bound, launches, t1 - t0, t2 - t1
@@ -1224,8 +1246,12 @@ def phase_main_path_fast(device, sizes, card):
             check(sched.repair_totals["batches"] > 0, f"{name}: no batch rode propose-and-repair")
         if device.type == "cuda":
             check(launches["waterfill"] > 0, f"{name}: kernel C never launched")
+            check(RUN_COUNTS["cuda_launches"]["waterfill"] == launches["waterfill"],
+                  f"{name}: kernel C made {RUN_COUNTS['cuda_launches']['waterfill']} CUDA "
+                  f"launches in {launches['waterfill']} calls")
             if constrained:
                 check(launches["repair_check"] > 0, f"{name}: kernel D never launched")
+        counts = dict(RUN_COUNTS)
         card_map = {p.metadata.name: p.spec.node_name for p in got}
         # the same workload with the port on the CPU: the plain versions
         t0 = time.perf_counter()
@@ -1246,6 +1272,10 @@ def phase_main_path_fast(device, sizes, card):
                 "solve_s_per_batch": sum(sched.solve_seconds) / max(len(sched.solve_seconds), 1),
                 "stage_seconds": sched.stage_seconds, "repair_totals": sched.repair_totals,
                 "last_path": sched._solve_path, "breaker": br.describe(),
+                "waterfill_cuda_launches": counts["cuda_launches"]["waterfill"],
+                "waterfill_host_syncs": counts["host_syncs"]["waterfill"],
+                "waterfill_host_syncs_per_batch":
+                    counts["host_syncs"]["waterfill"] / max(sched.batches_solved, 1),
                 "cpu_rerun_s": cpu_s, "cpu_map_equal": True, "card": card}
         line.update(check_fast_constraints(name, placed))
         if name in ("SchedulingBasic", "TopologySpreading"):
@@ -1577,12 +1607,18 @@ def phase_main_path_gang_preempt(device, sizes, card):
         stats = r["stats"]
         check(stats["preempted"] == 1 and stats["victims"] == k,
               f"{name}: preemptor totals {stats}")
+        if not sizes.get("small"):
+            want_k = {"GangPreemption": 6, "GangPreemption_5000": 799}[name]
+            check(k == want_k, f"{name}: a cover of {k} victims, not {want_k}")
+        attempts = sched.gangpreempt.stats()["attempts"]
         from kubernetes_tpu_torch.testing import assert_pod_conservation
 
         keys = [p.key for p in r["members"]]
         cons = assert_pod_conservation(r["store"], sched, keys)["counts"]
         if device.type == "cuda":
-            check(r["launches"]["cover_curve"] > 0, f"{name}: kernel G never launched")
+            check(0 < r["launches"]["cover_curve"] <= attempts,
+                  f"{name}: kernel G launched {r['launches']['cover_curve']} times in "
+                  f"{attempts} cover attempts")
         t0 = time.perf_counter()
         c = run(name, torch.device("cpu"))
         cpu_s = time.perf_counter() - t0
@@ -1594,7 +1630,8 @@ def phase_main_path_gang_preempt(device, sizes, card):
                 "deleted": len(r["deleted"]), "deleted_by_veto_leg": len(r["deleted_after"]),
                 "vetoed_events": len(r["vetoed"]), "preemption": stats,
                 "preemption_after_veto_leg": sched.gangpreempt.stats(),
-                "conservation": cons, "launches": r["launches"],
+                "conservation": cons, "launches": r["launches"], "cover_attempts": attempts,
+                "cover_launches_per_attempt": r["launches"]["cover_curve"] / max(attempts, 1),
                 "seconds_to_bound": r["seconds"], "batches": sched.batches_solved,
                 "stage_seconds": sched.stage_seconds, "cpu_rerun_s": cpu_s,
                 "cpu_equal": True, "card": card}
@@ -1692,7 +1729,54 @@ def phase_kernel_g(device, sizes, seed):
         lines[name] = line
     check(cases["c_above_jax_budget"][0].shape[0] * 1025 * 3 > 4_000_000,
           "case c is not above the JAX wrapper's 4M-element budget")
-    return err, lines["a_full_width_slice"]
+    lines["d_batched_attempt"] = batched_attempt(device, sizes, rng)
+    err = max(err, lines["d_batched_attempt"]["max_abs_err"])
+    return err, lines["a_full_width_slice"], lines["d_batched_attempt"]
+
+
+def batched_attempt(device, sizes, rng):
+    """(d) One cover attempt of GangPreemption_5000's shape: 20 slices of
+    `slice_nodes` nodes, up to `cover_victims` victims each, through
+    cover_curves_batched (one packed copy, one launch, one read) against the
+    plain version on the CPU and against the route it replaces (one
+    cover_curves call a slice) on the card."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models.gangcover import cover_curves, cover_curves_batched
+    from kubernetes_tpu_torch.ops import kernels
+
+    r, ns = 3, sizes["slice_nodes"]
+    req = np.array([3000, 0, 0])
+    slices = []
+    for i in range(20):
+        k = sizes["cover_victims"] if i % 4 else int(rng.integers(0, sizes["cover_victims"]))
+        slices.append((rng.integers(-500, 4000, size=(ns, r)), rng.integers(0, 110, size=ns),
+                       rng.random(ns) > 0.05, rng.integers(0, ns, size=k),
+                       rng.integers(0, 2000, size=(k, r))))
+    kernels.reset_launch_counts()
+    got = cover_curves_batched(slices, req, device=device)
+    counts = (kernels.LAUNCHES["cover_curve"], kernels.CUDA_LAUNCHES["cover_curve"],
+              kernels.HOST_SYNCS["cover_curve"])
+    want = cover_curves_batched(slices, req, device="cpu")
+    err = max(int(np.abs(a - b).max()) for a, b in zip(got, want))
+    equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+    line = {"phase": "kernel_G", "case": "d_batched_attempt", "slices": len(slices),
+            "n_slots": 1 << (ns - 1).bit_length(), "k_max": 1 << (max(len(x[3]) for x in slices)
+                                                                  - 1).bit_length(),
+            "R": r, "equal": equal, "max_abs_err": err, "launches": counts[0],
+            "cuda_launches": counts[1], "host_syncs": counts[2],
+            "ms": timed_ms(lambda: cover_curves_batched(slices, req, device=device), 20, device),
+            "per_slice_route_ms": timed_ms(lambda: [cover_curves(*x, req, device=device)
+                                                    for x in slices], 5, device),
+            "plain_ms": timed_ms(lambda: cover_curves_batched(slices, req, device="cpu"), 2,
+                                 device),
+            "device_ms": device_ms(lambda: cover_curves_batched(slices, req, device=device),
+                                   ("cover_curve",), device, iters=20)}
+    emit(line)
+    check(equal, "kernel G's batched attempt differs from its plain version")
+    check(device.type != "cuda" or counts == (1, 1, 1),
+          f"kernel G's batched attempt took {counts} launches, CUDA launches and host reads")
+    return line
 
 
 def align_case(rng, p, p_max, groups, device, ties=False):
@@ -2732,14 +2816,14 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    sizes = ({"nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
+    sizes = ({"small": True, "nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
               "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500,
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
               "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000}
              if args.small else
-             {"nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
+             {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
@@ -2752,7 +2836,7 @@ def main(argv=None) -> int:
         err_b, line_b = phase_kernel_b(device, sizes, args.seed)
         err_c, line_c = phase_kernel_c(device, sizes, args.seed)
         err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
-        err_g, line_g = phase_kernel_g(device, sizes, args.seed)
+        err_g, line_g, line_g_batch = phase_kernel_g(device, sizes, args.seed)
         err_h, line_h = phase_kernel_h(device, sizes, args.seed)
         err_j, line_j = phase_kernel_j(device, sizes, args.seed)
         err_e, line_e = phase_kernel_e(device, sizes, args.seed)
@@ -2802,7 +2886,11 @@ def main(argv=None) -> int:
          "bound_ms": line_c["bound_ms"], "bound_by": line_c["bound_by"], "library_ms": None,
          "library": "none: torch.topk computes only the selection, not the whole function",
          "checked": True,
-         "shape": f"{line_c['nodes']} nodes x j_max {line_c['j_max']}, group {line_c['group']}"},
+         "shape": f"{line_c['nodes']} nodes x j_max {line_c['j_max']}, group {line_c['group']}",
+         "device_ms": line_c["device_ms"], "cuda_launches_per_call": line_c["cuda_launches"],
+         "plan": line_c["plan"],
+         "host_syncs_per_batch": {k: ln["waterfill_host_syncs_per_batch"]
+                                  for k, ln in fast.items()}},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),
@@ -2816,7 +2904,13 @@ def main(argv=None) -> int:
          "max_abs_err": err_g, "ms": line_g["ms"], "plain_ms": line_g["plain_ms"],
          "bound_ms": line_g["bound_ms"], "bound_by": line_g["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call computes the curve",
-         "checked": True, "shape": line_g["shape"]},
+         "checked": True, "shape": line_g["shape"], "device_ms": line_g["device_ms"],
+         "attempt_ms": line_g_batch["ms"], "attempt_device_ms": line_g_batch["device_ms"],
+         "attempt_per_slice_route_ms": line_g_batch["per_slice_route_ms"],
+         "attempt_shape": f"{line_g_batch['slices']} slices, n_slots {line_g_batch['n_slots']}, "
+                          f"k_max {line_g_batch['k_max']}",
+         "launches_per_attempt": {k: ln["cover_launches_per_attempt"]
+                                  for k, ln in preempt.items()}},
         {"name": "rank_align", "route": "cuda", "source": KERNEL_H_SRC,
          "replaces": "kubernetes_tpu/models/gangcover.py:174",
          "launches": sum(ln["launches"]["rank_align"] for ln in gang.values()),

@@ -12,7 +12,9 @@ gang preemptor (scheduler/gangpreempt.py) and the rank-aware placement pass
                   eviction that strands a half-placed gang is what this
                   exists to prevent). Kernel G, `csrc/cover_curve.cu`;
                   cover_curve_plain mirrors the JAX body with torch ops and
-                  cover_curve_host is the numpy oracle.
+                  cover_curve_host is the numpy oracle. The preemptor hands
+                  every slice of one attempt to cover_curves_batched: one
+                  packed copy, one launch (one CTA a slice), one read.
   rank alignment  the solver places a gang's identical members as an
                   interchangeable group, so which MEMBER lands on which node
                   is a free permutation. rank_align matches rank order to
@@ -164,6 +166,91 @@ def cover_curves(free: np.ndarray, headroom: np.ndarray, eligible: np.ndarray,
     caps = cover_curve(t(free_p), t(head_p), t(elig_p), t(vn_p), t(vr_p),
                        t(np.asarray(req, dtype=np.int32)))
     return caps.cpu().numpy()[: k + 1].astype(np.int64)
+
+
+def cover_curve_batch_plain(free: torch.Tensor, headroom: torch.Tensor, eligible: torch.Tensor,
+                            v_node: torch.Tensor, v_req: torch.Tensor, req: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of kernel G over S slices: free [S, n_slots, R],
+    headroom and eligible [S, n_slots], v_node [S, k_max], v_req [S, k_max,
+    R], req [R] -> caps [S, k_max + 1] int32, slice s's row equal to
+    cover_curve_plain of slice s."""
+    rows = [cover_curve_plain(free[s], headroom[s], eligible[s], v_node[s], v_req[s], req)
+            for s in range(free.shape[0])]
+    if not rows:
+        return torch.zeros((0, v_node.shape[1] + 1), dtype=torch.int32, device=free.device)
+    return torch.stack(rows)
+
+
+def cover_curve_batch(free, headroom, eligible, v_node, v_req, req) -> torch.Tensor:
+    """Kernel G over S slices in one launch for CUDA tensors, its plain
+    version for CPU tensors."""
+    if free.device.type == "cpu":
+        return cover_curve_batch_plain(free, headroom, eligible, v_node, v_req, req)
+    if free.device.type == "cuda":
+        from ..ops.kernels import launch_cover_curves
+
+        return launch_cover_curves(free, headroom, eligible, v_node, v_req, req)
+    raise ValueError(f"cover_curve_batch: no implementation for device {free.device}")
+
+
+def cover_curves_batched(slices: Sequence[Tuple[np.ndarray, ...]], req: np.ndarray,
+                         device="cuda") -> List[np.ndarray]:
+    """Every slice of one cover attempt as one problem: `slices` holds, per
+    slice, (free [ns, R], headroom [ns], eligible [ns], v_node [k] slice-local,
+    v_req [k, R]) as numpy; all are padded to the power-of-two buckets of the
+    largest (n_slots, k_max) and packed into one buffer, so the device sees
+    one host-to-device copy, one launch of kernel G (one CTA a slice) and
+    one read back. Returns each slice's caps[k + 1] as numpy int64, equal to
+    cover_curves on that slice alone."""
+    device = resolve_device(device)
+    if not slices:
+        return []
+    s = len(slices)
+    r = int(np.asarray(req).shape[0])
+    n_slots = _pow2(max(int(x[0].shape[0]) for x in slices))
+    k_max = _pow2(max(len(x[3]) for x in slices))
+    # int32 sections (4-byte aligned), then the bool one
+    shapes = {"free": (s, n_slots, r), "headroom": (s, n_slots), "v_node": (s, k_max),
+              "v_req": (s, k_max, r), "req": (r,)}
+    offs, at = {}, 0
+    for name, shape in shapes.items():
+        offs[name] = at
+        at += 4 * int(np.prod(shape))
+    offs["eligible"] = at
+    buf = np.zeros(at + s * n_slots, dtype=np.uint8)
+
+    def view(name, dtype=np.int32):
+        shape = shapes.get(name, (s, n_slots))
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        return buf[offs[name]:offs[name] + n].view(dtype).reshape(shape)
+
+    free_p, head_p, elig_p = view("free"), view("headroom"), view("eligible", np.bool_)
+    vn_p, vr_p = view("v_node"), view("v_req")
+    vn_p[:] = -1
+    view("req")[:] = req
+    for i, (free, headroom, eligible, v_node, v_req) in enumerate(slices):
+        ns, k = free.shape[0], len(v_node)
+        free_p[i, :ns] = free
+        head_p[i, :ns] = headroom
+        elig_p[i, :ns] = eligible
+        vn_p[i, :k] = v_node
+        vr_p[i, :k] = v_req
+    dev = torch.from_numpy(buf).to(device)  # the one host-to-device copy
+
+    def t(name, dtype=torch.int32):
+        shape = shapes.get(name, (s, n_slots))
+        n = int(np.prod(shape)) * (1 if dtype is torch.bool else 4)
+        return dev[offs[name]:offs[name] + n].view(dtype).view(shape)
+
+    caps = cover_curve_batch(t("free"), t("headroom"), t("eligible", torch.bool), t("v_node"),
+                             t("v_req"), t("req"))
+    host = caps.cpu().numpy().astype(np.int64)  # the one read back
+    if device.type == "cuda":
+        from ..ops import kernels
+
+        kernels.HOST_SYNCS["cover_curve"] += 1
+    return [host[i, :len(x[3]) + 1] for i, x in enumerate(slices)]
 
 
 # -- kernel H: rank alignment ---------------------------------------------------

@@ -481,6 +481,8 @@ def repair_solve(inp: SolverInputs, batch, d_max: int, *, has_gang: bool = False
             has_gang=ctx.gang_bonus_np is not None)
         stats.propose_calls += 1
         chosen = np.full(len(members), -1, dtype=np.int32)
+        # the repair masks need the placements on the host at once: two
+        # reads a call (waterfill_solve reads once a batch)
         got = host(chosen_nodes[:len(members)])
         chosen[:len(got)] = got
         assignment[np.asarray(members)] = chosen
@@ -489,6 +491,10 @@ def repair_solve(inp: SolverInputs, batch, d_max: int, *, has_gang: bool = False
         # members may span merged classes with identical cm/chg rows; any one
         # of them attributes the count bump correctly
         ctx.bump(cls, host(k_per_node).astype(np.int64))
+        if ctx.device.type == "cuda":
+            from ..ops import kernels
+
+            kernels.HOST_SYNCS["waterfill"] += 2
         if has_port:
             ctx.port_taken = ctx.port_taken | (
                 (k_per_node > 0)[:, None] & inp.class_ports[cls][None, :])

@@ -13,14 +13,16 @@ monotone by a running min along j, so selections have the prefix property.
 Filter correctness is exact: a selected slot always fits.
 
 Two implementations of `waterfill_group`:
-  waterfill_group_plain  plain PyTorch (torch.cummin / torch.topk)
-  kernel C               csrc/waterfill.cu, one wrapper call per group
-                         (ops/kernels.py launch_waterfill_group)
+  waterfill_group_plain  plain PyTorch (waterfill_keys_plain, then
+                         torch.topk)
+  kernel C               csrc/waterfill.cu, one thread-block-cluster launch
+                         a group (ops/kernels.py launch_waterfill_group)
 `waterfill_group` sends CPU tensors to the plain version and CUDA tensors to
 the kernel; it never falls back from one to the other. `waterfill_solve`
 commits each group's placements into used / used_nz / pod_count /
 port_taken with torch ops on the inputs' device, as the JAX package does
-outside its jitted kernel.
+outside its jitted kernel, and reads the placements to the host once a
+batch.
 """
 
 from __future__ import annotations
@@ -106,14 +108,16 @@ def waterfill_group(alloc, used, used_nz, pod_count, max_pods,
     raise ValueError(f"waterfill_group: no implementation for device {dev}")
 
 
-def waterfill_group_plain(alloc, used, used_nz, pod_count, max_pods,
-                          filter_ok_row, port_conflict_row, has_port: bool,
-                          napref_row, has_napref, taint_row, img_row,
-                          req, req_nz, bal_active, group_size: int,
-                          j_max: int, k_slots: int,
-                          gang_row=None, has_gang: bool = False):
-    """Plain PyTorch version of kernel C (the CPU path of waterfill_group and
-    the reference the kernel is held against on the card)."""
+def waterfill_keys_plain(alloc, used, used_nz, pod_count, max_pods,
+                         filter_ok_row, port_conflict_row, has_port: bool,
+                         napref_row, has_napref, taint_row, img_row,
+                         req, req_nz, bal_active, j_max: int,
+                         gang_row=None, has_gang: bool = False) -> torch.Tensor:
+    """The [N, j_max] int32 greedy-order keys of one group (SENTINEL where a
+    slot can never be chosen): the first half of waterfill_group_plain. While
+    keys do not wrap int32 (the slot budgets of the callers), each row's
+    valid keys are a prefix of the row, strictly descending: kernel C's
+    selection rests on that."""
     n = alloc.shape[0]
     dev = alloc.device
     # J_n: how many of this pod fit on node n right now
@@ -152,11 +156,25 @@ def waterfill_group_plain(alloc, used, used_nz, pod_count, max_pods,
     # greedy order = (score desc, node asc, j asc) as one int32 key:
     # score * (slots + 1) - slot_rank, wrapping like XLA (int64, then cut)
     slots = n * j_max
-    flat = score.reshape(-1)
-    rank = torch.arange(slots, dtype=torch.int64, device=dev)
-    key = (flat.long() * (slots + 1) - rank).to(torch.int32)
-    key = torch.where(flat <= INT_MIN, SENTINEL, key)
-    top_keys, top_idx = torch.topk(key, k_slots)
+    rank = torch.arange(slots, dtype=torch.int64, device=dev).reshape(n, j_max)
+    key = (score.long() * (slots + 1) - rank).to(torch.int32)
+    return torch.where(score <= INT_MIN, SENTINEL, key)
+
+
+def waterfill_group_plain(alloc, used, used_nz, pod_count, max_pods,
+                          filter_ok_row, port_conflict_row, has_port: bool,
+                          napref_row, has_napref, taint_row, img_row,
+                          req, req_nz, bal_active, group_size: int,
+                          j_max: int, k_slots: int,
+                          gang_row=None, has_gang: bool = False):
+    """Plain PyTorch version of kernel C (the CPU path of waterfill_group and
+    the reference the kernel is held against on the card)."""
+    n = alloc.shape[0]
+    dev = alloc.device
+    key = waterfill_keys_plain(alloc, used, used_nz, pod_count, max_pods, filter_ok_row,
+                               port_conflict_row, has_port, napref_row, has_napref, taint_row,
+                               img_row, req, req_nz, bal_active, j_max, gang_row, has_gang)
+    top_keys, top_idx = torch.topk(key.reshape(-1), k_slots)
     chosen = (top_keys > SENTINEL) & (torch.arange(k_slots, device=dev) < group_size)
     node = (top_idx // j_max).to(torch.int32)
     chosen_nodes = torch.where(chosen, node, -1)
@@ -170,7 +188,8 @@ def waterfill_solve(inp: SolverInputs, groups: List[Tuple[np.ndarray, int]]):
     call each). groups: (member pod indices in queue order, class id).
     Returns assignment[P] int32 (host numpy) like greedy_scan_solve, or None
     when the shape exceeds the int32 sort-key range (the caller falls back
-    to the scan)."""
+    to the scan). Each group's placements stay on the device until the
+    batch's end: the host reads them once a batch, not once a group."""
     p = inp.req.shape[0]
     n = inp.alloc.shape[0]
     has_gang = inp.gang_bonus is not None
@@ -183,6 +202,7 @@ def waterfill_solve(inp: SolverInputs, groups: List[Tuple[np.ndarray, int]]):
     used, used_nz, pod_count = inp.used, inp.used_nz, inp.pod_count
     port_taken = inp.node_ports
     class_ports = host(inp.class_ports)
+    placed = []  # per group: its members and its placements on the device
 
     for members, cls in groups:
         pi0 = int(members[0])
@@ -195,16 +215,25 @@ def waterfill_solve(inp: SolverInputs, groups: List[Tuple[np.ndarray, int]]):
             inp.req[pi0], inp.req_nz[pi0], inp.balanced_active[pi0], len(members),
             j_max=j_max, k_slots=k_slots_for(len(members), n, j_max),
             gang_row=inp.gang_bonus[cls] if has_gang else None, has_gang=has_gang)
-        chosen = np.full(len(members), -1, dtype=np.int32)
-        got = host(chosen_nodes[:len(members)])
-        chosen[:len(got)] = got  # k_slots may be < group size: overflow stays -1
-        assignment[np.asarray(members)] = chosen
+        placed.append((members, chosen_nodes[:len(members)]))
         # commit the group's effects
         used = used + k_per_node[:, None] * inp.req[pi0][None, :]
         used_nz = used_nz + k_per_node[:, None] * inp.req_nz[pi0][None, :]
         pod_count = pod_count + k_per_node
         if has_port:
             port_taken = port_taken | ((k_per_node > 0)[:, None] & inp.class_ports[cls][None, :])
+    if placed:
+        got = host(torch.cat([c for _, c in placed]))  # the batch's one read
+        if inp.alloc.device.type == "cuda":
+            from ..ops import kernels
+
+            kernels.HOST_SYNCS["waterfill"] += 1
+        at = 0
+        for members, c in placed:
+            chosen = np.full(len(members), -1, dtype=np.int32)
+            chosen[:c.shape[0]] = got[at:at + c.shape[0]]  # k_slots may be < group size
+            at += c.shape[0]
+            assignment[np.asarray(members)] = chosen
     return assignment
 
 

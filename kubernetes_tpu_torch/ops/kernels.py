@@ -10,11 +10,13 @@ build raises.
 The launch wrappers check device, dtype, shape and contiguity, launch on
 torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
-it happens and nowhere else). Kernels E and F also count the CUDA kernels
-their C entry launched (CUDA_LAUNCHES) and their wrapper's reads of device
-memory from the host (HOST_SYNCS). A, E and F are one thread-block cluster
-each (csrc/cluster_exchange.cuh); E's and F's layout is planned here
-(auction_plan, sinkhorn_plan) from the shape and the cluster size.
+it happens and nowhere else). Kernels C, E, F and G also count the CUDA
+kernels their C entry launched (CUDA_LAUNCHES), and the host reads of their
+results are counted in HOST_SYNCS (by E's wrapper, and for C and G by the
+models that read them). A, C, E and F are one thread-block
+cluster each (csrc/cluster_exchange.cuh); E's and F's layout is planned here
+(auction_plan, sinkhorn_plan) from the shape and the cluster size; G runs
+every slice of a cover attempt as one CTA of one launch.
 
   greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
   row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py TensorCache.device_views
@@ -56,8 +58,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0}
-HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0}
+CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
+                                 "cover_curve": 0}
+HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
+                              "cover_curve": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -195,13 +199,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 raise RuntimeError("MirrorSet layout differs between csrc/row_scatter.cu and "
                                    "ops/kernels.py")
         elif name == "waterfill":
-            _bind_args_entry(lib, name, _WaterfillArgs)
+            _bind_cluster_entry(lib, name, name, _WaterfillArgs)
         elif name == "repair_check":
             _bind_args_entry(lib, name, _RepairCheckArgs)
         elif name == "cover_curve":
             _bind_args_entry(lib, name, _CoverCurveArgs)
-            lib.cover_curve_max_r.argtypes = []
-            lib.cover_curve_max_r.restype = ctypes.c_int
+            for fn in (lib.cover_curve_max_r, lib.cover_curve_smem_budget):
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
         elif name == "rank_align":
             _bind_args_entry(lib, name, _RankAlignArgs)
         elif name == "feasibility_rows":
@@ -486,14 +491,28 @@ def launch_row_scatter(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
 # kernel C
 # ---------------------------------------------------------------------------
 
-_WF_INTS = ("N", "R", "j_max", "k_slots", "sort_len", "group_size", "has_port", "has_gang")
+_WF_INTS = ("N", "R", "j_max", "k_slots", "group_size", "has_port", "has_gang", "cs", "chunk",
+            "list_cap")
 _WF_PTRS = ("alloc", "used", "used_nz", "pod_count", "max_pods", "filter_ok", "port_conflict",
             "napref", "has_napref", "taint", "img", "gang", "req", "req_nz", "bal_active",
-            "k_per_node", "chosen_nodes", "j_cap", "static_score", "keys", "sortbuf", "state")
+            "k_per_node", "chosen_nodes", "gscratch")
+# The callers' slot budgets keep score * (N * j_max + 1) below 2^31
+# (models/waterfill.py waterfill_solve: 2,600,000 slots at scores <= 800,
+# 2,300,000 with the gang bonus; models/repair.py: 1,900,000 at <= 1,100).
+# Kernel C's rows are sorted only while keys do not wrap, so the wrapper
+# raises for an N * j_max above every budget.
+WATERFILL_MAX_SLOTS = 2_600_000
+# kernel C's dynamic shared memory a CTA (WF_SMEM_BUDGET in csrc/waterfill.cu)
+WATERFILL_SMEM_BUDGET = 216 * 1024
+WATERFILL_THREADS = 512
+# the last launch's plan: cluster size, threads and nodes a CTA, the global
+# fallback slice a CTA
+LAST_WATERFILL_PLAN: Dict[str, object] = {}
 
 
 class _WaterfillArgs(ctypes.Structure):
-    _fields_ = [(d, ctypes.c_int) for d in _WF_INTS] + [(f, ctypes.c_void_p) for f in _WF_PTRS]
+    _fields_ = ([(d, ctypes.c_int) for d in _WF_INTS] + [("slice_bytes", ctypes.c_longlong)]
+                + [(f, ctypes.c_void_p) for f in _WF_PTRS])
 
 
 def _check_flag(x: torch.Tensor, name: str, device: torch.device) -> None:
@@ -508,52 +527,61 @@ def launch_waterfill_group(alloc, used, used_nz, pod_count, max_pods,
                            taint_row, img_row, req, req_nz, bal_active, group_size: int,
                            j_max: int, k_slots: int, gang_row=None, has_gang: bool = False):
     """Kernel C on CUDA tensors: returns (k_per_node [N] int32, chosen_nodes
-    [k_slots] int32) like waterfill_group_plain. One wrapper call launches
-    the kernel's passes on the current stream; the inputs are not modified."""
+    [k_slots] int32) like waterfill_group_plain. One launch of one
+    thread-block cluster on the current stream; the inputs are not modified."""
+    global LAST_WATERFILL_PLAN
     device = alloc.device
     n, r = alloc.shape
     if n < 1 or r < 2:
         raise ValueError("waterfill: needs at least one node and the cpu/memory columns")
     if j_max < 1 or not 1 <= k_slots <= n * j_max:
         raise ValueError(f"waterfill: k_slots {k_slots} outside [1, N*j_max = {n * j_max}]")
-    for name, t, dtype, shape in (
-            ("alloc", alloc, torch.int32, (n, r)), ("used", used, torch.int32, (n, r)),
-            ("used_nz", used_nz, torch.int32, (n, r)), ("pod_count", pod_count, torch.int32, (n,)),
-            ("max_pods", max_pods, torch.int32, (n,)),
-            ("filter_ok_row", filter_ok_row, torch.bool, (n,)),
-            ("port_conflict_row", port_conflict_row, torch.bool, (n,)),
-            ("napref_row", napref_row, torch.int32, (n,)),
-            ("taint_row", taint_row, torch.int32, (n,)), ("img_row", img_row, torch.int32, (n,)),
-            ("req", req, torch.int32, (r,)), ("req_nz", req_nz, torch.int32, (r,))):
-        _check_cuda(t, name, dtype, device, shape)
-    if has_gang:
-        if gang_row is None:
-            raise ValueError("waterfill: has_gang needs gang_row")
-        _check_cuda(gang_row, "gang_row", torch.int32, device, (n,))
-    _check_flag(has_napref, "has_napref", device)
-    _check_flag(bal_active, "bal_active", device)
-    sort_len = 1 << (k_slots - 1).bit_length()
+    if n * j_max > WATERFILL_MAX_SLOTS:
+        raise ValueError(f"waterfill: N*j_max = {n * j_max} above {WATERFILL_MAX_SLOTS}: keys "
+                         "may wrap int32, and kernel C needs rows that do not")
+    if has_gang and gang_row is None:
+        raise ValueError("waterfill: has_gang needs gang_row")
+    nr, n1, r1, i32, b8 = (n, r), (n,), (r,), torch.int32, torch.bool
+    _check_all(device, (
+        ("alloc", alloc, i32, nr), ("used", used, i32, nr), ("used_nz", used_nz, i32, nr),
+        ("pod_count", pod_count, i32, n1), ("max_pods", max_pods, i32, n1),
+        ("filter_ok_row", filter_ok_row, b8, n1), ("port_conflict_row", port_conflict_row, b8, n1),
+        ("napref_row", napref_row, i32, n1), ("taint_row", taint_row, i32, n1),
+        ("img_row", img_row, i32, n1), ("req", req, i32, r1), ("req_nz", req_nz, i32, r1))
+        + ((("gang_row", gang_row, i32, n1),) if has_gang else ()))
+    for name, x in (("has_napref", has_napref), ("bal_active", bal_active)):
+        if not (x.dtype is b8 and x.device == device and x.numel() == 1 and x.is_contiguous()):
+            _check_flag(x, name, device)
+    lib = _lib("waterfill")
+    cs = _cluster_size(lib, "waterfill")
+    chunk = -(-n // cs)
+    list_cap = 1 << (min(k_slots, chunk * j_max) - 1).bit_length()
+    # a CTA's global fallback slice: 12 node arrays, its key rows, its list
+    slice_bytes = _align16(12 * (chunk + 1) * 4) + _align16(chunk * j_max * 4) + list_cap * 8
     k_per_node = torch.empty(n, dtype=torch.int32, device=device)
     chosen = torch.empty(k_slots, dtype=torch.int32, device=device)
-    scratch = dict(j_cap=torch.empty(n, dtype=torch.int32, device=device),
-                   static_score=torch.empty(n, dtype=torch.int32, device=device),
-                   keys=torch.empty(n * j_max, dtype=torch.int32, device=device),
-                   sortbuf=torch.empty(sort_len, dtype=torch.int64, device=device),
-                   state=torch.empty(2 + 4 * 256, dtype=torch.int32, device=device))
+    gscratch = torch.empty(cs * slice_bytes, dtype=torch.uint8, device=device)
     ptrs = dict(alloc=alloc, used=used, used_nz=used_nz, pod_count=pod_count, max_pods=max_pods,
                 filter_ok=filter_ok_row, port_conflict=port_conflict_row, napref=napref_row,
                 has_napref=has_napref, taint=taint_row, img=img_row,
                 gang=gang_row if has_gang else None, req=req, req_nz=req_nz,
-                bal_active=bal_active, k_per_node=k_per_node, chosen_nodes=chosen, **scratch)
-    args = _WaterfillArgs(N=n, R=r, j_max=j_max, k_slots=k_slots, sort_len=sort_len,
+                bal_active=bal_active, k_per_node=k_per_node, chosen_nodes=chosen,
+                gscratch=gscratch)
+    args = _WaterfillArgs(N=n, R=r, j_max=j_max, k_slots=k_slots,
                           group_size=max(0, min(int(group_size), 2**31 - 1)),
-                          has_port=int(bool(has_port)), has_gang=int(bool(has_gang)))
+                          has_port=int(bool(has_port)), has_gang=int(bool(has_gang)), cs=cs,
+                          chunk=chunk, list_cap=list_cap, slice_bytes=slice_bytes)
     for f in _WF_PTRS:
         t = ptrs[f]
         setattr(args, f, t.data_ptr() if t is not None else None)
-    lib = _lib("waterfill")
-    err = lib.waterfill_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
+    LAST_WATERFILL_PLAN = dict(cluster_size=cs, threads=WATERFILL_THREADS, nodes_per_cta=chunk,
+                               smem_bytes=WATERFILL_SMEM_BUDGET,
+                               global_bytes_per_cta=slice_bytes)
+    launched = ctypes.c_int(0)
+    err = lib.waterfill_launch(ctypes.byref(args), _stream_handle(alloc.get_device()),
+                               ctypes.byref(launched))
     LAUNCHES["waterfill"] += 1
+    CUDA_LAUNCHES["waterfill"] += launched.value
     _raise_on(err, "waterfill launch")
     return k_per_node, chosen
 
@@ -647,38 +675,68 @@ def launch_repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
 
 
 class _CoverCurveArgs(ctypes.Structure):
-    _fields_ = ([(d, ctypes.c_int) for d in ("n_slots", "k_max", "R")]
+    _fields_ = ([(d, ctypes.c_int) for d in ("S", "n_slots", "k_max", "R", "in_smem",
+                                             "slice_words")]
                 + [(f, ctypes.c_void_p) for f in ("free", "headroom", "eligible", "v_node",
-                                                  "v_req", "req", "caps")])
+                                                  "v_req", "req", "caps", "gscratch")])
 
 
 def launch_cover_curve(free, headroom, eligible, v_node, v_req, req) -> torch.Tensor:
-    """Kernel G on CUDA tensors: returns caps [k_max + 1] int32 like
-    cover_curve_plain. The inputs are not modified."""
+    """Kernel G on CUDA tensors for one slice: returns caps [k_max + 1] int32
+    like cover_curve_plain. The inputs are not modified."""
     device = free.device
     if free.dim() != 2:
         raise ValueError("cover_curve: free must be [n_slots, R]")
     n_slots, r = free.shape
     k_max = v_node.shape[0] if v_node.dim() == 1 else -1
-    for name, t, dtype, shape in (
-            ("free", free, torch.int32, (n_slots, r)),
-            ("headroom", headroom, torch.int32, (n_slots,)),
-            ("eligible", eligible, torch.bool, (n_slots,)),
-            ("v_node", v_node, torch.int32, (k_max,)),
-            ("v_req", v_req, torch.int32, (k_max, r)), ("req", req, torch.int32, (r,))):
-        _check_cuda(t, name, dtype, device, shape)
+    _check_all(device, (
+        ("free", free, torch.int32, (n_slots, r)),
+        ("headroom", headroom, torch.int32, (n_slots,)),
+        ("eligible", eligible, torch.bool, (n_slots,)),
+        ("v_node", v_node, torch.int32, (k_max,)),
+        ("v_req", v_req, torch.int32, (k_max, r)), ("req", req, torch.int32, (r,))))
+    return launch_cover_curves(free[None], headroom[None], eligible[None], v_node[None],
+                               v_req[None], req)[0]
+
+
+def launch_cover_curves(free, headroom, eligible, v_node, v_req, req) -> torch.Tensor:
+    """Kernel G on CUDA tensors for S slices at once (one CTA a slice, one
+    launch): free [S, n_slots, R], headroom and eligible [S, n_slots],
+    v_node [S, k_max], v_req [S, k_max, R], req [R]; returns caps [S, k_max +
+    1] int32 like cover_curve_batch_plain. The inputs are not modified."""
+    device = free.device
+    if free.dim() != 3:
+        raise ValueError("cover_curves: free must be [S, n_slots, R]")
+    s, n_slots, r = free.shape
+    k_max = v_node.shape[1] if v_node.dim() == 2 else -1
+    _check_all(device, (
+        ("free", free, torch.int32, (s, n_slots, r)),
+        ("headroom", headroom, torch.int32, (s, n_slots)),
+        ("eligible", eligible, torch.bool, (s, n_slots)),
+        ("v_node", v_node, torch.int32, (s, k_max)),
+        ("v_req", v_req, torch.int32, (s, k_max, r)), ("req", req, torch.int32, (r,))))
     lib = _lib("cover_curve")
     if not 1 <= r <= lib.cover_curve_max_r():
         raise ValueError(f"cover_curve: R = {r} outside [1, {lib.cover_curve_max_r()}]")
-    caps = torch.empty(k_max + 1, dtype=torch.int32, device=device)
-    args = _CoverCurveArgs(n_slots=n_slots, k_max=k_max, R=r, free=free.data_ptr(),
-                           headroom=headroom.data_ptr(), eligible=eligible.data_ptr(),
-                           v_node=v_node.data_ptr() if k_max else None,
-                           v_req=v_req.data_ptr() if k_max else None, req=req.data_ptr(),
-                           caps=caps.data_ptr())
-    err = lib.cover_curve_launch(ctypes.byref(args),
-                                 torch.cuda.current_stream(device).cuda_stream)
+    caps = torch.empty((s, k_max + 1), dtype=torch.int32, device=device)
+    # a slice's regions: node counts, free, headroom and eligible, then
+    # v_node, v_req, rank, sorted order, R prefix rows and the curve
+    words = n_slots * (3 + r) + k_max * (3 + 2 * r) + k_max + 1
+    if words > 2**31 - 1:
+        raise ValueError(f"cover_curve: {words} scratch words a slice exceed int32")
+    in_smem = words * 4 <= lib.cover_curve_smem_budget()
+    gscratch = None if in_smem else torch.empty(s * words, dtype=torch.int32, device=device)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None and t.numel() else None
+
+    args = _CoverCurveArgs(S=s, n_slots=n_slots, k_max=k_max, R=r, in_smem=int(in_smem),
+                           slice_words=words, free=ptr(free), headroom=ptr(headroom),
+                           eligible=ptr(eligible), v_node=ptr(v_node), v_req=ptr(v_req),
+                           req=req.data_ptr(), caps=caps.data_ptr(), gscratch=ptr(gscratch))
+    err = lib.cover_curve_launch(ctypes.byref(args), _stream_handle(free.get_device()))
     LAUNCHES["cover_curve"] += 1
+    CUDA_LAUNCHES["cover_curve"] += int(s > 0)
     _raise_on(err, "cover_curve launch")
     return caps
 

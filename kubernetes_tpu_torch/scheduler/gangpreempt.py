@@ -9,7 +9,8 @@ granularity:
   cover      when a gang's quorum is vetoed by the solver, select a min-cost
              victim set whose release fits the ENTIRE quorum on ONE slice.
              The per-slice eviction capacity curve is kernel G
-             (models/gangcover.py cover_curves): caps[k] after evicting the
+             (models/gangcover.py cover_curves_batched, every slice of an
+             attempt in one launch): caps[k] after evicting the
              first k victims of the slice's (priority asc, biggest-freed
              first) order; the cover is the smallest k reaching the quorum,
              minimized across slices by (max victim priority, victim count,
@@ -42,7 +43,7 @@ import numpy as np
 
 from ..api import compute_pod_resource_request
 from ..api.podgroup import pod_group_key
-from ..models.gangcover import COVER_MAX_VICTIMS, cover_curves, victim_order
+from ..models.gangcover import COVER_MAX_VICTIMS, cover_curves_batched, victim_order
 from ..snapshot.tensorizer import _quantize
 from .gang import node_slice_ids
 
@@ -208,7 +209,11 @@ class GangPreemptor:
                               // np.maximum(req[nz], 1)).sum(axis=1)
         else:
             freed_norm_all = np.zeros(len(v_pods), dtype=np.int64)
-        best: Optional[Tuple] = None
+        # every eligible slice's victim order first, then all curves of the
+        # attempt in one call (one launch of kernel G on the card); the walk
+        # below keeps the slice order, the early exit and the counting of a
+        # loop that computed one curve at a time
+        slices = []
         for s in np.unique(slice_ids[slice_ids >= 0]).tolist():
             snodes = np.nonzero(slice_ids == s)[0]
             if not eligible[snodes].any():
@@ -217,13 +222,17 @@ class GangPreemptor:
             local[snodes] = np.arange(len(snodes))
             vsel = pool_idx[np.isin(v_node[pool_idx], snodes)]
             order = vsel[victim_order(v_prio[vsel], freed_norm_all[vsel])]
-            if len(order) > COVER_MAX_VICTIMS:
+            capped = len(order) > COVER_MAX_VICTIMS
+            if capped:
                 order = order[:COVER_MAX_VICTIMS]
+            slices.append((s, order, capped, (free[snodes], headroom[snodes], eligible[snodes],
+                                              local[v_node[order]], v_req[order])))
+        curves = cover_curves_batched([x[3] for x in slices], req, device=self.sched.device)
+        best: Optional[Tuple] = None
+        for (s, order, capped, _), caps in zip(slices, curves):
+            if capped:
                 out.capped = True
             out.considered += len(order)
-            caps = cover_curves(
-                free[snodes], headroom[snodes], eligible[snodes],
-                local[v_node[order]], v_req[order], req, device=self.sched.device)
             ks = np.nonzero(caps >= need)[0]
             if ks.size == 0:
                 continue

@@ -5,7 +5,9 @@ transportation problem for the transport kernels' checks (with a warm start
 that overfills nodes, and a test-only numpy model of kernel E's round that
 accepts only where bids landed), seeded and
 edge-case defrag-assignment problems for kernel I's, seeded greedy-scan
-problems for kernel A's and seeded mirror churn for kernel B's. The same API as
+problems for kernel A's, seeded mirror churn for kernel B's, and test-only
+numpy models of kernel C's selection over sorted key rows and kernel G's
+victim-parallel curve. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
@@ -452,6 +454,154 @@ def auction_phase_touched(utility, jcap, supply, slots, req, free, x0, price0, l
         walk = set()
         rounds += 1
     return x.astype(np.int32), price, level, rounds
+
+
+_SENTINEL = -(2**31) + 1  # models/waterfill.py SENTINEL
+
+
+def waterfill_select_model(key, group_size, k_slots, cs=16):
+    """Test-only numpy model of kernel C's selection and order (not on any
+    main path), from the [N, j_max] int32 keys of waterfill_keys_plain. The
+    nodes are dealt in contiguous blocks to cs CTAs; each row's valid keys
+    (key > SENTINEL) must be a prefix, strictly descending. The m-th largest
+    key T (m = min(valid, group_size, k_slots)) comes from 4 radix passes of
+    8 bits whose per-CTA histograms count the runs of equal digits in the
+    CTA's concatenated rows (a run's first key adds minus its index, its
+    last key its index + 1); c_n is row n's count of keys >= T (a binary
+    search); each CTA sorts its chosen keys descending, and an entry's place
+    in the greedy order is its place in its list plus every other CTA's
+    count of chosen keys above it. Returns (k_per_node [N] int32,
+    chosen_nodes [k_slots] int32) as waterfill_group_plain does."""
+    key = np.asarray(key, np.int32)
+    n, j_max = key.shape
+    valid = key > _SENTINEL
+    lens = valid.sum(axis=1)
+    if not all(valid[i, :lens[i]].all() for i in range(n)):
+        raise ValueError("a row's valid keys are not a prefix")
+    u = np.where(valid, key.view(np.uint32) ^ np.uint32(0x80000000), np.uint32(0))
+    chunk = -(-n // cs)
+    ctas = [range(c * chunk, min(n, (c + 1) * chunk)) for c in range(cs)]
+    rows = [np.concatenate([u[i, :lens[i]] for i in nodes] + [np.zeros(0, np.uint32)])
+            for nodes in ctas]
+
+    def histogram(arr, shift, prefix, first_pass):
+        h = np.zeros(256, np.int64)
+        ok = arr != 0
+        if not first_pass:
+            ok &= (arr >> np.uint32(shift + 8)) == (prefix >> (shift + 8))
+        v = (arr >> np.uint32(shift)).astype(np.int64)
+        for i in np.nonzero(ok)[0]:
+            first = i == 0 or not ok[i - 1] or v[i - 1] != v[i]
+            last = i + 1 == len(arr) or not ok[i + 1] or v[i + 1] != v[i]
+            if first:
+                h[v[i] & 255] -= i
+            if last:
+                h[v[i] & 255] += i + 1
+        return h
+
+    prefix, want, m = 0, 0, 0
+    for p in range(4):
+        shift = 24 - 8 * p
+        merged = sum(histogram(arr, shift, prefix, p == 0) for arr in rows)
+        if p == 0:
+            m = int(min(merged.sum(), max(int(group_size), 0), k_slots))
+            want = m
+        if m == 0:
+            break
+        cum = 0
+        for b in range(255, -1, -1):
+            if cum + merged[b] >= want:
+                prefix |= b << shift
+                want -= cum
+                break
+            cum += int(merged[b])
+    k_per_node = np.zeros(n, np.int32)
+    chosen = np.full(k_slots, -1, np.int32)
+    if m == 0:
+        return k_per_node, chosen
+    if want != 1:
+        raise ValueError("keys at the threshold are not unique")
+    thr = np.uint32(prefix)
+    for i in range(n):  # rows descend: the count of keys >= T is a prefix length
+        k_per_node[i] = len(u[i, :lens[i]]) - np.searchsorted(u[i, :lens[i]][::-1], thr)
+    lists = []
+    for nodes in ctas:
+        ent = [(int(u[i, j]), i) for i in nodes for j in range(k_per_node[i])]
+        lists.append(sorted(ent, reverse=True))
+    neg = [-np.array([e[0] for e in lst], np.int64) for lst in lists]  # ascending
+    for c, lst in enumerate(lists):
+        if not lst:
+            continue
+        pos = np.arange(len(lst))
+        for o in range(cs):
+            if o != c:  # CTA o's chosen keys above each entry
+                pos = pos + np.searchsorted(neg[o], neg[c], side="left")
+        chosen[pos] = [node for _, node in lst]
+    return k_per_node, chosen
+
+
+def cover_curve_model(free, headroom, eligible, v_node, v_req, req):
+    """Test-only numpy model of kernel G's victim-parallel curve for one
+    slice (not on any main path): a stable counting sort of the victims by
+    node (pads and nodes >= n_slots dropped), per resource a prefix sum of
+    the node-sorted requests in uint32, a victim's freed resources as its
+    prefix minus the prefix before its node's segment and its released slots
+    as its rank on the node + 1, the capacity delta after minus before its
+    eviction, caps[0] the sum of the base capacities, and a prefix sum into
+    the curve. Returns caps[k_max + 1] int32 as cover_curve_plain does."""
+    free = np.asarray(free, np.int64).astype(np.int32)
+    head = np.asarray(headroom, np.int64).astype(np.int32)
+    elig = np.asarray(eligible, bool)
+    req = np.asarray(req, np.int64)
+    ns, r = free.shape
+    vn = np.asarray(v_node, np.int64)
+    k_max = len(vn)
+    v_req = np.asarray(v_req, np.int64).astype(np.int32).reshape(k_max, r)
+    vn = np.where((vn >= 0) & (vn < ns), vn, -1)
+    u32 = np.uint32
+
+    def fdiv(a, b):  # floor division of int32 values
+        return np.int64(a) // np.int64(b)
+
+    def cap(avail, hd):
+        c = 2**30
+        for d in range(r):
+            if req[d] > 0:
+                c = min(c, fdiv(avail[d], req[d]))
+        return max(min(c, int(hd)), 0)
+
+    def i32(x):
+        return int(np.array(x, np.int64).astype(u32).view(np.int32))
+
+    # stable counting sort: the rank among the earlier victims on the node
+    counts = np.zeros(ns, np.int64)
+    rank = np.zeros(k_max, np.int64)
+    for k in range(k_max):
+        if vn[k] >= 0:
+            rank[k] = counts[vn[k]]
+            counts[vn[k]] += 1
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    n_valid = int(counts.sum())
+    srt = np.zeros(n_valid, np.int64)
+    for k in range(k_max):
+        if vn[k] >= 0:
+            srt[start[vn[k]] + rank[k]] = k
+    pre = np.cumsum(v_req[srt].astype(u32), axis=0, dtype=u32) if n_valid else np.zeros((0, r), u32)
+    curve = np.zeros(k_max + 1, u32)
+    for k in range(k_max):
+        n = vn[k]
+        if n < 0 or not elig[n]:
+            continue
+        at, seg = start[n] + rank[k], start[n]
+        freed = pre[at] - (pre[seg - 1] if seg > 0 else u32(0))
+        after = [i32(np.int64(free[n, d]) + np.int64(freed[d])) for d in range(r)]
+        before = [i32(np.int64(after[d]) - np.int64(v_req[k, d])) for d in range(r)]
+        c_after = cap(after, i32(np.int64(head[n]) + rank[k] + 1))
+        c_before = cap(before, i32(np.int64(head[n]) + rank[k]))
+        curve[k + 1] = u32((c_after - c_before) % 2**32)
+    base = sum(cap(free[n], head[n]) for n in range(ns) if elig[n])
+    curve[0] = u32(base % 2**32)
+    return np.cumsum(curve, dtype=u32).view(np.int32)
 
 
 def defrag_problem(seed, ns, v, r=3, n_slots=None, v_max=None, zero_frac=0.1,

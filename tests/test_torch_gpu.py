@@ -311,8 +311,10 @@ def test_batch_scheduler_card_matches_cpu(cuda_device, workload, solver):
 # ---------------------------------------------------------------------------
 
 
-def _seeded_group(seed, n, j_max, group, device, ports=False, gang=False, overcommit=False):
-    """Seeded inputs of one waterfill_group call on `device`."""
+def _seeded_group(seed, n, j_max, group, device, ports=False, gang=False, overcommit=False,
+                  tiny_req=False):
+    """Seeded inputs of one waterfill_group call on `device` (tiny_req: rows
+    as deep as j_max)."""
     rng = np.random.default_rng(seed)
     r = 3
     alloc = rng.integers(1000, 8000, size=(n, r)).astype(np.int32)
@@ -320,7 +322,8 @@ def _seeded_group(seed, n, j_max, group, device, ports=False, gang=False, overco
     if overcommit:
         hot = rng.choice(n, size=max(n // 8, 1), replace=False)
         used[hot] = alloc[hot] + rng.integers(1, 900, size=(hot.size, r)).astype(np.int32)
-    req = rng.integers(20, 400, size=r).astype(np.int32)
+    req = rng.integers(1, 3, size=r) if tiny_req else rng.integers(20, 400, size=r)
+    req = req.astype(np.int32)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -360,6 +363,50 @@ def test_kernel_c_matches_plain_on_card(cuda_device, n, j_max, group, opts):
     for a, b in zip(got, want):
         assert a.dtype == torch.int32 and torch.equal(a, b)
     assert int(got[0].sum()) == int((got[1] >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,j_max,group,opts", [
+    (1, 16, 9, {}),  # one node: every CTA but the first owns none
+    (37, 8, 200, {}),  # a node count no multiple of the cluster size
+    (64, 8, 0, {}),  # an empty group: nothing chosen
+    (2000, 1024, 1_000_000, {"tiny_req": True}),  # rows and lists beyond shared memory
+])
+def test_kernel_c_cluster_shapes_on_card(cuda_device, n, j_max, group, opts):
+    """One cluster launch a group (kernels.CUDA_LAUNCHES), exact against the
+    plain version, at shapes that leave CTAs empty or put a CTA's key rows
+    and chosen list in its global slice."""
+    from kubernetes_tpu_torch.models import waterfill as wf
+    from kubernetes_tpu_torch.ops import kernels
+
+    args, gang_row = _seeded_group(n * 7 + group, n, j_max, max(group, 1), cuda_device, **opts)
+    args[-1] = group
+    k_slots = wf.k_slots_for(max(group, 1), n, j_max)
+    before = kernels.CUDA_LAUNCHES["waterfill"]
+    got = wf.waterfill_group(*args, j_max, k_slots, gang_row, gang_row is not None)
+    torch.cuda.synchronize()
+    assert kernels.CUDA_LAUNCHES["waterfill"] == before + 1
+    assert kernels.LAST_WATERFILL_PLAN["cluster_size"] in (8, 16)
+    want = wf.waterfill_group_plain(*args, j_max, k_slots, gang_row, gang_row is not None)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[0].sum()) == int((got[1] >= 0).sum()) <= group
+
+
+@pytest.mark.gpu
+def test_waterfill_solve_reads_once_a_batch_on_card(cuda_device):
+    from kubernetes_tpu_torch.models import waterfill as wf
+    from kubernetes_tpu_torch.ops import kernels
+
+    inp, _, _ = port_inputs(PARITY_WORKLOADS[0], cuda_device)
+    p = inp.req.shape[0]
+    groups = [(np.arange(i, min(i + 2, p)), 0) for i in range(0, min(p, 8), 2)]
+    kernels.reset_launch_counts()
+    got = wf.waterfill_solve(inp, groups)
+    assert kernels.HOST_SYNCS["waterfill"] == 1
+    assert kernels.CUDA_LAUNCHES["waterfill"] == len(groups)
+    cpu, _, _ = port_inputs(PARITY_WORKLOADS[0], torch.device("cpu"))
+    np.testing.assert_array_equal(got, wf.waterfill_solve(cpu, groups))
 
 
 @pytest.mark.gpu
@@ -463,6 +510,49 @@ def test_kernel_g_matches_plain_on_card(cuda_device, ns, k, r, opts):
     assert got.dtype == torch.int32 and torch.equal(got, want)
     host = gcv.cover_curve_host(*(a.cpu().numpy() for a in args))
     assert np.array_equal(got.cpu().numpy().astype(np.int64), host)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slices,ns,k", [
+    (20, 250, 1000),  # GangPreemption_5000's attempt: 20 slices of 250 nodes
+    (3, 7, 0),  # no victims at all
+    (2, 60000, 200),  # a slice's regions beyond shared memory: the global slices
+])
+def test_kernel_g_batched_one_launch_on_card(cuda_device, n_slices, ns, k):
+    """Every slice of an attempt in one launch and one read back, each curve
+    equal to its own plain curve."""
+    from kubernetes_tpu_torch.models import gangcover as gcv
+    from kubernetes_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(n_slices + ns + k)
+    r = 3
+    req = np.array([3000, 512, 0])
+    slices = []
+    for _ in range(n_slices):
+        m, kk = int(rng.integers(max(ns // 2, 1), ns + 1)), int(rng.integers(0, k + 1))
+        slices.append((rng.integers(-500, 4000, size=(m, r)), rng.integers(0, 110, size=m),
+                       rng.random(m) > 0.1, rng.integers(0, m, size=kk),
+                       rng.integers(0, 2000, size=(kk, r))))
+    kernels.reset_launch_counts()
+    got = gcv.cover_curves_batched(slices, req, device=cuda_device)
+    assert kernels.LAUNCHES["cover_curve"] == 1 and kernels.CUDA_LAUNCHES["cover_curve"] == 1
+    assert kernels.HOST_SYNCS["cover_curve"] == 1
+    want = gcv.cover_curves_batched(slices, req, device="cpu")
+    for a, b, x in zip(got, want, slices):
+        assert np.array_equal(a, b) and len(a) == len(x[3]) + 1
+
+
+@pytest.mark.gpu
+def test_kernel_g_batch_tensors_match_plain_on_card(cuda_device):
+    from kubernetes_tpu_torch.models import gangcover as gcv
+
+    cases = [_cover_args(s, 100, 300, 3, cuda_device, pads=10, negative=True) for s in range(5)]
+    stacked = [torch.stack([c[i] for c in cases]) for i in range(5)]
+    got = gcv.cover_curve_batch(*stacked, cases[0][5])
+    torch.cuda.synchronize()
+    assert torch.equal(got, gcv.cover_curve_batch_plain(*stacked, cases[0][5]))
+    for s, c in enumerate(cases):
+        assert torch.equal(got[s], gcv.cover_curve(*c[:5], cases[0][5]))
 
 
 @pytest.mark.gpu

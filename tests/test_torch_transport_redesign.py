@@ -292,20 +292,26 @@ def test_sinkhorn_cluster_split_keeps_torch_order(g, n, cs):
 
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
-    """Editing csrc/cluster_exchange.cuh changes the library name of A, E
-    and F (so a stale build is never reused) and of no other kernel."""
+    """Editing csrc/cluster_exchange.cuh changes the library name of A, C, E
+    and F, and editing csrc/block_scan.cuh that of C and G (so a stale build
+    is never reused), and of no other kernel."""
     for f in kernels.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
-    before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
-    users = {"greedy_scan", "auction_phase", "sinkhorn"}
-    for name in users:
+    includes = {"greedy_scan": ["cluster_exchange.cuh"], "auction_phase": ["cluster_exchange.cuh"],
+                "sinkhorn": ["cluster_exchange.cuh"],
+                "waterfill": ["block_scan.cuh", "cluster_exchange.cuh"],
+                "cover_curve": ["block_scan.cuh"]}
+    for name, headers in includes.items():
         assert [f.name for f in kernels._sources_of(tmp_path / kernels.SOURCES[name])] == [
-            kernels.SOURCES[name], "cluster_exchange.cuh"]
-    header = tmp_path / "cluster_exchange.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
-    assert {name for name in kernels.SOURCES if after[name] != before[name]} == users
+            kernels.SOURCES[name], *headers]
+    for header_name in ("cluster_exchange.cuh", "block_scan.cuh"):
+        users = {name for name, headers in includes.items() if header_name in headers}
+        before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+        header = tmp_path / header_name
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+        assert {name for name in kernels.SOURCES if after[name] != before[name]} == users
     assert kernels._lib_path("auction_phase") == after["auction_phase"]  # stable
 
 

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where a round of kernel E and an iteration of kernel F spend their cycles.
+"""Where kernels E, F, C and G spend their cycles.
 
-    python3 tools/kernel_sections.py
+    python3 tools/kernel_sections.py [--kernels E,F,C,G]
 
-Writes copies of csrc/auction_phase.cu and csrc/sinkhorn.cu into
-build/tools/ with a clock64 mark on thread 0 of every CTA at each section
-boundary (the marks are inserted before fixed lines of the sources, so an
-edit that moves one makes this script stop with the line it missed),
-builds them with nvcc for sm_90a, runs them on the inputs chip_smoke.py
-gives kernels E and F (the first Transport_50k batch and a TransportMixed
-batch, at 5,000 nodes) and prints one JSON line per case: cycles a round
-(E) or an iteration (F) per section, on CTA 0 and the most over the CTAs,
-and the SM clock. A section's time on thread 0 includes its waits at CTA
-barriers. Needs a CUDA card; the kernels themselves are untouched.
+Writes copies of the kernels' sources (csrc/auction_phase.cu, sinkhorn.cu,
+waterfill.cu, cover_curve.cu) into build/tools/ with a clock64 mark on
+thread 0 of every CTA at each section boundary (the marks are inserted
+before fixed lines of the sources, so an edit that moves one makes this
+script stop with the line it missed), builds them with nvcc for sm_90a, runs
+them on the inputs chip_smoke.py gives them (E and F: the first
+Transport_50k batch and a TransportMixed batch, at 5,000 nodes; C: kernel_C
+cases a and b, SchedulingBasic at 5,000 nodes; G: kernel_G case a and one
+cover attempt of 20 slices) and prints one JSON line per case: cycles a
+round (E), an iteration (F) or a call (C, G) per section, on CTA 0 and the
+most over the CTAs, and the SM clock. A section's time on thread 0 includes
+its waits at CTA barriers. Needs a CUDA card; the kernels themselves are
+untouched.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ MARK = ('#define PROF(k) do { if (tid == 0) { long long _t = clock64(); prof_s[p
 END = "  cluster.sync();  // no CTA leaves while another may still use its slots\n}"
 
 # (source, section names in mark order, the marks: (section, the line it
-# goes before), where the timer starts, the args struct's last line)
+# goes before), where the timer starts, the args struct's last line, the
+# kernel's last line, the CTA's index)
 KERNELS = {
     "auction_phase": dict(
         sections=["message_build", "message_select", "message_send", "wait", "cond",
@@ -62,27 +66,71 @@ KERNELS = {
                (7, "  // ---- f, this CTA's g and plan entries ----")],
         start="  for (int it = 0; it < a.iters; ++it) {",
         tail="  float* xslots;                  // [cs][G] maxima, then [cs][G * by] partials, when global\n"),
+    "waterfill": dict(
+        sections=["node_pass", "maxima_sync", "static_carve", "rows", "radix_count",
+                  "radix_send", "radix_wait_sum", "radix_select", "c_n", "list_sort", "lists_sync",
+                  "describe", "corank", "tail", "exit_sync"],
+        marks=[(1, "  cluster.sync();  // every CTA's maxima are in its shared memory"),
+               (2, "  unsigned* keys = (unsigned*)carve((size_t)K_c * 4, g_keys_off(a), nullptr);"),
+               (3, "  // ---- 2. rows: ordered keys of j < j_cap"),
+               (4, "    const int shift = 24 - 8 * pass, par = pass & 1;"),
+               (5, "    // push this CTA's histogram into every CTA's slots of this parity"),
+               (6, "    xchg_wait(xc, par);  // every CTA's histogram of this pass has arrived"),
+               (7, "    if (warp == 0) {\n      unsigned s8 = 0;"),
+               (8, "  // ---- 4. c_n = keys of the row at or above T"),
+               (9, "  // ---- 5. the greedy order"),
+               (10, "    cluster.sync();  // every CTA's list is sorted and described"),
+               (11, "    if (tid < cs) {\n      const int len"),
+               (12, "    const int steps = steps_s;"),
+               (13, "  for (int i = m + rank * WF_THREADS + tid; i < a.k_slots;")],
+        start="  // ---- 1. node pass",
+        tail="  unsigned char* gscratch;\n};",
+        end="  cluster.sync();  // no CTA leaves while another may still read its shared memory\n}",
+        first=0, cta="rank"),
+    "cover_curve": dict(
+        sections=["stage", "sort_turns", "starts_scatter", "prefix_scans", "deltas", "cap0",
+                  "curve_scan", "write"],
+        marks=[(1, "  // ---- 2. stable counting sort by node ----"),
+               (2, "  const int V = (int)block_scan<CC_THREADS>(cnt, NS, false, ws);"),
+               (3, "  // ---- 3. prefix sums of the node-sorted requests, per resource ----"),
+               (4, "  // ---- 4. capacity deltas, caps[0], the curve ----"),
+               (5, "  unsigned cap0 = 0u;"),
+               (6, "  block_scan<CC_THREADS>(curve, K + 1, true, ws);"),
+               (7, "  for (int i = tid; i <= K; i += CC_THREADS) caps[i] = (int)curve[i];")],
+        start="  // ---- 1. stage",
+        tail="  unsigned* gscratch;             // S slices of slice_words, when !in_smem\n};",
+        end="caps[i] = (int)curve[i];\n}", first=0, cta="s"),
 }
 
 
 def instrument(name: str) -> Path:
     spec = KERNELS[name]
     n = len(spec["sections"])
+    end = spec.get("end", END)
     s = (ROOT / "kubernetes_tpu_torch" / "csrc" / f"{name}.cu").read_text()
-    s = s.replace('#include "cluster_exchange.cuh"',
-                  '#include "../../kubernetes_tpu_torch/csrc/cluster_exchange.cuh"\n' + MARK)
-    for anchor in (spec["tail"], spec["start"], END):
+    last_include = s.rindex('#include "')
+    s = (s[:last_include] + s[last_include:].replace("\n", "\n" + MARK + "\n", 1))
+    s = s.replace('#include "', '#include "../../kubernetes_tpu_torch/csrc/')
+    tail = spec["tail"]
+    for anchor in (tail, spec["start"], end):
         if s.count(anchor) != 1:
             sys.exit(f"kernel_sections: {name}.cu no longer has the line {anchor!r}")
-    s = s.replace(spec["tail"], spec["tail"] + "  long long* prof;\n")
+    if tail.endswith("};"):
+        s = s.replace(tail, tail[:-2] + "  long long* prof;\n};")
+    else:
+        s = s.replace(tail, tail + "  long long* prof;\n")
     s = s.replace(spec["start"], f"  long long prof_t = clock64(), prof_s[{n}] = {{0}};\n"
-                  f"  int pk = {n - 1};\n" + spec["start"])
+                  f"  int pk = {spec.get('first', n - 1)};\n" + spec["start"])
     for k, anchor in spec["marks"]:
         if s.count(anchor) != 1:
             sys.exit(f"kernel_sections: {name}.cu no longer has the line {anchor!r}")
         s = s.replace(anchor, f"PROF({k});\n" + anchor)
-    s = s.replace(END, f"  PROF({n - 1});\n  if (tid == 0)\n    for (int k = 0; k < {n}; ++k) "
-                  f"a.prof[rank * {n} + k] = prof_s[k];\n" + END)
+    write = (f"  PROF({n - 1});\n  if (tid == 0)\n    for (int k = 0; k < {n}; ++k) "
+             f"a.prof[{spec.get('cta', 'rank')} * {n} + k] = prof_s[k];\n")
+    if "end" in spec:  # after the kernel's last line
+        s = s.replace(end, end[:-1] + write + end[-1])
+    else:  # before its closing cluster barrier
+        s = s.replace(end, write + end)
     OUT.mkdir(parents=True, exist_ok=True)
     src, lib = OUT / f"{name}_sections.cu", OUT / f"lib{name}_sections.so"
     src.write_text(s)
@@ -93,18 +141,91 @@ def instrument(name: str) -> Path:
     return lib
 
 
+UNITS = {"auction_phase": "cycles a round", "sinkhorn": "cycles an iteration",
+         "waterfill": "cycles a call", "cover_curve": "cycles a call"}
+
+
 def sections_line(name, label, prof, n_cta, per):
     import numpy as np
 
     names = KERNELS[name]["sections"]
-    p = prof.view(16, len(names)).cpu().numpy()[:n_cta].astype(np.float64)
-    return {"kernel": name, "case": label, "unit": "cycles a round" if name == "auction_phase"
-            else "cycles an iteration",
+    p = prof.view(-1, len(names)).cpu().numpy()[:n_cta].astype(np.float64)
+    return {"kernel": name, "case": label, "unit": UNITS[name],
             "cta0": {nm: round(p[0, k] / per, 1) for k, nm in enumerate(names)},
             "max_over_ctas": {nm: round(p[:, k].max() / per, 1) for k, nm in enumerate(names)}}
 
 
-def main() -> int:
+def sections_c_g(which, dev):
+    """Kernels C and G through their own wrappers, bound to the instrumented
+    libraries (the args structs gain the trailing `prof` pointer)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from kubernetes_tpu_torch.models import gangcover
+    from kubernetes_tpu_torch.models.waterfill import bucket_j_max, make_groups, waterfill_group
+    from kubernetes_tpu_torch.ops import kernels as K
+
+    def bind(name, base, attr):
+        n = len(KERNELS[name]["sections"])
+        prof = torch.zeros(64 * n, dtype=torch.int64, device=dev)
+
+        class Args(base):
+            _fields_ = [("prof", ctypes.c_void_p)]
+
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                self.prof = prof.data_ptr()
+
+        setattr(K, attr, Args)
+        lib_path = instrument(name)
+        real = K._lib_path
+        K._lib_path = lambda nm: lib_path if nm == name else real(nm)
+        K._LIBS.pop(name, None)
+        K._lib(name)
+        K._lib_path = real
+        return prof
+
+    def run(fn, prof):
+        for _ in range(3):  # the last of three back-to-back calls
+            prof.zero_()
+            fn()
+            torch.cuda.synchronize()
+
+    if "C" in which:
+        prof = bind("waterfill", K._WaterfillArgs, "_WaterfillArgs")
+        for case, group in (("a_scheduling_basic", 4096), ("b_global_sort", 10000)):
+            inp, _, _, batch = cs.tensorize(cs.make_nodes(5000), cs.basic_pods(group, "ks"), dev)
+            members, cls = make_groups(batch)[0]
+            j_max = bucket_j_max(inp.max_pods, inp.pod_count, 5000, 2_600_000)
+            args, kw = cs.group_call(inp, members, cls, j_max)
+            run(lambda: waterfill_group(*args, **kw), prof)
+            line = sections_line("waterfill", case, prof,
+                                 K.LAST_WATERFILL_PLAN["cluster_size"], 1)
+            line.update(nodes=5000, group=group, j_max=j_max, k_slots=kw["k_slots"])
+            print(json.dumps(line), flush=True)
+    if "G" in which:
+        prof = bind("cover_curve", K._CoverCurveArgs, "_CoverCurveArgs")
+        rng = np.random.default_rng(0)
+        curve = cs.cover_case(rng, 250, 1000, 3, dev)
+        run(lambda: gangcover.cover_curve(*curve), prof)
+        print(json.dumps(sections_line("cover_curve", "a_full_width_slice", prof, 1, 1)),
+              flush=True)
+        req = np.array([3000, 0, 0])
+        slices = [(rng.integers(-500, 4000, size=(250, 3)), rng.integers(0, 110, size=250),
+                   rng.random(250) > 0.05, rng.integers(0, 250, size=1000),
+                   rng.integers(0, 2000, size=(1000, 3))) for _ in range(20)]
+        run(lambda: gangcover.cover_curves_batched(slices, req, device=dev), prof)
+        print(json.dumps(sections_line("cover_curve", "attempt_20_slices", prof, 20, 1)),
+              flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="E,F", help="any of E, F, C, G, comma-separated")
+    which = set(ap.parse_args(argv).kernels.split(","))
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -116,6 +237,9 @@ def main() -> int:
     from kubernetes_tpu_torch.ops import kernels as K
 
     dev = torch.device("cuda", 0)
+    sections_c_g(which, dev)
+    if not which & {"E", "F"}:
+        return 0
     sizes = {"nodes": 5000, "batch": 4096, "transport_pods": 50000,
              "mixed_transport_pods": 10000}
     wl = cs.transport_workloads(sizes)
@@ -144,7 +268,7 @@ def main() -> int:
 
     lib = ctypes.CDLL(str(instrument("auction_phase")))
     lib.auction_phase_cluster_size.restype = ctypes.c_int
-    for label, prob in problems.items():
+    for label, prob in problems.items() if "E" in which else ():
         args_t = cs.phase_args(prob)
         g, n = prob.utility.shape
         r = prob.req.shape[1]
@@ -169,7 +293,7 @@ def main() -> int:
 
     lib = ctypes.CDLL(str(instrument("sinkhorn")))
     lib.sinkhorn_cluster_size.restype = ctypes.c_int
-    for label, prob in problems.items():
+    for label, prob in problems.items() if "F" in which else ():
         g, n = prob.utility.shape
         ins = (prob.utility, prob.feasible, prob.supply, ttr._effective_cap(prob).contiguous(),
                torch.zeros(g, device=dev), torch.zeros(n, device=dev))
