@@ -91,10 +91,13 @@ Phases, each printing one JSON line:
              kernel G launched at most once a cover attempt (reported: its
              launches an attempt), the covers of 6 and 799 victims, and a CPU
              rerun evicts and places the same
-  kernel_J   the feasibility-row kernel against feasibility_rows_plain: (a)
-             TransportMixed's 8 group rows x 5,000 nodes, (b) 512 pod rows,
-             (c) over-committed nodes (free < 0), zero-alloc dimensions, used
-             host ports and rows nothing fits; exact equality
+  kernel_J   the feasibility-row kernel (one thread-block cluster a row)
+             against feasibility_rows_plain: (a) TransportMixed's 8 group
+             rows x 5,000 nodes, (b) 512 pod rows, (c) over-committed nodes
+             (free < 0), zero-alloc dimensions, used host ports and rows
+             nothing fits, (d) Transport_50k's one row; exact equality; each
+             line gives the CUDA launches of the call (1), the plan and the
+             device time, cases a and d the wall time
   kernel_E   the auction-phase kernel (one thread-block cluster a phase)
              against _auction_phase_plain: (a) the first Transport_50k batch
              (G = 1, supply 4,096 far above one node) at the first and the
@@ -145,12 +148,17 @@ Phases, each printing one JSON line:
              donor slice wholly drained, conservation through resolve_keys,
              kernel I launched, and the ON leg's maps, cycles and migration
              chain equal to a CPU rerun
-  kernel_I   the defrag-assign kernel against defrag_assign_plain: (a) the
-             Defrag_5000 cycle's own tensors (n_slots 8,192, v_max 256, R 3),
-             (b) the cap, 1,024 seeded victims on 5,000 nodes, some
-             unplaceable, (c) ties, headroom 0, no target, pad rows and
-             slots, negative free, a wrapping waste sum, (d) n_slots 32,768
-             x R 4, beyond the shared-memory path; exact equality
+  kernel_I   the defrag-assign kernel (a tournament tree) against
+             defrag_assign_plain: (a) the Defrag_5000 cycle's own tensors
+             (n_slots 8,192, v_max 256, R 3), (b) the cap, 1,024 seeded
+             victims on 5,000 nodes, some unplaceable, (c) ties, headroom 0,
+             no target, pad rows and slots, negative free, a wrapping waste
+             sum, (d) n_slots 32,768 x R 4, beyond the shared-memory path,
+             (e) 1,024 victims in runs of 1-64 identical requests; exact
+             equality; each line gives the CUDA launches (1), the plan, the
+             tree's rebuilds and leaf updates as the kernel counts them
+             (checked against testing.defrag_tree_model's) and the device
+             time, cases a, b and e the wall time
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -1970,6 +1978,9 @@ def phase_kernel_j(device, sizes, seed):
     nodes_m, pods_m = wl["TransportMixed"]()
     inp_m, _, _, groups_m, _ = tensorize_groups(nodes_m, pods_m[:sizes["batch"]], device)
     reps = torch.tensor([int(m[0]) for m, _ in groups_m], device=device)
+    nodes_t, pods_t = wl["Transport_50k"]()
+    inp_t, _, _, groups_t, _ = tensorize_groups(nodes_t, pods_t[:sizes["batch"]], device)
+    rep_t = torch.tensor([int(m[0]) for m, _ in groups_t], device=device)
     # edge cases: over-committed nodes (free < 0), nodes without memory
     # (a zero-alloc dimension), used host ports, and rows nothing fits
     rng = random.Random(seed)
@@ -2008,13 +2019,22 @@ def phase_kernel_j(device, sizes, seed):
                              inp_m.balanced_active[:512].contiguous()),
         "c_overcommit_zero_alloc_ports_infeasible": (inp_e, inp_e.req, inp_e.req_nz,
                                                      inp_e.class_of_pod, inp_e.balanced_active),
+        # Transport_50k's first batch: one group, one row (26 of the 32
+        # launches on the transport main paths are such rows)
+        "d_transport_50k_row": (inp_t, inp_t.req[rep_t].contiguous(),
+                                inp_t.req_nz[rep_t].contiguous(),
+                                inp_t.class_of_pod[rep_t].contiguous(),
+                                inp_t.balanced_active[rep_t].contiguous()),
     }
     err, lines = 0, {}
     for name, args in cases.items():
         before = kernels.LAUNCHES["feasibility_rows"]
+        cuda_before = kernels.CUDA_LAUNCHES["feasibility_rows"]
         got = feasibility_rows(*args)
         sync(device)
         launched = kernels.LAUNCHES["feasibility_rows"] - before
+        cuda_launched = kernels.CUDA_LAUNCHES["feasibility_rows"] - cuda_before
+        plan = dict(kernels.LAST_FEASIBILITY_PLAN) if device.type == "cuda" else None
         ref = feasibility_rows_plain(*args)
         sync(device)
         e = int((got[1].long() - ref[1].long()).abs().max()) if got[1].numel() else 0
@@ -2022,16 +2042,18 @@ def phase_kernel_j(device, sizes, seed):
         equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         line = {"phase": "kernel_J", "case": name, "rows": args[1].shape[0],
                 "nodes": args[0].alloc.shape[0], "equal": equal, "max_abs_err": e,
-                "launches": launched, "feasible_cells": int(got[0].sum()),
-                "infeasible_rows": int((~got[0].any(dim=1)).sum())}
+                "launches": launched, "cuda_launches": cuda_launched,
+                "feasible_cells": int(got[0].sum()),
+                "infeasible_rows": int((~got[0].any(dim=1)).sum()), "plan": plan,
+                "device_ms": device_ms(lambda: feasibility_rows(*args), ("feasibility_rows",),
+                                       device, iters=50 if name[0] in "ad" else 20)}
         err = max(err, e)
         check(equal, f"kernel J differs from its plain version on case {name}")
-        check(device.type != "cuda" or launched == 1, f"kernel J did not launch on case {name}")
-        if name.startswith("a_"):
+        check(device.type != "cuda" or (launched == 1 and cuda_launched == 1),
+              f"kernel J did not launch once on case {name}")
+        if name[0] in "ad":
             line["ms"] = timed_ms(lambda: feasibility_rows(*args), 200, device)
             line["plain_ms"] = timed_ms(lambda: feasibility_rows_plain(*args), 20, device)
-            line["device_ms"] = device_ms(lambda: feasibility_rows(*args),
-                                          ("feasibility_rows",), device)
             nbytes, ops = kernel_j_work(args[0], args[3])
             line["bytes"], line["ops"] = nbytes, ops
             line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
@@ -2043,7 +2065,7 @@ def phase_kernel_j(device, sizes, seed):
             check(bool(inp_e.node_ports.any()), "case c has no used port")
         emit(line)
         lines[name] = line
-    return err, lines["a_transport_mixed_groups"]
+    return err, lines["a_transport_mixed_groups"], lines["d_transport_50k_row"]
 
 
 def synthetic_problem(seed, device, **kw):
@@ -2722,15 +2744,21 @@ def phase_main_path_defrag(device, sizes, card, inputs):
     return lines
 
 
-def kernel_i_work(args):
+def kernel_i_work(args, counts):
     """(bytes, operations): inputs read once, the targets written once; per
-    victim and slot the fit test and the waste sum (2R) and the key, mask
-    and argmin (3): v_max * n_slots * (2R + 3)."""
+    slot key the fit test and the waste sum (2R) and the key, mask and
+    minimum (3), for the keys this run's data needs: every slot at a tree
+    rebuild (a victim whose request differs from the last one's), one
+    leaf's group at a placement followed by the same request (`counts`,
+    testing.defrag_tree_model's)."""
+    from kubernetes_tpu_torch.ops.kernels import defrag_group
+
     free, head, ok, v_req, valid = args
     n_slots, r = free.shape
     v_max = v_req.shape[0]
     nbytes = sum(t.numel() * t.element_size() for t in args) + v_max * 4
-    return nbytes, v_max * n_slots * (2 * r + 3)
+    keys = counts["rebuilds"] * n_slots + counts["leaf_updates"] * defrag_group(n_slots)
+    return nbytes, keys * (2 * r + 3)
 
 
 def phase_kernel_i(device, sizes, seed, inputs):
@@ -2753,12 +2781,20 @@ def phase_kernel_i(device, sizes, seed, inputs):
         cases[f"c_{name}"] = t(arrays)
     cases["d_global_state"] = t(tt.defrag_problem(seed + 1, 30000, sizes["defrag_wide_v"], r=4,
                                                   n_slots=32768))
+    # runs of 1-64 identical requests (kernel I's tree rebuilds at a change)
+    cases["e_request_runs"] = t(tt.defrag_request_runs(seed + 2, sizes["nodes"],
+                                                       dfg.DEFRAG_MAX_VICTIMS))
     err, lines = 0, {}
     for name, args in cases.items():
         before = kernels.LAUNCHES["defrag_assign"]
+        cuda_before = kernels.CUDA_LAUNCHES["defrag_assign"]
         got = dfg.defrag_assign(*args)
         sync(device)
         launched = kernels.LAUNCHES["defrag_assign"] - before
+        cuda_launched = kernels.CUDA_LAUNCHES["defrag_assign"] - cuda_before
+        plan = dict(kernels.LAST_DEFRAG_PLAN) if device.type == "cuda" else None
+        # the schedule as the kernel counted it (tree rebuilds, leaf updates)
+        sched = kernels.LAST_DEFRAG_COUNTS.tolist() if device.type == "cuda" else None
         ref = dfg.defrag_assign_plain(*args)
         sync(device)
         e = int((got.long() - ref.long()).abs().max())
@@ -2766,22 +2802,31 @@ def phase_kernel_i(device, sizes, seed, inputs):
         n_slots, r = args[0].shape
         v_max = args[3].shape[0]
         real = int(args[4].sum())
+        # what this run's data needs (the bound's work), by the numpy model
+        model = tt.defrag_tree_model(*(a.cpu().numpy() for a in args))[1]
+        timed = name[0] in "abe"
+        iters = 20 if name[0] == "a" else 10 if timed else 5
         line = {"phase": "kernel_I", "case": name, "n_slots": n_slots, "v_max": v_max, "R": r,
                 "victims": real, "placed": int((got >= 0).sum()),
                 "unplaceable": real - int((got >= 0).sum()),
                 "state_bytes": n_slots * (r + 1) * 4, "equal": equal, "max_abs_err": e,
-                "launches": launched}
+                "launches": launched, "cuda_launches": cuda_launched, "plan": plan,
+                "rebuilds": None if sched is None else sched[0],
+                "leaf_updates": None if sched is None else sched[1],
+                "model_rebuilds": model["rebuilds"], "model_leaf_updates": model["leaf_updates"],
+                "device_ms": device_ms(lambda: dfg.defrag_assign(*args), ("defrag_assign",),
+                                       device, iters=iters)}
         err = max(err, e)
         check(equal, f"kernel I differs from its plain version on case {name}")
-        check(device.type != "cuda" or launched == 1, f"kernel I did not launch on case {name}")
-        if name[0] in "ab":
-            iters = 20 if name[0] == "a" else 10
+        check(device.type != "cuda" or (launched == 1 and cuda_launched == 1),
+              f"kernel I did not launch once on case {name}")
+        check(sched is None or sched == [model["rebuilds"], model["leaf_updates"]],
+              f"kernel I's schedule {sched} differs from the model's on case {name}")
+        if timed:
             line["ms"] = timed_ms(lambda: dfg.defrag_assign(*args), iters, device)
             line["plain_ms"] = timed_ms(lambda: dfg.defrag_assign_plain(*args), 2, device,
                                         warmup=0)
-            line["device_ms"] = device_ms(lambda: dfg.defrag_assign(*args), ("defrag_assign",),
-                                          device, iters=iters)
-            nbytes, ops = kernel_i_work(args)
+            nbytes, ops = kernel_i_work(args, model)
             line["bytes"], line["ops"] = nbytes, ops
             line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
             line["shape"] = f"n_slots {n_slots}, v_max {v_max}, R {r}"
@@ -2791,7 +2836,8 @@ def phase_kernel_i(device, sizes, seed, inputs):
           "kernel_I case b has no unplaceable victim")
     check(lines["d_global_state"]["state_bytes"] > 227 * 1024,
           "kernel_I case d does not leave the shared-memory path")
-    return err, lines["a_defrag_5000_cycle"], lines["b_cap_1024_victims"]
+    return (err, lines["a_defrag_5000_cycle"], lines["b_cap_1024_victims"],
+            lines["e_request_runs"])
 
 
 def main(argv=None) -> int:
@@ -2838,7 +2884,7 @@ def main(argv=None) -> int:
         err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
         err_g, line_g, line_g_batch = phase_kernel_g(device, sizes, args.seed)
         err_h, line_h = phase_kernel_h(device, sizes, args.seed)
-        err_j, line_j = phase_kernel_j(device, sizes, args.seed)
+        err_j, line_j, line_j_row = phase_kernel_j(device, sizes, args.seed)
         err_e, line_e = phase_kernel_e(device, sizes, args.seed)
         err_f, line_f = phase_kernel_f(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
@@ -2849,7 +2895,8 @@ def main(argv=None) -> int:
         phase_transport_direct(device, sizes, info["nvidia_smi"])
         inputs = DefragInputs()
         defrag = phase_main_path_defrag(device, sizes, info["nvidia_smi"], inputs)
-        err_i, line_i, line_i_cap = phase_kernel_i(device, sizes, args.seed, inputs)
+        err_i, line_i, line_i_cap, line_i_runs = phase_kernel_i(device, sizes, args.seed,
+                                                                inputs)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2925,7 +2972,11 @@ def main(argv=None) -> int:
          "ms": line_j["ms"], "plain_ms": line_j["plain_ms"], "bound_ms": line_j["bound_ms"],
          "bound_by": line_j["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call computes the filtered, normalized rows",
-         "checked": True, "shape": line_j["shape"]},
+         "checked": True, "shape": line_j["shape"], "device_ms": line_j["device_ms"],
+         "cuda_launches_per_call": line_j["cuda_launches"], "plan": line_j["plan"],
+         "row_ms": line_j_row["ms"], "row_device_ms": line_j_row["device_ms"],
+         "row_plain_ms": line_j_row["plain_ms"], "row_bound_ms": line_j_row["bound_ms"],
+         "row_shape": line_j_row["shape"], "row_plan": line_j_row["plan"]},
         {"name": "auction_phase", "route": "cuda", "source": KERNEL_E_SRC,
          "replaces": "kubernetes_tpu/models/transport.py:130",
          "launches": transport_sum["auction_phase"], "max_abs_err": err_e, "ms": line_e["ms"],
@@ -2954,8 +3005,12 @@ def main(argv=None) -> int:
          "max_abs_err": err_i, "ms": line_i["ms"], "plain_ms": line_i["plain_ms"],
          "bound_ms": line_i["bound_ms"], "bound_by": line_i["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call runs the sequential best-fit",
-         "checked": True, "shape": line_i["shape"], "cap_ms": line_i_cap["ms"],
-         "cap_bound_ms": line_i_cap["bound_ms"], "cap_shape": line_i_cap["shape"]},
+         "checked": True, "shape": line_i["shape"], "device_ms": line_i["device_ms"],
+         "cuda_launches_per_call": line_i["cuda_launches"], "plan": line_i["plan"],
+         "cap_ms": line_i_cap["ms"], "cap_device_ms": line_i_cap["device_ms"],
+         "cap_bound_ms": line_i_cap["bound_ms"], "cap_shape": line_i_cap["shape"],
+         "runs_ms": line_i_runs["ms"], "runs_device_ms": line_i_runs["device_ms"],
+         "runs_rebuilds": line_i_runs["rebuilds"]},
     ]
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:

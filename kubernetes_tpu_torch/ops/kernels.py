@@ -10,13 +10,15 @@ build raises.
 The launch wrappers check device, dtype, shape and contiguity, launch on
 torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
-it happens and nowhere else). Kernels C, E, F and G also count the CUDA
-kernels their C entry launched (CUDA_LAUNCHES), and the host reads of their
-results are counted in HOST_SYNCS (by E's wrapper, and for C and G by the
-models that read them). A, C, E and F are one thread-block
-cluster each (csrc/cluster_exchange.cuh); E's and F's layout is planned here
-(auction_plan, sinkhorn_plan) from the shape and the cluster size; G runs
-every slice of a cover attempt as one CTA of one launch.
+it happens and nowhere else). Kernels C, E, F, G, I and J also count the
+CUDA kernels their C entry launched (CUDA_LAUNCHES), and the host reads of
+their results are counted in HOST_SYNCS (by E's wrapper, and for C and G by
+the models that read them). A, C, E and F are one thread-block cluster
+each, J one cluster a row (csrc/cluster_exchange.cuh); E's, F's and J's
+layout is planned here (auction_plan, sinkhorn_plan, feasibility_plan) from
+the shape and the cluster size; G runs every slice of a cover attempt as
+one CTA of one launch; I walks the victims in one block over a tournament
+tree (defrag_group).
 
   greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
   row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py TensorCache.device_views
@@ -59,7 +61,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
-                                 "cover_curve": 0}
+                                 "cover_curve": 0, "feasibility_rows": 0, "defrag_assign": 0}
 HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
                               "cover_curve": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -210,17 +212,31 @@ def _lib(name: str) -> ctypes.CDLL:
         elif name == "rank_align":
             _bind_args_entry(lib, name, _RankAlignArgs)
         elif name == "feasibility_rows":
-            _bind_args_entry(lib, name, _FeasRowsArgs)
+            _bind_cluster_entry(lib, name, name, _FeasRowsArgs)
+            lib.feasibility_rows_max_clusters.argtypes = [ctypes.c_int]
+            lib.feasibility_rows_max_clusters.restype = ctypes.c_int
         elif name == "auction_phase":
             _bind_cluster_entry(lib, name, "auction", _AuctionArgs)
             lib.auction_max_r.argtypes = []
             lib.auction_max_r.restype = ctypes.c_int
         elif name == "defrag_assign":
             _bind_args_entry(lib, name, _DefragArgs)
+            lib.defrag_assign_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                                 ctypes.POINTER(ctypes.c_int)]
             lib.defrag_assign_max_r.argtypes = []
             lib.defrag_assign_max_r.restype = ctypes.c_int
+            lib.defrag_assign_group.argtypes = [ctypes.c_int]
+            lib.defrag_assign_group.restype = ctypes.c_int
             lib.defrag_assign_uses_smem.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.defrag_assign_uses_smem.restype = ctypes.c_int
+            lib.defrag_assign_stride.argtypes = [ctypes.c_int]
+            lib.defrag_assign_stride.restype = ctypes.c_int
+            lib.defrag_assign_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            lib.defrag_assign_smem_bytes.restype = ctypes.c_longlong
+            if any(lib.defrag_assign_group(n) != defrag_group(n)
+                   for n in (1, 5000, 8192, 16385, 1 << 20)):
+                raise RuntimeError("the tree's group differs between csrc/defrag_assign.cu and "
+                                   "ops/kernels.py")
         else:
             _bind_cluster_entry(lib, name, name, _SinkhornArgs)
         _LIBS[name] = lib
@@ -781,19 +797,68 @@ def launch_rank_align(assignment, group_id, rank, pos_key) -> torch.Tensor:
 # kernel J
 # ---------------------------------------------------------------------------
 
+FEAS_MAX_THREADS = 512  # FR_MAX_THREADS in csrc/feasibility_rows.cu
+FEAS_REG_R = 4  # resource columns a node keeps in registers (FR_REG_R)
+_FR_PLAN = ("cs", "clusters", "threads", "chunk", "npt")
 _FR_PTRS = ("alloc", "used", "used_nz", "pod_count", "max_pods", "filter_ok", "napref_raw",
             "has_napref", "taint_cnt", "img_score", "class_ports", "node_ports",
             "reqs", "req_nzs", "clss", "bals", "feas", "total")
+# the last launch's plan (shared with the plan cache: not to be modified)
+LAST_FEASIBILITY_PLAN: Dict[str, object] = {}
 
 
 class _FeasRowsArgs(ctypes.Structure):
-    _fields_ = ([(d, ctypes.c_int) for d in ("Rw", "N", "R", "C", "Pt")]
+    _fields_ = ([(d, ctypes.c_int) for d in ("Rw", "N", "R", "C", "Pt") + _FR_PLAN]
                 + [(f, ctypes.c_void_p) for f in _FR_PTRS])
+
+
+def _feas_shape(n: int, cs: int):
+    """(nodes a CTA, threads a CTA, nodes a thread) for N nodes on clusters
+    of `cs` CTAs."""
+    chunk = -(-n // cs)
+    threads = min(FEAS_MAX_THREADS, max(32, -(-chunk // 32) * 32))
+    return chunk, threads, -(-chunk // threads)
+
+
+@functools.lru_cache(maxsize=64)
+def feasibility_plan(rw: int, n: int, r: int, cs: int, max_clusters: int) -> Dict[str, object]:
+    """Kernel J's layout for Rw rows over N nodes on clusters of `cs` CTAs,
+    of which the card runs `max_clusters` at once: CTA c of a cluster owns
+    the nodes [c * chunk, (c + 1) * chunk), thread t the nodes c * chunk + t
+    + j * threads (j < nodes_per_thread; the first in registers, the others
+    read from global memory per row); cluster q takes the rows q, q +
+    clusters, ... The plan is cached by shape; callers must not modify it."""
+    chunk, threads, npt = _feas_shape(n, cs)
+    clusters = max(1, min(rw, max_clusters))
+    return dict(cluster_size=cs, clusters=clusters, ctas=cs * clusters, threads=threads,
+                nodes_per_cta=chunk, nodes_per_thread=npt, passes=-(-rw // clusters),
+                columns_in_registers=min(r, FEAS_REG_R))
+
+
+@functools.lru_cache(maxsize=16)
+def _feas_max_clusters(threads: int) -> int:
+    got = _lib("feasibility_rows").feasibility_rows_max_clusters(threads)
+    if got <= 0:
+        raise RuntimeError(f"feasibility_rows: the occupancy query failed (CUDA error {-got})")
+    return got
+
+
+@functools.lru_cache(maxsize=64)
+def _feas_launch(rw: int, n: int, r: int, c: int, pt: int, cs: int):
+    """(plan, the args' fixed fields as bytes) of one shape."""
+    _, threads, _ = _feas_shape(n, cs)
+    plan = feasibility_plan(rw, n, r, cs, _feas_max_clusters(threads))
+    args = _FeasRowsArgs(Rw=rw, N=n, R=r, C=c, Pt=pt, cs=cs, clusters=plan["clusters"],
+                         threads=plan["threads"], chunk=plan["nodes_per_cta"],
+                         npt=plan["nodes_per_thread"])
+    return plan, bytes(args)
 
 
 def launch_feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
     """Kernel J on CUDA tensors: returns (feas [Rw, N] bool, total [Rw, N]
-    int32) like feasibility_rows_plain. The inputs are not modified."""
+    int32) like feasibility_rows_plain. One launch of one or more
+    thread-block clusters (feasibility_plan); the inputs are not modified."""
+    global LAST_FEASIBILITY_PLAN
     device = inp.alloc.device
     n, r = inp.alloc.shape if inp.alloc.dim() == 2 else (-1, -1)
     c = inp.filter_ok.shape[0]
@@ -801,38 +866,36 @@ def launch_feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
     rw = reqs.shape[0] if reqs.dim() == 2 else -1
     if n < 1 or r < 2:
         raise ValueError("feasibility_rows: needs at least one node and the cpu/memory columns")
-    for name, t, dtype, shape in (
-            ("alloc", inp.alloc, torch.int32, (n, r)), ("used", inp.used, torch.int32, (n, r)),
-            ("used_nz", inp.used_nz, torch.int32, (n, r)),
-            ("pod_count", inp.pod_count, torch.int32, (n,)),
-            ("max_pods", inp.max_pods, torch.int32, (n,)),
-            ("filter_ok", inp.filter_ok, torch.bool, (c, n)),
-            ("napref_raw", inp.napref_raw, torch.int32, (c, n)),
-            ("has_napref", inp.has_napref, torch.bool, (c,)),
-            ("taint_cnt", inp.taint_cnt, torch.int32, (c, n)),
-            ("img_score", inp.img_score, torch.int32, (c, n)),
-            ("class_ports", inp.class_ports, torch.bool, (c, pt)),
-            ("node_ports", inp.node_ports, torch.bool, (n, pt)),
-            ("reqs", reqs, torch.int32, (rw, r)), ("req_nzs", req_nzs, torch.int32, (rw, r)),
-            ("clss", clss, torch.int32, (rw,)), ("bals", bals, torch.bool, (rw,))):
-        _check_cuda(t, name, dtype, device, shape)
-    feas = torch.empty((rw, n), dtype=torch.bool, device=device)
-    total = torch.empty((rw, n), dtype=torch.int32, device=device)
+    i32, b8 = torch.int32, torch.bool
+    nr, n1, cn = (n, r), (n,), (c, n)
+    _check_all(device, (
+        ("alloc", inp.alloc, i32, nr), ("used", inp.used, i32, nr),
+        ("used_nz", inp.used_nz, i32, nr), ("pod_count", inp.pod_count, i32, n1),
+        ("max_pods", inp.max_pods, i32, n1), ("filter_ok", inp.filter_ok, b8, cn),
+        ("napref_raw", inp.napref_raw, i32, cn), ("has_napref", inp.has_napref, b8, (c,)),
+        ("taint_cnt", inp.taint_cnt, i32, cn), ("img_score", inp.img_score, i32, cn),
+        ("class_ports", inp.class_ports, b8, (c, pt)), ("node_ports", inp.node_ports, b8, (n, pt)),
+        ("reqs", reqs, i32, (rw, r)), ("req_nzs", req_nzs, i32, (rw, r)),
+        ("clss", clss, i32, (rw,)), ("bals", bals, b8, (rw,))))
+    feas = torch.empty((rw, n), dtype=b8, device=device)
+    total = torch.empty((rw, n), dtype=i32, device=device)
     if rw == 0:
         return feas, total
-    ptrs = dict(alloc=inp.alloc, used=inp.used, used_nz=inp.used_nz, pod_count=inp.pod_count,
-                max_pods=inp.max_pods, filter_ok=inp.filter_ok, napref_raw=inp.napref_raw,
-                has_napref=inp.has_napref, taint_cnt=inp.taint_cnt, img_score=inp.img_score,
-                class_ports=inp.class_ports, node_ports=inp.node_ports, reqs=reqs,
-                req_nzs=req_nzs, clss=clss, bals=bals, feas=feas, total=total)
-    args = _FeasRowsArgs(Rw=rw, N=n, R=r, C=c, Pt=pt)
-    for f in _FR_PTRS:
-        t = ptrs[f]
-        setattr(args, f, t.data_ptr() if t.numel() else None)
     lib = _lib("feasibility_rows")
-    err = lib.feasibility_rows_launch(ctypes.byref(args),
-                                      torch.cuda.current_stream(device).cuda_stream)
+    plan, template = _feas_launch(rw, n, r, c, pt, _cluster_size(lib, "feasibility_rows"))
+    args = _FeasRowsArgs.from_buffer_copy(template)
+    # the pointers in one assignment (an empty tensor's is never read)
+    (ctypes.c_void_p * len(_FR_PTRS)).from_buffer(args, _FeasRowsArgs.alloc.offset)[:] = [
+        t.data_ptr() for t in (inp.alloc, inp.used, inp.used_nz, inp.pod_count, inp.max_pods,
+                               inp.filter_ok, inp.napref_raw, inp.has_napref, inp.taint_cnt,
+                               inp.img_score, inp.class_ports, inp.node_ports, reqs, req_nzs,
+                               clss, bals, feas, total)]
+    LAST_FEASIBILITY_PLAN = plan
+    launched = ctypes.c_int(0)
+    err = lib.feasibility_rows_launch(ctypes.byref(args), _stream_handle(inp.alloc.get_device()),
+                                      ctypes.byref(launched))
     LAUNCHES["feasibility_rows"] += 1
+    CUDA_LAUNCHES["feasibility_rows"] += launched.value
     _raise_on(err, "feasibility_rows launch")
     return feas, total
 
@@ -1167,17 +1230,46 @@ def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, it
 # ---------------------------------------------------------------------------
 
 
+DEFRAG_VCHUNK = 256  # victims staged in shared memory at a time (DA_VCHUNK)
+# the last launch's layout (shared with the plan cache: not to be modified)
+LAST_DEFRAG_PLAN: Dict[str, object] = {}
+# the last launch's schedule as the kernel counted it: a [2] int32 tensor on
+# the card (tree rebuilds, leaf updates), written when the launch ends
+LAST_DEFRAG_COUNTS: Optional[torch.Tensor] = None
+
+
 class _DefragArgs(ctypes.Structure):
-    _fields_ = ([(d, ctypes.c_int) for d in ("n_slots", "v_max", "R", "use_smem")]
+    _fields_ = ([(d, ctypes.c_int) for d in ("n_slots", "v_max", "R", "use_smem", "smem_bytes")]
                 + [(f, ctypes.c_void_p) for f in ("free", "headroom", "target_ok", "v_req",
-                                                  "v_valid", "out", "scratch")])
+                                                  "v_valid", "out", "scratch", "counts")])
+
+
+def defrag_group(n_slots: int) -> int:
+    """Slots under one leaf of kernel I's tournament tree: a quad of 4 slots
+    a lane of a warp, as many quads as keep the leaves at most 128
+    (da_group in csrc/defrag_assign.cu): 128 up to 16,384 slots."""
+    return 128 * max(1, -(-n_slots // (128 * 128)))
+
+
+@functools.lru_cache(maxsize=64)
+def _defrag_layout(n_slots: int, r: int) -> Dict[str, object]:
+    lib = _lib("defrag_assign")
+    use_smem = lib.defrag_assign_uses_smem(n_slots, r)
+    stride = lib.defrag_assign_stride(n_slots)
+    group = defrag_group(n_slots)
+    return dict(state="shared" if use_smem else "global", group=group,
+                leaves=-(-n_slots // group), stage_victims=DEFRAG_VCHUNK,
+                smem_bytes=lib.defrag_assign_smem_bytes(n_slots, r, use_smem),
+                state_bytes=stride * (r + 1) * 4, stride=stride)
 
 
 def launch_defrag_assign(free, headroom, target_ok, v_req, v_valid) -> torch.Tensor:
     """Kernel I on CUDA tensors: returns the target per victim [v_max] int32
-    like defrag_assign_plain. The carried state sits in shared memory where
-    n_slots * (R + 1) int32 fit, else in a global scratch copy this wrapper
-    allocates. The inputs are not modified."""
+    like defrag_assign_plain. One block walks the victims over a tournament
+    tree of at most 128 leaves; the carried state sits in shared memory where
+    it fits, else in a global scratch copy this wrapper allocates. The inputs
+    are not modified."""
+    global LAST_DEFRAG_PLAN, LAST_DEFRAG_COUNTS
     device = free.device
     if free.dim() != 2:
         raise ValueError("defrag_assign: free must be [n_slots, R]")
@@ -1185,29 +1277,35 @@ def launch_defrag_assign(free, headroom, target_ok, v_req, v_valid) -> torch.Ten
     v_max = v_req.shape[0] if v_req.dim() == 2 else -1
     if n_slots < 1:
         raise ValueError("defrag_assign: needs at least one slot")
-    for name, t, dtype, shape in (
-            ("free", free, torch.int32, (n_slots, r)),
-            ("headroom", headroom, torch.int32, (n_slots,)),
-            ("target_ok", target_ok, torch.bool, (n_slots,)),
-            ("v_req", v_req, torch.int32, (v_max, r)),
-            ("v_valid", v_valid, torch.bool, (v_max,))):
-        _check_cuda(t, name, dtype, device, shape)
+    _check_all(device, (
+        ("free", free, torch.int32, (n_slots, r)),
+        ("headroom", headroom, torch.int32, (n_slots,)),
+        ("target_ok", target_ok, torch.bool, (n_slots,)),
+        ("v_req", v_req, torch.int32, (v_max, r)),
+        ("v_valid", v_valid, torch.bool, (v_max,))))
     lib = _lib("defrag_assign")
     if not 1 <= r <= lib.defrag_assign_max_r():
         raise ValueError(f"defrag_assign: R = {r} outside [1, {lib.defrag_assign_max_r()}]")
     out = torch.empty(v_max, dtype=torch.int32, device=device)
     if v_max == 0:
         return out
-    use_smem = lib.defrag_assign_uses_smem(n_slots, r)
+    plan = _defrag_layout(n_slots, r)
+    use_smem = plan["state"] == "shared"
     scratch = (None if use_smem else
-               torch.empty(n_slots * (r + 1), dtype=torch.int32, device=device))
-    args = _DefragArgs(n_slots=n_slots, v_max=v_max, R=r, use_smem=use_smem,
+               torch.empty(plan["stride"] * (r + 1), dtype=torch.int32, device=device))
+    counts = torch.empty(2, dtype=torch.int32, device=device)
+    args = _DefragArgs(n_slots=n_slots, v_max=v_max, R=r, use_smem=int(use_smem),
+                       smem_bytes=plan["smem_bytes"],
                        free=free.data_ptr(), headroom=headroom.data_ptr(),
                        target_ok=target_ok.data_ptr(), v_req=v_req.data_ptr(),
                        v_valid=v_valid.data_ptr(), out=out.data_ptr(),
-                       scratch=None if scratch is None else scratch.data_ptr())
-    err = lib.defrag_assign_launch(ctypes.byref(args),
-                                   torch.cuda.current_stream(device).cuda_stream)
+                       scratch=None if scratch is None else scratch.data_ptr(),
+                       counts=counts.data_ptr())
+    LAST_DEFRAG_PLAN, LAST_DEFRAG_COUNTS = plan, counts
+    launched = ctypes.c_int(0)
+    err = lib.defrag_assign_launch(ctypes.byref(args), _stream_handle(free.get_device()),
+                                   ctypes.byref(launched))
     LAUNCHES["defrag_assign"] += 1
+    CUDA_LAUNCHES["defrag_assign"] += launched.value
     _raise_on(err, "defrag_assign launch")
     return out

@@ -4,10 +4,11 @@ PodGroup constructor, the pod-conservation check, a seeded [G, N]
 transportation problem for the transport kernels' checks (with a warm start
 that overfills nodes, and a test-only numpy model of kernel E's round that
 accepts only where bids landed), seeded and
-edge-case defrag-assignment problems for kernel I's, seeded greedy-scan
-problems for kernel A's, seeded mirror churn for kernel B's, and test-only
-numpy models of kernel C's selection over sorted key rows and kernel G's
-victim-parallel curve. The same API as
+edge-case defrag-assignment problems for kernel I's (and runs of identical
+requests), seeded greedy-scan problems for kernel A's, seeded mirror churn
+for kernel B's, and test-only numpy models of kernel C's selection over
+sorted key rows, kernel G's victim-parallel curve, kernel I's tournament
+tree and kernel J's tiled maxima. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
@@ -670,6 +671,215 @@ def defrag_edge_cases():
     cases["wrapping_sum"] = (free_w, np.full(8, 3, np.int32), np.ones(8, bool), v_w,
                              np.array([True, True, True, False]))
     return cases
+
+
+def defrag_request_runs(seed, ns, v, r=3, n_slots=None, max_run=64, ties=False,
+                        headroom0=0.0, not_target=0.1, negative=False, wrap=False,
+                        pads=0.05):
+    """Seeded padded arguments of one defrag_assign call (as defrag_problem)
+    whose victims come in runs of identical requests, 1 to max_run long:
+    the shape kernel I's tournament tree is built for (Defrag_5000's cycle
+    is one run of 3-cpu fillers). ties: every node the same free capacity;
+    headroom0: that share of nodes with headroom 0; not_target: that share
+    no target; negative: some free below 0; wrap: free near 2^30, so the
+    waste sum wraps int32; pads: that share of victims in the middle of runs
+    marked invalid (their requests equal to the run's), beside the trailing
+    pads of the power-of-two bucket."""
+    from .models.gangcover import _pow2
+
+    rng = np.random.default_rng(seed)
+    n_slots = n_slots or _pow2(ns)
+    v_max = _pow2(v)
+    free = np.zeros((n_slots, r), np.int32)
+    if ties:
+        free[:ns] = rng.integers(1000, 8000, size=r)
+    elif wrap:
+        free[:ns] = rng.integers(2**30 - 4000, 2**30, size=(ns, r))
+    else:
+        free[:ns] = rng.integers(-400 if negative else 0, 8000, size=(ns, r))
+    head = np.zeros(n_slots, np.int32)
+    head[:ns] = rng.integers(1, 9, size=ns)
+    head[:ns][rng.random(ns) < headroom0] = 0
+    ok = np.zeros(n_slots, bool)
+    ok[:ns] = rng.random(ns) >= not_target
+    v_req = np.zeros((v_max, r), np.int32)
+    valid = np.zeros(v_max, bool)
+    k = 0
+    while k < v:
+        run = min(int(rng.integers(1, max_run + 1)), v - k)
+        req = rng.integers(0, 4000, size=r)
+        if rng.random() < 0.1:
+            req[:] = 0
+        elif rng.random() < 0.05:
+            req[0] = 9000  # above every node
+        v_req[k:k + run] = req
+        valid[k:k + run] = True
+        k += run
+    inner = np.nonzero(rng.random(v) < pads)[0]
+    valid[inner] = False
+    return free, head, ok, v_req, valid
+
+
+# named runs of identical requests (defrag_request_runs keywords): kernel I's
+# CPU model tests and card tests, and chip_smoke's e_request_runs
+DEFRAG_RUNS = {
+    "runs": dict(ns=600, v=250),
+    "runs_r1": dict(ns=300, v=120, r=1),
+    "runs_r4": dict(ns=300, v=200, r=4),
+    "single_victim_runs": dict(ns=200, v=100, max_run=1),
+    "long_runs": dict(ns=500, v=256, max_run=64, pads=0.0),
+    "ties": dict(ns=400, v=200, ties=True),
+    "headroom_0": dict(ns=400, v=200, headroom0=0.5),
+    "no_target": dict(ns=200, v=64, not_target=1.0),
+    "pads_mid_run": dict(ns=300, v=200, pads=0.3),
+    "negative_free": dict(ns=300, v=200, negative=True),
+    "wrapping_sum": dict(ns=300, v=150, r=3, wrap=True),
+    "scarce": dict(ns=40, v=256, max_run=64),
+    "not_a_group_multiple": dict(ns=129, v=64, n_slots=129),
+    "one_slot": dict(ns=1, v=16),
+}
+
+
+def defrag_run_case(name):
+    """DEFRAG_RUNS[name]'s arguments, seeded by the name."""
+    return defrag_request_runs(sum(map(ord, name)), **DEFRAG_RUNS[name])
+
+
+_DEFRAG_BIG = 2**30
+
+
+def defrag_tree_model(free, headroom, target_ok, v_req, v_valid, group=None):
+    """Test-only numpy model of kernel I's schedule (not on any main path):
+    a tournament tree of packed keys (ord(key) << 32 | slot, the minimum the
+    argmin with the lowest index on ties): leaves, each the minimum over
+    `group` slots (default: the kernel's, ops/kernels.py defrag_group), and
+    their minimum, the root. A valid victim whose request differs from the
+    tree's rebuilds it; one with the tree's request takes the root, after
+    recomputing the leaf of the last placement's target if that is stale; a
+    placement leaves its target's leaf stale; an unplaced or pad victim
+    changes nothing. Returns (out [v_max] int32, counts: rebuilds,
+    leaf_updates, root_reads, pads)."""
+    st = np.asarray(free, np.int64).copy()
+    head = np.where(np.asarray(target_ok, bool), np.asarray(headroom, np.int64), 0)
+    v_req = np.asarray(v_req, np.int64)
+    v_valid = np.asarray(v_valid, bool)
+    ns = st.shape[0]
+    if group is None:
+        from .ops.kernels import defrag_group
+
+        group = defrag_group(ns)
+
+    def leaf(vr, g):
+        lo, hi = g * group, min(ns, (g + 1) * group)
+        fits = (st[lo:hi] >= vr[None, :]).all(axis=1) & (head[lo:hi] > 0)
+        waste = (st[lo:hi] - vr[None, :]).sum(axis=1)
+        waste = ((waste + 2**31) % 2**32) - 2**31  # the int32 sum wraps
+        key = np.where(fits, waste, _DEFRAG_BIG)
+        ordk = (key.astype(np.int64) + 2**31).astype(np.uint64)  # sign bit flipped
+        return int(((ordk << np.uint64(32)) | np.arange(lo, hi, dtype=np.uint64)).min())
+
+    leaves = None
+    tree_req = None
+    pending = -1
+    counts = dict(rebuilds=0, leaf_updates=0, root_reads=0, pads=0)
+    out = np.full(len(v_req), -1, np.int32)
+    for k, vr in enumerate(v_req):
+        if not v_valid[k]:
+            counts["pads"] += 1
+            continue
+        if tree_req is None or not np.array_equal(vr, tree_req):
+            leaves = [leaf(vr, g) for g in range(-(-ns // group))]
+            tree_req, pending = vr.copy(), -1
+            counts["rebuilds"] += 1
+        elif pending >= 0:
+            leaves[pending // group] = leaf(vr, pending // group)
+            pending = -1
+            counts["leaf_updates"] += 1
+        counts["root_reads"] += 1
+        root = min(leaves)
+        key = (root >> 32) - 2**31
+        if key < _DEFRAG_BIG:
+            tgt = root & 0xFFFFFFFF
+            st[tgt] -= vr
+            head[tgt] -= 1
+            out[k] = tgt
+            pending = tgt
+    return out, counts
+
+
+def _wrap32(x):
+    return ((np.asarray(x, np.int64) + 2**31) % 2**32) - 2**31
+
+
+def feasibility_tiles_model(f, reqs, req_nzs, clss, bals, tiles=16):
+    """Test-only numpy model of kernel J's layout (not on any main path):
+    the N nodes dealt in `tiles` contiguous tiles of ceil(N / tiles) (a
+    cluster's CTAs); per row, each node's feasibility and partial total
+    (least + balanced + image), each tile's two normalizer maxima over its
+    feasible nodes (0 for a tile with none), their maximum, then + 2 napref
+    + 3 taint. The host-port test (over every port column) runs only where
+    the row's class sets a port column. `f` maps SolverInputs fields to
+    numpy arrays.
+    Returns (feas [Rw, N] bool, total [Rw, N] int32, tile maxima [Rw, tiles,
+    2] int32, the rows that ran a port test)."""
+    alloc = np.asarray(f["alloc"], np.int64)
+    used = np.asarray(f["used"], np.int64)
+    used_nz = np.asarray(f["used_nz"], np.int64)
+    n, r = alloc.shape
+    free = _wrap32(alloc - used)
+    pod_ok = _wrap32(np.asarray(f["pod_count"], np.int64) + 1) <= np.asarray(f["max_pods"])
+    chunk = -(-n // tiles)
+    rw = len(reqs)
+    feas = np.zeros((rw, n), bool)
+    total = np.zeros((rw, n), np.int32)
+    tile_max = np.zeros((rw, tiles, 2), np.int32)
+    port_rows = []
+    for i in range(rw):
+        cls = max(int(clss[i]), 0)
+        req = np.asarray(reqs[i], np.int64)
+        rnz = np.asarray(req_nzs[i], np.int64)
+        ok = np.asarray(f["filter_ok"][cls], bool) & pod_ok
+        ok &= ((req[None, :] == 0) | (req[None, :] <= free)).all(axis=1)
+        cports = np.asarray(f["class_ports"][cls], bool)
+        if cports.any():
+            port_rows.append(i)
+            ok &= ~(np.asarray(f["node_ports"], bool) & cports[None, :]).any(axis=1)
+        per_sum = np.zeros(n, np.int64)
+        npos = np.zeros(n, np.int64)
+        for d in range(2):
+            a_d = alloc[:, d]
+            u = _wrap32(used_nz[:, d] + rnz[d])
+            pos = a_d > 0
+            npos += pos
+            term = _wrap32(_wrap32(a_d - u) * 100) // np.maximum(a_d, 1)
+            per_sum = _wrap32(per_sum + np.where(pos & (u <= a_d), term, 0))
+        least = per_sum // np.maximum(npos, 1)
+        bal = np.zeros(n, np.int64)
+        if bool(bals[i]):
+            af = alloc[:, :2].astype(np.float32)
+            u = _wrap32(used[:, :2] + req[None, :2]).astype(np.float32)
+            frac = np.where(af > 0, np.minimum(u / np.maximum(af, np.float32(1)),
+                                               np.float32(1)), np.float32(0)).astype(np.float32)
+            nf = (af > 0).sum(axis=1)
+            sd = np.where(nf == 2, np.abs(frac[:, 0] - frac[:, 1]) / np.float32(2),
+                          np.float32(0)).astype(np.float32)
+            bal = ((np.float32(1) - sd) * np.float32(100)).astype(np.float32).astype(np.int64)
+        part = _wrap32(least + bal + np.asarray(f["img_score"][cls], np.int64))
+        nap = np.asarray(f["napref_raw"][cls], np.int64)
+        taint = np.asarray(f["taint_cnt"][cls], np.int64)
+        for t in range(tiles):
+            sl = slice(t * chunk, min(n, (t + 1) * chunk))
+            fe = ok[sl]
+            tile_max[i, t, 0] = max(0, int(nap[sl][fe].max())) if fe.any() else 0
+            tile_max[i, t, 1] = max(0, int(taint[sl][fe].max())) if fe.any() else 0
+        mxn, mxt = (int(x) for x in tile_max[i].max(axis=0))
+        napref = np.zeros(n, np.int64)
+        if bool(f["has_napref"][cls]) and mxn > 0:
+            napref = _wrap32(100 * nap) // mxn
+        tnorm = 100 - _wrap32(100 * taint) // mxt if mxt > 0 else np.full(n, 100, np.int64)
+        feas[i] = ok
+        total[i] = _wrap32(part + _wrap32(2 * napref + 3 * _wrap32(tnorm)))
+    return feas, total, tile_max, port_rows
 
 
 def scan_problem(seed, n, p, c=4, r=3, zones=5, hostname=True, identical=False,

@@ -1108,3 +1108,116 @@ def test_rebalancer_card_matches_cpu(cuda_device):
     assert kernels.LAUNCHES["defrag_assign"] > before
     assert card == run(torch.device("cpu"))
     assert card[1]["migrations"] > 0
+
+
+# ---------------------------------------------------------------------------
+# kernels J and I redesigned: one cluster a row tile; the tournament tree
+# ---------------------------------------------------------------------------
+
+
+def _j_problem(seed, n, rows, device, wide_ports=False):
+    from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
+
+    f, _ = tt.scan_problem(seed, n, rows)
+    if wide_ports:  # 300 port columns, one class setting most of them
+        rng = np.random.default_rng(seed)
+        f["class_ports"] = rng.random((f["class_ports"].shape[0], 300)) < 0.1
+        f["class_ports"][1] = rng.random(300) < 0.95
+        f["node_ports"] = rng.random((n, 300)) < 0.004
+    f["class_of_pod"][::5] = -1
+    inp = solver_inputs_from_numpy(f, device)
+    return f, (inp, inp.req, inp.req_nz, inp.class_of_pod, inp.balanced_active)
+
+
+def _j_check(args, device):
+    from kubernetes_tpu_torch.ops import kernels
+
+    before = (kernels.LAUNCHES["feasibility_rows"], kernels.CUDA_LAUNCHES["feasibility_rows"])
+    got = tsolver.feasibility_rows(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["feasibility_rows"] == before[0] + 1
+    assert kernels.CUDA_LAUNCHES["feasibility_rows"] == before[1] + 1
+    want = tsolver.feasibility_rows_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got, dict(kernels.LAST_FEASIBILITY_PLAN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [37, 5000, 5001])
+@pytest.mark.parametrize("rows", [1, 8, 13, 512])
+def test_kernel_j_cluster_rows_match_plain_on_card(cuda_device, rows, n):
+    f, args = _j_problem(rows * 7 + n, n, rows, cuda_device)
+    got, plan = _j_check(args, cuda_device)
+    assert plan["clusters"] <= rows
+    assert plan["passes"] == -(-rows // plan["clusters"])
+    assert plan["ctas"] == plan["cluster_size"] * plan["clusters"]
+    model = tt.feasibility_tiles_model(f, f["req"], f["req_nz"], f["class_of_pod"],
+                                       f["balanced_active"], tiles=plan["cluster_size"])
+    np.testing.assert_array_equal(got[0].cpu().numpy(), model[0])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), model[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rows", [(70000, 3), (300, 13)], ids=["beyond_registers",
+                                                                 "wide_ports"])
+def test_kernel_j_global_nodes_and_port_overflow_on_card(cuda_device, n, rows):
+    """Nodes beyond a thread's registers (70,000 nodes: more than one a
+    thread, the rest read from global memory) and 300 port columns, one
+    class setting most of them."""
+    _, args = _j_problem(n + rows, n, rows, cuda_device, wide_ports=n == 300)
+    _, plan = _j_check(args, cuda_device)
+    if n == 70000:
+        from kubernetes_tpu_torch.ops import kernels
+
+        assert plan["nodes_per_thread"] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(tt.DEFRAG_RUNS))
+def test_kernel_i_tree_matches_plain_on_request_runs(cuda_device, name):
+    from kubernetes_tpu_torch.ops import kernels
+
+    args = tt.defrag_run_case(name)
+    before = kernels.CUDA_LAUNCHES["defrag_assign"]
+    got = _defrag_check(args, cuda_device)
+    assert kernels.CUDA_LAUNCHES["defrag_assign"] == before + 1
+    want, counts = tt.defrag_tree_model(*args)
+    np.testing.assert_array_equal(got, want)
+    # the kernel's own count of its schedule
+    assert kernels.LAST_DEFRAG_COUNTS.tolist() == [counts["rebuilds"], counts["leaf_updates"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cap", "global_state", "one_request"])
+def test_kernel_i_tree_on_cap_and_global_state_on_card(cuda_device, case):
+    from kubernetes_tpu_torch.ops import kernels
+
+    if case == "cap":
+        args = tt.defrag_problem(21, 5000, 1024)
+    elif case == "global_state":
+        args = tt.defrag_request_runs(22, 30000, 256, r=4, n_slots=32768)
+    else:  # Defrag_5000's cycle: every victim the 3-cpu filler
+        args = tt.defrag_request_runs(23, 5000, 250, max_run=1000, pads=0.0)
+        args[3][:] = np.array([3000, 0, 0], np.int32)
+        args[4][:250] = True
+    before = kernels.CUDA_LAUNCHES["defrag_assign"]
+    got = _defrag_check(args, cuda_device)
+    assert kernels.CUDA_LAUNCHES["defrag_assign"] == before + 1
+    plan = kernels.LAST_DEFRAG_PLAN
+    assert plan["state"] == ("global" if case == "global_state" else "shared")
+    want, counts = tt.defrag_tree_model(*args)
+    np.testing.assert_array_equal(got, want)
+    assert kernels.LAST_DEFRAG_COUNTS.tolist() == [counts["rebuilds"], counts["leaf_updates"]]
+
+
+@pytest.mark.gpu
+def test_kernel_i_groups_of_many_quads_on_card(cuda_device):
+    """1,048,576 slots: leaves of 8,192 slots (64 quads a lane), the state
+    in the global scratch."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    args = tt.defrag_request_runs(24, 1 << 20, 16, max_run=4, pads=0.0)
+    got = _defrag_check(args, cuda_device)
+    assert kernels.LAST_DEFRAG_PLAN["group"] == 8192
+    assert kernels.LAST_DEFRAG_PLAN["state"] == "global"
+    np.testing.assert_array_equal(got, tt.defrag_tree_model(*args)[0])

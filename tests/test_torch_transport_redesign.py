@@ -292,16 +292,17 @@ def test_sinkhorn_cluster_split_keeps_torch_order(g, n, cs):
 
 
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
-    """Editing csrc/cluster_exchange.cuh changes the library name of A, C, E
-    and F, and editing csrc/block_scan.cuh that of C and G (so a stale build
-    is never reused), and of no other kernel."""
+    """Editing csrc/cluster_exchange.cuh changes the library name of A, C, E,
+    F and J, and editing csrc/block_scan.cuh that of C and G (so a stale
+    build is never reused), and of no other kernel."""
     for f in kernels.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     includes = {"greedy_scan": ["cluster_exchange.cuh"], "auction_phase": ["cluster_exchange.cuh"],
                 "sinkhorn": ["cluster_exchange.cuh"],
                 "waterfill": ["block_scan.cuh", "cluster_exchange.cuh"],
-                "cover_curve": ["block_scan.cuh"]}
+                "cover_curve": ["block_scan.cuh"],
+                "feasibility_rows": ["cluster_exchange.cuh"]}
     for name, headers in includes.items():
         assert [f.name for f in kernels._sources_of(tmp_path / kernels.SOURCES[name])] == [
             kernels.SOURCES[name], *headers]

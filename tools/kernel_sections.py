@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where kernels E, F, C and G spend their cycles.
+"""Where kernels E, F, C, G, I and J spend their cycles.
 
-    python3 tools/kernel_sections.py [--kernels E,F,C,G]
+    python3 tools/kernel_sections.py [--kernels E,F,C,G,I,J]
 
 Writes copies of the kernels' sources (csrc/auction_phase.cu, sinkhorn.cu,
-waterfill.cu, cover_curve.cu) into build/tools/ with a clock64 mark on
+waterfill.cu, cover_curve.cu, defrag_assign.cu, feasibility_rows.cu) into
+build/tools/ with a clock64 mark on
 thread 0 of every CTA at each section boundary (the marks are inserted
 before fixed lines of the sources, so an edit that moves one makes this
 script stop with the line it missed), builds them with nvcc for sm_90a, runs
 them on the inputs chip_smoke.py gives them (E and F: the first
 Transport_50k batch and a TransportMixed batch, at 5,000 nodes; C: kernel_C
 cases a and b, SchedulingBasic at 5,000 nodes; G: kernel_G case a and one
-cover attempt of 20 slices) and prints one JSON line per case: cycles a
-round (E), an iteration (F) or a call (C, G) per section, on CTA 0 and the
-most over the CTAs, and the SM clock. A section's time on thread 0 includes
+cover attempt of 20 slices; I: one request for 250 victims on 5,000 nodes
+(Defrag_5000's cycle) and the 1,024-victim cap of mixed requests; J: one
+and eight rows of 5,000 nodes and 512 rows) and prints one JSON line per
+case: cycles a round (E), an iteration (F), a call (C, G), a victim (I) or
+a call (J) per section, on CTA 0 and the most over the CTAs, and the SM
+clock. A section's time on thread 0 includes
 its waits at CTA barriers. Needs a CUDA card; the kernels themselves are
 untouched.
 """
@@ -100,6 +104,33 @@ KERNELS = {
         start="  // ---- 1. stage",
         tail="  unsigned* gscratch;             // S slices of slice_words, when !in_smem\n};",
         end="caps[i] = (int)curve[i];\n}", first=0, cta="s"),
+    "defrag_assign": dict(
+        sections=["loop_stage", "decide", "rebuild_wait", "rebuild_leaves", "rebuild_load",
+                  "leaf_and_root", "place", "init"],
+        marks=[(0, "    if (kc == 0) {  // stage the next victims"),
+               (1, "    if (!vval_s[kc]) {  // a pad: -1, nothing changes"),
+               (2, "      // rebuild for this request: warp 0's state updates are visible past"),
+               (3, "      // two leaves a warp at a time (their loads in flight together)"),
+               (4, "          leaf[e] = g < n_leaves ? leaf_s[g] : ~0ull;"),
+               (5, "    // ---- warp 0: the stale leaf and the root in one pass, then place ----"),
+               (6, "    const unsigned hi = (unsigned)(root >> 32), lo = (unsigned)root;")],
+        start="  for (int n = tid; n < stride; n += DA_THREADS) {",
+        tail="  int* counts;                     // [2] out: tree rebuilds, leaf updates\n};",
+        end="    a.counts[1] = leaf_updates;\n  }\n}", cta="0"),
+    "feasibility_rows": dict(
+        sections=["row_data", "rows", "next_row", "cta_reduce", "push_wait",
+                  "remote_max", "write", "load_state"],
+        marks=[(0, "    const int cls = p.cls;"),
+               (1, "    int mx_nap = 0, mx_taint = 0;  // max(where(feas, raw, 0)) starts at 0"),
+               (2, "    const bool has_nap = p.has_nap;"),
+               (3, "    // the CTA's maxima, pushed into every CTA's slot of this parity"),
+               (4, "    xchg_wait(xc, par);"),
+               (5, "    int mxn = 0, mxt = 0;"),
+               (6, "    // feas and the finished totals, written once")],
+        start="  RowParams p;\n",
+        tail="  int* total;                        // [Rw, N] out\n};",
+        end="  // no CTA leaves while another may still push into it\n  cluster_wait();\n}",
+        cta="blockIdx.x"),
 }
 
 
@@ -108,7 +139,7 @@ def instrument(name: str) -> Path:
     n = len(spec["sections"])
     end = spec.get("end", END)
     s = (ROOT / "kubernetes_tpu_torch" / "csrc" / f"{name}.cu").read_text()
-    last_include = s.rindex('#include "')
+    last_include = s.rindex('#include ')
     s = (s[:last_include] + s[last_include:].replace("\n", "\n" + MARK + "\n", 1))
     s = s.replace('#include "', '#include "../../kubernetes_tpu_torch/csrc/')
     tail = spec["tail"]
@@ -142,7 +173,8 @@ def instrument(name: str) -> Path:
 
 
 UNITS = {"auction_phase": "cycles a round", "sinkhorn": "cycles an iteration",
-         "waterfill": "cycles a call", "cover_curve": "cycles a call"}
+         "waterfill": "cycles a call", "cover_curve": "cycles a call",
+         "defrag_assign": "cycles a victim", "feasibility_rows": "cycles a call"}
 
 
 def sections_line(name, label, prof, n_cta, per):
@@ -156,19 +188,21 @@ def sections_line(name, label, prof, n_cta, per):
 
 
 def sections_c_g(which, dev):
-    """Kernels C and G through their own wrappers, bound to the instrumented
-    libraries (the args structs gain the trailing `prof` pointer)."""
+    """Kernels C, G, I and J through their own wrappers, bound to the
+    instrumented libraries (the args structs gain the trailing `prof`
+    pointer)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
+    import kubernetes_tpu_torch.testing as tt
     from kubernetes_tpu_torch.models import gangcover
     from kubernetes_tpu_torch.models.waterfill import bucket_j_max, make_groups, waterfill_group
     from kubernetes_tpu_torch.ops import kernels as K
 
     def bind(name, base, attr):
         n = len(KERNELS[name]["sections"])
-        prof = torch.zeros(64 * n, dtype=torch.int64, device=dev)
+        prof = torch.zeros(4096 * n, dtype=torch.int64, device=dev)
 
         class Args(base):
             _fields_ = [("prof", ctypes.c_void_p)]
@@ -218,13 +252,46 @@ def sections_c_g(which, dev):
         run(lambda: gangcover.cover_curves_batched(slices, req, device=dev), prof)
         print(json.dumps(sections_line("cover_curve", "attempt_20_slices", prof, 20, 1)),
               flush=True)
+    if "I" in which:
+        from kubernetes_tpu_torch.models import defrag as dfg
+
+        prof = bind("defrag_assign", K._DefragArgs, "_DefragArgs")
+        one = list(tt.defrag_request_runs(23, 5000, 250, max_run=1000, pads=0.0))
+        one[3][:] = np.array([3000, 0, 0], np.int32)
+        one[4][:250] = True
+        for case, arrays, victims in (("one_request_250_victims", one, 250),
+                                      ("b_cap_1024_victims", tt.defrag_problem(0, 5000, 1024),
+                                       1024)):
+            args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+            run(lambda: dfg.defrag_assign(*args), prof)
+            line = sections_line("defrag_assign", case, prof, 1, victims)
+            line.update(n_slots=args[0].shape[0], victims=victims, plan=K.LAST_DEFRAG_PLAN)
+            print(json.dumps(line), flush=True)
+    if "J" in which:
+        from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
+        from kubernetes_tpu_torch.ops.solver import feasibility_rows
+
+        K._feas_launch.cache_clear()
+        prof = bind("feasibility_rows", K._FeasRowsArgs, "_FeasRowsArgs")
+        for rows in (1, 8, 512):
+            f, _ = tt.scan_problem(rows, 5000, rows)
+            f["class_ports"][:] = False  # as on the transport path
+            inp = solver_inputs_from_numpy(f, dev)
+            run(lambda: feasibility_rows(inp, inp.req, inp.req_nz, inp.class_of_pod,
+                                         inp.balanced_active), prof)
+            plan = K.LAST_FEASIBILITY_PLAN
+            line = sections_line("feasibility_rows", f"{rows}_rows_x_5000_nodes", prof,
+                                 plan["ctas"], 1)
+            line.update(rows=rows, nodes=5000, plan=plan)
+            print(json.dumps(line), flush=True)
+        K._feas_launch.cache_clear()
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="E,F", help="any of E, F, C, G, comma-separated")
+    ap.add_argument("--kernels", default="E,F", help="any of E, F, C, G, I, J, comma-separated")
     which = set(ap.parse_args(argv).kernels.split(","))
     sys.path.insert(0, str(ROOT))
     import torch
