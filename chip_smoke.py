@@ -39,11 +39,16 @@ Phases, each printing one JSON line:
              0); exact equality of k_per_node and chosen_nodes in order; each
              line gives the CUDA launches of the call (1), the cluster plan
              and the device time
-  kernel_D   the repair-check kernel against repair_check_plain on seeded
-             placed batches (TopologySpreading, hostname anti-affinity, and a
-             mixed batch with all four kinds and minDomains), under all four
-             gate combinations; exact equality, every mask non-empty on the
-             mixed batch
+  kernel_D   the repair-check kernel (one thread-block cluster a call)
+             against repair_check_plain on seeded placed batches
+             (TopologySpreading, hostname anti-affinity, a mixed batch with
+             all four kinds and minDomains, and 70,000 nodes of their own
+             domains, the global-scratch route), under all four gate
+             combinations; exact equality, every mask non-empty on the mixed
+             batch, one CUDA launch a call, the plan's route per gate pair.
+             kernel_D_timing: the TopologySpreading batch (5,000 nodes, 4,096
+             pods, one spread row) and the PodAntiAffinity one (hostname key,
+             has_affinity): wall and device time, the plan
   main_path  APIStore -> BatchScheduler(device="cuda", solver="exact") ->
              run_until_idle on the SchedulingBasic and TopologySpreading
              shapes: every pod bound through the store, no node
@@ -67,10 +72,13 @@ Phases, each printing one JSON line:
              attempt of GangPreemption_5000's 20 slices through
              cover_curves_batched (one launch, one read) beside the
              per-slice route; exact equality
-  kernel_H   the rank-align kernel against rank_align_plain: (a) p_max 4,096,
-             16 gangs of 256 ranked members at shuffled positions, (b) ties,
-             unplaced members and non-members, (c) p_max 16,384 (the global
-             merge path); exact equality
+  kernel_H   the rank-align kernel (one cluster launch a call) against
+             rank_align_plain: (a) p_max 4,096, 16 gangs of 256 ranked
+             members at shuffled positions, (b) ties, unplaced members and
+             non-members, (c) p_max 16,384 (the parent's global merge),
+             (d) GangScheduling_2k_250's p_max 2,048, (e) p_max 65,536, (f)
+             case e sorted in chunks of 2,048 rows; exact equality, one CUDA
+             launch a call, the plan; wall and device time of a, c and d
   main_path_gang
              BatchScheduler(solver="fast") on GangScheduling_2k_250 (256 nodes
              of 16 cpu / 64Gi in 4 slices, 8 PodGroups x 250 ranked members,
@@ -394,39 +402,62 @@ def timed_ms(fn, iters, device, warmup=1):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, prefixes, device, iters=50, contains=False):
-    """Device time per call of fn (ms): the summed durations of the CUDA
-    kernels whose names start with (contains: hold) one of `prefixes`, from
-    a torch.profiler trace of `iters` calls; None on the CPU or when the
-    trace holds no such kernel (the time is then not measured)."""
+def device_ms(fn, prefixes, device, iters=50, contains=False, with_count=False,
+              per_call=1):
+    """Device time per call of fn (ms), from the CUDA kernels whose names
+    start with (contains: hold) one of `prefixes` in one torch.profiler trace
+    of `iters` calls: the median duration of the kernel records the trace
+    holds times `per_call`, the kernels a call launches (None: the summed
+    durations over `iters`, for calls whose kernels differ). Before it, two
+    calls outside any trace and a discarded trace of up to three calls. A
+    trace can miss the records of its first kernels (one of 10-50 in most
+    phases; late in a run, every record of kernel I's traces, while a second
+    trace right after held them) and hold one of them cut short, so the
+    median of the records held, not their sum over `iters`. None on the CPU,
+    when the trace holds no such kernel, or when it holds more than `iters`
+    x `per_call` (the time is then not measured).
+    with_count: (ms, such kernels the trace held a call)."""
     import torch
 
     if device.type != "cuda":
-        return None
+        return (None, None) if with_count else None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    fn()
     torch.cuda.synchronize()
-    # a trace has once come back without the kernel's device events (the
-    # same call traced alone had them): take a second trace before giving up
-    for _attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        keys = []
-        for ev in prof.key_averages():
-            keys.append((ev.key[:60], ev.count))
-            name = ev.key.removeprefix("void ")
-            if (any(x in name for x in prefixes) if contains
-                    else name.startswith(tuple(prefixes))):
-                total_us += getattr(ev, "self_device_time_total",
-                                    getattr(ev, "self_cuda_time_total", 0.0))
-        if total_us:
-            return total_us / iters / 1e3
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(min(3, iters)):
+            fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    def match(name):
+        name = name.removeprefix("void ")
+        return (any(x in name for x in prefixes) if contains
+                else name.startswith(tuple(prefixes)))
+
+    durations = sorted(ev.time_range.elapsed_us() for ev in prof.events()
+                       if ev.device_type.name == "CUDA" and match(ev.name))
+    count = len(durations)
+    ms = None
+    if per_call and count > iters * per_call:
+        # more such kernels than the calls launch: the median would be one
+        # kernel's time, not a call's
+        print(f"chip_smoke: the trace held {count} {prefixes} kernels, more than "
+              f"{iters} calls x {per_call}: device time not measured", file=sys.stderr)
+    elif count:
+        ms = (durations[count // 2] * per_call if per_call else sum(durations) / iters) / 1e3
+        if per_call and count < iters * per_call:
+            print(f"chip_smoke: the trace held {count} of {iters * per_call} {prefixes} kernels",
+                  file=sys.stderr)
+    else:
+        keys = [(ev.key[:60], ev.count) for ev in prof.key_averages()]
         print(f"chip_smoke: the profiler saw no {prefixes} kernel: {keys[:12]}", file=sys.stderr)
-    return None
+    return (ms, count / iters) if with_count else ms
 
 
 class KernelClock:
@@ -727,7 +758,7 @@ def phase_kernel_b(device, sizes, seed):
           "kernel B (one descriptor) differs from index_copy_")
     dev_ms = device_ms(one_call, ["mirror_scatter_kernel"], device)
     lib_dev_ms = device_ms(lambda: ref["2d"].index_copy_(0, idx_long, src), ["index"], device,
-                           contains=True)
+                           contains=True, per_call=None)
     nbytes = k * 4 + 2 * k * r * 4  # indices + source read, destination rows written
     b_ms, b_by = bound_ms(nbytes, 0)
     # (b) the whole mirror update of one incremental batch at the main
@@ -816,7 +847,8 @@ def batch_update_times(cl, k, device, rng, iters=50):
             "ms_again": wall(ours), "library_ms_again": wall(library),
             "launches_per_batch": launches, "same_mirrors": same,
             "device_ms": device_ms(ours, ["mirror_scatter_kernel"], device, iters=20),
-            "library_device_ms": device_ms(library, ["index"], device, iters=20, contains=True)}
+            "library_device_ms": device_ms(library, ["index"], device, iters=20, contains=True,
+                                           per_call=None)}
 
 
 # ---------------------------------------------------------------------------
@@ -1015,12 +1047,16 @@ def compare_d(name, args, d_max, device, gates, require_all=False):
     from kubernetes_tpu_torch.models.repair import repair_check, repair_check_plain
     from kubernetes_tpu_torch.ops import kernels
 
-    err, counts = 0, {}
+    err, counts, modes = 0, {}, {}
     for has_affinity, has_ct in gates:
         before = kernels.LAUNCHES["repair_check"]
+        cuda_before = kernels.CUDA_LAUNCHES["repair_check"]
         got = repair_check(*args, d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
         sync(device)
         launched = kernels.LAUNCHES["repair_check"] - before
+        cuda_launched = kernels.CUDA_LAUNCHES["repair_check"] - cuda_before
+        modes[f"affinity={int(has_affinity)},ct={int(has_ct)}"] = (
+            kernels.LAST_REPAIR_PLAN.get("mode") if device.type == "cuda" else None)
         ref = repair_check_plain(*args, d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
         sync(device)
         equal = all(a.dtype == b.dtype and bool((a == b).all()) for a, b in zip(got, ref))
@@ -1029,20 +1065,46 @@ def compare_d(name, args, d_max, device, gates, require_all=False):
         key = f"affinity={int(has_affinity)},ct={int(has_ct)}"
         counts[key] = [int(m.sum()) for m in got]
         check(equal, f"kernel D differs from its plain version on {name} {key}")
-        check(device.type != "cuda" or launched == 1, f"kernel D did not launch on {name} {key}")
+        check(device.type != "cuda" or (launched == 1 and cuda_launched == 1),
+              f"kernel D did not launch once on {name} {key}")
     emit({"phase": "kernel_D", "case": name, "pods": int((args[0] >= 0).sum()),
           "pb": args[0].numel(), "d_max": d_max, "equal": True, "max_abs_err": err,
-          "violations_rn_ea_ra_ct": counts})
+          "violations_rn_ea_ra_ct": counts, "cuda_launches_per_call": 1, "modes": modes})
     if require_all:
         full = counts["affinity=1,ct=1"]
         check(all(c > 0 for c in full), f"{name}: a violation kind never fires: {full}")
     return err
 
 
+def d_timing_cases(n, batch_size, spread, anti_groups, affinity, device, rng):
+    """kernel_D_timing's cases, the fast main path's checks at its shapes:
+    (case, check args, d_max, has_affinity, has_ct, shape) for one
+    TopologySpreading batch (10 zones, one spread row, has_ct), the
+    PodAntiAffinity batch (hostname key, d_max = nodes, has_affinity) and one
+    PodAffinity batch (50 zones, 50 bound seeds, has_affinity)."""
+    k = min(batch_size, spread)
+    inp, d_s, _, batch = tensorize(make_nodes(n, zones=10), spread_pods(k, "dt"), device)
+    cases = [("topology_spreading", placed_check_args(inp, batch, rng), d_s, False, True,
+              f"{n} nodes, {k} placed pods, one spread row, has_ct")]
+    inp, d_a, _, batch = tensorize(make_nodes(n), anti_pods(anti_groups, 40, "dx"), device)
+    cases.append(("pod_anti_affinity", placed_check_args(inp, batch, rng), d_a, True, False,
+                  f"{n} nodes, {len(batch.pods)} placed pods, hostname key, has_affinity"))
+    k = min(batch_size, affinity)
+    inp, d_f, _, batch = tensorize(make_nodes(n, zones=50), affinity_pods(k, 50, "dy"), device,
+                                   bound=affinity_seeds(50))
+    cases.append(("pod_affinity", placed_check_args(inp, batch, rng), d_f, True, False,
+                  f"{n} nodes, {k} placed pods, 50 zones, 50 seeds, has_affinity"))
+    return cases
+
+
 def phase_kernel_d(device, sizes, seed):
     import numpy as np
+    import torch
+
+    import kubernetes_tpu_torch.testing as tt
 
     from kubernetes_tpu_torch.models.repair import repair_check, repair_check_plain
+    from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.testing import MakePod
 
     n = sizes["nodes"]
@@ -1087,22 +1149,39 @@ def phase_kernel_d(device, sizes, seed):
     inp, d_m, _, batch = tensorize(nodes, pods, device, bound=holders)
     errs.append(compare_d("mixed_all_kinds_min_domains", placed_check_args(inp, batch, rng), d_m,
                           device, all_gates, require_all=True))
-    # the main path's shape: one TopologySpreading batch of batch_size pods
-    k = min(sizes["batch"], sizes["spread"])
-    inp, d_max, _, batch = tensorize(make_nodes(n, zones=10), spread_pods(k, "dt"), device)
-    args = placed_check_args(inp, batch, rng)
-    ms = timed_ms(lambda: repair_check(*args, d_max=d_max, has_affinity=False, has_ct=True), 50,
-                  device)
-    plain_ms = timed_ms(lambda: repair_check_plain(*args, d_max=d_max, has_affinity=False,
-                                                   has_ct=True), 5, device)
-    nbytes, ops = kernel_d_work(args, False, True)
-    b_ms, b_by = bound_ms(nbytes, ops)
-    timing = {"phase": "kernel_D_timing",
-              "shape": f"{n} nodes, {k} placed pods (pb {args[0].numel()}), has_ct",
-              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, "bound_ms": b_ms,
-              "bound_by": b_by}
-    emit(timing)
-    return max(errs), timing
+    # beyond the cluster's shared memory (the global-scratch route): seeded
+    # tables of 70,000 nodes, each its own domain, with wrapping sums
+    big = tt.repair_problem(seed, 70000, 300, 70000, kk=2, sc=5, g=2, wrap=True)
+    errs.append(compare_d("global_d70000", [torch.from_numpy(a).to(device) for a in big], 70000,
+                          device, all_gates))
+    lines = []
+    for case, args, dm, has_affinity, has_ct, shape in d_timing_cases(
+            n, sizes["batch"], sizes["spread"], sizes["anti_groups"], sizes["affinity"], device,
+            rng):
+        def call(args=args, dm=dm, ha=has_affinity, hc=has_ct):
+            return repair_check(*args, d_max=dm, has_affinity=ha, has_ct=hc)
+
+        before = kernels.CUDA_LAUNCHES["repair_check"]
+        call()
+        sync(device)
+        cuda_launches = kernels.CUDA_LAUNCHES["repair_check"] - before
+        plan = dict(kernels.LAST_REPAIR_PLAN) if device.type == "cuda" else None
+        ms = timed_ms(call, 50, device)
+        plain_ms = timed_ms(lambda args=args, dm=dm, ha=has_affinity, hc=has_ct:
+                            repair_check_plain(*args, d_max=dm, has_affinity=ha, has_ct=hc),
+                            5, device)
+        nbytes, ops = kernel_d_work(args, has_affinity, has_ct)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        line = {"phase": "kernel_D_timing", "case": case,
+                "shape": f"{shape} (pb {args[0].numel()}, d_max {dm})",
+                "ms": ms, "device_ms": device_ms(call, ("repair_check",), device),
+                "cuda_launches": cuda_launches, "plan": plan, "plain_ms": plain_ms,
+                "bytes": nbytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by}
+        check(device.type != "cuda" or cuda_launches == 1,
+              f"kernel D took {cuda_launches} CUDA launches on {case}")
+        emit(line)
+        lines.append(line)
+    return max(errs), lines
 
 
 # the last drive_main_path run's kernels.CUDA_LAUNCHES and HOST_SYNCS
@@ -1838,36 +1917,52 @@ def phase_kernel_h(device, sizes, seed):
         "a_16_gangs_of_256": align_case(rng, pm, pm, 16, device),
         "b_ties_unplaced_nonmembers": align_case(rng, pm - pm // 4 - 3, pm, 5, device, ties=True),
         "c_global_merge": align_case(rng, 4 * pm - 100, 4 * pm, 64, device),
+        # GangScheduling_2k_250's batch: 8 gangs of 250 at p_max 2,048
+        "d_gang_2k_250": align_case(rng, 2000, pm // 2, 8, device),
+        # p_max 65,536, and again in chunks of 2,048 rows (each CTA's slice
+        # sorted as four chunks, two more team levels)
+        "e_p65536": align_case(rng, 16 * pm - 500, 16 * pm, 128, device, ties=True),
     }
+    cases["f_p65536_chunks_of_2048"] = cases["e_p65536"]
     err, lines = 0, {}
     for name, args in cases.items():
         before = kernels.LAUNCHES["rank_align"]
-        got = rank_align_kernel(*args)
+        cuda_before = kernels.CUDA_LAUNCHES["rank_align"]
+        if name.startswith("f_") and device.type == "cuda":
+            got = kernels.launch_rank_align(*args, _smem_rows=2048)
+        else:
+            got = rank_align_kernel(*args)
         sync(device)
         launched = kernels.LAUNCHES["rank_align"] - before
+        cuda_launched = kernels.CUDA_LAUNCHES["rank_align"] - cuda_before
         ref = rank_align_plain(*args)
         sync(device)
         e = int((got.long() - ref.long()).abs().max())
         equal = got.dtype == ref.dtype and bool((got == ref).all())
         line = {"phase": "kernel_H", "case": name, "p_max": args[0].shape[0], "equal": equal,
-                "max_abs_err": e, "launches": launched,
+                "max_abs_err": e, "launches": launched, "cuda_launches": cuda_launched,
+                "plan": dict(kernels.LAST_RANK_ALIGN_PLAN) if device.type == "cuda" else None,
                 "moved": int((got != args[0]).sum())}
         err = max(err, e)
         check(equal, f"kernel H differs from its plain version on case {name}")
-        check(device.type != "cuda" or launched == 1, f"kernel H did not launch on case {name}")
-        if name.startswith("a_"):
+        check(device.type != "cuda" or (launched == 1 and cuda_launched == 1),
+              f"kernel H did not launch once on case {name}")
+        if name[0] in "acd":
             line["ms"] = timed_ms(lambda: rank_align_kernel(*args), 200, device)
             line["plain_ms"] = timed_ms(lambda: rank_align_plain(*args), 50, device)
-            line["device_ms"] = device_ms(lambda: rank_align_kernel(*args), ("ra_",), device)
+            line["device_ms"] = device_ms(lambda: rank_align_kernel(*args),
+                                          ("rank_align_kernel",), device)
             nbytes, ops = kernel_h_work(args)
             line["bytes"], line["ops"] = nbytes, ops
             line["bound_ms"], line["bound_by"] = bound_ms(nbytes, ops)
-            line["shape"] = f"p_max {args[0].shape[0]}, 16 gangs"
+            line["shape"] = f"p_max {args[0].shape[0]}, {name.split('_')[1]} gangs"
         emit(line)
         lines[name] = line
     check(cases["c_global_merge"][0].shape[0] > 4096 or device.type == "cpu",
-          "case c does not reach the global merge path")
-    return err, lines["a_16_gangs_of_256"]
+          "case c is not above the main path's p_max")
+    check(device.type == "cpu" or lines["f_p65536_chunks_of_2048"]["plan"]["chunk"] <
+          lines["f_p65536_chunks_of_2048"]["plan"]["slice"], "case f sorts a slice in one chunk")
+    return err, lines["a_16_gangs_of_256"], lines["d_gang_2k_250"], lines["c_global_merge"]
 
 
 # ---------------------------------------------------------------------------
@@ -2503,7 +2598,7 @@ def phase_transport_direct(device, sizes, card):
             dt = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             dev_ms = device_ms(solve, ("auction_phase_kernel", "sinkhorn_kernel",
-                                       "feasibility_rows"), device, iters=2)
+                                       "feasibility_rows"), device, iters=2, per_call=None)
             t1 = time.perf_counter()
             a_plain, _ = plain_transport(solve)
             sync(device)
@@ -2881,9 +2976,9 @@ def main(argv=None) -> int:
         err_a, timing_a = phase_kernel_a(device, sizes, args.seed)
         err_b, line_b = phase_kernel_b(device, sizes, args.seed)
         err_c, line_c = phase_kernel_c(device, sizes, args.seed)
-        err_d, timing_d = phase_kernel_d(device, sizes, args.seed)
+        err_d, (timing_d, *timing_d_more) = phase_kernel_d(device, sizes, args.seed)
         err_g, line_g, line_g_batch = phase_kernel_g(device, sizes, args.seed)
-        err_h, line_h = phase_kernel_h(device, sizes, args.seed)
+        err_h, line_h, line_h_2k, line_h_c = phase_kernel_h(device, sizes, args.seed)
         err_j, line_j, line_j_row = phase_kernel_j(device, sizes, args.seed)
         err_e, line_e = phase_kernel_e(device, sizes, args.seed)
         err_f, line_f = phase_kernel_f(device, sizes, args.seed)
@@ -2944,7 +3039,11 @@ def main(argv=None) -> int:
          "max_abs_err": err_d, "ms": timing_d["ms"], "plain_ms": timing_d["plain_ms"],
          "bound_ms": timing_d["bound_ms"], "bound_by": timing_d["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call computes the violation check",
-         "checked": True, "shape": timing_d["shape"]},
+         "checked": True, "shape": timing_d["shape"], "device_ms": timing_d["device_ms"],
+         "cuda_launches_per_call": timing_d["cuda_launches"], "plan": timing_d["plan"],
+         "more_shapes": {ln["case"]: {k: ln[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "plan")}
+                         for ln in timing_d_more}},
         {"name": "cover_curve", "route": "cuda", "source": KERNEL_G_SRC,
          "replaces": "kubernetes_tpu/models/gangcover.py:78",
          "launches": sum(ln["launches"]["cover_curve"] for ln in preempt.values()),
@@ -2965,7 +3064,11 @@ def main(argv=None) -> int:
          "bound_ms": line_h["bound_ms"], "bound_by": line_h["bound_by"], "library_ms": None,
          "library": "none: no single PyTorch call computes the aligned permutation "
                     "(two lexsorts and a scatter)",
-         "checked": True, "shape": line_h["shape"]},
+         "checked": True, "shape": line_h["shape"], "device_ms": line_h["device_ms"],
+         "cuda_launches_per_call": line_h["cuda_launches"], "plan": line_h["plan"],
+         "p2048_ms": line_h_2k["ms"], "p2048_device_ms": line_h_2k["device_ms"],
+         "p2048_bound_ms": line_h_2k["bound_ms"], "p16384_ms": line_h_c["ms"],
+         "p16384_device_ms": line_h_c["device_ms"]},
         {"name": "feasibility_rows", "route": "cuda", "source": KERNEL_J_SRC,
          "replaces": "kubernetes_tpu/parallel/sharded.py:108",
          "launches": transport_sum["feasibility_rows"], "max_abs_err": err_j,

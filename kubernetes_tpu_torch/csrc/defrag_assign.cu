@@ -321,12 +321,17 @@ __global__ void __launch_bounds__(DA_THREADS, 1) defrag_assign_kernel(const Defr
   }
 }
 
+// the shared-memory attribute is set once per instantiation, at the most
+// any layout takes (DA_SMEM_MAX), not before every launch
 template <int RT>
 static int launch_r(const DefragArgs* args, cudaStream_t stream) {
+  static int attr_err = -1;
+  if (attr_err < 0)
+    attr_err = (int)cudaFuncSetAttribute(defrag_assign_kernel<RT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DA_SMEM_MAX);
+  if (attr_err) return attr_err;
   const size_t smem = (size_t)args->smem_bytes;
-  cudaError_t e = cudaFuncSetAttribute(defrag_assign_kernel<RT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (smem > DA_SMEM_MAX) return (int)cudaErrorInvalidValue;
   defrag_assign_kernel<RT><<<1, DA_THREADS, smem, stream>>>(*args);
   return (int)cudaGetLastError();
 }

@@ -305,19 +305,17 @@ def rank_align(assignment: np.ndarray, group_id: np.ndarray, rank: np.ndarray,
     device = resolve_device(device)
     p = len(assignment)
     p_max = _pow2(p)
-    a = np.full(p_max, -1, dtype=np.int32)
+    # the four padded rows in one buffer: one host-to-device copy
+    rows = np.zeros((4, p_max), dtype=np.int32)
+    a, g, r, k = rows
+    a[:] = -1
     a[:p] = assignment
-    g = np.arange(p_max, dtype=np.int32) + np.int32(_INT32_BIG)
+    g[:] = np.arange(p_max, dtype=np.int32) + np.int32(_INT32_BIG)
     g[:p] = group_id
-    r = np.zeros(p_max, dtype=np.int32)
     r[:p] = rank
-    k = np.zeros(p_max, dtype=np.int32)
     k[:p] = pos_key
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
-    out = rank_align_kernel(t(a), t(g), t(r), t(k))
+    packed = torch.from_numpy(rows).to(device)
+    out = rank_align_kernel(*packed.unbind(0))
     return out.cpu().numpy()[:p].astype(assignment.dtype)
 
 

@@ -20,8 +20,10 @@ The counterpart of `kubernetes_tpu/models/repair.py`. Three phases:
 Two implementations of `repair_check`:
   repair_check_plain  plain PyTorch
   kernel D            csrc/repair_check.cu (ops/kernels.py launch_repair_check)
-`repair_check` sends CPU tensors to the plain version and CUDA tensors to
-the kernel; it never falls back from one to the other.
+`repair_check_packed` sends CPU tensors to the plain version and CUDA
+tensors to the kernel, and never falls back from one to the other; it
+returns the four masks as one [4, Pb] tensor (the check reads it back with
+one copy), and `repair_check` returns them as its four rows.
 """
 
 from __future__ import annotations
@@ -104,17 +106,33 @@ def repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
     anti-affinity zero-tests. has_affinity / has_ct gate whole families.
 
     CPU tensors run the plain version; CUDA tensors launch kernel D; any
-    other device raises."""
+    other device raises. The masks are the rows of repair_check_packed's
+    tensor."""
+    return tuple(repair_check_packed(
+        node_of, cls_of, dyn_selcls, dyn_grp, topo_id, rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+        class_matches, class_holds, grp_key, aff_ok, ct_class, ct_key, ct_sel, ct_max_skew,
+        ct_min_domains, d_max, has_affinity, has_ct).unbind(0))
+
+
+def repair_check_packed(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
+                        rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+                        class_matches, class_holds, grp_key, aff_ok,
+                        ct_class, ct_key, ct_sel, ct_max_skew, ct_min_domains,
+                        d_max: int, has_affinity: bool = True,
+                        has_ct: bool = True) -> torch.Tensor:
+    """repair_check's four masks as the rows of one [4, Pb] bool tensor, so
+    a caller reads them back with one copy: kernel D writes that tensor on
+    the card; on the CPU the plain version's masks are stacked."""
     args = (node_of, cls_of, dyn_selcls, dyn_grp, topo_id, rn_key, rn_sel, ea_grp, ra_key,
             ra_sel, class_matches, class_holds, grp_key, aff_ok, ct_class, ct_key, ct_sel,
             ct_max_skew, ct_min_domains, d_max, has_affinity, has_ct)
     dev = node_of.device
     if dev.type == "cpu":
-        return repair_check_plain(*args)
+        return torch.stack(repair_check_plain(*args))
     if dev.type == "cuda":
-        from ..ops.kernels import launch_repair_check
+        from ..ops.kernels import launch_repair_check_packed
 
-        return launch_repair_check(*args)
+        return launch_repair_check_packed(*args)
     raise ValueError(f"repair_check: no implementation for device {dev}")
 
 
@@ -610,7 +628,7 @@ def _check(ctx: _RepairContext, inp: SolverInputs, assignment: np.ndarray, p: in
     cls_pad = np.zeros(pb, dtype=np.int32)
     cls_pad[:p] = ctx.cls_np
     dev = ctx.device
-    masks = repair_check(
+    masks = repair_check_packed(
         to_device(node_pad, dev, torch.int32), to_device(cls_pad, dev, torch.int32),
         to_device(ctx.selcls.astype(np.int32), dev, torch.int32),
         to_device(ctx.grp.astype(np.int32), dev, torch.int32),
@@ -618,7 +636,7 @@ def _check(ctx: _RepairContext, inp: SolverInputs, assignment: np.ndarray, p: in
         inp.class_matches_selcls, inp.class_holds_grp, inp.grp_key, inp.aff_ok,
         inp.ct_class, inp.ct_key, inp.ct_sel, inp.ct_max_skew, inp.ct_min_domains,
         d_max=d_max, has_affinity=has_affinity, has_ct=has_ct)
-    v_rn, v_ea, v_ra, v_ct = (host(m)[:p] for m in masks)
+    v_rn, v_ea, v_ra, v_ct = host(masks)[:, :p]  # the one read back
     stats.violations[KIND_ANTI] += int(v_rn.sum())
     stats.violations[KIND_EXISTING_ANTI] += int(v_ea.sum())
     stats.violations[KIND_AFFINITY] += int(v_ra.sum())

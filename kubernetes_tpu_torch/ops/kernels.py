@@ -10,15 +10,16 @@ build raises.
 The launch wrappers check device, dtype, shape and contiguity, launch on
 torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
-it happens and nowhere else). Kernels C, E, F, G, I and J also count the
-CUDA kernels their C entry launched (CUDA_LAUNCHES), and the host reads of
-their results are counted in HOST_SYNCS (by E's wrapper, and for C and G by
-the models that read them). A, C, E and F are one thread-block cluster
-each, J one cluster a row (csrc/cluster_exchange.cuh); E's, F's and J's
-layout is planned here (auction_plan, sinkhorn_plan, feasibility_plan) from
-the shape and the cluster size; G runs every slice of a cover attempt as
-one CTA of one launch; I walks the victims in one block over a tournament
-tree (defrag_group).
+it happens and nowhere else). Kernels C, D, E, F, G, H, I and J also count
+the CUDA kernels their C entry launched (CUDA_LAUNCHES), and the host reads
+of their results are counted in HOST_SYNCS (by E's wrapper, and for C and G
+by the models that read them). A, C, D, E, F and H are one thread-block
+cluster each, J one cluster a row (csrc/cluster_exchange.cuh); D's, E's,
+F's, H's and J's layout is planned here (repair_plan, auction_plan,
+sinkhorn_plan, rank_align_plan, feasibility_plan) from the shape and the
+cluster size; G runs every slice of a cover attempt as one CTA of one
+launch; I walks the victims in one block over a tournament tree
+(defrag_group).
 
   greedy_scan   kernel A, csrc/greedy_scan.cu   <- ops/solver.py greedy_scan_solve
   row_scatter   kernel B, csrc/row_scatter.cu   <- snapshot/tensorizer.py TensorCache.device_views
@@ -61,7 +62,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
-                                 "cover_curve": 0, "feasibility_rows": 0, "defrag_assign": 0}
+                                 "cover_curve": 0, "feasibility_rows": 0, "defrag_assign": 0,
+                                 "repair_check": 0, "rank_align": 0}
 HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
                               "cover_curve": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -203,14 +205,27 @@ def _lib(name: str) -> ctypes.CDLL:
         elif name == "waterfill":
             _bind_cluster_entry(lib, name, name, _WaterfillArgs)
         elif name == "repair_check":
-            _bind_args_entry(lib, name, _RepairCheckArgs)
+            _bind_cluster_entry(lib, name, name, _RepairCheckArgs)
+            lib.repair_check_smem_budget.restype = ctypes.c_int
+            lib.repair_check_smem_bytes.argtypes = [ctypes.c_int] * 6
+            lib.repair_check_smem_bytes.restype = ctypes.c_longlong
+            if (lib.repair_check_smem_budget() != REPAIR_SMEM_BUDGET
+                    or any(lib.repair_check_smem_bytes(*shape) != repair_smem_bytes(*shape)
+                           for shape in ((0, 16, 1, 2, 10, 10), (1, 8, 3, 40, 5000, 625),
+                                         (2, 16, 5, 410, 70000, 4375)))):
+                raise RuntimeError("kernel D's layout differs between csrc/repair_check.cu and "
+                                   "ops/kernels.py")
         elif name == "cover_curve":
             _bind_args_entry(lib, name, _CoverCurveArgs)
             for fn in (lib.cover_curve_max_r, lib.cover_curve_smem_budget):
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
         elif name == "rank_align":
-            _bind_args_entry(lib, name, _RankAlignArgs)
+            _bind_cluster_entry(lib, name, name, _RankAlignArgs)
+            lib.rank_align_smem_rows.restype = ctypes.c_int
+            if lib.rank_align_smem_rows() != RANK_ALIGN_SMEM_MAX:
+                raise RuntimeError("RA_SMEM_ROWS differs between csrc/rank_align.cu and "
+                                   "ops/kernels.py")
         elif name == "feasibility_rows":
             _bind_cluster_entry(lib, name, name, _FeasRowsArgs)
             lib.feasibility_rows_max_clusters.argtypes = [ctypes.c_int]
@@ -607,21 +622,127 @@ def launch_waterfill_group(alloc, used, used_nz, pod_count, max_pods,
 # ---------------------------------------------------------------------------
 
 _RC_INTS = ("Pb", "N", "Kk", "SC", "G", "RNm", "EAm", "RAm", "Ct", "d_max", "has_affinity",
-            "has_ct", "dom_in_smem")
+            "has_ct", "cs", "mode", "rows", "slice", "node_chunk", "pod_chunk", "smem_bytes")
 _RC_PTRS = ("node_of", "cls_of", "dyn_selcls", "dyn_grp", "topo_id", "rn_key", "rn_sel",
             "ea_grp", "ra_key", "ra_sel", "class_matches", "class_holds", "grp_key", "aff_ok",
-            "ct_class", "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains",
-            "v_rn", "v_ea", "v_ra", "v_ct", "dom_tab", "bad", "dom_scratch")
+            "ct_class", "ct_key", "ct_sel", "ct_max_skew", "ct_min_domains", "out", "gtab")
 
 
 class _RepairCheckArgs(ctypes.Structure):
     _fields_ = [(d, ctypes.c_int) for d in _RC_INTS] + [(f, ctypes.c_void_p) for f in _RC_PTRS]
 
 
-# domain scratch of kernel D in shared memory up to 2 * 6,000 int32 (under
-# the default 48 KB per block with its static arrays); beyond that, a global
-# scratch slice per block
-_RC_SMEM_DOMAINS = 6000
+REPAIR_SMEM_BUDGET = 220 * 1024  # RC_SMEM_BUDGET in csrc/repair_check.cu
+REPAIR_MODES = ("replicate", "owner", "global")
+# the last launch's plan
+LAST_REPAIR_PLAN: Dict[str, object] = {}
+
+
+def repair_smem_bytes(mode: int, cs: int, ct: int, rows: int, d_max: int, slice_: int) -> int:
+    """Kernel D's dynamic shared memory a CTA (rc_layout in csrc/): each
+    spread row's minimum, the (n_valid, min) slots of modes 1-2, the table
+    (mode 0 every domain, mode 1 the owned slice) and mode 0's CS slots."""
+    size = _align16(4 * ct) + (_align16(8 * cs * ct) if mode else 0)
+    size += _align16(4 * rows * (d_max if mode == 0 else slice_ if mode == 1 else 0))
+    return size + (_align16(4 * cs * rows * d_max) if mode == 0 else 0)
+
+
+@functools.lru_cache(maxsize=64)
+def repair_plan(pb: int, n: int, kk: int, m: int, ct: int, d_max: int, has_affinity: bool,
+                has_ct: bool, cs: int) -> Dict[str, object]:
+    """Kernel D's layout on one cluster of `cs` CTAs: CTA r takes the nodes
+    [r * node_chunk, ...) and the pods [r * pod_chunk, ...); the table's
+    rows are Kk x (SC + G) (key, count row) pairs (has_affinity) and two a
+    spread row (has_ct: counts, eligible nodes). Mode 0 (replicate) where
+    every CTA can hold the whole table and CS slots of it, mode 1 (owner)
+    where a 1/cs slice of the domains fits a CTA, else mode 2 (global: the
+    owners' slices in a global scratch). The plan is cached by shape;
+    callers must not modify it."""
+    rows = (kk * m if has_affinity else 0) + (2 * ct if has_ct else 0)
+    slice_ = -(-d_max // cs)
+    # node slices of whole quads (a thread reads four adjacent nodes)
+    nodes = -(-n // cs)
+    nodes += -nodes % 4
+    for mode in (0, 1, 2):
+        sl = d_max if mode == 0 else slice_
+        smem = repair_smem_bytes(mode, cs, ct, rows, d_max, sl)
+        if smem <= REPAIR_SMEM_BUDGET:
+            break
+    else:
+        raise ValueError(f"repair_check: {ct} spread rows exceed the shared memory of a CTA")
+    return dict(cluster_size=cs, mode=REPAIR_MODES[mode], mode_id=mode, rows=rows,
+                domains_per_cta=sl, nodes_per_cta=nodes, pods_per_cta=-(-pb // cs),
+                smem_bytes=smem, global_bytes=4 * cs * rows * sl if mode == 2 else 0)
+
+
+_RC_NAMES = _RC_PTRS[:19]
+
+
+@functools.lru_cache(maxsize=64)
+def _repair_launch(pb, n, kk, sc, g, c, rnm, eam, ram, ct, d_max, has_affinity, has_ct, cs):
+    """(plan, the args' fixed fields as bytes) of one shape."""
+    plan = repair_plan(pb, n, kk, sc + g, ct, d_max, has_affinity, has_ct, cs)
+    args = _RepairCheckArgs(Pb=pb, N=n, Kk=kk, SC=sc, G=g, RNm=rnm, EAm=eam, RAm=ram, Ct=ct,
+                            d_max=d_max, has_affinity=int(has_affinity), has_ct=int(has_ct),
+                            cs=cs, mode=plan["mode_id"], rows=plan["rows"],
+                            slice=plan["domains_per_cta"], node_chunk=plan["nodes_per_cta"],
+                            pod_chunk=plan["pods_per_cta"], smem_bytes=plan["smem_bytes"])
+    return plan, bytes(args)
+
+
+def launch_repair_check_packed(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
+                               rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+                               class_matches, class_holds, grp_key, aff_ok,
+                               ct_class, ct_key, ct_sel, ct_max_skew, ct_min_domains,
+                               d_max: int, has_affinity: bool = True,
+                               has_ct: bool = True) -> torch.Tensor:
+    """Kernel D on CUDA tensors: returns one [4, Pb] bool tensor, its rows
+    the masks of repair_check_plain. One launch of one thread-block cluster
+    (repair_plan); the inputs are not modified."""
+    global LAST_REPAIR_PLAN
+    ins = (node_of, cls_of, dyn_selcls, dyn_grp, topo_id, rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+           class_matches, class_holds, grp_key, aff_ok, ct_class, ct_key, ct_sel, ct_max_skew,
+           ct_min_domains)
+    device = node_of.device
+    pb = node_of.shape[0]
+    kk, n = topo_id.shape
+    sc, g = dyn_selcls.shape[0], dyn_grp.shape[0]
+    c = aff_ok.shape[0]
+    ct = ct_class.shape[0]
+    rnm, eam, ram = rn_key.shape[-1], ea_grp.shape[-1], ra_key.shape[-1]
+    if d_max < 1:
+        raise ValueError("repair_check: d_max must be >= 1")
+    shapes = ((pb,), (pb,), (sc, n), (g, n), (kk, n), (c, rnm), (c, rnm), (c, eam), (c, ram),
+              (c, ram), (c, sc), (c, g), (g,), (c, n), (ct,), (ct,), (ct,), (ct,), (ct,))
+    index = node_of.get_device()
+    for i, (t, shape) in enumerate(zip(ins, shapes)):
+        dtype = torch.bool if i == 13 else torch.int32
+        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+                and t.get_device() == index):
+            _check_cuda(t, _RC_NAMES[i], dtype, device, shape)
+    out = torch.empty((4, pb), dtype=torch.bool, device=device)
+    if pb == 0:
+        return out
+    if n < 1:
+        raise ValueError("repair_check: needs at least one node")
+    has_ct = bool(has_ct) and ct > 0
+    lib = _lib("repair_check")
+    plan, template = _repair_launch(pb, n, kk, sc, g, c, rnm, eam, ram, ct, d_max,
+                                    bool(has_affinity), has_ct, _cluster_size(lib, "repair_check"))
+    gtab = (torch.empty(plan["global_bytes"] // 4, dtype=torch.int32, device=device)
+            if plan["mode_id"] == 2 else None)
+    args = _RepairCheckArgs.from_buffer_copy(template)
+    # the pointers in one assignment (an empty tensor's is never read)
+    (ctypes.c_void_p * len(_RC_PTRS)).from_buffer(args, _RepairCheckArgs.node_of.offset)[:] = [
+        t.data_ptr() for t in ins] + [out.data_ptr(), gtab.data_ptr() if gtab is not None else None]
+    LAST_REPAIR_PLAN = plan
+    launched = ctypes.c_int(0)
+    err = lib.repair_check_launch(ctypes.byref(args), _stream_handle(index),
+                                  ctypes.byref(launched))
+    LAUNCHES["repair_check"] += 1
+    CUDA_LAUNCHES["repair_check"] += launched.value
+    _raise_on(err, "repair_check launch")
+    return out
 
 
 def launch_repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
@@ -630,59 +751,12 @@ def launch_repair_check(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
                         ct_class, ct_key, ct_sel, ct_max_skew, ct_min_domains,
                         d_max: int, has_affinity: bool = True, has_ct: bool = True):
     """Kernel D on CUDA tensors: returns the four [Pb] bool masks like
-    repair_check_plain. The inputs are not modified."""
-    device = node_of.device
-    pb = node_of.shape[0]
-    kk, n = topo_id.shape
-    sc, g = dyn_selcls.shape[0], dyn_grp.shape[0]
-    c = aff_ok.shape[0]
-    ct = ct_class.shape[0]
-    if d_max < 1:
-        raise ValueError("repair_check: d_max must be >= 1")
-    checks = [("node_of", node_of, torch.int32, (pb,)), ("cls_of", cls_of, torch.int32, (pb,)),
-              ("dyn_selcls", dyn_selcls, torch.int32, (sc, n)),
-              ("dyn_grp", dyn_grp, torch.int32, (g, n)), ("topo_id", topo_id, torch.int32, (kk, n)),
-              ("class_matches", class_matches, torch.int32, (c, sc)),
-              ("class_holds", class_holds, torch.int32, (c, g)),
-              ("grp_key", grp_key, torch.int32, (g,)), ("aff_ok", aff_ok, torch.bool, (c, n))]
-    for family in (("rn_key", rn_key), ("rn_sel", rn_sel)), (("ea_grp", ea_grp),), (
-            ("ra_key", ra_key), ("ra_sel", ra_sel)):
-        width = family[0][1].shape[1] if family[0][1].dim() == 2 else -1
-        checks += [(name, t, torch.int32, (c, width)) for name, t in family]
-    checks += [(name, t, torch.int32, (ct,)) for name, t in (
-        ("ct_class", ct_class), ("ct_key", ct_key), ("ct_sel", ct_sel),
-        ("ct_max_skew", ct_max_skew), ("ct_min_domains", ct_min_domains))]
-    for name, t, dtype, shape in checks:
-        _check_cuda(t, name, dtype, device, shape)
-    outs = [torch.empty(pb, dtype=torch.bool, device=device) for _ in range(4)]
-    if pb == 0:
-        return tuple(outs)
-    in_smem = d_max <= _RC_SMEM_DOMAINS
-    m = sc + g
-    dom_tab = (torch.empty(kk * m * d_max, dtype=torch.int32, device=device)
-               if has_affinity else None)
-    bad = torch.empty(ct * n, dtype=torch.uint8, device=device) if has_ct else None
-    dom_scratch = (None if in_smem else
-                   torch.empty(max(kk * m, ct) * 2 * d_max, dtype=torch.int32, device=device))
-    ptrs = dict(node_of=node_of, cls_of=cls_of, dyn_selcls=dyn_selcls, dyn_grp=dyn_grp,
-                topo_id=topo_id, rn_key=rn_key, rn_sel=rn_sel, ea_grp=ea_grp, ra_key=ra_key,
-                ra_sel=ra_sel, class_matches=class_matches, class_holds=class_holds,
-                grp_key=grp_key, aff_ok=aff_ok, ct_class=ct_class, ct_key=ct_key, ct_sel=ct_sel,
-                ct_max_skew=ct_max_skew, ct_min_domains=ct_min_domains, v_rn=outs[0],
-                v_ea=outs[1], v_ra=outs[2], v_ct=outs[3], dom_tab=dom_tab, bad=bad,
-                dom_scratch=dom_scratch)
-    args = _RepairCheckArgs(Pb=pb, N=n, Kk=kk, SC=sc, G=g, RNm=rn_key.shape[1],
-                            EAm=ea_grp.shape[1], RAm=ra_key.shape[1], Ct=ct, d_max=d_max,
-                            has_affinity=int(bool(has_affinity)), has_ct=int(bool(has_ct)),
-                            dom_in_smem=int(in_smem))
-    for f in _RC_PTRS:
-        t = ptrs[f]
-        setattr(args, f, t.data_ptr() if t is not None else None)
-    lib = _lib("repair_check")
-    err = lib.repair_check_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES["repair_check"] += 1
-    _raise_on(err, "repair_check launch")
-    return tuple(outs)
+    repair_check_plain, as views of one [4, Pb] tensor. The inputs are not
+    modified."""
+    return tuple(launch_repair_check_packed(
+        node_of, cls_of, dyn_selcls, dyn_grp, topo_id, rn_key, rn_sel, ea_grp, ra_key, ra_sel,
+        class_matches, class_holds, grp_key, aff_ok, ct_class, ct_key, ct_sel, ct_max_skew,
+        ct_min_domains, d_max, has_affinity, has_ct).unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -761,34 +835,81 @@ def launch_cover_curves(free, headroom, eligible, v_node, v_req, req) -> torch.T
 # kernel H
 # ---------------------------------------------------------------------------
 
+# rows a CTA of kernel H sorts in shared memory at a time (RA_SMEM_ROWS in
+# csrc/): the largest chunk the plan takes (a smaller chunk means more of
+# the team's merge levels)
+RANK_ALIGN_SMEM_MAX = 8192
+# the last launch's plan
+LAST_RANK_ALIGN_PLAN: Dict[str, object] = {}
+
 
 class _RankAlignArgs(ctypes.Structure):
-    _fields_ = [("p_max", ctypes.c_int)] + [
-        (f, ctypes.c_void_p) for f in ("assignment", "group_id", "rank", "pos_key", "out",
-                                       "keys", "idx")]
+    _fields_ = ([(d, ctypes.c_int) for d in ("p_max", "cs", "active", "slice", "chunk",
+                                             "smem_bytes")]
+                + [(f, ctypes.c_void_p) for f in ("assignment", "group_id", "rank", "pos_key",
+                                                  "out", "gkey", "gidx")])
 
 
-def launch_rank_align(assignment, group_id, rank, pos_key) -> torch.Tensor:
+def rank_align_plan(p_max: int, cs: int, smem_rows: Optional[int] = None) -> Dict[str, object]:
+    """Kernel H's layout for p_max rows on a cluster of `cs` CTAs, cs / 2 a
+    sort: `active` CTAs of a team hold a slice of p_max / active rows (at
+    least 32 rows, one warp's run, where p_max allows), sorted in chunks of
+    at most `smem_rows` (default RANK_ALIGN_SMEM_MAX) in shared memory and
+    written to a global scratch, through which the team then merges them
+    level by level."""
+    rows = RANK_ALIGN_SMEM_MAX if smem_rows is None else smem_rows
+    active = min(cs // 2, max(1, p_max // 32))
+    slice_ = p_max // active
+    chunk = min(slice_, rows)
+    return dict(cluster_size=cs, active=active, slice=slice_, chunk=chunk,
+                smem_bytes=24 * chunk,
+                team_merge_levels=(p_max.bit_length() - 1) - (chunk.bit_length() - 1),
+                global_bytes=2 * 2 * p_max * 12)
+
+
+@functools.lru_cache(maxsize=32)
+def _rank_align_launch(p_max: int, cs: int, smem_rows: int):
+    plan = rank_align_plan(p_max, cs, smem_rows)
+    args = _RankAlignArgs(p_max=p_max, cs=cs, active=plan["active"], slice=plan["slice"],
+                          chunk=plan["chunk"], smem_bytes=plan["smem_bytes"])
+    return plan, bytes(args)
+
+
+def launch_rank_align(assignment, group_id, rank, pos_key,
+                      _smem_rows: Optional[int] = None) -> torch.Tensor:
     """Kernel H on CUDA tensors: returns the aligned assignment [p_max] int32
-    like rank_align_plain. p_max must be a power of two (rank_align pads)."""
+    like rank_align_plain. p_max must be a power of two (rank_align pads).
+    One launch of one thread-block cluster (rank_align_plan). `_smem_rows`,
+    for tests only, sorts smaller chunks than the sizes in use ever need."""
+    global LAST_RANK_ALIGN_PLAN
     device = assignment.device
     p_max = assignment.shape[0] if assignment.dim() == 1 else -1
     if p_max < 1 or p_max & (p_max - 1):
         raise ValueError(f"rank_align: p_max {p_max} is not a power of two")
+    index = assignment.get_device()
     for name, t in (("assignment", assignment), ("group_id", group_id), ("rank", rank),
                     ("pos_key", pos_key)):
-        _check_cuda(t, name, torch.int32, device, (p_max,))
-    out = torch.empty(p_max, dtype=torch.int32, device=device)
-    keys = torch.empty(2 * p_max, dtype=torch.int64, device=device)
-    idx = torch.empty(2 * p_max, dtype=torch.int32, device=device)
-    args = _RankAlignArgs(p_max=p_max, assignment=assignment.data_ptr(),
-                          group_id=group_id.data_ptr(), rank=rank.data_ptr(),
-                          pos_key=pos_key.data_ptr(), out=out.data_ptr(),
-                          keys=keys.data_ptr(), idx=idx.data_ptr())
+        if not (t.dtype is torch.int32 and t.shape == (p_max,) and t.is_contiguous()
+                and t.get_device() == index):
+            _check_cuda(t, name, torch.int32, device, (p_max,))
+    rows = RANK_ALIGN_SMEM_MAX if _smem_rows is None else _smem_rows
+    if not 1 <= rows <= RANK_ALIGN_SMEM_MAX or rows & (rows - 1):
+        raise ValueError(f"rank_align: a chunk of {rows} rows is not a power of two in "
+                         f"[1, {RANK_ALIGN_SMEM_MAX}]")
     lib = _lib("rank_align")
-    err = lib.rank_align_launch(ctypes.byref(args),
-                                torch.cuda.current_stream(device).cuda_stream)
+    plan, template = _rank_align_launch(p_max, _cluster_size(lib, "rank_align"), rows)
+    out = torch.empty(p_max, dtype=torch.int32, device=device)
+    gkey = torch.empty(4 * p_max, dtype=torch.int64, device=device)
+    gidx = torch.empty(4 * p_max, dtype=torch.int32, device=device)
+    args = _RankAlignArgs.from_buffer_copy(template)
+    args.assignment, args.group_id = assignment.data_ptr(), group_id.data_ptr()
+    args.rank, args.pos_key, args.out = rank.data_ptr(), pos_key.data_ptr(), out.data_ptr()
+    args.gkey, args.gidx = gkey.data_ptr(), gidx.data_ptr()
+    LAST_RANK_ALIGN_PLAN = plan
+    launched = ctypes.c_int(0)
+    err = lib.rank_align_launch(ctypes.byref(args), _stream_handle(index), ctypes.byref(launched))
     LAUNCHES["rank_align"] += 1
+    CUDA_LAUNCHES["rank_align"] += launched.value
     _raise_on(err, "rank_align launch")
     return out
 

@@ -1012,3 +1012,311 @@ def mirror_churn_rounds(seed, n, r=3, sc=4, rounds=6, ks=None):
         cl.max_pods[rows] = rng.integers(0, 111, size=k)
         cl.selcls_count[:, rows] = rng.integers(0, 50, size=(sc, k))
         yield cl, rows
+
+
+def repair_problem(seed, n, p, d_max, kk=2, sc=3, g=2, c=4, ct=2, terms=2, missing=0.1,
+                   placed=0.9, wrap=False, min_domains_over=False):
+    """Seeded numpy arguments of repair_check (its order, without d_max) for
+    n nodes and p pods padded to a pow2 bucket >= 2: topology rows with ids
+    in [0, d_max) (a `missing` share of nodes without the key), small count
+    rows (near 2^31 where `wrap`, so domain sums wrap), every term family
+    with unused (-1) slots, holders' groups, spread rows (one of class -1),
+    minDomains above the domain count where `min_domains_over`, unplaced pods
+    and pad rows. Returns the args tuple."""
+    rng = np.random.default_rng(seed)
+    pb = max(2, 1 << max(0, p - 1).bit_length())
+    topo = rng.integers(0, d_max, size=(kk, n)).astype(np.int32)
+    topo[rng.random((kk, n)) < missing] = -1
+    sel = np.where(rng.random((sc, n)) < 0.3, rng.integers(1, 4, size=(sc, n)), 0)
+    grp = np.where(rng.random((g, n)) < 0.2, rng.integers(1, 3, size=(g, n)), 0)
+    if wrap:
+        big = rng.random((sc, n)) < 0.05
+        sel = np.where(big, 2**31 - 1 - rng.integers(0, 5, size=(sc, n)), sel)
+    node_of = np.full(pb, -1, np.int32)
+    node_of[:p] = np.where(rng.random(p) < placed, rng.integers(0, n, size=p), -1)
+    cls_of = np.zeros(pb, np.int32)
+    cls_of[:p] = rng.integers(0, c, size=p)
+
+    def term(hi):
+        t = rng.integers(-1, hi, size=(c, terms)).astype(np.int32)
+        t[0, :] = -1  # class 0 has no term of this family
+        return t
+
+    rn_key, ra_key = term(kk), term(kk)
+    rn_sel = rng.integers(-1, sc, size=(c, terms)).astype(np.int32)
+    ra_sel = rng.integers(-1, sc, size=(c, terms)).astype(np.int32)
+    ea_grp = term(g)
+    cm = (rng.random((c, sc)) < 0.5).astype(np.int32)
+    ch = (rng.random((c, g)) < 0.5).astype(np.int32)
+    grp_key = rng.integers(0, kk, size=g).astype(np.int32)
+    aff_ok = rng.random((c, n)) < 0.8
+    ct_class = rng.integers(0, c, size=ct).astype(np.int32)
+    ct_class[0] = -1 if ct > 1 else ct_class[0]
+    ct_key = rng.integers(0, kk, size=ct).astype(np.int32)
+    ct_sel = rng.integers(0, sc, size=ct).astype(np.int32)
+    skew = rng.integers(1, 4, size=ct).astype(np.int32)
+    mind = np.where(rng.random(ct) < 0.5, rng.integers(1, 3, size=ct), 0).astype(np.int32)
+    if min_domains_over:
+        mind[:] = d_max + 1
+    return (node_of, cls_of, sel.astype(np.int32), grp.astype(np.int32), topo, rn_key, rn_sel,
+            ea_grp, ra_key, ra_sel, cm, ch, grp_key, aff_ok, ct_class, ct_key, ct_sel, skew,
+            mind)
+
+
+def repair_check_model(args, d_max, has_affinity=True, has_ct=True, cs=16):
+    """Test-only numpy model of kernel D's schedule (not on any main path),
+    on the plan ops/kernels.py repair_plan gives for a cluster of `cs` CTAs:
+    CTA r adds the values of its nodes [r * node_chunk, ...) into the domain
+    table (rows: the (key, count row) pairs, then per spread row its counts
+    and eligible nodes), as a partial table of its own (mode 0, then every
+    CTA sums the cs partials) or straight into the owner's slice of the
+    domains (modes 1 and 2); the spread rows' n_valid and minimum are
+    reduced over all domains (mode 0) or per owner slice, then over the
+    slices; CTA r tests its pods [r * pod_chunk, ...) against the totals.
+    int32 sums wrap. Returns (masks [4, Pb] bool, info: the plan, each CTA's
+    partial table (mode 0) or each owner's slice, the spread rows'
+    per-slice (n_valid, min) and their minima)."""
+    from .ops.kernels import repair_plan
+
+    (node_of, cls_of, sel, grp, topo, rn_key, rn_sel, ea_grp, ra_key, ra_sel, cm, ch, grp_key,
+     aff_ok, ct_class, ct_key, ct_sel, skew, mind) = [np.asarray(a) for a in args]
+    pb = node_of.shape[0]
+    kk, n = topo.shape
+    sc, g = sel.shape[0], grp.shape[0]
+    m_rows = sc + g
+    ct = ct_class.shape[0]
+    has_ct = bool(has_ct) and ct > 0
+    plan = repair_plan(pb, n, kk, m_rows, ct, d_max, bool(has_affinity), has_ct, cs)
+    mode, rows, sl = plan["mode_id"], plan["rows"], plan["domains_per_cta"]
+    r_aff = kk * m_rows if has_affinity else 0
+    counts = np.concatenate([sel, grp]).astype(np.int64)
+    # each row's value and domain per node (a value of 0 adds nothing)
+    vals = np.zeros((rows, n), np.int64)
+    dom = np.full((rows, n), -1, np.int64)
+    for k in range(kk if has_affinity else 0):
+        vals[k * m_rows:(k + 1) * m_rows] = counts
+        dom[k * m_rows:(k + 1) * m_rows] = topo[k]
+    for j in range(ct if has_ct else 0):
+        ok = aff_ok[max(int(ct_class[j]), 0)]
+        dom[r_aff + 2 * j] = dom[r_aff + 2 * j + 1] = np.where(ok, topo[ct_key[j]], -1)
+        vals[r_aff + 2 * j] = sel[ct_sel[j]]
+        vals[r_aff + 2 * j + 1] = 1
+    adds = (dom >= 0) & (dom < d_max) & (vals != 0)
+    chunk = plan["nodes_per_cta"]
+    width = d_max if mode == 0 else cs * sl
+    totals = np.zeros((rows, width), np.uint64)
+    parts = []
+    for r in range(cs):
+        lo, hi = r * chunk, min(n, (r + 1) * chunk)
+        rr, nn_ = np.nonzero(adds[:, lo:hi])
+        part = np.zeros((rows, width), np.uint64)
+        np.add.at(part, (rr, dom[rr, lo + nn_]), vals[rr, lo + nn_].astype(np.uint64) % 2**32)
+        parts.append(part % 2**32)
+        totals += part
+    totals = _wrap32(totals % 2**32).astype(np.int64)
+    if mode:  # the owners' slices
+        parts = [totals[:, q * sl:(q + 1) * sl] for q in range(cs)]
+    ctmin = np.zeros(ct, np.int64)
+    slice_minima = []
+    for j in range(ct if has_ct else 0):
+        cnt, elig = totals[r_aff + 2 * j, :d_max], totals[r_aff + 2 * j + 1, :d_max]
+        spans = [(0, d_max)] if mode == 0 else [(q * sl, min(d_max, (q + 1) * sl))
+                                               for q in range(cs)]
+        part = []
+        for lo, hi in spans:
+            valid = elig[lo:hi] > 0
+            part.append((int(valid.sum()), int(cnt[lo:hi][valid].min()) if valid.any() else 2**30))
+        slice_minima.append(part)
+        nv, mn = sum(x for x, _ in part), min(y for _, y in part)
+        if (mind[j] > 0 and mind[j] > nv) or nv == 0:
+            mn = 0
+        ctmin[j] = mn
+    masks = np.zeros((4, pb), bool)
+    pchunk = plan["pods_per_cta"]
+    for r in range(cs):
+        lo, hi = r * pchunk, min(pb, (r + 1) * pchunk)
+        if lo >= hi:
+            continue
+        nd = node_of[lo:hi].astype(np.int64)
+        placed = nd >= 0
+        nn_ = np.maximum(nd, 0)
+        cc = np.maximum(cls_of[lo:hi], 0).astype(np.int64)
+
+        def total(row, t):
+            return totals[row, np.minimum(t, d_max - 1)]
+
+        if has_affinity:
+            for j in range(rn_key.shape[1]):
+                k, s0 = rn_key[cc, j], np.maximum(rn_sel[cc, j], 0)
+                t = topo[np.maximum(k, 0), nn_]
+                other = _wrap32(total(np.maximum(k, 0) * m_rows + s0, np.maximum(t, 0))
+                                - cm[cc, s0])
+                masks[0, lo:hi] |= placed & (k >= 0) & (t >= 0) & (other > 0)
+            for j in range(ea_grp.shape[1]):
+                gg = ea_grp[cc, j]
+                g0 = np.maximum(gg, 0)
+                k = grp_key[g0]
+                t = topo[k, nn_]
+                other = _wrap32(total(k * m_rows + sc + g0, np.maximum(t, 0)) - ch[cc, g0])
+                masks[1, lo:hi] |= placed & (gg >= 0) & (t >= 0) & (other > 0)
+            for j in range(ra_key.shape[1]):
+                k, s0 = ra_key[cc, j], np.maximum(ra_sel[cc, j], 0)
+                t = topo[np.maximum(k, 0), nn_]
+                tot = total(np.maximum(k, 0) * m_rows + s0, np.maximum(t, 0))
+                masks[2, lo:hi] |= placed & (k >= 0) & ((t < 0) | (tot <= 0))
+        for j in range(ct if has_ct else 0):
+            t = topo[ct_key[j], nn_]
+            node_dc = np.where(t >= 0, total(r_aff + 2 * j, np.maximum(t, 0)), 0)
+            bad = (t < 0) | (_wrap32(node_dc - ctmin[j]) > skew[j])
+            masks[3, lo:hi] |= placed & (ct_class[j] >= 0) & (ct_class[j] == cc) & bad
+    info = dict(plan=plan, partials=parts, slice_minima=slice_minima, ct_min=ctmin)
+    return masks, info
+
+
+def _align_keys(group, key):
+    """Kernel H's packed row keys: (group, key) with the sign bits flipped,
+    as one uint64 (signed order becomes unsigned order)."""
+    hi = (np.asarray(group, np.int32).view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    lo = (np.asarray(key, np.int32).view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
+
+
+_RA_WARPS = 32  # RA_WARPS in csrc/rank_align.cu
+_RA_INF = (np.uint64(2**64 - 1), 2**32 - 1)
+
+
+def _rows_less(ka, xa, kb, xb):
+    return (ka < kb) | ((ka == kb) & (xa < xb))
+
+
+def _warp_merge(sk, sx, dk, dx, pb, L, o, cnt):
+    """Kernel H's warp_merge: the outputs [o, o + cnt) of the merge of the
+    runs sk/sx[pb:pb + L] and [pb + L:pb + 2L] into dk/dx[pb + o:...]: a
+    32-ary search on the merge path (one probe a lane, the ballot's count),
+    then windows of 32 rows a run, each row placed by its count of the other
+    window's rows below it."""
+    lane = np.arange(32)
+    lo, hi = max(0, o - L), min(o, L)
+    while lo < hi:
+        span = hi - lo
+        i = lo + ((span * lane) >> 5)
+        j = pb + L + o - 1 - i
+        c = int(_rows_less(sk[pb + i], sx[pb + i], sk[j], sx[j]).sum())
+        if c == 0:
+            hi = lo
+        else:
+            last = lo + ((span * (c - 1)) >> 5)
+            hi = lo + ((span * c) >> 5) if c < 32 else hi
+            lo = last + 1
+    a, b = lo, o - lo
+
+    def window(run, start):  # the run's next 32 rows, sentinels past its end
+        at = start + lane
+        ok = at < L
+        k = np.where(ok, sk[pb + run + np.minimum(at, L - 1)], _RA_INF[0])
+        x = np.where(ok, sx[pb + run + np.minimum(at, L - 1)], _RA_INF[1])
+        return k, x
+
+    for w in range(0, cnt, 32):
+        ka, xa = window(0, a)
+        kb, xb = window(L, b)
+        # each row's count of the other window's rows below it
+        qa = lane + _rows_less(kb[None, :], xb[None, :], ka[:, None], xa[:, None]).sum(axis=1)
+        qb = lane + _rows_less(ka[None, :], xa[None, :], kb[:, None], xb[:, None]).sum(axis=1)
+        for q, k, x in ((qa, ka, xa), (qb, kb, xb)):
+            put = q < 32
+            dk[pb + o + w + q[put]] = k[put]
+            dx[pb + o + w + q[put]] = x[put]
+        ta = int((qa < 32).sum())
+        a, b = a + ta, b + 32 - ta
+
+
+def _warp_bitonic(k, x):
+    """Kernel H's warp_sort32 on every 32 rows at once: the bitonic network
+    of shuffles, (k, x) rows, ascending."""
+    k, x = k.copy(), x.copy()
+    i = np.arange(k.shape[0])
+    lane = i % 32
+    kk = 2
+    while kk <= 32:
+        j = kk // 2
+        while j:
+            pk, px = k[i ^ j], x[i ^ j]
+            keep_min = ((lane & j) == 0) == ((lane & kk) == 0)
+            take = _rows_less(k, x, pk, px) != keep_min
+            k, x = np.where(take, pk, k), np.where(take, px, x)
+            j //= 2
+        kk *= 2
+    return k, x
+
+
+def _chunk_sort(keys, base, n, steps):
+    """Kernel H's chunk_sort of rows base .. base + n - 1: each warp's 32
+    rows by the bitonic network, then merge levels of warp_merge calls (a
+    warp's cnt = max(32, n / 32) outputs, a pair at a time), a block barrier
+    each. Returns (keys, row indices) in order."""
+    k = np.full(max(n, 32), _RA_INF[0])
+    x = np.full(max(n, 32), _RA_INF[1], np.int64)
+    k[:n], x[:n] = keys[base:base + n], np.arange(base, base + n)
+    k, x = _warp_bitonic(k, x)
+    k, x = k[:n], x[:n]
+    L = 32
+    while L < n:
+        if steps is not None:
+            steps.append(("local", L, "block"))
+        dk, dx = np.empty_like(k), np.empty_like(x)
+        cnt = max(32, n // _RA_WARPS)
+        seg = min(cnt, 2 * L)
+        for w in range(_RA_WARPS):
+            for o0 in range(w * cnt, min((w + 1) * cnt, n), seg):
+                pb = o0 & ~(2 * L - 1)
+                _warp_merge(k, x, dk, dx, pb, L, o0 - pb, seg)
+        k, x = dk, dx
+        L *= 2
+    return k, x
+
+
+def rank_align_model(assignment, group_id, rank, pos_key, cs=16, smem_rows=None):
+    """Test-only numpy model of kernel H's schedule (not on any main path),
+    on the plan ops/kernels.py rank_align_plan gives for a cluster of `cs`
+    CTAs: per sort (by rank, by position) a team of cs / 2 CTAs, the
+    `active` ones each sorting its slice in chunks (chunk_sort: 32-row
+    bitonic runs, then warp merges a level), then the team's merge levels
+    over the chunks, each CTA writing its slice (a warp's max(32, slice /
+    32) outputs), and out[order_rank[i]] = assignment[order_pos[i]]. Row
+    keys are (group, key) packed into 64 bits, then the index. Returns (out
+    [p_max] int32, info: the plan and the steps as (phase, run length,
+    barrier))."""
+    from .ops.kernels import rank_align_plan
+
+    a = np.asarray(assignment, np.int32)
+    p = a.shape[0]
+    plan = rank_align_plan(p, cs, smem_rows)
+    chunk, sl, active = plan["chunk"], plan["slice"], plan["active"]
+    steps = [("runs", 32, "warp")]
+    orders = []
+    for key in (rank, pos_key):
+        keys = _align_keys(group_id, key)
+        parts = [_chunk_sort(keys, b, chunk, steps if not orders and b == 0 else None)
+                 for b in range(0, p, chunk)]
+        k = np.concatenate([q[0] for q in parts])
+        x = np.concatenate([q[1] for q in parts])
+        cnt = max(32, sl // _RA_WARPS)
+        L = chunk
+        while L < p:
+            if not orders:
+                steps.append(("team", L, "cluster"))
+            dk, dx = np.empty_like(k), np.empty_like(x)
+            seg = min(cnt, 2 * L)
+            for m in range(active):
+                for w in range(_RA_WARPS):
+                    for o0 in range(m * sl + w * cnt, min(m * sl + (w + 1) * cnt, (m + 1) * sl),
+                                    seg):
+                        pb = o0 & ~(2 * L - 1)
+                        _warp_merge(k, x, dk, dx, pb, L, o0 - pb, seg)
+            k, x = dk, dx
+            L *= 2
+        orders.append(x)
+    out = np.zeros(p, np.int32)
+    out[orders[0]] = a[orders[1]]
+    return out, dict(plan=plan, levels=steps)

@@ -302,7 +302,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
                 "sinkhorn": ["cluster_exchange.cuh"],
                 "waterfill": ["block_scan.cuh", "cluster_exchange.cuh"],
                 "cover_curve": ["block_scan.cuh"],
-                "feasibility_rows": ["cluster_exchange.cuh"]}
+                "feasibility_rows": ["cluster_exchange.cuh"],
+                "repair_check": ["cluster_exchange.cuh"], "rank_align": ["cluster_exchange.cuh"]}
     for name, headers in includes.items():
         assert [f.name for f in kernels._sources_of(tmp_path / kernels.SOURCES[name])] == [
             kernels.SOURCES[name], *headers]

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where kernels E, F, C, G, I and J spend their cycles.
+"""Where kernels E, F, C, G, I, J, D and H spend their cycles.
 
-    python3 tools/kernel_sections.py [--kernels E,F,C,G,I,J]
+    python3 tools/kernel_sections.py [--kernels E,F,C,G,I,J,D,H]
 
 Writes copies of the kernels' sources (csrc/auction_phase.cu, sinkhorn.cu,
-waterfill.cu, cover_curve.cu, defrag_assign.cu, feasibility_rows.cu) into
+waterfill.cu, cover_curve.cu, defrag_assign.cu, feasibility_rows.cu,
+repair_check.cu, rank_align.cu) into
 build/tools/ with a clock64 mark on
 thread 0 of every CTA at each section boundary (the marks are inserted
 before fixed lines of the sources, so an edit that moves one makes this
@@ -14,9 +15,11 @@ Transport_50k batch and a TransportMixed batch, at 5,000 nodes; C: kernel_C
 cases a and b, SchedulingBasic at 5,000 nodes; G: kernel_G case a and one
 cover attempt of 20 slices; I: one request for 250 victims on 5,000 nodes
 (Defrag_5000's cycle) and the 1,024-victim cap of mixed requests; J: one
-and eight rows of 5,000 nodes and 512 rows) and prints one JSON line per
-case: cycles a round (E), an iteration (F), a call (C, G), a victim (I) or
-a call (J) per section, on CTA 0 and the most over the CTAs, and the SM
+and eight rows of 5,000 nodes and 512 rows; D: kernel_D_timing's
+TopologySpreading, PodAntiAffinity and PodAffinity checks; H: p_max 4,096, 2,048 and
+16,384) and prints one JSON line per
+case: cycles a round (E), an iteration (F), a call (C, G, J, D, H) or a
+victim (I) per section, on CTA 0 and the most over the CTAs, and the SM
 clock. A section's time on thread 0 includes
 its waits at CTA barriers. Needs a CUDA card; the kernels themselves are
 untouched.
@@ -117,6 +120,33 @@ KERNELS = {
         start="  for (int n = tid; n < stride; n += DA_THREADS) {",
         tail="  int* counts;                     // [2] out: tree rebuilds, leaf updates\n};",
         end="    a.counts[1] = leaf_updates;\n  }\n}", cta="0"),
+    "repair_check": dict(
+        sections=["zero", "node_pass", "reduce", "pods", "exit"],
+        marks=[(1, "  // ---- 1. this CTA's nodes into the domain sums"),
+               (2, "  // ---- 2. the cluster's totals, the spread rows' minima"),
+               (3, "  // ---- 3. this CTA's pods"),
+               (4, "  // mode 1: no CTA leaves while another may still read its table")],
+        start="  // ---- 0. zero this CTA's table",
+        tail="  int* gtab;     // mode 2: [cs][rows][slice] domain totals\n};",
+        end="    cluster_arrive();\n    cluster_wait();\n  }\n}", first=0, cta="rank"),
+    # the sort's timer runs through chunk_sort
+    "rank_align": dict(
+        sections=["runs", "local_merges", "chunk_write", "sorted_sync", "team_merges",
+                  "scatter"],
+        extra=[("                          const int* group, const int* key, int base) {",
+                "                          const int* group, const int* key, int base, "
+                "long long& prof_t, long long* prof_s, int& pk) {"),
+               ("const int b = chunk_sort(K, X, n, a.group_id, key, base);",
+                "const int b = chunk_sort(K, X, n, a.group_id, key, base, prof_t, prof_s, pk)"
+                ";")],
+        marks=[(1, "  for (int L = 32; L < n; L <<= 1, b ^= 1) {"),
+               (2, "      for (int i = tid; i < n; i += RA_THREADS) {\n        gk[base + i]"),
+               (3, "  cluster_sync_all();  // every chunk is sorted"),
+               (4, "  // ---- 2. the team's merge levels"),
+               (5, "  // ---- 3. the scatter")],
+        start="  // ---- 1. this CTA's slice, sorted a chunk at a time",
+        tail="  unsigned* gidx;            // scratch [2 sorts][2 buffers][p_max]\n};",
+        end="    a.out[ord_rank[i]] = a.assignment[ord_pos[i]];\n}", first=0, cta="rank"),
     "feasibility_rows": dict(
         sections=["row_data", "rows", "next_row", "cta_reduce", "push_wait",
                   "remote_max", "write", "load_state"],
@@ -143,6 +173,10 @@ def instrument(name: str) -> Path:
     s = (s[:last_include] + s[last_include:].replace("\n", "\n" + MARK + "\n", 1))
     s = s.replace('#include "', '#include "../../kubernetes_tpu_torch/csrc/')
     tail = spec["tail"]
+    for old, new in spec.get("extra", ()):
+        if s.count(old) != 1:
+            sys.exit(f"kernel_sections: {name}.cu no longer has the line {old!r}")
+        s = s.replace(old, new)
     for anchor in (tail, spec["start"], end):
         if s.count(anchor) != 1:
             sys.exit(f"kernel_sections: {name}.cu no longer has the line {anchor!r}")
@@ -174,6 +208,7 @@ def instrument(name: str) -> Path:
 
 UNITS = {"auction_phase": "cycles a round", "sinkhorn": "cycles an iteration",
          "waterfill": "cycles a call", "cover_curve": "cycles a call",
+         "repair_check": "cycles a call", "rank_align": "cycles a call",
          "defrag_assign": "cycles a victim", "feasibility_rows": "cycles a call"}
 
 
@@ -188,7 +223,7 @@ def sections_line(name, label, prof, n_cta, per):
 
 
 def sections_c_g(which, dev):
-    """Kernels C, G, I and J through their own wrappers, bound to the
+    """Kernels C, G, I, J, D and H through their own wrappers, bound to the
     instrumented libraries (the args structs gain the trailing `prof`
     pointer)."""
     import numpy as np
@@ -267,6 +302,29 @@ def sections_c_g(which, dev):
             line = sections_line("defrag_assign", case, prof, 1, victims)
             line.update(n_slots=args[0].shape[0], victims=victims, plan=K.LAST_DEFRAG_PLAN)
             print(json.dumps(line), flush=True)
+    if "D" in which:
+        from kubernetes_tpu_torch.models.repair import repair_check
+
+        prof = bind("repair_check", K._RepairCheckArgs, "_RepairCheckArgs")
+        rng = np.random.default_rng(0)
+        for case, args, dm, ha, hc, _ in cs.d_timing_cases(5000, 4096, 4096, 50, 5000, dev, rng):
+            run(lambda: repair_check(*args, d_max=dm, has_affinity=ha, has_ct=hc), prof)
+            plan = K.LAST_REPAIR_PLAN
+            line = sections_line("repair_check", case, prof, plan["cluster_size"], 1)
+            line.update(nodes=5000, pb=int(args[0].numel()), d_max=dm, plan=plan)
+            print(json.dumps(line), flush=True)
+    if "H" in which:
+        prof = bind("rank_align", K._RankAlignArgs, "_RankAlignArgs")
+        rng = np.random.default_rng(1)
+        for case, p, p_max, groups in (("p4096_16_gangs", 4096, 4096, 16),
+                                       ("p2048_gang_2k_250", 2000, 2048, 8),
+                                       ("p16384", 16284, 16384, 64)):
+            args = cs.align_case(rng, p, p_max, groups, dev)
+            run(lambda: gangcover.rank_align_kernel(*args), prof)
+            line = sections_line("rank_align", case, prof,
+                                 K.LAST_RANK_ALIGN_PLAN["cluster_size"], 1)
+            line.update(p_max=p_max, plan=K.LAST_RANK_ALIGN_PLAN)
+            print(json.dumps(line), flush=True)
     if "J" in which:
         from kubernetes_tpu_torch.ops.convert import solver_inputs_from_numpy
         from kubernetes_tpu_torch.ops.solver import feasibility_rows
@@ -291,7 +349,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="E,F", help="any of E, F, C, G, I, J, comma-separated")
+    ap.add_argument("--kernels", default="E,F",
+                    help="any of E, F, C, G, I, J, D, H, comma-separated")
     which = set(ap.parse_args(argv).kernels.split(","))
     sys.path.insert(0, str(ROOT))
     import torch
