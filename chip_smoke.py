@@ -65,6 +65,23 @@ Phases, each printing one JSON line:
              propose call in repair);
              SchedulingBasic and TopologySpreading also run the exact mode
              right after, as the fast mode's comparison partner
+  main_path_preempt
+             per-pod preemption on the batch path: BatchScheduler(store,
+             Framework(default_plugins()), device="cuda") on PreemptionBasic
+             (the JAX rung's shape, bench.py:2766-2838: 500 nodes of 4 cpu /
+             32Gi / 110 pods, 500 bound priority-1 pods of 3 cpu, then 500
+             priority-100 pods of 2 cpu) in solver="auto" (kernels B, C) and
+             "exact" (B, A), victims prepared synchronously and on the async
+             worker; the same shape at 5,000 nodes (auto, sync and async,
+             batches of 4,096, so the preemptors span two batches);
+             and a constrained case (500 nodes in 10 zones, 100 preemptors
+             with a zone spread, exact: the serial PostFilter). Gates: every
+             high pod bound, no node over-committed, every victim lower in
+             priority than its preemptor and on the node it was narrated on,
+             the Preempted events, victims and nominations consistent, the
+             kernels launched, and the map, the victims and the events equal
+             to a CPU rerun; reported: seconds to bound, pods/s,
+             preemption_count, victims and the solve stage
   kernel_G   the gang cover-curve kernel against cover_curve_plain: (a) one
              250-node slice (n_slots 256) with 1,000 victims (k_max 1,024),
              (b) k = 0, pad victims and ineligible nodes, (c) a shape above
@@ -1729,6 +1746,192 @@ def phase_main_path_gang_preempt(device, sizes, card):
 
 
 # ---------------------------------------------------------------------------
+# main_path_preempt: per-pod preemption on the batch path
+# ---------------------------------------------------------------------------
+
+
+def preempt_case(n, pending, zones=0):
+    """scheduler_perf PreemptionBasic (the JAX rung, bench.py:2766-2838): n
+    nodes of 4 cpu / 32Gi / 110 pods, n bound priority-1 pods of 3 cpu (one
+    a node), then `pending` priority-100 pods of 2 cpu. With zones, the nodes
+    carry a zone label (node i in zone i % zones) and the pending pods a
+    zone spread (DoNotSchedule, maxSkew 1): a constrained batch, whose
+    device rejects take the serial PostFilter."""
+    from kubernetes_tpu_torch.testing import MakeNode, MakePod
+
+    nodes, low = [], []
+    for i in range(n):
+        b = MakeNode(f"node-{i}").capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+        if zones:
+            b = b.labels({ZONE: f"z{i % zones}"})
+        nodes.append(b.obj())
+        low.append(MakePod(f"low-{i}").priority(1).req({"cpu": "3"}).node(f"node-{i}").obj())
+    high = []
+    for i in range(pending):
+        b = MakePod(f"high-{i}").priority(100).req({"cpu": "2"})
+        if zones:
+            b = b.labels({"app": "spread"}).topology_spread(1, ZONE, "DoNotSchedule",
+                                                             {"app": "spread"})
+        high.append(b.obj())
+    return nodes, low, high
+
+
+def drive_preempt(case, device, solver, async_prep, batch_size, deadline_s=120.0):
+    """BatchScheduler(store, Framework(default_plugins()), device=...) through
+    sync, create_many and the JAX rung's loop: run_until_idle, then flush
+    the backoff and unschedulable tiers, until every pending pod is bound or
+    the deadline passes. The scheduler's clock is a FakeClock the loop steps
+    past every backoff (10 s) a round, so a flush admits all the waiting
+    preemptors together and the run is the same on the card and on the CPU;
+    the seconds are wall time and hold no backoff wait."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.scheduler.plugins import default_plugins
+    from kubernetes_tpu_torch.scheduler.runtime import Framework
+    from kubernetes_tpu_torch.store import APIStore
+    from kubernetes_tpu_torch.utils import FakeClock
+
+    nodes, low, high = case()
+    store, clock = APIStore(), FakeClock(1000.0)
+    store.create_many("nodes", nodes)
+    store.create_many("pods", low)
+    sched = BatchScheduler(store, Framework(default_plugins()), device=device.type,
+                           solver=solver, batch_size=batch_size, clock=clock)
+    sched.preemption.async_preparation = async_prep
+    sched.sync()
+    gc.collect()
+    kernels.reset_launch_counts()
+    names = {p.metadata.name for p in high}
+    t0 = time.perf_counter()
+    store.create_many("pods", high)
+    rounds = 0
+    while True:
+        sched.run_until_idle()
+        sched.preemption.wait_for_preparation(timeout=60.0)
+        sched.pump_events()
+        rounds += 1
+        # an empty queue: every pending pod is bound (checked on the store
+        # after the loop)
+        if sum(sched.queue.lengths()) == 0 or time.perf_counter() - t0 > deadline_s:
+            break
+        clock.step(11.0)
+        sched.queue.flush_backoff_completed()
+        sched.queue.flush_unschedulable_left_over()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    pods = store.list("pods")[0]
+    events = sorted((e.reason, e.involved_name, e.message) for e in store.list("events")[0])
+    sched.stop()
+    return dict(nodes=nodes, low=low, high=high, sched=sched, seconds=seconds, rounds=rounds,
+                launches=launches, events=events,
+                placement={p.metadata.name: p.spec.node_name for p in pods},
+                nominated={p.metadata.name: p.status.nominated_node_name for p in pods
+                           if p.metadata.name in names},
+                victims=sorted({p.metadata.name for p in low} - {p.metadata.name for p in pods}),
+                placed=[p for p in pods if p.spec.node_name])
+
+
+def check_preempt_run(name, r, device, solver):
+    """The gates of one main_path_preempt run."""
+    high = r["high"]
+    bound = [p for p in high if r["placement"].get(p.metadata.name)]
+    check(len(bound) == len(high), f"{name}: {len(bound)}/{len(high)} high pods bound "
+                                   f"in {r['seconds']:.1f} s")
+    check_no_overcommit(r["placed"], r["nodes"])
+    prio = {p.metadata.name: p.spec.priority for p in r["low"] + high}
+    node_of = {p.metadata.name: p.spec.node_name for p in r["low"]}
+    preempted = [e for e in r["events"] if e[0] == "Preempted"]
+    victims_seen, nominated_to = set(), {}
+    for _reason, victim, msg in preempted:
+        # "Preempted by pod <preemptor> on node <node>"
+        words = msg.split()
+        preemptor, node = words[3], words[-1]
+        check(prio[victim] < prio[preemptor],
+              f"{name}: {victim} (priority {prio[victim]}) evicted for {preemptor} "
+              f"(priority {prio[preemptor]})")
+        check(node_of[victim] == node, f"{name}: {victim} on {node_of[victim]} narrated on {node}")
+        victims_seen.add(victim)
+        nominated_to.setdefault(preemptor, set()).add(node)
+    check(sorted(victims_seen) == r["victims"],
+          f"{name}: {len(r['victims'])} pods deleted, {len(victims_seen)} narrated Preempted")
+    sched = r["sched"]
+    if not r["high"][0].spec.topology_spread_constraints:
+        # the tiered batch preemption counts its victims; the serial
+        # PostFilter of a constrained batch does not
+        check(sched.preempt_victims_total == len(r["victims"]),
+              f"{name}: {sched.preempt_victims_total} victims chosen, "
+              f"{len(r['victims'])} deleted")
+    for pod, node in r["nominated"].items():
+        if node:
+            check(node in nominated_to.get(pod, ()),
+                  f"{name}: {pod} nominated to {node} without a preemption there")
+    check(sum(1 for v in r["nominated"].values() if v) == len(nominated_to),
+          f"{name}: {len(nominated_to)} preemptors, "
+          f"{sum(1 for v in r['nominated'].values() if v)} nominations")
+    check(sched.preemption_count >= len(nominated_to),
+          f"{name}: preemption_count {sched.preemption_count}")
+    if device.type == "cuda":
+        check(r["launches"]["row_scatter"] > 0, f"{name}: kernel B never launched")
+        solver_kernel = "waterfill" if solver == "auto" else "greedy_scan"
+        check(r["launches"][solver_kernel] > 0, f"{name}: {solver_kernel} never launched")
+
+
+def phase_main_path_preempt(device, sizes, card):
+    """PreemptionBasic (auto and exact, async victim preparation off and on),
+    PreemptionBasic at 5,000 nodes (auto, async off and on, batches of
+    sizes["batch"]) and the constrained case (exact): every high pod bound,
+    the gates of check_preempt_run, and the map, the victims and the events
+    equal to a CPU rerun."""
+    import torch
+
+    n, n_big = sizes["preempt_nodes"], sizes["nodes"]
+    cases = [(f"PreemptionBasic/{solver}/{'async' if a else 'sync'}",
+              lambda: preempt_case(n, n), solver, a, sizes["batch"])
+             for solver in ("auto", "exact") for a in (False, True)]
+    # at the other main paths' batch size: the preemptors span two batches,
+    # and the second pumps whatever victim deletions have landed by then
+    # (all of them in sync mode, those the worker has finished in async)
+    cases += [(f"PreemptionBasic_{n_big}/auto/{'async' if a else 'sync'}",
+               lambda: preempt_case(n_big, n_big), "auto", a, sizes["batch"])
+              for a in (False, True)]
+    cases.append(("PreemptionConstrained/exact/async",
+                  lambda: preempt_case(n, sizes["preempt_constrained"], zones=10),
+                  "exact", True, sizes["batch"]))
+    out = {}
+    for name, case, solver, async_prep, batch in cases:
+        r = drive_preempt(case, device, solver, async_prep, batch)
+        check_preempt_run(name, r, device, solver)
+        t0 = time.perf_counter()
+        c = drive_preempt(case, torch.device("cpu"), solver, async_prep, batch)
+        cpu_s = time.perf_counter() - t0
+        check(c["placement"] == r["placement"],
+              f"{name}: the CPU rerun placed differently: " + str(sorted(
+                  k for k in r["placement"] if r["placement"][k] != c["placement"].get(k))[:5]))
+        check(c["victims"] == r["victims"], f"{name}: the CPU rerun evicted differently")
+        check(c["events"] == r["events"], f"{name}: the CPU rerun narrated differently")
+        sched = r["sched"]
+        n_high = len(r["high"])
+        line = {"phase": "main_path_preempt", "workload": name, "nodes": len(r["nodes"]),
+                "low_pods": len(r["low"]), "high_pods": n_high, "solver": solver,
+                "async_preparation": async_prep, "batch_size": batch,
+                "bound": sum(1 for p in r["high"] if r["placement"][p.metadata.name]),
+                "seconds_to_bound": r["seconds"], "pods_per_s": n_high / r["seconds"],
+                "rounds": r["rounds"], "batches": sched.batches_solved,
+                "preemption_count": sched.preemption_count,
+                "victims": len(r["victims"]), "batch_victims_total": sched.preempt_victims_total,
+                "preempted_events": sum(1 for e in r["events"] if e[0] == "Preempted"),
+                "nominated": sum(1 for v in r["nominated"].values() if v),
+                "solve_s": sched.stage_seconds["solve"],
+                "solve_s_per_batch": [round(x, 6) for x in sched.solve_seconds],
+                "stage_seconds": sched.stage_seconds, "launches": r["launches"],
+                "cpu_rerun_s": cpu_s, "cpu_equal": True, "card": card}
+        emit(line)
+        out[name] = line
+    return out
+
+
+# ---------------------------------------------------------------------------
 # kernel G: cover_curve, kernel H: rank_align
 # ---------------------------------------------------------------------------
 
@@ -2962,14 +3165,16 @@ def main(argv=None) -> int:
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
-              "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000}
+              "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
+              "preempt_nodes": 100, "preempt_constrained": 20}
              if args.small else
              {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
-              "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000})
+              "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
+              "preempt_nodes": 500, "preempt_constrained": 100})
     try:
         info = phase_device(device)
         phase_build()
@@ -2986,6 +3191,7 @@ def main(argv=None) -> int:
         fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
         gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
         preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
+        pod_preempt = phase_main_path_preempt(device, sizes, info["nvidia_smi"])
         transport = phase_main_path_transport(device, sizes, info["nvidia_smi"])
         phase_transport_direct(device, sizes, info["nvidia_smi"])
         inputs = DefragInputs()
@@ -3002,6 +3208,9 @@ def main(argv=None) -> int:
     # runs (counts reset before each run)
     transport_sum = {k: sum(ln["launches"][k] for ln in transport.values())
                      for k in ("feasibility_rows", "auction_phase", "sinkhorn")}
+    # the per-pod preemption path's launches of A, B and C, summed over its runs
+    preempt_sum = {k: sum(ln["launches"][k] for ln in pod_preempt.values())
+                   for k in ("greedy_scan", "row_scatter", "waterfill")}
     launches = main["SchedulingBasic"]["launches"]
     kernels = [
         {"name": "greedy_scan", "route": "cuda", "source": KERNEL_A_SRC,
@@ -3011,7 +3220,8 @@ def main(argv=None) -> int:
          "library_ms": None, "checked": True, "shape": timing_a["shape"],
          "device_ms": timing_a["device_ms"], "us_per_pod_step": timing_a["us_per_pod_step"],
          "cluster_size": timing_a["plan"]["cluster_size"],
-         "threads_per_cta": timing_a["plan"]["threads"]},
+         "threads_per_cta": timing_a["plan"]["threads"],
+         "preempt_path_launches": preempt_sum["greedy_scan"]},
         {"name": "row_scatter", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": "kubernetes_tpu/snapshot/tensorizer.py:399",
          "launches": launches["row_scatter"], "max_abs_err": err_b, "ms": line_b["ms"],
@@ -3020,7 +3230,8 @@ def main(argv=None) -> int:
          "checked": True, "shape": line_b["timing_shape"], "device_ms": line_b["device_ms"],
          "library_device_ms": line_b["library_device_ms"],
          "batch_ms": {k: v["ms"] for k, v in line_b["batch"].items()},
-         "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()}},
+         "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()},
+         "preempt_path_launches": preempt_sum["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -3032,7 +3243,8 @@ def main(argv=None) -> int:
          "device_ms": line_c["device_ms"], "cuda_launches_per_call": line_c["cuda_launches"],
          "plan": line_c["plan"],
          "host_syncs_per_batch": {k: ln["waterfill_host_syncs_per_batch"]
-                                  for k, ln in fast.items()}},
+                                  for k, ln in fast.items()},
+         "preempt_path_launches": preempt_sum["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),

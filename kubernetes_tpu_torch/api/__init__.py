@@ -34,5 +34,6 @@ from .types import (  # noqa: F401
     TopologySpreadConstraint,
     Volume,
     WeightedPodAffinityTerm,
+    find_matching_untolerated_taint,
     new_uid,
 )

@@ -188,6 +188,17 @@ class Taint:
                      effect=d.get("effect", TAINT_NO_SCHEDULE))
 
 
+def find_matching_untolerated_taint(taints, tolerations, effects=(TAINT_NO_SCHEDULE, TAINT_NO_EXECUTE)):
+    """reference: staging/src/k8s.io/component-helpers/scheduling/corev1/helpers.go
+    FindMatchingUntoleratedTaint filtered to DoNotSchedule effects."""
+    for taint in taints:
+        if taint.effect not in effects:
+            continue
+        if not any(t.tolerates(taint) for t in tolerations):
+            return taint
+    return None
+
+
 @dataclass(frozen=True)
 class PodAffinityTerm:
     """reference: core/v1 types.go PodAffinityTerm."""

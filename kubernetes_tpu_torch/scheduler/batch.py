@@ -37,26 +37,44 @@ enable_rebalancer(); run_until_idle paces it from its idle path and
 rebalance_stats() publishes its totals. The `solver.solve` FaultInject site
 fires in _solve_device once the path is routed, before any device work.
 
+Device rejects (assignment -1, JAX batch.py :1095-1371): a constraint-free
+batch runs tiered batch preemption (_batch_preempt): per priority tier,
+numpy tensors of the capacity each node frees by evicting every lower-
+priority pod pick candidate nodes in pick_one_node_for_preemption's order,
+and only the chosen node runs DefaultPreemption's serial dry run (minimal
+victims, PDB-aware reprieve); its victims update the tier tensors so later
+pods of the batch see the freed room. A constrained batch builds the
+per-node failure map and runs the profile's PostFilter (_maybe_preempt).
+A preemptor is nominated to its node and waits unschedulable, attributed to
+NodeResourcesFit, until its victims' deletions move it back (QueueingHints).
+The scheduling profile is a port Framework (scheduler/runtime.py) or one
+per scheduler name (`profiles=`, `from_config`): PreEnqueue, QueueSort,
+PostFilter and InterPodAffinity's hardPodAffinityWeight come from it. The
+solvers encode the default profile's PreFilter, Filter, PreScore and Score
+plugins, arguments and weights, so a profile that changes them raises
+(_encoded_view); routing its pods through the per-pod cycle comes with the
+fallback classes.
+
 Not in this slice (each raises or is named where it would act):
-  serial fallback classes, per-pod preemption, plugins, QueueingHints
-                                              ROADMAP.md queue 1 item 2
-  transport over a node-axis mesh (several cards)
+  serial fallback classes (volumes, DRA), and
+  the per-pod route of a profile that changes
+  the encoded plugins                         ROADMAP.md queue 1 item 2 (d)
+  transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
   flight recorder, pod traces, metrics, the solver's Warning event, the
   native commit, pipelined binds and assume expiry, sched_stats(), the
-  partitioned scheduler (partition_index stays None)
-                                              queue 1 item 7
+  partitioned scheduler (partition_index stays None, no reroute hook), the
+  columnar cache rows                         queue 1 item 7
 A pod whose class the tensorizer marks fallback_class (DRA claims,
 scheduling-relevant volumes, non-default PTS inclusion policies) fails
 unschedulable with a reason naming its ROADMAP item and is counted in
-`fallback_refused`; it is never placed by another rule. Device rejects
-(assignment -1) fail unschedulable with the device's reason and no
-preemption, as the JAX package does when no preemption applies.
+`fallback_refused`; it is never placed by another rule.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import time
 from collections import deque
@@ -72,21 +90,18 @@ from ..models.waterfill import make_groups, waterfill_solve
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
 from ..snapshot.tensorizer import TensorCache, build_pod_batch
 from ..store import MODIFIED, APIStore, NotFoundError, pod_structural_clone
-from ..utils import Clock
 from .breaker import REPRESENTATIVE, SolverCircuitBreaker
-from .framework import Status
+from .framework import CycleState, PodInfo, Status
 from .gang import GangDirectory, gang_veto_mask, node_slice_positions, ring_lengths
-from .gangpreempt import GangPreemptor
+from .gangpreempt import GangPreemptor, flatten_snapshot_victims
+from .plugins import default_plugins
 from .plugins.default_preemption import DefaultPreemption
 from .queue import QueuedPodInfo
-from .serial import NOT_PORTED, Scheduler
+from .runtime import Framework
+from .serial import NOT_PORTED, ScheduleResult, Scheduler
 
 SOLVERS = ("exact", "fast", "auto", "auction", "sinkhorn")
 SOLVER_ROADMAP = {"native": 7}
-
-# InterPodAffinity's hardPodAffinityWeight at its default (the plugin
-# argument becomes configurable with the plugins, ROADMAP.md queue 1 item 2)
-HARD_POD_AFFINITY_WEIGHT = 1
 
 log = logging.getLogger(__name__)
 
@@ -107,29 +122,39 @@ class BatchScheduler(Scheduler):
     "native" raises naming its ROADMAP item.
     device: "cuda" (default) runs the kernels on the card and raises where
     torch.cuda.is_available() is false; "cpu" runs their plain versions.
-    framework must be None: the scoring profile is the default plugin set
-    that the solver encodes (custom profiles come with ROADMAP.md queue 1
-    item 2). rank_align gates the rank-to-ring permutation of ranked gang
-    members; gang_preemption installs the gang victim cover;
-    pod_initial_backoff / pod_max_backoff set the queue's backoff (seconds,
-    the reference's defaults)."""
+    framework: a port Framework (scheduler/runtime.py), or profiles= (in
+    **kw): one per scheduler name; with neither, Framework(default_plugins()).
+    A profile whose PreFilter, Filter, PreScore or Score plugins, plugin
+    arguments or Score weights differ from the default's raises: the solvers
+    encode the default's. rank_align gates the rank-to-ring permutation of
+    ranked gang members; gang_preemption installs the gang victim cover;
+    the other keyword arguments (clock, profiles, pod_initial_backoff,
+    pod_max_backoff, percentage_of_nodes_to_score) pass to Scheduler."""
 
-    def __init__(self, store: APIStore, framework=None, *, device="cuda",
-                 batch_size: int = 4096, solver: str = "exact",
+    def __init__(self, store: APIStore, framework: Optional[Framework] = None, *,
+                 device="cuda", batch_size: int = 4096, solver: str = "exact",
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
-                 rank_align: bool = True, gang_preemption: bool = True,
-                 clock: Optional[Clock] = None, pod_initial_backoff: float = 1.0,
-                 pod_max_backoff: float = 10.0):
+                 rank_align: bool = True, gang_preemption: bool = True, **kw):
         self.device = resolve_device(device)
-        if framework is not None:
-            raise NotImplementedError("custom scheduler frameworks are " + NOT_PORTED.format(2))
+        if framework is not None and not isinstance(framework, Framework):
+            raise TypeError("framework must be a kubernetes_tpu_torch Framework, got "
+                            + type(framework).__name__)
+        if framework is None and kw.get("profiles") is None:
+            framework = Framework(default_plugins())
         if solver not in SOLVERS:
             item = SOLVER_ROADMAP.get(solver)
             if item is None:
                 raise ValueError(f"unknown solver {solver!r}")
             raise NotImplementedError(f"solver {solver!r} is " + NOT_PORTED.format(item))
-        super().__init__(store, clock=clock, pod_initial_backoff=pod_initial_backoff,
-                         pod_max_backoff=pod_max_backoff)
+        super().__init__(store, framework, **kw)
+        encoded = _encoded_view(Framework(default_plugins()))
+        for name, fw in self.profiles.items():
+            if _encoded_view(fw) != encoded:
+                raise NotImplementedError(
+                    f"profile {name!r} changes the PreFilter, Filter, PreScore or Score "
+                    "plugins, their arguments or weights, which the batch solvers encode "
+                    "as the default profile's; its pods' per-pod route is "
+                    + NOT_PORTED.format(2))
         self.batch_size = batch_size
         self.solver = solver
         self.bind_chunk = 4096
@@ -166,12 +191,14 @@ class BatchScheduler(Scheduler):
         # hopeless, cover stats, adjacency before and after rank alignment)
         self.last_gang: Optional[Dict] = None
         self.rank_align = rank_align
+        # the default profile's DefaultPreemption (None when the profile has
+        # none): per-pod preemption of device rejects runs its dry run, and
+        # the gang victim cover executes through its victim half
+        self.preemption = self._preemption_plugin(self.framework)
         # gang preemption: a solver-vetoed gang tries a min-cost victim cover
-        # on one slice, executed by DefaultPreemption's victim half
-        self.preemption = (DefaultPreemption(store=store, recorder=self.recorder)
-                           if gang_preemption else None)
+        # on one slice
         self.gangpreempt = GangPreemptor(self) if gang_preemption else None
-        self.preempt_victims_total = 0
+        self.preempt_victims_total = 0  # victims chosen by _batch_preempt
         # a shard pipeline of a partitioned scheduler sets its index (item
         # 7); None is a standalone scheduler, which sees the whole cluster
         self.partition_index: Optional[int] = None
@@ -207,7 +234,7 @@ class BatchScheduler(Scheduler):
         cluster, changed_nodes = self._tensor_cache.cluster_tensors(snapshot)
         batch = build_pod_batch(
             [qp.pod for qp in qps], snapshot, cluster, ns_labels=self._ns_labels,
-            hard_pod_affinity_weight=HARD_POD_AFFINITY_WEIGHT,
+            hard_pod_affinity_weight=self._hard_pod_affinity_weight(),
             reuse=self._tensor_cache, changed_nodes=changed_nodes, gangs=self.gangs)
         fallback_mask = batch.fallback_class[batch.class_of_pod]
         keep = ~self._strip_fallback_gangs(qps, batch, fallback_mask)
@@ -377,9 +404,9 @@ class BatchScheduler(Scheduler):
                     "; circuit breaker OPEN" if tripped else "", exc_info=e)
 
     def _commit(self, qps, device_idx, assignment, snapshot, cluster, sub, gang) -> None:
-        """Assume every placement first, then bind, then fail the rejects
-        (failing mid-loop would see capacity promised to not-yet-bound pods),
-        then requeue the vetoed gangs."""
+        """Assume every placement first, then bind, then handle the rejects
+        (preemption or failure; handling them mid-loop would see capacity
+        promised to not-yet-bound pods), then requeue the vetoed gangs."""
         node_names = cluster.node_names
         n = len(node_names)
         assign_list = np.asarray(assignment).tolist()
@@ -403,7 +430,7 @@ class BatchScheduler(Scheduler):
                         f"0/{n} nodes are available (gang member; preemption skipped)",
                         plugin="NodeResourcesFit"))
                 else:
-                    rejected.append(qps[pi])
+                    rejected.append((j, qps[pi]))
             else:
                 qp = qps[pi]
                 to_bind.append((qp, node_names[nidx], pod_structural_clone(qp.pod)))
@@ -442,9 +469,8 @@ class BatchScheduler(Scheduler):
                     self.gangs.note_assumed(assumed)
             for lo in range(0, len(to_bind), self.bind_chunk):
                 self._bind_chunk(to_bind[lo:lo + self.bind_chunk])
-        for qp in rejected:
-            self._handle_failure(qp, Status.unschedulable(
-                f"0/{n} nodes are available", plugin="NodeResourcesFit"))
+        if rejected:
+            self._handle_device_rejects(rejected, snapshot, cluster, sub, assignment)
         if gang_requeue:
             info = gang["info"]
             info["hopeless"] = sum(1 for g in gang_requeue if g in gang["hopeless"])
@@ -617,9 +643,249 @@ class BatchScheduler(Scheduler):
         self.queue.clear()
         self._rebuild_from_store(preserve_queue=False)
 
-    def _preemption_plugin(self) -> Optional[DefaultPreemption]:
-        """The victim executor the gang preemptor fires through."""
-        return self.preemption
+    def _preemption_plugin(self, fw: Framework) -> Optional[DefaultPreemption]:
+        """The profile's DefaultPreemption: the per-pod dry run and the victim
+        executor the gang preemptor fires through."""
+        for p in fw.post_filter_plugins:
+            if isinstance(p, DefaultPreemption):
+                return p
+        return None
+
+    def _hard_pod_affinity_weight(self) -> int:
+        """InterPodAffinity's hardPodAffinityWeight from the profiles (the
+        tensorizer encodes one value for the batch, as the JAX package does)."""
+        for fw in self.profiles.values():
+            for p in fw.plugins:
+                if p.name == "InterPodAffinity":
+                    return getattr(p, "hard_pod_affinity_weight", 1)
+        return 1
+
+    # -- device rejects: preemption (JAX batch.py :1095-1371) ----------------
+
+    def _handle_device_rejects(self, rejected, snapshot, cluster, sub, assignment) -> None:
+        """Failure handling for the pods the device solver could not place,
+        rejected = [(row in sub, qp)].
+
+        When the batch is constraint-free (no PTS DoNotSchedule rows, no
+        inter-pod affinity), preemption candidates come from dense
+        priority-tier tensors (_batch_preempt), the vector analog of the
+        reference's DryRunPreemption (preemption.go:680), and only the single
+        chosen node per pod is verified with the serial filters. Constrained
+        batches keep the serial PostFilter path, because evicting victims can
+        change PTS/IPA feasibility in ways the tier math does not model."""
+        # post-batch capacity: fold every in-batch assignment into used state
+        used = cluster.used.astype(np.int64).copy()
+        pod_count = cluster.pod_count.astype(np.int64).copy()
+        a = np.asarray(assignment)
+        placed = a >= 0
+        if placed.any():
+            np.add.at(used, a[placed], sub.req[placed])
+            np.add.at(pod_count, a[placed], 1)
+        alloc = cluster.alloc.astype(np.int64)
+        max_pods = cluster.max_pods.astype(np.int64)
+        filter_ok = sub.tables.filter_ok
+        node_names = cluster.node_names
+        n = len(node_names)
+
+        if sub.ct_class.size == 0 and not sub.ipa.has_any:
+            # in-batch placements per node: the verify step must see them
+            placed_by_node: Dict[int, List] = {}
+            for jj in np.nonzero(placed)[0].tolist():
+                placed_by_node.setdefault(int(a[jj]), []).append(sub.pods[jj])
+            remaining = self._batch_preempt(rejected, snapshot, cluster, sub, alloc, used,
+                                            pod_count, max_pods, placed_by_node)
+            # the tier math is at least as permissive as the serial dry run
+            # for constraint-free pods (it ignores port conflicts), so a pod
+            # with no tier candidate has no serial candidate either
+            for _j, qp in remaining:
+                # attributed to Fit so the hints fire on node capacity and
+                # assigned-pod-freed events
+                self._handle_failure(qp, Status.unschedulable(
+                    f"0/{n} nodes are available", plugin="NodeResourcesFit"))
+            return
+
+        # Constrained batch: the per-node failure map (shared Status
+        # instances per category) and the serial PostFilter.
+        unres = Status.unresolvable("node(s) didn't match the pod's static predicates")
+        nofit = Status.unschedulable("Insufficient resources on the node")
+        inbatch = Status.unschedulable("node rejected by in-batch constraints")
+        names_arr = np.array(node_names)
+        for j, qp in rejected:
+            pod = qp.pod
+            cls = int(sub.class_of_pod[j])
+            req = sub.req[j].astype(np.int64)
+            fits = np.all((req[None, :] == 0) | (req[None, :] <= alloc - used),
+                          axis=1) & (pod_count + 1 <= max_pods)
+            static_ok = filter_ok[cls]
+            failed = {}
+            failed.update(zip(names_arr[~static_ok].tolist(), itertools.repeat(unres)))
+            failed.update(zip(names_arr[static_ok & ~fits].tolist(), itertools.repeat(nofit)))
+            failed.update(zip(names_arr[static_ok & fits].tolist(), itertools.repeat(inbatch)))
+            fw = self._fw(pod) or self.framework
+            state = CycleState()
+            fw.run_pre_filter(state, pod, snapshot)
+            result = ScheduleResult(status=Status.unschedulable(f"0/{n} nodes are available"),
+                                    failed_nodes=failed, state=state, evaluated_nodes=n)
+            self._maybe_preempt(qp, result)
+            self._handle_failure(qp, result.status, result.failed_nodes)
+
+    def _batch_preempt(self, rejected, snapshot, cluster, sub, alloc, used, pod_count,
+                       max_pods, placed_by_node):
+        """Tiered batch preemption (reference: preemption.go DryRunPreemption
+        :680 + SelectCandidate :396, reframed as numpy tensor math).
+
+        For each rejected pod at priority p, the candidate nodes are those
+        where the pod fits after evicting every pod with priority < p, from
+        dense [N, R] freed-capacity tensors built once per distinct tier. The
+        nodes are ranked in pick_one_node_for_preemption's order (fewest PDB
+        violations, lowest max victim priority, smallest priority sum,
+        fewest victims, index) and capped at
+        max(MIN_CANDIDATE_NODES_ABSOLUTE, n * PERCENTAGE // 100). Only the
+        chosen node runs the serial dry run (DefaultPreemption._dry_run_node:
+        the MINIMAL victim set through the reprieve and exact PDB
+        accounting); its victims update the tier tensors in place, so later
+        pods in the batch see the new capacity.
+
+        Returns the (j, qp) pairs that could not be preempted."""
+        n = cluster.n
+        r = len(cluster.resource_dims)
+        # bound pods as victim arrays (one snapshot pass), shared with the
+        # gang victim cover
+        v_node, v_prio, v_req, v_pods, node_victims = flatten_snapshot_victims(
+            snapshot, cluster.resource_dims)
+        if not v_pods:
+            return list(rejected)
+        v_alive = np.ones(len(v_pods), dtype=bool)
+
+        plugin_by_fw: Dict[int, tuple] = {}
+
+        def plugin_for(pod):
+            fw = self._fw(pod) or self.framework
+            got = plugin_by_fw.get(id(fw))
+            if got is None:
+                got = (fw, self._preemption_plugin(fw))
+                plugin_by_fw[id(fw)] = got
+            return got
+
+        # PDB exhaustion per victim (an approximate violation count for node
+        # selection; the serial dry run on the chosen node is exact), listed
+        # from the store: a profile without DefaultPreemption must not blind
+        # the batch to budgets
+        pdbs, _ = self.store.list("poddisruptionbudgets")
+        v_pdb_blocked = np.zeros(len(v_pods), dtype=bool)
+        if pdbs:
+            for vi, p in enumerate(v_pods):
+                v_pdb_blocked[vi] = any(
+                    pd.metadata.namespace == p.metadata.namespace
+                    and pd.selector is not None
+                    and pd.selector.matches(p.metadata.labels)
+                    and pd.disruptions_allowed <= 0
+                    for pd in pdbs)
+
+        tier_cache: Dict[int, list] = {}
+
+        def tier(p):
+            got = tier_cache.get(p)
+            if got is None:
+                mask = v_alive & (v_prio < p)
+                freed = np.zeros((n, r), np.int64)
+                np.add.at(freed, v_node[mask], v_req[mask])
+                cnt = np.zeros(n, np.int64)
+                np.add.at(cnt, v_node[mask], 1)
+                psum = np.zeros(n, np.int64)
+                np.add.at(psum, v_node[mask], v_prio[mask])
+                viol = np.zeros(n, np.int64)
+                if pdbs:
+                    np.add.at(viol, v_node[mask & v_pdb_blocked], 1)
+                pmax = np.full(n, -(2**31), np.int64)
+                np.maximum.at(pmax, v_node[mask], v_prio[mask])
+                got = [freed, cnt, psum, viol, pmax]
+                tier_cache[p] = got
+            return got
+
+        filter_ok = sub.tables.filter_ok
+        node_names = cluster.node_names
+        remaining = []
+        nominated_by_node: Dict[int, List] = {}
+        for j, qp in rejected:
+            pod = qp.pod
+            fw, plugin = plugin_for(pod)
+            if plugin is None or pod.spec.preemption_policy == "Never":
+                remaining.append((j, qp))
+                continue
+            p = pod.spec.priority
+            cls = int(sub.class_of_pod[j])
+            req = sub.req[j].astype(np.int64)
+            freed, cnt, psum, viol, pmax = tier(p)
+            fits = np.all((req[None, :] == 0) | (req[None, :] <= alloc - used + freed), axis=1)
+            fits &= pod_count + 1 - cnt <= max_pods
+            cand_mask = fits & filter_ok[cls] & (cnt > 0)
+            if not cand_mask.any():
+                remaining.append((j, qp))
+                continue
+            idxs = np.nonzero(cand_mask)[0]
+            order = np.lexsort((idxs, cnt[idxs], psum[idxs], pmax[idxs], viol[idxs]))
+            # candidate cap mirrors GetOffsetAndNumCandidates (preemption.go:595)
+            num_candidates = max(plugin.MIN_CANDIDATE_NODES_ABSOLUTE,
+                                 n * plugin.MIN_CANDIDATE_NODES_PERCENTAGE // 100)
+            state = CycleState()
+            _, st = fw.run_pre_filter(state, pod, snapshot)
+            chosen = None
+            if st.is_success():
+                for oi in order[:num_candidates]:  # best-ranked first
+                    nn = int(idxs[oi])
+                    ni = snapshot.node_info_list[nn]
+                    # the snapshot NodeInfo is pre-batch: drop victims an
+                    # earlier pod of this batch already claimed and add the
+                    # in-batch placements and nominations, or the dry run
+                    # re-selects dead victims and frees nothing
+                    dead = [v_pods[vi] for vi in node_victims[nn] if not v_alive[vi]]
+                    extra = list(placed_by_node.get(nn, ()))
+                    extra += nominated_by_node.get(nn, [])
+                    if dead or extra:
+                        ni = ni.clone()
+                        for dp in dead:
+                            ni.remove_pod(dp)
+                        for xp in extra:
+                            ni.add_pod(PodInfo(xp))
+                    got = plugin._dry_run_node(state, pod, ni, pdbs)
+                    if got is not None:
+                        chosen = (nn, got)
+                        break
+            if chosen is None:
+                remaining.append((j, qp))
+                continue
+            nn, cand = chosen
+            victims = cand.victims
+            self.preempt_victims_total += len(victims)
+            vkeys = {v.key for v in victims}
+            freed_now = np.zeros(r, np.int64)
+            for vi in node_victims[nn]:
+                if v_alive[vi] and v_pods[vi].key in vkeys:
+                    v_alive[vi] = False
+                    freed_now += v_req[vi]
+                    for tp, (tfreed, tcnt, tpsum, tviol, _tmax) in tier_cache.items():
+                        if v_prio[vi] < tp:
+                            tfreed[nn] -= v_req[vi]
+                            tcnt[nn] -= 1
+                            tpsum[nn] -= v_prio[vi]
+                            if v_pdb_blocked[vi]:
+                                tviol[nn] -= 1
+            # the max victim priority can only be recomputed, not decremented
+            for tp, arrs in tier_cache.items():
+                alive = [int(v_prio[vi]) for vi in node_victims[nn]
+                         if v_alive[vi] and v_prio[vi] < tp]
+                arrs[4][nn] = max(alive) if alive else -(2**31)
+            used[nn] += req - freed_now
+            pod_count[nn] += 1 - len(victims)
+            nominated_by_node.setdefault(nn, []).append(pod)
+            plugin._prepare_candidate(cand, pod)
+            qp.pod.status.nominated_node_name = node_names[nn]
+            self.preemption_count += 1
+            self._handle_failure(qp, Status.unschedulable(
+                f"preempted {len(victims)} pod(s) on {node_names[nn]}; "
+                "waiting for victims to terminate", plugin="NodeResourcesFit"))
+        return remaining
 
     def gang_stats(self) -> Optional[Dict]:
         """The gang part of the JAX sched_stats(): None while no PodGroup
@@ -638,6 +904,23 @@ class BatchScheduler(Scheduler):
         score and the migration/wave/abort totals; None until
         enable_rebalancer()."""
         return self.rebalancer.stats() if self.rebalancer is not None else None
+
+
+def _encoded_view(fw: Framework):
+    """What the batch solvers take from a profile as the default profile's:
+    the plugins at PreFilter, Filter, PreScore and Score (class and public
+    arguments) and their Score weights. InterPodAffinity's
+    hardPodAffinityWeight is left out: the tensorizer reads it from the
+    profile (_hard_pod_affinity_weight)."""
+    def plugin(p):
+        args = sorted((k, repr(sorted(v) if isinstance(v, (set, frozenset)) else v))
+                      for k, v in vars(p).items()
+                      if not k.startswith("_") and k != "hard_pod_affinity_weight")
+        return p.name, type(p), tuple(args)
+
+    points = tuple(tuple(plugin(p) for p in ps) for ps in (
+        fw.pre_filter_plugins, fw.filter_plugins, fw.pre_score_plugins, fw.score_plugins))
+    return points, tuple(fw.weights.get(p.name) for p in fw.score_plugins)
 
 
 def _subset_batch(batch, idx):

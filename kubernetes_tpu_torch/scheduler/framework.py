@@ -1,22 +1,26 @@
-"""Scheduler framework types the batch path reads: statuses, NodeInfo,
+"""Scheduler framework: plugin contract, statuses, CycleState, NodeInfo,
 PodInfo and the per-cycle Snapshot.
 
 The counterpart of `kubernetes_tpu/scheduler/framework.py` (reference:
-pkg/scheduler/framework/interface.go Status codes :186-293, types.go NodeInfo
-:734 and PodInfo :412, backend/cache/snapshot.go). The plugin contract,
-CycleState and PreFilterResult come with the serial framework and plugins
-(ROADMAP.md queue 1 item 2).
+pkg/scheduler/framework/interface.go — the extension points PreEnqueue,
+QueueSort, PreFilter, Filter, PostFilter, PreScore, Score(+Normalize),
+Reserve, Permit, PreBind, Bind, PostBind; Status codes :186-293;
+CycleState cycle_state.go:48; types.go NodeInfo :734 and PodInfo :412;
+backend/cache/snapshot.go). The serial plugins (scheduler/plugins) run these
+semantics per pod on the host; the batch path encodes the default profile's
+into tensors for the solvers.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 from ..api import Pod, Resource, compute_pod_resource_request
 
 MAX_NODE_SCORE = 100  # interface.go:255
+MIN_NODE_SCORE = 0
 
 
 class Code(enum.Enum):
@@ -40,6 +44,12 @@ class Status:
     def is_success(self) -> bool:
         return self.code == Code.SUCCESS
 
+    def is_skip(self) -> bool:
+        return self.code == Code.SKIP
+
+    def is_rejected(self) -> bool:
+        return self.code in (Code.UNSCHEDULABLE, Code.UNSCHEDULABLE_AND_UNRESOLVABLE, Code.PENDING)
+
     def message(self) -> str:
         return "; ".join(self.reasons)
 
@@ -52,8 +62,61 @@ class Status:
         return Status(Code.UNSCHEDULABLE, tuple(reasons), plugin)
 
     @staticmethod
+    def unresolvable(*reasons: str, plugin: str = "") -> "Status":
+        return Status(Code.UNSCHEDULABLE_AND_UNRESOLVABLE, tuple(reasons), plugin)
+
+    @staticmethod
     def error(*reasons: str, plugin: str = "") -> "Status":
         return Status(Code.ERROR, tuple(reasons), plugin)
+
+    @staticmethod
+    def skip(plugin: str = "") -> "Status":
+        return Status(Code.SKIP, (), plugin)
+
+
+SUCCESS = Status.success()
+
+
+class CycleState:
+    """Per-scheduling-cycle typed KV store (reference: cycle_state.go:48)."""
+
+    def __init__(self):
+        self._data: Dict[str, Any] = {}
+        self.skip_filter_plugins: Set[str] = set()
+        self.skip_score_plugins: Set[str] = set()
+
+    def write(self, key: str, value: Any) -> None:
+        self._data[key] = value
+
+    def read(self, key: str) -> Any:
+        return self._data[key]
+
+    def read_or_none(self, key: str) -> Any:
+        return self._data.get(key)
+
+    def clone(self) -> "CycleState":
+        cs = CycleState()
+        cs._data = {k: (v.clone() if hasattr(v, "clone") else v) for k, v in self._data.items()}
+        cs.skip_filter_plugins = set(self.skip_filter_plugins)
+        cs.skip_score_plugins = set(self.skip_score_plugins)
+        return cs
+
+
+@dataclass
+class PreFilterResult:
+    """Optional node-subset fast path (reference: interface.go:841)."""
+
+    node_names: Optional[Set[str]] = None  # None = all nodes
+
+    def merge(self, other: "PreFilterResult") -> "PreFilterResult":
+        if self.node_names is None:
+            return PreFilterResult(None if other.node_names is None else set(other.node_names))
+        if other.node_names is None:
+            return PreFilterResult(set(self.node_names))
+        return PreFilterResult(self.node_names & other.node_names)
+
+    def all_nodes(self) -> bool:
+        return self.node_names is None
 
 
 class PodInfo:
@@ -264,3 +327,57 @@ class Snapshot:
 
     def __len__(self) -> int:
         return len(self.node_info_list)
+
+
+# ---------------------------------------------------------------------------
+# Plugin base classes. A plugin implements any subset; the framework runtime
+# dispatches by hasattr on these method names.
+# ---------------------------------------------------------------------------
+
+
+class ClusterEventWithHint:
+    """reference: framework/interface.go ClusterEventWithHint — an event a
+    plugin cares about plus an optional QueueingHintFn. The hint decides
+    whether the event could make a pod this plugin rejected schedulable:
+    hint(pod, event_obj) -> bool (True = Queue, False = Skip). hint=None means
+    always Queue (the pre-hints behavior for that event)."""
+
+    __slots__ = ("resource", "action", "hint")
+
+    def __init__(self, resource: str, action: str, hint=None):
+        self.resource = resource  # store kind: "pods", "nodes", "podgroups"
+        self.action = action  # "add" | "update" | "delete"
+        self.hint = hint
+
+
+class Plugin:
+    name: str = "Plugin"
+
+    # PreEnqueue(pod) -> Status
+    # pre_filter(state, pod, snapshot) -> (PreFilterResult|None, Status)
+    # filter(state, pod, node_info) -> Status
+    # post_filter(state, pod, statuses) -> (nominated_node|None, Status)
+    # pre_score(state, pod, nodes) -> Status
+    # score(state, pod, node_info) -> (int, Status)
+    # normalize_score(state, pod, scores: dict) -> Status
+    # reserve/unreserve, permit, pre_bind, bind, post_bind
+    # add_pod/remove_pod: PreFilterExtensions for incremental state updates
+
+    def events_to_register(self):
+        """EnqueueExtensions (interface.go:482): the cluster events that can
+        make a pod rejected by this plugin schedulable. Default: none — a
+        plugin that never rejects needs no events."""
+        return ()
+
+
+def default_normalize_score(max_priority: int, reverse: bool, scores: Dict[str, int]) -> None:
+    """reference: plugins/helper/normalize_score.go DefaultNormalizeScore."""
+    max_count = max(scores.values(), default=0)
+    if max_count == 0:
+        if reverse:
+            for k in scores:
+                scores[k] = max_priority
+        return
+    for k, v in scores.items():
+        s = max_priority * v // max_count
+        scores[k] = max_priority - s if reverse else s

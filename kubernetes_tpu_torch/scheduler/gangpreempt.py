@@ -291,7 +291,8 @@ class GangPreemptor:
             return None
         if any(m.pod.spec.preemption_policy == "Never" for m in members):
             return None
-        plugin = sched._preemption_plugin()
+        fw = sched._fw(members[0].pod) or sched.framework
+        plugin = sched._preemption_plugin(fw)
         if plugin is None:
             return None
         prio = min(m.pod.spec.priority for m in members)

@@ -64,3 +64,31 @@ def term_matches_pod(term: PodAffinityTerm, source_pod, target_pod,
 def pts_effective_selector(constraint, pod) -> Optional[Selector]:
     """PTS matchLabelKeys merge (reference: podtopologyspread/common.go)."""
     return _merge_match_label_keys(constraint.selector, constraint.match_label_keys, pod)
+
+
+def count_pods_match_selector(pod_infos, selector: Optional[Selector], ns: str) -> int:
+    """reference: podtopologyspread/common.go countPodsMatchSelector — counts
+    non-terminating pods in `ns` matching selector."""
+    if selector is None:
+        return 0
+    n = 0
+    for pi in pod_infos:
+        p = pi.pod
+        if p.metadata.namespace == ns and p.metadata.deletion_timestamp is None \
+                and selector.matches(p.metadata.labels):
+            n += 1
+    return n
+
+
+def node_matches_node_selector_and_affinity(pod, node) -> bool:
+    """Required node affinity = spec.nodeSelector AND
+    affinity.nodeAffinity.required... (reference: component-helpers
+    nodeaffinity.GetRequiredNodeAffinity)."""
+    for k, v in pod.spec.node_selector.items():
+        if node.metadata.labels.get(k) != v:
+            return False
+    aff = pod.spec.affinity
+    if aff and aff.node_affinity_required is not None:
+        if not aff.node_affinity_required.matches(node):
+            return False
+    return True

@@ -5,9 +5,12 @@ pkg/scheduler/backend/queue/scheduling_queue.go — PriorityQueue :154,
 AddUnschedulableIfNotPresent :741, flushBackoffQCompleted :790, Pop :829,
 MoveAllToActiveOrBackoffQueue :1028; backoff_queue.go:64, initial 1s, max
 10s). Pop order is the default QueueSort: priority descending, then
-admission time, then admission sequence. Custom QueueSort plugins come with
-the serial framework (ROADMAP.md queue 1 item 2); the background loop that
-calls the flushes with the daemon (item 7).
+admission time, then admission sequence; a profile's custom QueueSort
+plugin replaces it through its less(). A cluster event moves the
+unschedulable pods that its QueueingHints select (move_pods_for_event, fed by
+scheduler/serial.py _move_for_event from each pod's unschedulable_plugins).
+The background loop that calls the flushes comes with the daemon (ROADMAP.md
+queue 1 item 7).
 
 Gang gating (scheduler/gang.py): with gang hooks installed, members of a
 PodGroup are held in a STAGING area, a fourth tier beside active, backoff
@@ -35,6 +38,22 @@ DEFAULT_POD_MAX_BACKOFF = 10.0  # seconds (scheduler.go:253)
 FLUSH_UNSCHEDULABLE_TIMEOUT = 30.0  # scheduling_queue.go:91
 
 
+class _LessItem:
+    """Adapts a QueueSort plugin's less(a, b) into a heap sort key."""
+
+    __slots__ = ("qp", "less")
+
+    def __init__(self, qp, less):
+        self.qp = qp
+        self.less = less
+
+    def __lt__(self, other):
+        return self.less(self.qp, other.qp)
+
+    def __eq__(self, other):
+        return not self.less(self.qp, other.qp) and not self.less(other.qp, self.qp)
+
+
 @dataclass
 class QueuedPodInfo:
     """reference: framework types.go:362 QueuedPodInfo."""
@@ -42,6 +61,8 @@ class QueuedPodInfo:
     pod: Pod
     timestamp: float = 0.0
     attempts: int = 0
+    # the plugins that rejected the pod's last attempt: the QueueingHints
+    # that may move it back read them (scheduler/serial.py _move_for_event)
     unschedulable_plugins: Tuple[str, ...] = ()
 
     @property
@@ -53,10 +74,13 @@ class SchedulingQueue:
     def __init__(self, clock: Optional[Clock] = None,
                  initial_backoff: float = DEFAULT_POD_INITIAL_BACKOFF,
                  max_backoff: float = DEFAULT_POD_MAX_BACKOFF,
-                 pre_enqueue: Optional[Callable[[Pod], bool]] = None):
+                 pre_enqueue: Optional[Callable[[Pod], bool]] = None, less=None):
         self._clock = clock or Clock()
         self._initial_backoff = initial_backoff
         self._max_backoff = max_backoff
+        # (QueuedPodInfo, QueuedPodInfo) -> bool of a custom QueueSort plugin;
+        # None is the default priority order
+        self._less = less
         # pre_enqueue(pod) -> bool, re-checked on every promotion into activeQ
         self._pre_enqueue = pre_enqueue
         self._lock = threading.Condition()
@@ -64,6 +88,9 @@ class SchedulingQueue:
         self._active: List[Tuple] = []  # heap of (sort key, seq, qp)
         self._in_active: Dict[str, QueuedPodInfo] = {}
         self._backoff: List[Tuple[float, int, QueuedPodInfo]] = []
+        # pod key -> [its QueuedPodInfo, entries in the backoff heap]: a pod
+        # MODIFIED while it waits out its backoff is found without a scan
+        self._backoff_of: Dict[str, list] = {}
         self._unschedulable: Dict[str, QueuedPodInfo] = {}
         # gang staging: group key -> {pod key: qp}. Hooks are installed by the
         # batch scheduler (set_gang_hooks); without them, or while
@@ -91,9 +118,11 @@ class SchedulingQueue:
             return self._gang_of
         return None
 
-    @staticmethod
-    def _sort_key(qp: QueuedPodInfo):
-        # default QueueSort (priority_sort.go): priority desc, timestamp asc
+    def _sort_key(self, qp: QueuedPodInfo):
+        # default QueueSort (priority_sort.go): priority desc, timestamp asc;
+        # a custom QueueSort plugin's less() overrides via _LessItem
+        if self._less is not None:
+            return _LessItem(qp, self._less)
         return (-qp.pod.spec.priority, qp.timestamp)
 
     # -- add paths -------------------------------------------------------------
@@ -230,7 +259,7 @@ class SchedulingQueue:
             ready = now + max(self._backoff_duration(m.attempts) for m in members)
             for m in members:
                 m.timestamp = now
-                heapq.heappush(self._backoff, (ready, next(self._seq), m))
+                self._backoff_push(ready, m)
 
     def add_unschedulable(self, qp: QueuedPodInfo) -> None:
         """AddUnschedulableIfNotPresent (:741): failed pods wait for an event."""
@@ -249,8 +278,23 @@ class SchedulingQueue:
             now = self._clock.now()
             for qp in qps:
                 qp.timestamp = now
-                heapq.heappush(self._backoff, (now + self._backoff_duration(qp.attempts),
-                                               next(self._seq), qp))
+                self._backoff_push(now + self._backoff_duration(qp.attempts), qp)
+
+    def _backoff_push(self, ready: float, qp: QueuedPodInfo) -> None:
+        heapq.heappush(self._backoff, (ready, next(self._seq), qp))
+        entry = self._backoff_of.get(qp.key)
+        if entry is None:
+            self._backoff_of[qp.key] = [qp, 1]
+        else:
+            entry[0] = qp
+            entry[1] += 1
+
+    def _backoff_popped(self, key: str) -> None:
+        entry = self._backoff_of.get(key)
+        if entry is not None:
+            entry[1] -= 1
+            if entry[1] <= 0:
+                del self._backoff_of[key]
 
     def _backoff_duration(self, attempts: int) -> float:
         d = self._initial_backoff * (2 ** max(attempts - 1, 0))
@@ -264,16 +308,29 @@ class SchedulingQueue:
 
     def move_all_to_active_or_backoff(self) -> None:
         """MoveAllToActiveOrBackoffQueue (:1028) on a cluster event."""
+        self.move_pods_for_event(lambda qp: True)
+
+    def move_pods_for_event(self, should_move) -> None:
+        """movePodsToActiveOrBackoffQueue (:1028) gated by QueueingHints:
+        should_move(qp) -> bool decides, per unschedulable pod, whether this
+        cluster event could make it schedulable (the scheduler derives it from
+        the rejecting plugins' hint functions — scheduling_queue.go:263
+        QueueingHintMap + podMatchesEvent). Pods that stay are still swept by
+        flush_unschedulable_left_over (the reference's safety net)."""
         with self._lock:
+            moved = False
             for key, qp in list(self._unschedulable.items()):
+                if not should_move(qp):
+                    continue
                 self._unschedulable.pop(key)
                 remaining = self._backoff_remaining(qp)
                 if remaining > 0:
-                    heapq.heappush(self._backoff, (self._clock.now() + remaining,
-                                                   next(self._seq), qp))
+                    self._backoff_push(self._clock.now() + remaining, qp)
                 else:
                     self._push_active(qp)
-            self._lock.notify_all()
+                moved = True
+            if moved:
+                self._lock.notify_all()
 
     # -- flush loops (queue.Run :350) ------------------------------------------
 
@@ -282,6 +339,7 @@ class SchedulingQueue:
             now = self._clock.now()
             while self._backoff and self._backoff[0][0] <= now:
                 _, _, qp = heapq.heappop(self._backoff)
+                self._backoff_popped(qp.key)
                 self._push_active(qp)
             self._lock.notify_all()
 
@@ -315,6 +373,18 @@ class SchedulingQueue:
 
     # -- pop -------------------------------------------------------------------
 
+    def pop(self, timeout: Optional[float] = None) -> Optional[QueuedPodInfo]:
+        """Pop (:829): the next pod in pop order, waiting up to timeout
+        seconds for one (None waits until a pod arrives)."""
+        with self._lock:
+            while not self._active:
+                if not self._lock.wait(timeout=timeout):
+                    return None
+            _, _, qp = heapq.heappop(self._active)
+            self._in_active.pop(qp.key, None)
+            qp.attempts += 1
+            return qp
+
     def pop_batch(self, max_n: int) -> List[QueuedPodInfo]:
         """Up to max_n pods in pop order (the batching analog of Pop)."""
         out: List[QueuedPodInfo] = []
@@ -342,11 +412,8 @@ class SchedulingQueue:
             key = pod.key
             staged_in = None
             tracked = self._in_active.get(key) or self._unschedulable.get(key)
-            if tracked is None:
-                for _, _, qp in self._backoff:
-                    if qp.key == key:
-                        tracked = qp
-                        break
+            if tracked is None and key in self._backoff_of:
+                tracked = self._backoff_of[key][0]
             if tracked is None:
                 for group, staged in self._gang_staging.items():
                     if key in staged:
@@ -380,8 +447,7 @@ class SchedulingQueue:
                     self._unschedulable.pop(key)
                     remaining = self._backoff_remaining(tracked)
                     if remaining > 0:
-                        heapq.heappush(self._backoff, (self._clock.now() + remaining,
-                                                       next(self._seq), tracked))
+                        self._backoff_push(self._clock.now() + remaining, tracked)
                     else:
                         self._push_active(tracked)
                         self._lock.notify()
@@ -408,7 +474,7 @@ class SchedulingQueue:
             if self._in_active.pop(key, None) is not None:
                 self._active = [e for e in self._active if e[2].key != key]
                 heapq.heapify(self._active)
-            if any(e[2].key == key for e in self._backoff):
+            if self._backoff_of.pop(key, None) is not None:
                 self._backoff = [e for e in self._backoff if e[2].key != key]
                 heapq.heapify(self._backoff)
 
@@ -419,6 +485,7 @@ class SchedulingQueue:
             self._active.clear()
             self._in_active.clear()
             self._backoff.clear()
+            self._backoff_of.clear()
             self._unschedulable.clear()
             self._gang_staging.clear()
             self._gang_parked.clear()

@@ -1,15 +1,24 @@
-"""The scheduler's store-event loop: LIST + WATCH into cache and queue, bind
-writes, failure handling.
+"""The serial scheduler: the store-event loop (LIST + WATCH into cache and
+queue), the per-pod scheduling cycle, QueueingHints, PostFilter preemption,
+bind writes and failure handling.
 
-The counterpart of the event plumbing in `kubernetes_tpu/scheduler/serial.py`
-(sync :219, pump_events :268, _handle_event/_handle_pod, _handle_failure,
-run_until_idle :935; reference: eventhandlers.go:364,
-schedule_one.go handleSchedulingFailure :1022) that `BatchScheduler`
-inherits. The per-pod Filter/Score cycle, the plugin framework with its
-QueueingHints and preemption come with the serial framework and plugins
-(ROADMAP.md queue 1 item 2): until then every cluster event that could make
-a pod schedulable moves all unschedulable pods (the pre-hints behaviour of
-the reference queue), and PreEnqueue is the SchedulingGates rule.
+The counterpart of `kubernetes_tpu/scheduler/serial.py` (reference:
+pkg/scheduler/schedule_one.go — ScheduleOne :65, schedulingCycle :138,
+schedulePod :410, findNodesThatFitPod :462, numFeasibleNodesToFind :675
+(adaptive 50 - nodes/125 %, floor 5%, min 100), prioritizeNodes :754,
+selectHost :872, assume :945, bind :967, handleSchedulingFailure :1022;
+eventhandlers.go:364; scheduling_queue.go:263 QueueingHintMap). One
+deliberate divergence, as in the JAX package: selectHost breaks score ties
+by lowest node index instead of reservoir sampling, so the per-pod cycle and
+the solvers' argmax agree exactly. BatchScheduler (scheduler/batch.py)
+inherits the event loop, the failure handling and the per-pod cycle, which
+its device rejects reach through _maybe_preempt.
+
+Profiles: one Framework per pod.spec.schedulerName (profile/profile.go); a
+pod of a scheduler name with no profile is not ours. A cluster event moves an
+unschedulable pod only if one of the plugins that rejected it registered the
+event and its QueueingHint says Queue (_move_for_event); the
+SchedulerQueueingHints gate off restores the move-everything behaviour.
 
 Gang plumbing (JAX serial.py :224-233, :397-414, :545-593): PodGroups are
 listed before pods so the initial backlog stages under known quorums; every
@@ -18,50 +27,123 @@ PodGroup event re-evaluates the staged gangs, and a DELETED pod checks a
 victim off the gang preemptor's in-flight covers. The directory and the
 preemptor are installed by BatchScheduler; each hook is gated on them.
 Failures are narrated as FailedScheduling events (api/events.py).
+
+Not in this module: HTTP extenders (`extenders=` raises, ROADMAP.md queue 1
+item 6), the volume listers of the fallback classes (item 2 (d)), and the
+observability of the JAX loop — its 100-ms `Trace` log of slow cycles, the
+scheduling metrics, the background start() thread (item 7).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 from ..api import Pod
 from ..api.events import EventRecorder
 from ..api.podgroup import pod_group_key
 from ..api.types import DEFAULT_SCHEDULER_NAME, PodCondition
-from ..store import (ADDED, DELETED, MODIFIED, APIStore, CoalescedEvent, NotFoundError)
+from ..store import (ADDED, DELETED, MODIFIED, APIStore, CoalescedEvent, NotFoundError,
+                     pod_structural_clone)
 from ..utils import Clock
+from ..utils.featuregate import feature_gates
 from .cache import Cache
-from .framework import Status
+from .framework import Code, CycleState, NodeInfo, Snapshot, Status
 from .queue import (DEFAULT_POD_INITIAL_BACKOFF, DEFAULT_POD_MAX_BACKOFF, QueuedPodInfo,
                     SchedulingQueue)
+from .runtime import Framework
 
 _origin_seq = itertools.count()
 
 NOT_PORTED = "not yet ported to the PyTorch/CUDA package (ROADMAP.md queue 1 item {})"
 
+MIN_FEASIBLE_NODES_TO_FIND = 100  # schedule_one.go:52
+MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND = 5  # schedule_one.go:57
+
+
+def num_feasible_nodes_to_find(num_all_nodes: int, percentage: int = 0) -> int:
+    """schedule_one.go:675-701."""
+    if num_all_nodes < MIN_FEASIBLE_NODES_TO_FIND:
+        return num_all_nodes
+    if percentage == 0:
+        percentage = int(50 - num_all_nodes / 125)
+        if percentage < MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND:
+            percentage = MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND
+    if percentage >= 100:
+        return num_all_nodes
+    num = num_all_nodes * percentage // 100
+    return max(num, MIN_FEASIBLE_NODES_TO_FIND)
+
+
+@dataclass
+class ScheduleResult:
+    suggested_host: str = ""
+    evaluated_nodes: int = 0
+    feasible_nodes: int = 0
+    status: Status = field(default_factory=Status.success)
+    # node name -> failure status for PostFilter/preemption
+    failed_nodes: Dict[str, Status] = field(default_factory=dict)
+    scores: Dict[str, int] = field(default_factory=dict)
+    # the cycle's state, threaded through Reserve/Permit/Bind (one CycleState
+    # per cycle — the reference passes the same state end to end)
+    state: Optional[CycleState] = None
+
 
 class Scheduler:
-    """Wires store watch -> cache + queue -> a scheduling cycle -> bind writes.
-    Subclasses provide schedule_cycle()."""
+    """Wires store watch -> cache + queue -> the scheduling cycle -> bind
+    writes. framework: one port Framework (the default profile), or
+    profiles: {schedulerName: Framework}; exactly one of them."""
 
     WATCHED_KINDS = ("nodes", "pods", "namespaces", "podgroups")
 
-    def __init__(self, store: APIStore, clock: Optional[Clock] = None,
+    def __init__(self, store: APIStore, framework: Optional[Framework] = None,
+                 clock: Optional[Clock] = None, percentage_of_nodes_to_score: int = 100,
+                 profiles: Optional[Dict[str, Framework]] = None,
+                 extenders: Optional[List] = None,
                  pod_initial_backoff: float = DEFAULT_POD_INITIAL_BACKOFF,
                  pod_max_backoff: float = DEFAULT_POD_MAX_BACKOFF):
+        if extenders:
+            raise NotImplementedError("scheduler extenders are " + NOT_PORTED.format(6))
+        # Profiles: one framework per pod.Spec.SchedulerName (profile/profile.go);
+        # a bare framework is a single default profile.
+        if profiles is None:
+            if framework is None:
+                raise ValueError("need framework or profiles")
+            profiles = {DEFAULT_SCHEDULER_NAME: framework}
+        elif framework is not None:
+            raise ValueError("pass framework or profiles, not both")
+        for name, fw in profiles.items():
+            if not isinstance(fw, Framework):
+                raise TypeError(f"profile {name!r}: expected a kubernetes_tpu_torch "
+                                f"Framework, got {type(fw).__name__}")
+        self.profiles = profiles
+        self.framework = profiles.get(DEFAULT_SCHEDULER_NAME) or next(iter(profiles.values()))
         self.store = store
         self.clock = clock or Clock()
         self.cache = Cache()
-        self.queue = SchedulingQueue(clock=self.clock, initial_backoff=pod_initial_backoff,
-                                     max_backoff=pod_max_backoff,
-                                     pre_enqueue=self._pre_enqueue)
+        # QueueSort from the default profile (the reference requires every
+        # profile to share one, validation.go); the default PrioritySort is
+        # the queue's own tuple key (the same order, cheaper heap operations)
+        from .plugins.node_plugins import PrioritySort
+
+        qs = self.framework.queue_sort_plugin
+        self.queue = SchedulingQueue(
+            clock=self.clock, initial_backoff=pod_initial_backoff, max_backoff=pod_max_backoff,
+            less=qs.less if qs is not None and not isinstance(qs, PrioritySort) else None,
+            pre_enqueue=lambda pod: (self._fw(pod) or self.framework
+                                     ).run_pre_enqueue(pod).is_success())
+        self.percentage = percentage_of_nodes_to_score
         # our own bind batches come back tagged with this origin and need no
         # re-ingest (the bind path confirmed their assumes already)
         self._bind_origin = f"scheduler-torch-{next(_origin_seq)}"
         self._watch = None
         self.scheduled_count = 0
         self.failed_count = 0
+        self.preemption_count = 0
+        # QueueingHintMap per framework (buildQueueingHintMap, scheduler.go:405):
+        # (resource, action) -> {plugin name: [hint fn | None]}
+        self._hint_maps: Dict[int, Tuple[Dict, frozenset]] = {}
         # event narration (EventRecorder, schedule_one.go:1008): best effort,
         # aggregated, never blocks scheduling
         self.recorder = EventRecorder(store, component="default-scheduler", clock=self.clock)
@@ -71,17 +153,45 @@ class Scheduler:
         self.gangpreempt = None
         # namespace labels for InterPodAffinity namespaceSelector
         self._ns_labels: Dict[str, Dict[str, str]] = {}
+        # plugins needing framework/store handles (DefaultPreemption); the
+        # recorder is shared so plugin events use the same clock/aggregation
+        for fw in self.profiles.values():
+            for p in fw.plugins:
+                if hasattr(p, "set_handles"):
+                    p.set_handles(fw, store, recorder=self.recorder)
+        self._push_ns_labels()
 
-    # -- PreEnqueue (SchedulingGates, scheduling_gates.go) ----------------------
+    def _fw(self, pod: Pod) -> Optional[Framework]:
+        """frameworkForPod (schedule_one.go:378): profile by SchedulerName."""
+        return self.profiles.get(pod.spec.scheduler_name)
 
-    @staticmethod
-    def _pre_enqueue(pod: Pod) -> bool:
-        return not pod.spec.scheduling_gates
+    def _responsible(self, pod: Pod) -> bool:
+        """responsibleForPod (eventhandlers.go): a profile exists for the pod."""
+        return self._fw(pod) is not None
 
-    @staticmethod
-    def _responsible(pod: Pod) -> bool:
-        """responsibleForPod (eventhandlers.go): one default profile."""
-        return pod.spec.scheduler_name == DEFAULT_SCHEDULER_NAME
+    def _push_ns_labels(self) -> None:
+        for fw in self.profiles.values():
+            for p in fw.plugins:
+                if hasattr(p, "set_namespace_labels"):
+                    p.set_namespace_labels(self._ns_labels)
+
+    @classmethod
+    def from_config(cls, store: APIStore, config=None, clock: Optional[Clock] = None,
+                    **kwargs) -> "Scheduler":
+        """Build from a KubeSchedulerConfiguration (dict or object): profiles,
+        backoff, percentage (cmd/kube-scheduler/app/server.go Setup). Extra
+        keyword arguments pass to the constructor (BatchScheduler's device,
+        solver, batch size)."""
+        from .config import KubeSchedulerConfiguration, build_profiles
+
+        if config is None or isinstance(config, dict):
+            config = KubeSchedulerConfiguration.from_dict(config)
+        profiles, _extenders = build_profiles(config)
+        # 0 = adaptive percentage (numFeasibleNodesToFind, schedule_one.go:675)
+        return cls(store, clock=clock, profiles=profiles,
+                   percentage_of_nodes_to_score=config.percentage_of_nodes_to_score,
+                   pod_initial_backoff=config.pod_initial_backoff_seconds,
+                   pod_max_backoff=config.pod_max_backoff_seconds, **kwargs)
 
     # -- informer-equivalent event handling (eventhandlers.go:364) -------------
 
@@ -123,6 +233,7 @@ class Scheduler:
             self.queue.move_all_to_active_or_backoff()
         for ns in lists["namespaces"]:
             self._ns_labels[ns.metadata.name] = dict(ns.metadata.labels)
+        self._push_ns_labels()
         self._watch = self.store.watch(kind=self.WATCHED_KINDS, since_rv=rv,
                                        maxsize=200_000, coalesce=True)
 
@@ -166,17 +277,72 @@ class Scheduler:
 
     def _gate_pending_pod(self, pod: Pod) -> bool:
         """PreEnqueue one unbound pod: True admits it to the active queue; a
-        gated pod is parked unschedulable, attributed to SchedulingGates."""
-        if self._pre_enqueue(pod):
+        gated pod is parked unschedulable with its rejecting plugin recorded,
+        exactly as handleSchedulingFailure would."""
+        st = (self._fw(pod) or self.framework).run_pre_enqueue(pod)
+        if st.is_success():
             return True
         self.queue.add_unschedulable(QueuedPodInfo(
-            pod=pod, timestamp=self.clock.now(), unschedulable_plugins=("SchedulingGates",)))
+            pod=pod, timestamp=self.clock.now(), unschedulable_plugins=(st.plugin,)))
         return False
 
-    def _move_for_event(self) -> None:
-        """A cluster event that can make pods schedulable (node add/update, a
-        bound pod freeing resources): move every unschedulable pod."""
-        self.queue.move_all_to_active_or_backoff()
+    _EVENT_ACTION = {ADDED: "add", MODIFIED: "update", DELETED: "delete"}
+
+    def _hint_map(self, fw: Framework) -> Tuple[Dict, frozenset]:
+        """Returns ((resource, action) -> {plugin: [hints]}, names of plugins
+        that registered ANY event). A rejecting plugin that registered nothing
+        is treated as interested in every event (the reference registers
+        non-EnqueueExtensions plugins for all events — scheduler.go:405)."""
+        got = self._hint_maps.get(id(fw))
+        if got is None:
+            hmap: Dict = {}
+            registered = set()
+            for p in fw.plugins:
+                for ev in getattr(p, "events_to_register", lambda: ())():
+                    registered.add(p.name)
+                    hmap.setdefault((ev.resource, ev.action), {}) \
+                        .setdefault(p.name, []).append(ev.hint)
+            got = (hmap, frozenset(registered))
+            self._hint_maps[id(fw)] = got
+        return got
+
+    def _move_for_event(self, resource: str, etype: str, obj) -> None:
+        """Hint-gated requeue on a cluster event (scheduling_queue.go:263,1028
+        QueueingHintMap + podMatchesEvent): an unschedulable pod moves only if
+        one of its rejecting plugins registered this event and its hint (if
+        any) returns Queue. Pods with no recorded rejector move conservatively;
+        hint errors queue conservatively. SchedulerQueueingHints=false restores
+        the pre-hints move-everything behavior."""
+        if not feature_gates.enabled("SchedulerQueueingHints"):
+            self.queue.move_all_to_active_or_backoff()
+            return
+        action = self._EVENT_ACTION.get(etype, etype)
+
+        def should_move(qp: QueuedPodInfo) -> bool:
+            if not qp.unschedulable_plugins:
+                return True
+            fw = self._fw(qp.pod) or self.framework
+            hmap, registered = self._hint_map(fw)
+            entries = hmap.get((resource, action), {})
+            for name in qp.unschedulable_plugins:
+                if not name or name not in registered:
+                    # unattributed rejection, or a rejector that declared no
+                    # events at all: conservative move on any event
+                    return True
+                hints = entries.get(name)
+                if hints is None:
+                    continue  # this plugin doesn't care about the event
+                for h in hints:
+                    if h is None:
+                        return True
+                    try:
+                        if h(qp.pod, obj):
+                            return True
+                    except Exception:
+                        return True  # hint error -> Queue (reference behavior)
+            return False
+
+        self.queue.move_pods_for_event(should_move)
 
     def _handle_event(self, ev) -> None:
         if ev.kind == "nodes":
@@ -184,7 +350,7 @@ class Scheduler:
                 self.cache.remove_node(ev.obj.metadata.name)
             else:
                 self.cache.add_node(ev.obj)
-            self._move_for_event()
+            self._move_for_event("nodes", ev.type, ev.obj)
         elif ev.kind == "pods":
             self._handle_pod(ev.type, ev.obj)
         elif ev.kind == "namespaces":
@@ -196,7 +362,7 @@ class Scheduler:
             if self.gangs is not None:
                 self.gangs.observe_podgroup(ev.type, ev.obj)
                 self.queue.reconsider_gangs()
-            self._move_for_event()
+            self._move_for_event("podgroups", ev.type, ev.obj)
 
     def _handle_pod(self, etype: str, pod: Pod) -> None:
         # unassigned pods of another scheduler are not ours; bound pods
@@ -220,8 +386,10 @@ class Scheduler:
                 self.queue.reconsider_gangs()
         if pod.is_terminal() or etype == DELETED:
             if pod.spec.node_name:
+                # a bound pod turning terminal frees its resources, the same
+                # schedulability signal as an assigned-pod delete
                 self.cache.remove_pod(pod)
-                self._move_for_event()
+                self._move_for_event("pods", DELETED, pod)
             else:
                 self.queue.delete(pod)
             return
@@ -230,25 +398,174 @@ class Scheduler:
                 self.cache.add_pod(pod)  # confirm assumed
             elif etype == MODIFIED:
                 self.cache.update_pod(pod)
-                self._move_for_event()
+                self._move_for_event("pods", MODIFIED, pod)
             else:
                 self.cache.add_pod(pod)
-                self._move_for_event()
+                self._move_for_event("pods", ADDED, pod)
         else:
             if etype == MODIFIED and self.queue.update(pod):
                 return  # status-only updates of queued pods don't requeue
             if self._gate_pending_pod(pod):
                 self.queue.add(pod)
 
-    # -- the cycle ----------------------------------------------------------------
+    # -- core scheduling (schedule_one.go) -------------------------------------
+
+    def schedule_pod(self, pod: Pod, snapshot: Optional[Snapshot] = None) -> ScheduleResult:
+        """schedulePod :410 — snapshot, prefilter, filter, score, select."""
+        if snapshot is None:
+            snapshot = self.cache.update_snapshot()
+        res = ScheduleResult()
+        if len(snapshot) == 0:
+            res.status = Status.unschedulable("no nodes available to schedule pods")
+            return res
+        framework = self._fw(pod) or self.framework
+        state = CycleState()
+        res.state = state
+        pre_res, st = framework.run_pre_filter(state, pod, snapshot)
+        if not st.is_success():
+            res.status = st
+            if st.is_rejected():
+                # all nodes failed at prefilter
+                res.failed_nodes = {ni.node.metadata.name: st for ni in snapshot.node_info_list}
+            return res
+
+        nodes = snapshot.node_info_list
+        if pre_res.node_names is not None:
+            nodes = [ni for ni in nodes if ni.node.metadata.name in pre_res.node_names]
+
+        # Nominated-node fast path (:492): try the nominated node first
+        if pod.status.nominated_node_name:
+            ni = snapshot.get(pod.status.nominated_node_name)
+            if ni is not None and framework.run_filter(state, pod, ni).is_success():
+                res.evaluated_nodes = 1
+                return self._score_and_select(state, pod, [ni], res)
+
+        percentage = getattr(framework, "percentage_of_nodes_to_score", None)
+        if percentage is None:
+            percentage = self.percentage
+        # in the cache's node order from its start (no rotating start index),
+        # stopping once `limit` nodes fit
+        limit = num_feasible_nodes_to_find(len(nodes), percentage)
+        feasible: List[NodeInfo] = []
+        for ni in nodes:
+            st = framework.run_filter(state, pod, ni)
+            res.evaluated_nodes += 1
+            if st.is_success():
+                feasible.append(ni)
+                if len(feasible) >= limit:
+                    break
+            else:
+                res.failed_nodes[ni.node.metadata.name] = st
+        res.feasible_nodes = len(feasible)
+        if not feasible:
+            res.status = Status.unschedulable(f"0/{len(snapshot)} nodes are available", plugin="")
+            return res
+        return self._score_and_select(state, pod, feasible, res)
+
+    def _score_and_select(self, state: CycleState, pod, feasible: List[NodeInfo],
+                          res: ScheduleResult) -> ScheduleResult:
+        framework = self._fw(pod) or self.framework
+        res.feasible_nodes = len(feasible)
+        if len(feasible) == 1:
+            res.suggested_host = feasible[0].node.metadata.name
+            return res
+        st = framework.run_pre_score(state, pod, feasible)
+        if not st.is_success():
+            res.status = st
+            return res
+        totals = framework.run_score(state, pod, feasible)
+        res.scores = totals
+        # selectHost :872 — deterministic: max score, lowest list index on ties.
+        best_name, best_score = None, None
+        for ni in feasible:
+            name = ni.node.metadata.name
+            s = totals[name]
+            if best_score is None or s > best_score:
+                best_name, best_score = name, s
+        res.suggested_host = best_name
+        return res
+
+    # -- the loop --------------------------------------------------------------
+
+    def schedule_one(self, timeout: Optional[float] = 0.1) -> bool:
+        """One ScheduleOne iteration. Returns False when no pod was popped."""
+        self.pump_events()
+        qp = self.queue.pop(timeout=timeout)
+        if qp is None:
+            return False
+        result = self.schedule_pod(qp.pod)
+        if not result.suggested_host:
+            self._maybe_preempt(qp, result)
+            self._handle_failure(qp, result.status, result.failed_nodes)
+            return True
+        self._commit_cycle(qp, result)
+        return True
 
     def schedule_cycle(self) -> int:
         """One scheduling cycle; returns the number of pods handled."""
-        raise NotImplementedError(
-            "the per-pod serial cycle is " + NOT_PORTED.format(2))
+        return 1 if self.schedule_one(timeout=0.0) else 0
 
-    def run_until_idle(self, max_cycles: int = 10_000) -> int:
-        """Drive cycles until the active queue drains (test/bench harness)."""
+    def _commit_cycle(self, qp: QueuedPodInfo, result: ScheduleResult) -> bool:
+        """assume (:945) -> Reserve -> Permit -> PreBind -> bind (:967) ->
+        PostBind; binds synchronously. The assumed pod is a STRUCTURAL clone
+        (schedule_one.go:148 DeepCopy analog): own metadata/spec/status
+        objects, shared immutable innards. Our own bind's MODIFIED event
+        confirms the assume on ingest (the cache's assume TTL comes with
+        pipelined binds, ROADMAP.md queue 1 item 7)."""
+        pod = qp.pod
+        framework = self._fw(pod) or self.framework
+        assumed = pod_structural_clone(pod)
+        bad = self.cache.assume_pods([(assumed, result.suggested_host)])
+        if bad:
+            self._handle_failure(qp, Status.error("pod already in cache"))
+            return False
+        state = result.state if result.state is not None else CycleState()
+        st = framework.run_reserve(state, assumed, result.suggested_host)
+        if not st.is_success():
+            self.cache.forget_pod(assumed)
+            self._handle_failure(qp, st)
+            return False
+        st = framework.run_permit(state, assumed, result.suggested_host)
+        if not st.is_success():
+            framework.run_unreserve(state, assumed, result.suggested_host)
+            self.cache.forget_pod(assumed)
+            self._handle_failure(qp, st)
+            return False
+        try:
+            st = framework.run_pre_bind(state, assumed, result.suggested_host)
+            if not st.is_success():
+                raise RuntimeError(f"prebind: {st.message()}")
+            self.store.bind(pod.metadata.namespace, pod.metadata.name, result.suggested_host)
+            if self.gangs is not None:
+                self.gangs.note_assumed(assumed)
+            framework.run_post_bind(state, assumed, result.suggested_host)
+            self.scheduled_count += 1
+            self.recorder.event(
+                pod, "Normal", "Scheduled",
+                f"Successfully assigned {pod.key} to {result.suggested_host}")
+        except Exception as e:
+            # handleBindingCycleError (:344): Unreserve + ForgetPod + requeue
+            framework.run_unreserve(state, assumed, result.suggested_host)
+            self.cache.forget_pod(assumed)
+            self._handle_failure(qp, Status.error(str(e)))
+            return False
+        return True
+
+    def _maybe_preempt(self, qp: QueuedPodInfo, result: ScheduleResult) -> None:
+        """RunPostFilterPlugins on an Unschedulable cycle (schedule_one.go:175)."""
+        if result.status.code != Code.UNSCHEDULABLE:
+            return
+        framework = self._fw(qp.pod) or self.framework
+        if not framework.post_filter_plugins or not result.failed_nodes:
+            return
+        state = result.state if result.state is not None else CycleState()
+        nominated, st = framework.run_post_filter(state, qp.pod, result.failed_nodes)
+        if st.is_success() and nominated:
+            qp.pod.status.nominated_node_name = nominated
+            self.preemption_count += 1
+
+    def run_until_idle(self, max_cycles: int = 100_000) -> int:
+        """Drive the loop until the active queue drains (test/bench harness)."""
         n = 0
         while n < max_cycles:
             if self.schedule_cycle() == 0:
@@ -260,11 +577,21 @@ class Scheduler:
 
     # -- failure ------------------------------------------------------------------
 
-    def _handle_failure(self, qp: QueuedPodInfo, status: Status) -> None:
+    def _handle_failure(self, qp: QueuedPodInfo, status: Status,
+                        failed_nodes: Optional[Dict[str, Status]] = None) -> None:
         """handleSchedulingFailure :1022 — park the pod unschedulable (it
-        waits for a cluster event) and patch its PodScheduled condition."""
+        waits for a cluster event) and patch its PodScheduled condition.
+        Records the rejecting plugins (QueuedPodInfo UnschedulablePlugins) so
+        the hint-gated requeue knows which events matter."""
         self.failed_count += 1
-        qp.unschedulable_plugins = (status.plugin,) if status.plugin else ()
+        plugins = set()
+        if failed_nodes:
+            # keep "" for unattributed per-node rejections: should_move
+            # treats it as move-on-any-event
+            plugins = {st.plugin for st in failed_nodes.values()}
+        elif status.plugin:
+            plugins = {status.plugin}
+        qp.unschedulable_plugins = tuple(sorted(plugins))
         self.queue.add_unschedulable(qp)
         message = status.message()
         self.recorder.event(qp.pod, "Warning", "FailedScheduling", message)

@@ -3,7 +3,8 @@
 A subprocess runs one batch through the port on the CPU (exact, fast and
 auction), one auction batch with its warm duals, and one gang through the
 victim cover and rank alignment, and reports what
-it imported; another consolidates a fragmented cluster with the rebalancer
+it imported; another preempts through the serial scheduler and the batch
+scheduler, both built from a configuration; another consolidates a fragmented cluster with the rebalancer
 (kernel I's plain version) under an armed fault injector and trace buffer; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -160,6 +161,61 @@ def test_rebalancer_imports_no_jax_and_no_jax_package():
     assert {"kubernetes_tpu_torch.chaos.faultinject", "kubernetes_tpu_torch.obs.tracebuf",
             "kubernetes_tpu_torch.models.defrag",
             "kubernetes_tpu_torch.scheduler.rebalance"} <= set(got["loaded"])
+    assert got["modules"] == []
+
+
+_SERIAL_SLICE = r"""
+import json, sys
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.scheduler.serial import Scheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod
+from kubernetes_tpu_torch.utils import FakeClock
+
+out = {}
+for kind in ("serial", "auto"):
+    store, clock = APIStore(), FakeClock()
+    for i in range(3):
+        store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "2", "pods": "10"}).obj())
+        store.create("pods", MakePod(f"low{i}").priority(1).req({"cpu": "2"}).node(f"n{i}").obj())
+    cfg = {"profiles": [{"schedulerName": "default-scheduler"}]}
+    if kind == "serial":
+        sched = Scheduler.from_config(store, cfg, clock=clock)
+    else:
+        sched = BatchScheduler.from_config(store, cfg, clock=clock, device="cpu", solver=kind)
+    sched.framework.post_filter_plugins[0].async_preparation = False
+    sched.sync()
+    for i in range(2):
+        store.create("pods", MakePod(f"high{i}").priority(100).req({"cpu": "2"}).obj())
+    for _ in range(3):
+        sched.run_until_idle()
+        clock.step(11.0)
+        sched.queue.flush_backoff_completed()
+    pods, _ = store.list("pods")
+    out[kind] = [sum(1 for p in pods if p.metadata.name.startswith("high") and p.spec.node_name),
+                 sched.preemption_count]
+print(json.dumps({"out": out,
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.startswith(("kubernetes_tpu_torch.scheduler",
+                                                    "kubernetes_tpu_torch.utils"))),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_serial_framework_and_preemption_import_no_jax_and_no_jax_package():
+    """The serial scheduler, from_config profiles, the default plugins,
+    QueueingHints and per-pod preemption (serial PostFilter and the batch
+    path's tiered preemption) load neither jax nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERIAL_SLICE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["out"] == {"serial": [2, 2], "auto": [2, 2]}
+    mods = {"kubernetes_tpu_torch.scheduler." + m for m in (
+        "config", "runtime", "serial", "framework", "queue", "plugins.fit",
+        "plugins.node_plugins", "plugins.topology_spread", "plugins.interpod_affinity",
+        "plugins.default_preemption", "plugins.helpers")}
+    assert mods | {"kubernetes_tpu_torch.utils.featuregate"} <= set(got["loaded"])
     assert got["modules"] == []
 
 
