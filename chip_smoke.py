@@ -82,6 +82,29 @@ Phases, each printing one JSON line:
              kernels launched, and the map, the victims and the events equal
              to a CPU rerun; reported: seconds to bound, pods/s,
              preemption_count, victims and the solve stage
+  main_path_fallback
+             the fallback classes on the batch path (after scheduler_perf's
+             volume and DRA suites): the 5,000 nodes of 8 cpu / 32Gi / 110
+             pods in 10 zones, 250 tainted NoSchedule, a CSINode a node (3
+             CSI attachments), a WaitForFirstConsumer StorageClass that
+             provisions in five zones and one for static PVs, one
+             DeviceClass and ResourceSlices of 8 devices on 500 nodes; one
+             create_many wave of 4,096 SchedulingBasic pods and 136
+             fallback pods spread through it by a seeded permutation (48
+             with a pre-bound PVC whose PV has zone affinity and a CSI
+             source, 16 provisioned through the class, 8 matched to static
+             PVs, 32 + 16 with a ResourceClaim of one / two devices, 16 with
+             a zone spread and nodeTaintsPolicy Honor), batches of 4,096,
+             solver="auto", DynamicResourceAllocation on: the device pods
+             ride kernels B and C, the fallback pods the per-pod cycle after
+             each batch's device commit. Gates: every pod bound, no node
+             over-committed, PV affinity, each PV bound once, CSINode
+             limits, claims allocated on the pod's node from its slice and
+             reserved for it, no device in two claims, spread skew <= 1 over
+             the untainted nodes, and the map, the PV/PVC writes, the claim
+             allocations and the events equal to a CPU rerun; reported:
+             seconds to bound, the fallback counts and clock, the per-class
+             counts, the solve stage a batch and the kernels' launches
   kernel_G   the gang cover-curve kernel against cover_curve_plain: (a) one
              250-node slice (n_slots 256) with 1,000 victims (k_max 1,024),
              (b) k = 0, pad victims and ineligible nodes, (c) a shape above
@@ -1931,6 +1954,180 @@ def phase_main_path_preempt(device, sizes, card):
     return out
 
 
+FALLBACK_KINDS = ("nodes", "csinodes", "storageclasses", "persistentvolumes",
+                  "persistentvolumeclaims", "deviceclasses", "resourceslices", "resourceclaims")
+
+
+def fallback_case(sizes, seed):
+    """The fallback classes beside SchedulingBasic (testing.fallback_workload,
+    after scheduler_perf's volume and DRA suites): the other main paths'
+    nodes (8 cpu / 32Gi / 110 pods) in 10 zones, one in 20 tainted
+    NoSchedule, a CSINode a node (3 attachments), ResourceSlices of 8
+    devices on every 10th node; sizes["batch"] plain 500m/1Gi pods and the
+    fallback pods of sizes["fallback"] spread through them by a seeded
+    permutation (one create_many wave, two batches)."""
+    from kubernetes_tpu_torch.testing import fallback_workload
+
+    n = sizes["nodes"]
+    return fallback_workload(seed, n, sizes["batch"], zones=10, tainted=n // 20, slice_every=10,
+                             devices_per_slice=8, csi_limit=3, **sizes["fallback"])
+
+
+def drive_fallback(w, device, batch_size, deadline_s=300.0):
+    """BatchScheduler(solver="auto", DynamicResourceAllocation on) over the
+    storage and DRA objects, then the pod wave; run_until_idle and a
+    FakeClock stepped past every backoff until the queue is empty."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore
+    from kubernetes_tpu_torch.utils import FakeClock
+    from kubernetes_tpu_torch.utils.featuregate import feature_gates
+
+    feature_gates.set("DynamicResourceAllocation", True)
+    try:
+        store, clock = APIStore(), FakeClock(1000.0)
+        for kind in FALLBACK_KINDS:
+            store.create_many(kind, w[kind])
+        sched = BatchScheduler(store, device=device.type, solver="auto", batch_size=batch_size,
+                               clock=clock)
+        sched.sync()
+        gc.collect()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        store.create_many("pods", w["pods"])
+        rounds = 0
+        while True:
+            sched.run_until_idle()
+            rounds += 1
+            if sum(sched.queue.lengths()) == 0 or time.perf_counter() - t0 > deadline_s:
+                break
+            clock.step(11.0)
+            sched.queue.flush_backoff_completed()
+            sched.queue.flush_unschedulable_left_over()
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        pods = store.list("pods")[0]
+        written = {k: store.list(k)[0]
+                   for k in ("persistentvolumes", "persistentvolumeclaims", "resourceclaims")}
+        events = sorted((e.reason, e.involved_name, e.message) for e in store.list("events")[0])
+        sched.stop()
+    finally:
+        feature_gates.set("DynamicResourceAllocation", False)
+    dump = {k: sorted(json.dumps(o.to_dict(), sort_keys=True) for o in objs)
+            for k, objs in written.items()}
+    return dict(sched=sched, seconds=seconds, rounds=rounds, launches=launches, pods=pods,
+                written=written, dump=dump, events=events,
+                placement={p.metadata.name: p.spec.node_name for p in pods})
+
+
+def check_fallback_run(w, r):
+    """The gates of main_path_fallback: every pod bound, no node
+    over-committed, each pre-bound PVC pod where its PV admits it, each
+    WaitForFirstConsumer PVC bound to one PV that admits the pod's node and
+    no PV bound twice, no node over its CSINode limit, each DRA pod on a
+    node with a slice and its claim allocated there from that slice and
+    reserved for it, no device in two claims, the Honor spread pods at zone
+    skew <= 1 over the untainted nodes. Returns the per-class counts."""
+    nodes = {n.metadata.name: n for n in w["nodes"]}
+    pods = {p.metadata.name: p for p in r["pods"]}
+    unbound = [n for n, node in r["placement"].items() if not node]
+    check(not unbound, f"fallback: {len(unbound)} pods unbound, e.g. {unbound[:5]}")
+    check_no_overcommit(r["pods"], w["nodes"])
+    pvcs, pvs, claims = ({o.metadata.name: o for o in r["written"][k]} for k in (
+        "persistentvolumeclaims", "persistentvolumes", "resourceclaims"))
+    limits = {c.metadata.name: c.drivers for c in w["csinodes"]}
+    slices = {s.node_name: {d.name for d in s.devices} for s in w["resourceslices"]}
+    pv_owner, attached, used = {}, {}, []
+    counts = {}
+    for name, cls in w["class_of"].items():
+        counts[cls] = counts.get(cls, 0) + 1
+        pod = pods[name]
+        node = nodes[pod.spec.node_name]
+        for v in pod.spec.volumes:
+            cn = v.pvc_claim_name or (f"{name}-{v.name}" if v.ephemeral else "")
+            if not cn:
+                continue
+            pvc = pvcs[cn]
+            pv = pvs.get(pvc.spec.volume_name)
+            check(pv is not None and pv.spec.claim_ref == f"default/{cn}",
+                  f"fallback: {name}'s PVC {cn} bound to {pvc.spec.volume_name!r}")
+            check(pv.spec.node_affinity is None or pv.spec.node_affinity.matches(node),
+                  f"fallback: {name} on {node.metadata.name}, outside PV {pv.metadata.name}")
+            check(pv_owner.setdefault(pv.metadata.name, cn) == cn,
+                  f"fallback: PV {pv.metadata.name} bound twice")
+            if pv.spec.csi_driver:
+                attached.setdefault((node.metadata.name, pv.spec.csi_driver), set()).add(
+                    pv.spec.volume_handle or pv.metadata.name)
+        for _ref, cn in pod.spec.resource_claims:
+            c = claims[cn]
+            check(c.allocation is not None and c.allocation.node_name == node.metadata.name,
+                  f"fallback: {name}'s claim {cn} not allocated on {node.metadata.name}")
+            devs = c.allocation.all_devices()
+            check(set(devs) <= slices.get(node.metadata.name, set()) and devs,
+                  f"fallback: {name}'s claim {cn} holds {devs} off {node.metadata.name}'s slice")
+            check(name in c.reserved_for, f"fallback: claim {cn} not reserved for {name}")
+            used += [f"{node.metadata.name}/{d}" for d in devs]
+    check(len(used) == len(set(used)), "fallback: a device is in two claims")
+    for (node, driver), handles in attached.items():
+        limit = limits.get(node, {}).get(driver)
+        check(limit is None or len(handles) <= limit,
+              f"fallback: {node} attaches {len(handles)} {driver} volumes, limit {limit}")
+    untainted = {n: node.metadata.labels[ZONE] for n, node in nodes.items()
+                 if not node.spec.taints}
+    zones = {z: 0 for z in untainted.values()}
+    for name, cls in w["class_of"].items():
+        if cls == "spread":
+            node = pods[name].spec.node_name
+            check(node in untainted, f"fallback: spread pod {name} on tainted {node}")
+            zones[untainted[node]] += 1
+    skew = max(zones.values()) - min(zones.values()) if counts.get("spread") else 0
+    check(skew <= 1, f"fallback: Honor spread skew {skew} > 1")
+    return counts, skew
+
+
+def phase_main_path_fallback(device, sizes, card):
+    """main_path_fallback: the fallback classes (volumes, DRA, a non-default
+    spread policy) beside SchedulingBasic on the batch path; their pods take
+    the per-pod cycle after each batch's device commit. The gates of
+    check_fallback_run, kernels B and C launched, and the map, the PV/PVC
+    writes, the claim allocations and the events equal to a CPU rerun."""
+    import torch
+
+    w = fallback_case(sizes, 0)
+    batch = sizes["batch"]
+    r = drive_fallback(w, device, batch)
+    counts, skew = check_fallback_run(w, r)
+    t0 = time.perf_counter()
+    c = drive_fallback(fallback_case(sizes, 0), torch.device("cpu"), batch)
+    cpu_s = time.perf_counter() - t0
+    check(c["placement"] == r["placement"], "fallback: the CPU rerun placed differently: " + str(
+        sorted(k for k in r["placement"] if r["placement"][k] != c["placement"].get(k))[:5]))
+    check(c["dump"] == r["dump"], "fallback: the CPU rerun wrote PVs, PVCs or claims differently")
+    check(c["events"] == r["events"], "fallback: the CPU rerun narrated differently")
+    sched = r["sched"]
+    n = len(r["pods"])
+    if device.type == "cuda":
+        check(r["launches"]["row_scatter"] > 0, "fallback: kernel B never launched")
+        check(r["launches"]["waterfill"] > 0, "fallback: kernel C never launched")
+    check(sched.fallback_pods == len(w["class_of"]) == sched.serial_scheduled,
+          f"fallback: {sched.fallback_pods} routed, {sched.serial_scheduled} bound by the "
+          f"per-pod cycle, {len(w['class_of'])} fallback pods")
+    line = {"phase": "main_path_fallback", "workload": "SchedulingBasic+fallback",
+            "nodes": len(w["nodes"]), "pods": n, "device_pods": n - len(w["class_of"]),
+            "batch_size": batch, "solver": "auto", "bound": n,
+            "seconds_to_bound": r["seconds"], "pods_per_s": n / r["seconds"],
+            "rounds": r["rounds"], "batches": sched.batches_solved,
+            "fallback": sched.fallback_pods, "serial_scheduled": sched.serial_scheduled,
+            "per_class": counts, "spread_skew": skew,
+            "fallback_s_per_pod": sched.stage_seconds["fallback"] / max(sched.fallback_pods, 1),
+            "stage_seconds": sched.stage_seconds,
+            "solve_s_per_batch": [round(x, 6) for x in sched.solve_seconds],
+            "launches": r["launches"], "cpu_rerun_s": cpu_s, "cpu_equal": True, "card": card}
+    emit(line)
+    return line
+
+
 # ---------------------------------------------------------------------------
 # kernel G: cover_curve, kernel H: rank_align
 # ---------------------------------------------------------------------------
@@ -3166,7 +3363,9 @@ def main(argv=None) -> int:
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
               "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
-              "preempt_nodes": 100, "preempt_constrained": 20}
+              "preempt_nodes": 100, "preempt_constrained": 20,
+              "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
+                           "dra_two": 2, "spread": 4}}
              if args.small else
              {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
@@ -3174,7 +3373,9 @@ def main(argv=None) -> int:
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
               "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
-              "preempt_nodes": 500, "preempt_constrained": 100})
+              "preempt_nodes": 500, "preempt_constrained": 100,
+              "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
+                           "dra_two": 16, "spread": 16}})
     try:
         info = phase_device(device)
         phase_build()
@@ -3192,6 +3393,7 @@ def main(argv=None) -> int:
         gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
         preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
         pod_preempt = phase_main_path_preempt(device, sizes, info["nvidia_smi"])
+        fallback = phase_main_path_fallback(device, sizes, info["nvidia_smi"])
         transport = phase_main_path_transport(device, sizes, info["nvidia_smi"])
         phase_transport_direct(device, sizes, info["nvidia_smi"])
         inputs = DefragInputs()
@@ -3231,7 +3433,8 @@ def main(argv=None) -> int:
          "library_device_ms": line_b["library_device_ms"],
          "batch_ms": {k: v["ms"] for k, v in line_b["batch"].items()},
          "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()},
-         "preempt_path_launches": preempt_sum["row_scatter"]},
+         "preempt_path_launches": preempt_sum["row_scatter"],
+         "fallback_path_launches": fallback["launches"]["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -3244,7 +3447,8 @@ def main(argv=None) -> int:
          "plan": line_c["plan"],
          "host_syncs_per_batch": {k: ln["waterfill_host_syncs_per_batch"]
                                   for k, ln in fast.items()},
-         "preempt_path_launches": preempt_sum["waterfill"]},
+         "preempt_path_launches": preempt_sum["waterfill"],
+         "fallback_path_launches": fallback["launches"]["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),

@@ -1,5 +1,15 @@
 """L0 — typed API object model (the subset the batch scheduler reads)."""
 
+from .dra import (  # noqa: F401
+    AllocationResult,
+    Device,
+    DeviceAttributeRequirement,
+    DeviceClass,
+    DeviceRequest,
+    ResourceClaim,
+    ResourceSlice,
+)
+
 from .labels import (  # noqa: F401
     NodeSelector,
     NodeSelectorTerm,
@@ -13,6 +23,14 @@ from .resources import (  # noqa: F401
     parse_quantity_milli,
     quantity_milli_value,
     quantity_value,
+)
+from .storage import (  # noqa: F401
+    CSINode,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    PersistentVolumeClaimSpec,
+    PersistentVolumeSpec,
+    StorageClass,
 )
 from .types import (  # noqa: F401
     Affinity,

@@ -73,6 +73,19 @@ class ObjectMeta:
             deletion_timestamp=d.get("deletionTimestamp"),
         )
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The wire shape of the fields this model holds (the storage and
+        DRA kinds' to_dict embed it)."""
+        d: Dict[str, Any] = {"name": self.name, "namespace": self.namespace,
+                             "uid": self.uid, "resourceVersion": self.resource_version}
+        if self.labels:
+            d["labels"] = dict(self.labels)
+        if self.annotations:
+            d["annotations"] = dict(self.annotations)
+        if self.deletion_timestamp is not None:
+            d["deletionTimestamp"] = self.deletion_timestamp
+        return d
+
 
 @dataclass(frozen=True)
 class ContainerPort:
@@ -109,16 +122,21 @@ class Container:
 
 @dataclass(frozen=True)
 class Volume:
-    """Pod volume source: the sources whose presence decides whether the
-    scheduler must run its volume plugins (PVC, ephemeral, shared disks)."""
+    """Pod volume source (reference: core/v1 types.go Volume): the sources
+    the scheduler inspects, PVC references and the shared-disk sources
+    VolumeRestrictions checks for conflicts, with their read-only flags."""
 
     name: str
-    pvc_claim_name: str = ""
-    ephemeral: bool = False
-    gce_pd: str = ""
-    aws_ebs: str = ""
-    rbd: str = ""
-    iscsi: str = ""
+    pvc_claim_name: str = ""  # persistentVolumeClaim.claimName
+    pvc_read_only: bool = False
+    gce_pd: str = ""  # gcePersistentDisk.pdName
+    gce_read_only: bool = False
+    aws_ebs: str = ""  # awsElasticBlockStore.volumeID
+    rbd: str = ""  # rbd.image
+    rbd_read_only: bool = False
+    iscsi: str = ""  # iscsi "iqn/lun"
+    iscsi_read_only: bool = False
+    ephemeral: bool = False  # ephemeral.volumeClaimTemplate (claim name = pod-volname)
     config_map: str = ""
     secret: str = ""
 
@@ -131,15 +149,22 @@ class Volume:
 
     @staticmethod
     def from_dict(d: Mapping) -> "Volume":
+        pvc = d.get("persistentVolumeClaim") or {}
+        gce = d.get("gcePersistentDisk") or {}
+        rbd = d.get("rbd") or {}
         iscsi = d.get("iscsi") or {}
         return Volume(
             name=d.get("name", ""),
-            pvc_claim_name=(d.get("persistentVolumeClaim") or {}).get("claimName", ""),
-            ephemeral="ephemeral" in d,
-            gce_pd=(d.get("gcePersistentDisk") or {}).get("pdName", ""),
+            pvc_claim_name=pvc.get("claimName", ""),
+            pvc_read_only=bool(pvc.get("readOnly", False)),
+            gce_pd=gce.get("pdName", ""),
+            gce_read_only=bool(gce.get("readOnly", False)),
             aws_ebs=(d.get("awsElasticBlockStore") or {}).get("volumeID", ""),
-            rbd=(d.get("rbd") or {}).get("image", ""),
+            rbd=rbd.get("image", ""),
+            rbd_read_only=bool(rbd.get("readOnly", False)),
             iscsi=(f"{iscsi.get('iqn', '')}/{iscsi.get('lun', 0)}" if iscsi else ""),
+            iscsi_read_only=bool(iscsi.get("readOnly", False)),
+            ephemeral="ephemeral" in d,
             config_map=(d.get("configMap") or {}).get("name", ""),
             secret=(d.get("secret") or {}).get("secretName", ""),
         )
@@ -355,6 +380,9 @@ class PodStatus:
     phase: str = PENDING
     conditions: List[PodCondition] = field(default_factory=list)
     nominated_node_name: str = ""
+    # claim ref name -> generated ResourceClaim name (status.resourceClaimStatuses,
+    # written by the claim controller for template-backed references)
+    resource_claim_statuses: Dict[str, str] = field(default_factory=dict)
 
 
 @dataclass
@@ -371,8 +399,12 @@ class Pod:
         return Pod(
             metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
             spec=PodSpec.from_dict(d.get("spec") or {}),
-            status=PodStatus(phase=st.get("phase", PENDING),
-                             nominated_node_name=st.get("nominatedNodeName", "")),
+            status=PodStatus(
+                phase=st.get("phase", PENDING),
+                nominated_node_name=st.get("nominatedNodeName", ""),
+                resource_claim_statuses={
+                    rs.get("name", ""): rs.get("resourceClaimName", "")
+                    for rs in st.get("resourceClaimStatuses") or []}),
         )
 
     @property

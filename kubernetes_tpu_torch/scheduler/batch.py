@@ -47,28 +47,35 @@ pods of the batch see the freed room. A constrained batch builds the
 per-node failure map and runs the profile's PostFilter (_maybe_preempt).
 A preemptor is nominated to its node and waits unschedulable, attributed to
 NodeResourcesFit, until its victims' deletions move it back (QueueingHints).
+Fallback classes (JAX batch.py :393-432, :727-739, _serial_one :2093-2101):
+a pod whose class the tensorizer marks fallback_class (DRA claims,
+scheduling-relevant volumes, non-default topology-spread inclusion
+policies) is not encoded for the solvers. After the device pods' commit and
+reject handling, such pods run the per-pod cycle one by one, in the batch's
+priority order: schedule_pod, then on failure _maybe_preempt and
+_handle_failure (the plugin's own status and reason), on success the full
+commit chain _commit_cycle (Reserve, Permit, PreBind, Bind, PostBind),
+whose Reserve and PreBind the volume and DRA plugins need. `fallback_pods`
+and `serial_scheduled` count them (the JAX batch's out["fallback"] and
+out["serial_scheduled"]); `stage_seconds["fallback"]` is their clock. A gang
+with a fallback-class member is vetoed whole (_strip_fallback_gangs): the
+per-pod route cannot place it all-or-nothing.
 The scheduling profile is a port Framework (scheduler/runtime.py) or one
 per scheduler name (`profiles=`, `from_config`): PreEnqueue, QueueSort,
 PostFilter and InterPodAffinity's hardPodAffinityWeight come from it. The
 solvers encode the default profile's PreFilter, Filter, PreScore and Score
 plugins, arguments and weights, so a profile that changes them raises
-(_encoded_view); routing its pods through the per-pod cycle comes with the
-fallback classes.
+(_encoded_view). The JAX batch path ignores such a profile and solves with
+the default encoding; the port refuses it (ROADMAP.md queue 3, deliberate
+differences).
 
 Not in this slice (each raises or is named where it would act):
-  serial fallback classes (volumes, DRA), and
-  the per-pod route of a profile that changes
-  the encoded plugins                         ROADMAP.md queue 1 item 2 (d)
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
   flight recorder, pod traces, metrics, the solver's Warning event, the
   native commit, pipelined binds and assume expiry, sched_stats(), the
   partitioned scheduler (partition_index stays None, no reroute hook), the
   columnar cache rows                         queue 1 item 7
-A pod whose class the tensorizer marks fallback_class (DRA claims,
-scheduling-relevant volumes, non-default PTS inclusion policies) fails
-unschedulable with a reason naming its ROADMAP item and is counted in
-`fallback_refused`; it is never placed by another rule.
 """
 
 from __future__ import annotations
@@ -104,12 +111,6 @@ SOLVERS = ("exact", "fast", "auto", "auction", "sinkhorn")
 SOLVER_ROADMAP = {"native": 7}
 
 log = logging.getLogger(__name__)
-
-FALLBACK_REASON = (
-    "pod needs the serial fallback path (DRA claims, scheduling-relevant volumes "
-    "or a non-default topology-spread inclusion policy), which is "
-    + NOT_PORTED.format(2))
-
 
 class BatchScheduler(Scheduler):
     """Batched scheduler on one device.
@@ -153,14 +154,17 @@ class BatchScheduler(Scheduler):
                 raise NotImplementedError(
                     f"profile {name!r} changes the PreFilter, Filter, PreScore or Score "
                     "plugins, their arguments or weights, which the batch solvers encode "
-                    "as the default profile's; its pods' per-pod route is "
-                    + NOT_PORTED.format(2))
+                    "as the default profile's; the batch scheduler refuses such a profile "
+                    "(ROADMAP.md queue 3, deliberate differences)")
         self.batch_size = batch_size
         self.solver = solver
         self.bind_chunk = 4096
         self._tensor_cache = TensorCache()
         self.batches_solved = 0
-        self.fallback_refused = 0  # fallback-class pods failed unschedulable
+        # fallback-class pods routed through the per-pod cycle, and those it
+        # bound (the JAX batch's out["fallback"] / out["serial_scheduled"])
+        self.fallback_pods = 0
+        self.serial_scheduled = 0
         # solver failure domain: the breaker trips the fast modes to the scan
         # after breaker_threshold consecutive solver exceptions
         self.breaker = SolverCircuitBreaker(clock=self.clock, threshold=breaker_threshold,
@@ -176,7 +180,8 @@ class BatchScheduler(Scheduler):
                               "residual": 0, "full_scan": 0, "violations": 0}
         # host seconds per stage, summed over batches (the solve stage ends
         # with the assignment's copy to the host, so it includes device time)
-        self.stage_seconds = {"tensorize": 0.0, "solve": 0.0, "commit": 0.0}
+        self.stage_seconds = {"tensorize": 0.0, "solve": 0.0, "commit": 0.0,
+                              "fallback": 0.0}
         self.solve_seconds: deque = deque(maxlen=1024)  # per batch
         # gang scheduling: PodGroup quorums and placed members, fed by the
         # watch plumbing in serial.py; the queue stages members until quorum
@@ -263,10 +268,28 @@ class BatchScheduler(Scheduler):
             if assignment is not None:
                 self._commit(qps, device_idx, assignment, snapshot, cluster, sub, gang)
                 self.stage_seconds["commit"] += time.perf_counter() - t2
-        for pi in fallback_idx.tolist():
-            self.fallback_refused += 1
-            self._handle_failure(qps[pi], Status.unschedulable(FALLBACK_REASON))
+        if fallback_idx.size:
+            # the per-pod route, after the device commit and its rejects, in
+            # the batch's priority order (gang members never reach here)
+            t3 = time.perf_counter()
+            fb0 = self.scheduled_count
+            for pi in fallback_idx.tolist():
+                self._serial_one(qps[pi])
+            self.fallback_pods += int(fallback_idx.size)
+            self.serial_scheduled += self.scheduled_count - fb0
+            self.stage_seconds["fallback"] += time.perf_counter() - t3
         return len(qps)
+
+    def _serial_one(self, qp: QueuedPodInfo) -> None:
+        """One fallback-class pod through the per-pod cycle: on failure the
+        PostFilter (preemption) and the failure handling, on success the
+        full commit chain (Reserve/Permit/PreBind/Bind/PostBind)."""
+        result = self.schedule_pod(qp.pod)
+        if not result.suggested_host:
+            self._maybe_preempt(qp, result)
+            self._handle_failure(qp, result.status, result.failed_nodes)
+            return
+        self._commit_cycle(qp, result)
 
     def _strip_fallback_gangs(self, qps, batch, fallback_mask) -> np.ndarray:
         """A gang with a member whose class needs the serial fallback path
@@ -906,21 +929,30 @@ class BatchScheduler(Scheduler):
         return self.rebalancer.stats() if self.rebalancer is not None else None
 
 
+# plugins that act only on fallback-class pods: for any other pod their
+# PreFilter skips, their Filters pass and VolumeBinding scores 0 on every
+# node, so the solvers need not encode them, and a profile may change them
+# (the per-pod route runs the pod's own profile)
+PER_POD_PLUGINS = frozenset(("VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding",
+                             "VolumeZone", "DynamicResources"))
+
+
 def _encoded_view(fw: Framework):
     """What the batch solvers take from a profile as the default profile's:
     the plugins at PreFilter, Filter, PreScore and Score (class and public
-    arguments) and their Score weights. InterPodAffinity's
-    hardPodAffinityWeight is left out: the tensorizer reads it from the
-    profile (_hard_pod_affinity_weight)."""
+    arguments) and their Score weights, without PER_POD_PLUGINS.
+    InterPodAffinity's hardPodAffinityWeight is left out: the tensorizer
+    reads it from the profile (_hard_pod_affinity_weight)."""
     def plugin(p):
         args = sorted((k, repr(sorted(v) if isinstance(v, (set, frozenset)) else v))
                       for k, v in vars(p).items()
                       if not k.startswith("_") and k != "hard_pod_affinity_weight")
         return p.name, type(p), tuple(args)
 
-    points = tuple(tuple(plugin(p) for p in ps) for ps in (
+    points = tuple(tuple(plugin(p) for p in ps if p.name not in PER_POD_PLUGINS) for ps in (
         fw.pre_filter_plugins, fw.filter_plugins, fw.pre_score_plugins, fw.score_plugins))
-    return points, tuple(fw.weights.get(p.name) for p in fw.score_plugins)
+    return points, tuple(fw.weights.get(p.name) for p in fw.score_plugins
+                         if p.name not in PER_POD_PLUGINS)
 
 
 def _subset_batch(batch, idx):

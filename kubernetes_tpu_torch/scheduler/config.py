@@ -7,11 +7,10 @@ KubeSchedulerProfile :100, Plugins :138) and v1 defaults
 (apis/config/v1/default_plugins.go:30). Parses the same YAML/JSON shape a
 `kubescheduler.config.k8s.io/v1` file has, so existing config files work.
 
-The counterpart of `kubernetes_tpu/scheduler/config.py`. Two parts of the
-reference's configuration are not ported yet and raise where they would act:
-extenders (ROADMAP.md queue 1 item 6; a configuration that lists one raises
-in from_dict) and the volume and DRA plugins (item 2 (d); a profile that
-enables one raises in build_framework).
+The counterpart of `kubernetes_tpu/scheduler/config.py`. Extenders are not
+ported yet (ROADMAP.md queue 1 item 6): a configuration that lists one raises
+in from_dict. The volume plugins of every profile share the VolumeLister
+passed as `volume_lister` (a fresh one when None).
 """
 
 from __future__ import annotations
@@ -20,7 +19,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Set, Tuple
 
 from ..api.types import DEFAULT_SCHEDULER_NAME
-from .plugins import UNPORTED_PLUGINS
 from .runtime import DEFAULT_WEIGHTS, Framework
 from .serial import NOT_PORTED
 
@@ -141,8 +139,7 @@ class KubeSchedulerConfiguration:
                 errs.append(f"unknown extension points {sorted(unknown)}")
             for point, ps in prof.plugins.items():
                 for name, weight in ps.enabled:
-                    if (name != "*" and name not in plugin_registry()
-                            and name not in UNPORTED_PLUGINS):
+                    if name != "*" and name not in plugin_registry():
                         errs.append(f"unknown plugin {name!r} at {point}")
                     if weight < 0:
                         errs.append(f"negative weight for {name!r}")
@@ -150,9 +147,8 @@ class KubeSchedulerConfiguration:
             raise ValueError("; ".join(errs))
 
 
-def plugin_registry() -> Dict[str, object]:
-    """Name -> constructed plugin instance (plugins/registry.go:64), without
-    the plugins of plugins.UNPORTED_PLUGINS."""
+def plugin_registry(volume_lister=None) -> Dict[str, object]:
+    """Name -> constructed plugin instance (plugins/registry.go:64)."""
     from .plugins import (
         BalancedAllocation,
         DefaultPreemption,
@@ -163,12 +159,18 @@ def plugin_registry() -> Dict[str, object]:
         NodePorts,
         NodeResourcesFit,
         NodeUnschedulable,
+        NodeVolumeLimits,
         PodTopologySpread,
         PrioritySort,
         SchedulingGates,
         TaintToleration,
+        VolumeBinding,
+        VolumeLister,
+        VolumeRestrictions,
+        VolumeZone,
     )
 
+    vl = volume_lister if volume_lister is not None else VolumeLister()
     return {
         "PrioritySort": PrioritySort(),
         "SchedulingGates": SchedulingGates(),
@@ -178,6 +180,10 @@ def plugin_registry() -> Dict[str, object]:
         "NodeAffinity": NodeAffinity(),
         "NodePorts": NodePorts(),
         "NodeResourcesFit": NodeResourcesFit(),
+        "VolumeRestrictions": VolumeRestrictions(vl),
+        "NodeVolumeLimits": NodeVolumeLimits(vl),
+        "VolumeBinding": VolumeBinding(vl),
+        "VolumeZone": VolumeZone(vl),
         "PodTopologySpread": PodTopologySpread(),
         "InterPodAffinity": InterPodAffinity(),
         "NodeResourcesBalancedAllocation": BalancedAllocation(),
@@ -196,13 +202,11 @@ DEFAULT_PLUGIN_ORDER = (
 )
 
 
-def build_framework(profile: KubeSchedulerProfile) -> Framework:
+def build_framework(profile: KubeSchedulerProfile, volume_lister=None) -> Framework:
     """Default plugins +- the profile's per-point enabled/disabled deltas
-    (v1/default_plugins.go mergePlugins semantics, name-keyed). The default
-    order's volume plugins are absent from the registry and drop out; a
-    profile that enables one of plugins.UNPORTED_PLUGINS raises."""
-    registry = plugin_registry()
-    order = [n for n in DEFAULT_PLUGIN_ORDER if n in registry]
+    (v1/default_plugins.go mergePlugins semantics, name-keyed)."""
+    registry = plugin_registry(volume_lister)
+    order = list(DEFAULT_PLUGIN_ORDER)
     weights = dict(DEFAULT_WEIGHTS)
     disabled_points: Set[Tuple[str, str]] = set()
     for point, ps in profile.plugins.items():
@@ -215,8 +219,6 @@ def build_framework(profile: KubeSchedulerProfile) -> Framework:
             for name in ps.disabled:
                 disabled_points.add((name, method))
         for name, weight in ps.enabled:
-            if name in UNPORTED_PLUGINS:
-                raise NotImplementedError(f"plugin {name} is " + NOT_PORTED.format(2))
             disabled_points.discard((name, method))
             if name not in order:
                 order.append(name)
@@ -229,10 +231,12 @@ def build_framework(profile: KubeSchedulerProfile) -> Framework:
     return fw
 
 
-def build_profiles(config: KubeSchedulerConfiguration) -> Tuple[Dict[str, Framework], List]:
+def build_profiles(config: KubeSchedulerConfiguration,
+                   volume_lister=None) -> Tuple[Dict[str, Framework], List]:
     """profile.NewMap (profile/profile.go). Returns (profiles, extenders),
     as the JAX package does; the extender list is always empty, since a
     configuration that lists an extender raises in from_dict."""
     config.validate()
-    profiles = {p.scheduler_name: build_framework(p) for p in config.profiles}
+    profiles = {p.scheduler_name: build_framework(p, volume_lister)
+                for p in config.profiles}
     return profiles, []

@@ -2,10 +2,8 @@
 
 The counterpart of `kubernetes_tpu/scheduler/plugins/__init__.py`: the
 default enabled set in the order of apis/config/v1/default_plugins.go:30-56,
-without the four volume plugins (VolumeRestrictions, NodeVolumeLimits,
-VolumeBinding, VolumeZone) and DynamicResources, which come with the
-fallback classes (ROADMAP.md queue 1 item 2 (d)). A profile that enables one
-of them raises (scheduler/config.py).
+the four volume plugins sharing one VolumeLister, and DynamicResources
+behind the DynamicResourceAllocation gate.
 """
 
 from .default_preemption import DefaultPreemption  # noqa: F401
@@ -22,16 +20,23 @@ from .node_plugins import (  # noqa: F401
     TaintToleration,
 )
 from .topology_spread import PodTopologySpread  # noqa: F401
+from .volume import (  # noqa: F401
+    NodeVolumeLimits,
+    VolumeBinding,
+    VolumeLister,
+    VolumeRestrictions,
+    VolumeZone,
+)
 
-# registered in the reference, ported with the fallback classes
-UNPORTED_PLUGINS = ("VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding",
-                    "VolumeZone", "DynamicResources")
 
-
-def default_plugins():
+def default_plugins(volume_lister=None):
     """Registry + default ordering (plugins/registry.go:64,
-    default_plugins.go:30), the JAX package's list without UNPORTED_PLUGINS."""
-    return [
+    default_plugins.go:30). DynamicResources joins the set behind its feature
+    gate at index 8, as in the reference's registry (plugins/registry.go:45-60)."""
+    from ...utils.featuregate import feature_gates
+
+    vl = volume_lister if volume_lister is not None else VolumeLister()
+    plugins = [
         PrioritySort(),
         SchedulingGates(),
         NodeUnschedulable(),
@@ -40,9 +45,18 @@ def default_plugins():
         NodeAffinity(),
         NodePorts(),
         NodeResourcesFit(),
+        VolumeRestrictions(vl),
+        NodeVolumeLimits(vl),
+        VolumeBinding(vl),
+        VolumeZone(vl),
         PodTopologySpread(),
         InterPodAffinity(),
         BalancedAllocation(),
         ImageLocality(),
         DefaultPreemption(),
     ]
+    if feature_gates.enabled("DynamicResourceAllocation"):
+        from .dynamic_resources import DynamicResources
+
+        plugins.insert(8, DynamicResources())
+    return plugins

@@ -25,6 +25,8 @@ from ..framework import (
 )
 
 _STATE_KEY = "PreFilterNodeResourcesFit"
+# the pod's non-zero request for Score, written by the first score() of a cycle
+_NON_ZERO_KEY = "ScoreNodeResourcesFitNonZero"
 
 DEFAULT_RESOURCES = ({"name": CPU, "weight": 1}, {"name": MEMORY, "weight": 1})
 
@@ -108,16 +110,18 @@ class NodeResourcesFit(Plugin):
     # -- Score -----------------------------------------------------------------
 
     def score(self, state: CycleState, pod, node_info: NodeInfo) -> Tuple[int, Status]:
-        req: Resource = state.read_or_none(_STATE_KEY)
-        if req is None:
+        # Fit strategies score on NonZeroRequested (resource_allocation.go:90-92,
+        # useRequested=false), so best-effort pods still spread. The pod's
+        # non-zero request is computed once a cycle, on the first node scored.
+        nz: Resource = state.read_or_none(_NON_ZERO_KEY)
+        if nz is None:
             from ...api import compute_pod_resource_request
 
-            req = compute_pod_resource_request(pod)
-        # Fit strategies score on NonZeroRequested (resource_allocation.go:90-92,
-        # useRequested=false), so best-effort pods still spread.
+            nz = compute_pod_resource_request(pod, non_zero=True)
+            state.write(_NON_ZERO_KEY, nz)
         requested, allocatable = _requested_allocatable(
-            node_info, pod, self.resources, node_info.non_zero_requested, non_zero_pod=True
-        )
+            node_info, pod, self.resources, node_info.non_zero_requested, non_zero_pod=True,
+            pod_request=nz)
         if self.strategy == "LeastAllocated":
             return _least_allocated(requested, allocatable, self.resources), SUCCESS
         if self.strategy == "MostAllocated":

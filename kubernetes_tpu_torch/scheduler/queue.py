@@ -428,7 +428,13 @@ class SchedulingQueue:
                         break
             if tracked is None:
                 return False
-            spec_changed = tracked.pod.spec != pod.spec
+            # status-only writes don't requeue (our own PodScheduled
+            # condition would loop), except resourceClaimStatuses: the claim
+            # controller's stamp resolves template claim references, which
+            # gates schedulability exactly like spec
+            spec_changed = (tracked.pod.spec != pod.spec
+                            or tracked.pod.status.resource_claim_statuses
+                            != pod.status.resource_claim_statuses)
             labels_changed = tracked.pod.metadata.labels != pod.metadata.labels
             tracked.pod = pod
             if (spec_changed or labels_changed) and staged_in is not None:

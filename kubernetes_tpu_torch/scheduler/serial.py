@@ -28,10 +28,16 @@ victim off the gang preemptor's in-flight covers. The directory and the
 preemptor are installed by BatchScheduler; each hook is gated on them.
 Failures are narrated as FailedScheduling events (api/events.py).
 
+Storage and DRA (JAX serial.py :32-34, :186-196, :537-553): the volume
+plugins of every profile share VolumeLister handles, filled from the store's
+STORAGE_KINDS at LIST time, kept current by their watch events and cleared
+on a relist; DynamicResources reads claims, slices and classes through the
+store, so their events only move pods (QueueingHints).
+
 Not in this module: HTTP extenders (`extenders=` raises, ROADMAP.md queue 1
-item 6), the volume listers of the fallback classes (item 2 (d)), and the
-observability of the JAX loop — its 100-ms `Trace` log of slow cycles, the
-scheduling metrics, the background start() thread (item 7).
+item 6) and the observability of the JAX loop — its 100-ms `Trace` log of
+slow cycles, the scheduling metrics, the background start() thread (item
+7).
 """
 
 from __future__ import annotations
@@ -55,6 +61,13 @@ from .queue import (DEFAULT_POD_INITIAL_BACKOFF, DEFAULT_POD_MAX_BACKOFF, Queued
 from .runtime import Framework
 
 _origin_seq = itertools.count()
+
+# storage kinds mirrored into the volume plugins' VolumeLister handles
+STORAGE_KINDS = ("persistentvolumeclaims", "persistentvolumes",
+                 "storageclasses", "csinodes")
+# DRA kinds: DynamicResources reads them through the store; their events
+# only move pods
+DRA_KINDS = ("resourceclaims", "resourceslices", "deviceclasses")
 
 NOT_PORTED = "not yet ported to the PyTorch/CUDA package (ROADMAP.md queue 1 item {})"
 
@@ -95,7 +108,10 @@ class Scheduler:
     writes. framework: one port Framework (the default profile), or
     profiles: {schedulerName: Framework}; exactly one of them."""
 
-    WATCHED_KINDS = ("nodes", "pods", "namespaces", "podgroups")
+    # LISTED_KINDS at sync and relist; WATCHED_KINDS are the kinds
+    # _handle_event consumes (eventhandlers.go informer set)
+    LISTED_KINDS = ("nodes", "pods", "namespaces", "podgroups") + STORAGE_KINDS
+    WATCHED_KINDS = LISTED_KINDS + DRA_KINDS
 
     def __init__(self, store: APIStore, framework: Optional[Framework] = None,
                  clock: Optional[Clock] = None, percentage_of_nodes_to_score: int = 100,
@@ -159,6 +175,16 @@ class Scheduler:
             for p in fw.plugins:
                 if hasattr(p, "set_handles"):
                     p.set_handles(fw, store, recorder=self.recorder)
+        # volume plugins share VolumeLister handles fed from the store's
+        # storage kinds (the reference reaches these via shared informers)
+        self._volume_listers = []
+        seen = set()
+        for fw in self.profiles.values():
+            for p in fw.plugins:
+                lister = getattr(p, "lister", None)
+                if lister is not None and id(lister) not in seen and hasattr(lister, "add"):
+                    seen.add(id(lister))
+                    self._volume_listers.append(lister)
         self._push_ns_labels()
 
     def _fw(self, pod: Pod) -> Optional[Framework]:
@@ -177,16 +203,17 @@ class Scheduler:
 
     @classmethod
     def from_config(cls, store: APIStore, config=None, clock: Optional[Clock] = None,
-                    **kwargs) -> "Scheduler":
+                    volume_lister=None, **kwargs) -> "Scheduler":
         """Build from a KubeSchedulerConfiguration (dict or object): profiles,
-        backoff, percentage (cmd/kube-scheduler/app/server.go Setup). Extra
-        keyword arguments pass to the constructor (BatchScheduler's device,
-        solver, batch size)."""
+        backoff, percentage (cmd/kube-scheduler/app/server.go Setup); the
+        profiles' volume plugins share `volume_lister`. Extra keyword
+        arguments pass to the constructor (BatchScheduler's device, solver,
+        batch size)."""
         from .config import KubeSchedulerConfiguration, build_profiles
 
         if config is None or isinstance(config, dict):
             config = KubeSchedulerConfiguration.from_dict(config)
-        profiles, _extenders = build_profiles(config)
+        profiles, _extenders = build_profiles(config, volume_lister)
         # 0 = adaptive percentage (numFeasibleNodesToFind, schedule_one.go:675)
         return cls(store, clock=clock, profiles=profiles,
                    percentage_of_nodes_to_score=config.percentage_of_nodes_to_score,
@@ -198,14 +225,21 @@ class Scheduler:
     def sync(self) -> None:
         """Initial LIST of every watched kind under one RV, then WATCH from it
         (no event can fall between the list and the watch)."""
-        self._rebuild_from_store(preserve_queue=False)
+        self._rebuild_from_store(preserve_queue=False, initial=True)
 
-    def _rebuild_from_store(self, preserve_queue: bool) -> None:
+    def _rebuild_from_store(self, preserve_queue: bool, initial: bool = False) -> None:
+        """The LIST into a fresh cache, then the WATCH. A relist or resync
+        (not `initial`) also clears the volume listers first (an informer
+        cache replace); the initial sync keeps objects a caller put into a
+        lister it passed in, as the JAX sync does."""
         if self._watch is not None:
             self._watch.stop()
         self.cache = Cache()
         self._ns_labels.clear()
-        lists, rv = self.store.list_many(self.WATCHED_KINDS)
+        if not initial:
+            for lister in self._volume_listers:
+                lister.clear()
+        lists, rv = self.store.list_many(self.LISTED_KINDS)
         for n in lists["nodes"]:
             self.cache.add_node(n)
         if self.gangs is not None:
@@ -233,6 +267,10 @@ class Scheduler:
             self.queue.move_all_to_active_or_backoff()
         for ns in lists["namespaces"]:
             self._ns_labels[ns.metadata.name] = dict(ns.metadata.labels)
+        for kind in STORAGE_KINDS:
+            for obj in lists[kind]:
+                for lister in self._volume_listers:
+                    lister.add(obj)
         self._push_ns_labels()
         self._watch = self.store.watch(kind=self.WATCHED_KINDS, since_rv=rv,
                                        maxsize=200_000, coalesce=True)
@@ -355,6 +393,16 @@ class Scheduler:
             self._handle_pod(ev.type, ev.obj)
         elif ev.kind == "namespaces":
             self._ns_labels[ev.obj.metadata.name] = dict(ev.obj.metadata.labels)
+        elif ev.kind in STORAGE_KINDS:
+            for lister in self._volume_listers:
+                if ev.type == DELETED:
+                    lister.remove(ev.obj)
+                else:
+                    lister.add(ev.obj)
+            # a new or changed PV or class can unblock pending claims
+            self._move_for_event(ev.kind, ev.type, ev.obj)
+        elif ev.kind in DRA_KINDS:
+            self._move_for_event(ev.kind, ev.type, ev.obj)
         elif ev.kind == "podgroups":
             # a created or raised PodGroup can complete a staged gang's
             # quorum; a delete orphans its members (they schedule as ordinary

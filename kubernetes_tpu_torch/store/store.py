@@ -6,7 +6,11 @@ delete / delete_pods / list / list_many / bind / bind_many /
 update_pod_status / watch, one monotonic resource version (RV) across
 kinds, bounded history for watch resume, and coalesced delivery of batched
 writes to watchers that opt in. Kinds are `nodes`, `pods`, `namespaces`,
-`podgroups`, `poddisruptionbudgets` and `events`; any other kind raises.
+`podgroups`, `poddisruptionbudgets`, `events`, the storage kinds the volume
+plugins read and write (`persistentvolumes`, `persistentvolumeclaims`,
+`storageclasses`, `csinodes`) and the DRA kinds DynamicResources reads and
+writes (`resourceclaims`, `resourceslices`, `deviceclasses`); any other kind
+raises.
 
 Columnar pod rows, shared-memory export, the lock-order graph, the native
 commit engine and chaos sites of the JAX package's store are not part of
@@ -26,7 +30,9 @@ ADDED = "ADDED"
 MODIFIED = "MODIFIED"
 DELETED = "DELETED"
 
-KINDS = ("nodes", "pods", "namespaces", "podgroups", "poddisruptionbudgets", "events")
+KINDS = ("nodes", "pods", "namespaces", "podgroups", "poddisruptionbudgets", "events",
+         "persistentvolumes", "persistentvolumeclaims", "storageclasses", "csinodes",
+         "resourceclaims", "resourceslices", "deviceclasses")
 
 
 class ConflictError(Exception):
@@ -254,15 +260,16 @@ class APIStore:
             except KeyError:
                 raise NotFoundError(f"{kind} {key} not found") from None
 
-    def update(self, kind: str, obj) -> Any:
-        """Replace an object; its resource version must be the stored one."""
+    def update(self, kind: str, obj, check_rv: bool = True) -> Any:
+        """Replace an object; with check_rv its resource version must be the
+        stored one (check_rv=False is an unconditional write)."""
         with self._lock:
             objs = self._kind(kind)
             key = self.object_key(obj)
             old = objs.get(key)
             if old is None:
                 raise NotFoundError(f"{kind} {key} not found")
-            if old.metadata.resource_version != obj.metadata.resource_version:
+            if check_rv and old.metadata.resource_version != obj.metadata.resource_version:
                 raise ConflictError(f"{kind} {key}: rv {obj.metadata.resource_version} "
                                     f"!= {old.metadata.resource_version}")
             obj = copy.deepcopy(obj)

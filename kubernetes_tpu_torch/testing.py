@@ -6,7 +6,8 @@ that overfills nodes, and a test-only numpy model of kernel E's round that
 accepts only where bids landed), seeded and
 edge-case defrag-assignment problems for kernel I's (and runs of identical
 requests), seeded greedy-scan problems for kernel A's, seeded mirror churn
-for kernel B's, and test-only numpy models of kernel C's selection over
+for kernel B's, a seeded fallback-class workload (volumes, DRA, spread
+inclusion policies beside plain pods: fallback_workload), and test-only numpy models of kernel C's selection over
 sorted key rows, kernel G's victim-parallel curve, kernel I's tournament
 tree and kernel J's tiled maxima. The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
@@ -184,9 +185,10 @@ class MakePod:
         self._pod.status.phase = phase
         return self
 
-    def pvc(self, claim_name: str) -> "MakePod":
+    def pvc(self, claim_name: str, read_only: bool = False) -> "MakePod":
         self._pod.spec.volumes.append(
-            Volume(name=f"vol-{len(self._pod.spec.volumes)}", pvc_claim_name=claim_name))
+            Volume(name=f"vol-{len(self._pod.spec.volumes)}", pvc_claim_name=claim_name,
+                   pvc_read_only=read_only))
         return self
 
     def volume(self, **kwargs) -> "MakePod":
@@ -252,6 +254,154 @@ class MakeNode:
 
     def obj(self) -> Node:
         return self._node
+
+
+FALLBACK_DRIVER = "csi.example.com"
+FALLBACK_DEVICE_CLASS = "gpu.example.com"
+
+
+def fallback_api():
+    """The modules fallback_workload builds from: this package's. A test
+    passes the same namespace of the JAX package's to build identical
+    objects there."""
+    from .api import dra, storage
+
+    return SimpleNamespace(MakeNode=MakeNode, MakePod=MakePod, ObjectMeta=ObjectMeta,
+                           NodeSelector=NodeSelector, storage=storage, dra=dra)
+
+
+def fallback_workload(seed, n_nodes, n_device, zones=10, tainted=0, slice_every=10,
+                      devices_per_slice=8, csi_limit=3, prebound=48, provision=16,
+                      static=8, dra_one=32, dra_two=16, spread=16, ephemeral=0,
+                      shared_disk=0, api=None):
+    """Objects of a batch that mixes device pods with every fallback class,
+    in creation order: {kind: [objects]} for nodes, csinodes,
+    storageclasses, persistentvolumes, persistentvolumeclaims,
+    deviceclasses, resourceslices, resourceclaims and pods, plus "class_of"
+    (pod name -> its class). The shape follows scheduler_perf's volume and
+    DRA suites (test/integration/scheduler_perf/): nodes of 8 cpu / 32Gi /
+    110 pods, node i in zone z{i % zones}, `tainted` of them NoSchedule, a
+    CSINode a node with an attach limit for FALLBACK_DRIVER; a
+    WaitForFirstConsumer class "wfc" that provisions in the first half of
+    the zones and one, "local", for static PVs; one DeviceClass and a
+    ResourceSlice of `devices_per_slice` devices on every `slice_every`-th
+    node. Pods, all 500m/1Gi: `n_device` plain ones and, spread through them
+    by a default_rng(seed) permutation, `prebound` with a bound PVC whose PV
+    has zone affinity and a CSI source, `provision` WaitForFirstConsumer
+    pods provisioned through "wfc", `static` matched to as many static PVs,
+    `dra_one` / `dra_two` with a ResourceClaim of one / two devices,
+    `spread` with a zone spread (maxSkew 1, nodeTaintsPolicy Honor),
+    `ephemeral` with an ephemeral volume and `shared_disk` pairs sharing a
+    GCE disk."""
+    a = api or fallback_api()
+    st, dra = a.storage, a.dra
+    rng = np.random.default_rng(seed)
+    zone = "topology.kubernetes.io/zone"
+    out = {k: [] for k in ("nodes", "csinodes", "storageclasses", "persistentvolumes",
+                           "persistentvolumeclaims", "deviceclasses", "resourceslices",
+                           "resourceclaims", "pods")}
+    stride = n_nodes // tainted if tainted else 0
+    for i in range(n_nodes):
+        b = a.MakeNode(f"node-{i}").labels({zone: f"z{i % zones}"}).capacity(
+            {"cpu": "8", "memory": "32Gi", "pods": "110"})
+        if stride and i % stride == stride - 1:
+            b = b.taints([{"key": "dedicated", "value": "infra", "effect": "NoSchedule"}])
+        out["nodes"].append(b.obj())
+        out["csinodes"].append(st.CSINode(metadata=a.ObjectMeta(name=f"node-{i}"),
+                                          drivers={FALLBACK_DRIVER: csi_limit}))
+
+    def zones_in(values):
+        return a.NodeSelector.from_dict({"nodeSelectorTerms": [{"matchExpressions": [
+            {"key": zone, "operator": "In", "values": list(values)}]}]})
+
+    wfc = st.StorageClass(metadata=a.ObjectMeta(name="wfc"), provisioner=FALLBACK_DRIVER,
+                          volume_binding_mode=st.BINDING_WAIT_FOR_FIRST_CONSUMER,
+                          allowed_topologies=zones_in(f"z{z}" for z in range(max(zones // 2, 1))))
+    local = st.StorageClass(metadata=a.ObjectMeta(name="local"),
+                            volume_binding_mode=st.BINDING_WAIT_FOR_FIRST_CONSUMER)
+    out["storageclasses"] += [wfc, local]
+
+    def pvc(name, sc, volume=""):
+        c = st.PersistentVolumeClaim(metadata=a.ObjectMeta(name=name))
+        c.spec.access_modes = [st.READ_WRITE_ONCE]
+        c.spec.request = 10 * 2**30
+        c.spec.storage_class_name = sc
+        if volume:
+            c.spec.volume_name = volume
+            c.phase = st.CLAIM_BOUND
+        return c
+
+    def pv(name, z, claim=""):
+        v = st.PersistentVolume(metadata=a.ObjectMeta(name=name))
+        v.spec.capacity = 20 * 2**30
+        v.spec.access_modes = [st.READ_WRITE_ONCE]
+        v.spec.storage_class_name = "local"
+        v.spec.node_affinity = zones_in([z])
+        v.spec.csi_driver = FALLBACK_DRIVER
+        v.spec.volume_handle = f"handle-{name}"
+        if claim:
+            v.spec.claim_ref = f"default/{claim}"
+            v.phase = st.VOLUME_BOUND
+        return v
+
+    fallback = []  # (name, class, builder)
+    for j in range(prebound):
+        out["persistentvolumes"].append(pv(f"pv-bound-{j}", f"z{j % zones}", f"data-{j}"))
+        out["persistentvolumeclaims"].append(pvc(f"data-{j}", "local", f"pv-bound-{j}"))
+        fallback.append((f"fb-prebound-{j}", "prebound", lambda b, j=j: b.pvc(f"data-{j}")))
+    for j in range(provision):
+        out["persistentvolumeclaims"].append(pvc(f"prov-{j}", "wfc"))
+        fallback.append((f"fb-provision-{j}", "provision", lambda b, j=j: b.pvc(f"prov-{j}")))
+    for j in range(static):
+        out["persistentvolumes"].append(pv(f"pv-static-{j}", f"z{(3 * j + 1) % zones}"))
+        out["persistentvolumeclaims"].append(pvc(f"static-{j}", "local"))
+        fallback.append((f"fb-static-{j}", "static", lambda b, j=j: b.pvc(f"static-{j}")))
+    for j in range(ephemeral):
+        out["persistentvolumeclaims"].append(pvc(f"fb-ephemeral-{j}-scratch", "wfc"))
+        fallback.append((f"fb-ephemeral-{j}", "ephemeral",
+                         lambda b: b.volume(name="scratch", ephemeral=True)))
+    for j in range(shared_disk):
+        for side in range(2):
+            fallback.append((f"fb-disk-{j}-{side}", "shared_disk",
+                             lambda b, j=j: b.volume(gce_pd=f"disk-{j}")))
+    if dra_one or dra_two:
+        out["deviceclasses"].append(dra.DeviceClass(
+            metadata=a.ObjectMeta(name=FALLBACK_DEVICE_CLASS, namespace=""),
+            selectors=[dra.DeviceAttributeRequirement(key="type", op="==", value="gpu")]))
+        for i in range(0, n_nodes, slice_every):
+            out["resourceslices"].append(dra.ResourceSlice(
+                metadata=a.ObjectMeta(name=f"node-{i}-gpus", namespace=""), node_name=f"node-{i}",
+                driver=FALLBACK_DEVICE_CLASS, pool=f"node-{i}",
+                devices=[dra.Device(name=f"gpu-{d}", attributes={"type": "gpu", "memGiB": 80})
+                         for d in range(devices_per_slice)]))
+    for j in range(dra_one + dra_two):
+        count = 1 if j < dra_one else 2
+        out["resourceclaims"].append(dra.ResourceClaim(
+            metadata=a.ObjectMeta(name=f"claim-{j}"),
+            requests=[dra.DeviceRequest(name="gpu", device_class_name=FALLBACK_DEVICE_CLASS,
+                                        count=count)]))
+        fallback.append((f"fb-dra{count}-{j}", f"dra{count}", lambda b, j=j: b.claim(f"claim-{j}")))
+
+    def spread_pod(b):
+        b = b.labels({"app": "fb-spread"}).topology_spread(1, zone, "DoNotSchedule",
+                                                           {"app": "fb-spread"})
+        pod = b.obj()
+        c = pod.spec.topology_spread_constraints[0]
+        pod.spec.topology_spread_constraints = [type(c)(**{**vars(c),
+                                                            "node_taints_policy": "Honor"})]
+        return pod
+
+    for j in range(spread):
+        fallback.append((f"fb-spread-{j}", "spread", spread_pod))
+    names = [f"pod-{i}" for i in range(n_device)] + [f[0] for f in fallback]
+    build = {f[0]: f[2] for f in fallback}
+    out["class_of"] = {f[0]: f[1] for f in fallback}
+    for idx in rng.permutation(len(names)).tolist():
+        name = names[idx]
+        b = a.MakePod(name).req({"cpu": "500m", "memory": "1Gi"})
+        got = build[name](b) if name in build else b
+        out["pods"].append(got if not hasattr(got, "obj") else got.obj())
+    return out
 
 
 def make_pod_group(name: str, min_member: int, namespace: str = "default"):

@@ -3,10 +3,11 @@
 reference: staging/src/k8s.io/component-base/featuregate/feature_gate.go and
 the gate catalog in pkg/features/kube_features.go. The counterpart of
 `kubernetes_tpu/utils/featuregate.py`, holding only the gates the port
-reads: SchedulerQueueingHints (scheduler/serial.py _move_for_event) and
-SchedulerAsyncPreemption (plugins/default_preemption.py). A gate joins the
-catalog with the code that reads it (DynamicResourceAllocation with the DRA
-plugin, ROADMAP.md queue 1 item 2 (d)). Components read a gate with
+reads: SchedulerQueueingHints (scheduler/serial.py _move_for_event),
+SchedulerAsyncPreemption (plugins/default_preemption.py) and
+DynamicResourceAllocation (plugins/__init__.py default_plugins, which adds
+DynamicResources behind it). A gate joins the catalog with the code that
+reads it. Components read a gate with
 `FeatureGates.enabled(name)` and set it with `FeatureGates.set(name, value)`.
 """
 
@@ -53,6 +54,7 @@ class FeatureGates:
 DEFAULT_FEATURE_GATES = {
     "SchedulerQueueingHints": FeatureSpec(True, BETA),
     "SchedulerAsyncPreemption": FeatureSpec(True, BETA),
+    "DynamicResourceAllocation": FeatureSpec(False, BETA),
 }
 
 

@@ -93,6 +93,9 @@ def test_small_batches_and_waves_match_jax(workload):
 
 
 def test_fallback_class_pod_refused_with_reason():
+    """A fallback-class pod whose claim does not exist goes through the
+    per-pod cycle and fails with VolumeBinding's own status and reason, as
+    in the JAX package; it is never placed by another rule."""
     nodes = [tt.MakeNode(f"n{i}").capacity({"cpu": "8"}).obj() for i in range(2)]
     store = TStore()
     for n in nodes:
@@ -105,9 +108,11 @@ def test_fallback_class_pod_refused_with_reason():
     vol = store.get("pods", "default/vol")
     assert not vol.spec.node_name
     cond = [c for c in vol.status.conditions if c.type == "PodScheduled"]
-    assert cond and "not yet ported" in cond[0].message
-    assert "ROADMAP.md queue 1 item 2" in cond[0].message
-    assert sched.fallback_refused == 1
+    assert cond and cond[0].message == 'persistentvolumeclaim not found: "claim-a"'
+    assert sched.fallback_pods == 1 and sched.serial_scheduled == 0
+    assert sched.stage_seconds["fallback"] > 0
+    qp = sched.queue._unschedulable["default/vol"]
+    assert qp.unschedulable_plugins == ("VolumeBinding",)
     assert store.get("pods", "default/plain").spec.node_name
 
 

@@ -6,9 +6,8 @@ build_profiles, Scheduler.from_config) and feature gates
 The cases of tests/test_config_extender.py's TestComponentConfig,
 TestFromConfig and TestFeatureGates run in both packages: defaults, every
 validation error, per-point disables and weights, "*", profile routing, and
-from_config's backoff and percentage. The parts not ported yet raise naming
-their ROADMAP item: extenders (queue 1 item 6) and the volume and DRA
-plugins (item 2 (d)).
+from_config's backoff and percentage. Extenders, not ported yet, raise
+naming their ROADMAP item (queue 1 item 6).
 """
 
 import pytest
@@ -19,7 +18,6 @@ from kubernetes_tpu.scheduler.serial import Scheduler as JScheduler
 from kubernetes_tpu.utils import featuregate as jfg
 from kubernetes_tpu_torch.scheduler import config as tcfg
 from kubernetes_tpu_torch.scheduler.batch import BatchScheduler as TBatch
-from kubernetes_tpu_torch.scheduler.plugins import UNPORTED_PLUGINS
 from kubernetes_tpu_torch.scheduler.serial import Scheduler as TScheduler
 from kubernetes_tpu_torch.store import APIStore as TStore
 from kubernetes_tpu_torch.utils import featuregate as tfg
@@ -86,8 +84,7 @@ POINTS = ("pre_enqueue_plugins", "pre_filter_plugins", "filter_plugins", "post_f
 
 
 def profile_view(profiles):
-    return {name: ({pt: [p.name for p in getattr(fw, pt) if p.name not in UNPORTED_PLUGINS]
-                    for pt in POINTS},
+    return {name: ({pt: [p.name for p in getattr(fw, pt)] for pt in POINTS},
                    {k: v for k, v in fw.weights.items()}, fw.percentage_of_nodes_to_score,
                    fw.profile_name, fw.queue_sort_plugin.name)
             for name, fw in profiles.items()}
@@ -117,13 +114,31 @@ def test_extenders_raise_with_their_item(extenders):
 
 
 def test_unported_parts_raise_with_their_item():
-    for name in UNPORTED_PLUGINS:
-        cfg = tcfg.KubeSchedulerConfiguration.from_dict({"profiles": [
-            {"schedulerName": "v", "plugins": {"filter": {"enabled": [{"name": name}]}}}]})
-        cfg.validate()
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            tcfg.build_profiles(cfg)
-    assert set(tcfg.plugin_registry()) == set(jcfg.plugin_registry()) - set(UNPORTED_PLUGINS)
+    """Only extenders are left to port: a profile that enables any plugin of
+    the JAX registry, the volume plugins included, validates and builds the
+    same framework in both packages, and the registries are equal."""
+    volume = ("VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone")
+    for name in volume:
+        d = {"profiles": [{"schedulerName": "v", "plugins": {
+            "filter": {"disabled": [{"name": "*"}], "enabled": [{"name": name}]}}}]}
+        cfgs = [mod.KubeSchedulerConfiguration.from_dict(d) for mod in (jcfg, tcfg)]
+        for cfg in cfgs:
+            cfg.validate()
+        jprof, _ = jcfg.build_profiles(cfgs[0])
+        tprof, _ = tcfg.build_profiles(cfgs[1])
+        assert profile_view(tprof) == profile_view(jprof)
+        assert [p.name for p in tprof["v"].filter_plugins] == [name]
+    assert list(tcfg.plugin_registry()) == list(jcfg.plugin_registry())
+    # one VolumeLister shared by the volume plugins of every profile
+    from kubernetes_tpu_torch.scheduler.plugins import VolumeLister
+
+    vl = VolumeLister()
+    prof, _ = tcfg.build_profiles(tcfg.KubeSchedulerConfiguration.from_dict(
+        {"profiles": [{"schedulerName": "a"}, {"schedulerName": "b"}]}), vl)
+    assert {id(p.lister) for fw in prof.values() for p in fw.plugins
+            if hasattr(p, "lister")} == {id(vl)}
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tcfg.KubeSchedulerConfiguration.from_dict({"extenders": [{"weight": 1}]})
 
 
 def sc_from_config(env):
@@ -177,7 +192,7 @@ def test_batch_scheduler_refuses_profiles_the_solvers_do_not_encode(case):
     d = PROFILE_CASES[case]
     TScheduler.from_config(TStore(), d)
     if ENCODED_CHANGES[case]:
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="deliberate differences"):
             TBatch.from_config(TStore(), d, device="cpu", solver="auto")
     else:
         TBatch.from_config(TStore(), d, device="cpu", solver="auto")
@@ -198,7 +213,7 @@ def test_batch_scheduler_refuses_changed_plugin_arguments_and_weights():
            Framework(swapped(NodeResourcesFit, strategy="MostAllocated")),
            Framework(default_plugins(), disabled_points={("NodePorts", "filter")})]
     for fw in bad:
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="deliberate differences"):
             TBatch(TStore(), fw, device="cpu")
     # hardPodAffinityWeight is read from the profile, not assumed
     sched = TBatch(TStore(), Framework(swapped(InterPodAffinity, hard_pod_affinity_weight=5)),
@@ -210,7 +225,8 @@ def test_feature_gates_match_jax():
     """The port registers exactly the gates it reads, with the JAX
     package's defaults and stages; set/enabled behave the same."""
     assert set(tfg.DEFAULT_FEATURE_GATES) == {"SchedulerQueueingHints",
-                                              "SchedulerAsyncPreemption"}
+                                              "SchedulerAsyncPreemption",
+                                              "DynamicResourceAllocation"}
     for name, spec in tfg.DEFAULT_FEATURE_GATES.items():
         want = jfg.DEFAULT_FEATURE_GATES[name]
         assert (spec.default, spec.stage) == (want.default, want.stage)
@@ -230,7 +246,7 @@ def test_feature_gates_match_jax():
             gates.set("NoSuch", True)
     # a gate the JAX package has and the port does not read is not settable
     with pytest.raises(KeyError):
-        tfg.feature_gates.set("DynamicResourceAllocation", True)
+        tfg.feature_gates.set("VolumeCapacityPriority", True)
 
 
 def test_async_preemption_gate_sets_the_plugin_default():

@@ -21,7 +21,6 @@ from kubernetes_tpu.scheduler import runtime as jrt
 from kubernetes_tpu.scheduler.plugins import default_plugins as jdefault
 from kubernetes_tpu_torch.scheduler import framework as tfw
 from kubernetes_tpu_torch.scheduler import runtime as trt
-from kubernetes_tpu_torch.scheduler.plugins import UNPORTED_PLUGINS
 from kubernetes_tpu_torch.scheduler.plugins import default_plugins as tdefault
 
 PKGS = {"jax": (jt, jfw, jrt, jdefault), "port": (tt, tfw, trt, tdefault)}
@@ -266,10 +265,8 @@ def tables(pkg, scenario):
 
     out = []
     for pod in pods[:8]:
-        # the JAX volume plugins (ported with the fallback classes) pass every
-        # pod of these scenarios; the framework rows hold them to it
         rows = {p.name: plugin_rows(p, fw_mod, pod, snap, queued) for p in fw.plugins
-                if p.name != "DefaultPreemption" and p.name not in UNPORTED_PLUGINS}
+                if p.name != "DefaultPreemption"}
         rows["framework"] = framework_rows(fw, fw_mod, pod, snap, bound)
         out.append((pod.metadata.name, rows))
     return out
@@ -287,13 +284,14 @@ def test_plugins_and_runtime_match_jax(scenario):
 
 
 def test_default_plugin_order_is_the_jax_order_without_the_fallback_plugins():
-    want = [p.name for p in jdefault() if p.name not in UNPORTED_PLUGINS]
+    # the volume plugins came with the fallback classes: the lists are equal
+    want = [p.name for p in jdefault()]
     assert [p.name for p in tdefault()] == want
     tf, jf = trt.Framework(tdefault()), jrt.Framework(jdefault())
     for point in ("pre_enqueue_plugins", "pre_filter_plugins", "filter_plugins",
                   "post_filter_plugins", "pre_score_plugins", "score_plugins"):
         assert ([p.name for p in getattr(tf, point)]
-                == [p.name for p in getattr(jf, point) if p.name not in UNPORTED_PLUGINS]), point
+                == [p.name for p in getattr(jf, point)]), point
     assert tf.weights == jf.weights
     assert tf.queue_sort_plugin.name == jf.queue_sort_plugin.name == "PrioritySort"
 
@@ -330,3 +328,54 @@ def test_status_cycle_state_and_prefilter_result_match_jax():
         c2.skip_filter_plugins.add("Q")
         assert cs.read("k") == [1] and c2.read_or_none("x") is None
         assert cs.skip_filter_plugins == {"P"}
+
+
+@pytest.mark.parametrize("strategy", ["LeastAllocated", "MostAllocated"])
+def test_fit_score_computes_the_pod_request_once_a_cycle(monkeypatch, strategy):
+    """NodeResourcesFit.score reads the pod's non-zero request from the
+    CycleState after the first node: the calls to compute_pod_resource_request
+    in one per-pod cycle do not grow with the node count, and the scores
+    equal the JAX package's."""
+    import kubernetes_tpu_torch.api as tapi
+    from kubernetes_tpu.scheduler.plugins import NodeResourcesFit as JFit
+    from kubernetes_tpu_torch.scheduler.plugins import NodeResourcesFit as TFit
+    from kubernetes_tpu_torch.scheduler.serial import Scheduler as TScheduler
+    from kubernetes_tpu_torch.store import APIStore as TStore
+
+    real = tapi.compute_pod_resource_request
+    calls = []
+
+    def counting(pod, *a, **kw):
+        calls.append(pod.metadata.name)
+        return real(pod, *a, **kw)
+
+    monkeypatch.setattr(tapi, "compute_pod_resource_request", counting)
+    per_cycle = {}
+    for n in (10, 50):
+        store = TStore()
+        for i in range(n):
+            store.create("nodes", tt.MakeNode(f"n{i}").capacity(
+                {"cpu": str(2 + i % 7), "memory": f"{4 + i % 5}Gi", "pods": "110"}).obj())
+        sched = TScheduler(store, trt.Framework(tdefault()))
+        sched.sync()
+        pod = tt.MakePod("p").req({"cpu": "500m", "memory": "1Gi"}).obj()
+        calls.clear()
+        res = sched.schedule_pod(pod)
+        assert res.suggested_host and res.feasible_nodes == n
+        per_cycle[n] = len(calls)
+    assert per_cycle[10] == per_cycle[50] <= 3
+    # the cached request scores as the recomputed one did, on every node
+    m = {"port": tt, "jax": jt}
+    rows = []
+    for pkg, fit, fw_mod in (("jax", JFit, jfw), ("port", TFit, tfw)):
+        nodes = [m[pkg].MakeNode(f"n{i}").capacity(
+            {"cpu": str(2 + i % 7), "memory": f"{4 + i % 5}Gi"}).obj() for i in range(50)]
+        bound = [m[pkg].MakePod(f"b{i}").req({"cpu": "1"}).node(f"n{i}").obj()
+                 for i in range(0, 50, 3)]
+        snap = build_snapshot(fw_mod, nodes, bound)
+        plugin = fit(strategy=strategy)
+        state = fw_mod.CycleState()
+        pod = m[pkg].MakePod("p").req({"cpu": "300m"}).obj()
+        plugin.pre_filter(state, pod, snap)
+        rows.append([plugin.score(state, pod, ni)[0] for ni in snap.node_info_list])
+    assert rows[0] == rows[1]

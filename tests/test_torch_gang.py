@@ -715,6 +715,7 @@ def test_fallback_class_member_vetoes_the_whole_gang():
     store.create_many("pods", pods)
     sched.run_until_idle()
     assert not any(p.spec.node_name for p in store.list("pods")[0])
-    assert sched.gang_vetoes == 1 and sched.fallback_refused == 0
+    assert sched.gang_vetoes == 1
+    assert sched.fallback_pods == 0 and sched.serial_scheduled == 0
     reasons = collections.Counter(e.reason for e in store.list("events")[0])
     assert reasons["GangVetoed"] == 1

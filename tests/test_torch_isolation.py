@@ -5,7 +5,9 @@ auction), one auction batch with its warm duals, and one gang through the
 victim cover and rank alignment, and reports what
 it imported; another preempts through the serial scheduler and the batch
 scheduler, both built from a configuration; another consolidates a fragmented cluster with the rebalancer
-(kernel I's plain version) under an armed fault injector and trace buffer; a static pass over every module of kubernetes_tpu_torch and
+(kernel I's plain version) under an armed fault injector and trace buffer;
+another runs a batch of device pods and every fallback class (volumes, DRA,
+spread inclusion policies) through the per-pod route; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
 """
@@ -216,6 +218,54 @@ def test_serial_framework_and_preemption_import_no_jax_and_no_jax_package():
         "plugins.node_plugins", "plugins.topology_spread", "plugins.interpod_affinity",
         "plugins.default_preemption", "plugins.helpers")}
     assert mods | {"kubernetes_tpu_torch.utils.featuregate"} <= set(got["loaded"])
+    assert got["modules"] == []
+
+
+_FALLBACK_BATCH = r"""
+import json, sys
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import fallback_workload
+from kubernetes_tpu_torch.utils.featuregate import feature_gates
+
+feature_gates.set("DynamicResourceAllocation", True)
+w = fallback_workload(0, 20, 20, zones=4, tainted=2, slice_every=4, devices_per_slice=2,
+                      prebound=2, provision=2, static=1, dra_one=2, dra_two=1, spread=2,
+                      ephemeral=1, shared_disk=1)
+store = APIStore()
+for kind in ("nodes", "csinodes", "storageclasses", "persistentvolumes",
+             "persistentvolumeclaims", "deviceclasses", "resourceslices", "resourceclaims"):
+    store.create_many(kind, w[kind])
+sched = BatchScheduler(store, device="cpu", solver="auto")
+sched.sync()
+store.create_many("pods", w["pods"])
+sched.run_until_idle()
+pods, _ = store.list("pods")
+claims, _ = store.list("resourceclaims")
+print(json.dumps({"bound": sum(1 for p in pods if p.spec.node_name), "pods": len(pods),
+                  "fallback": [sched.fallback_pods, sched.serial_scheduled],
+                  "allocated": sum(1 for c in claims if c.allocation is not None),
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.startswith(("kubernetes_tpu_torch.scheduler",
+                                                    "kubernetes_tpu_torch.api"))),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_fallback_batch_imports_no_jax_and_no_jax_package():
+    """A batch of device pods and every fallback class through the per-pod
+    route (the volume plugins, DynamicResources, the storage and DRA store
+    kinds) loads neither jax nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _FALLBACK_BATCH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bound"] == got["pods"] == 33
+    assert got["fallback"] == [13, 13] and got["allocated"] == 3
+    assert {"kubernetes_tpu_torch.scheduler.plugins.volume",
+            "kubernetes_tpu_torch.scheduler.plugins.dynamic_resources",
+            "kubernetes_tpu_torch.api.storage",
+            "kubernetes_tpu_torch.api.dra"} <= set(got["loaded"])
     assert got["modules"] == []
 
 
