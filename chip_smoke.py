@@ -53,7 +53,22 @@ Phases, each printing one JSON line:
              run_until_idle on the SchedulingBasic and TopologySpreading
              shapes: every pod bound through the store, no node
              over-committed, zone skew <= 1, kernel launch counts > 0 (kernel
-             B: one launch per incremental batch), solve seconds a batch
+             B: one launch per incremental batch), solve seconds a batch;
+             the SchedulingBasic store (columnar, the default) carries one
+             per-object and one coalescing pods watcher
+  main_path_store
+             exact SchedulingBasic once more on APIStore(columnar=False), held
+             against main_path's columnar run: equal {pod: node} maps, equal
+             resourceVersions for every pod, and the same sequence of (key,
+             rv, node) bind transitions in history_events(); the columnar
+             leg's two watchers drained with no dropped delivery (20,000
+             per-object events, every pod's ADDED and bind in the coalesced
+             batches); kernels A and B launched in both legs; reported:
+             pods/s, stage_seconds and the commit stage of both legs,
+             store_bind_many_duration's count and mean, columnar_stats() and
+             watch_telemetry() (subscriber rv lag, drops by reason,
+             propagation count and p50/p99), each leg's full garbage
+             collections and the phase's seconds
   main_path_fast
              BatchScheduler(solver="fast") on SchedulingBasic,
              TopologySpreading, PodAntiAffinity and PodAffinity (and
@@ -74,7 +89,7 @@ Phases, each printing one JSON line:
              "exact" (B, A), victims prepared synchronously and on the async
              worker; the same shape at 5,000 nodes (auto, sync and async,
              batches of 4,096, so the preemptors span two batches);
-             and a constrained case (500 nodes in 10 zones, 100 preemptors
+             and a constrained case (500 nodes in 10 zones, 50 preemptors
              with a zone spread, exact: the serial PostFilter). Gates: every
              high pod bound, no node over-committed, every victim lower in
              priority than its preemptor and on the node it was narrated on,
@@ -195,7 +210,10 @@ Phases, each printing one JSON line:
              0 victims and OFF more, ON migrated and no cycle over 256, a
              donor slice wholly drained, conservation through resolve_keys,
              kernel I launched, and the ON leg's maps, cycles and migration
-             chain equal to a CPU rerun
+             chain equal to a CPU rerun; the ON line names the rebalancer's
+             candidate route (the store's columnar view, or a list) and
+             reports the admission window's own store.list polls apart
+             (admission_poll_s)
   kernel_I   the defrag-assign kernel (a tournament tree) against
              defrag_assign_plain: (a) the Defrag_5000 cycle's own tensors
              (n_slots 8,192, v_max 256, R 3), (b) the cap, 1,024 seeded
@@ -1228,12 +1246,16 @@ def phase_kernel_d(device, sizes, seed):
 RUN_COUNTS = {}
 
 
-def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=()):
+def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=(),
+                    store=None):
+    """One main-path run through a store (APIStore() unless one is given),
+    returning (store, sched, the listed pods, launches, create s, schedule
+    s)."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
 
-    store = APIStore()
+    store = APIStore() if store is None else store
     store.create_many("nodes", nodes)
     if bound:
         store.create_many("pods", list(bound))
@@ -1275,14 +1297,30 @@ def check_no_overcommit(bound, nodes):
               f"node {node} over-committed: cpu {cpu}m mem {mem} pods {cnt}")
 
 
+# main_path's columnar SchedulingBasic run (store, scheduler, watchers, bind
+# latency), which main_path_store holds its dict-store run against
+COLUMNAR_LEG = {}
+
+
 def phase_main_path(device, sizes, card):
+    from kubernetes_tpu_torch.server import metrics
+    from kubernetes_tpu_torch.store import APIStore
+
     n, batch = sizes["nodes"], sizes["batch"]
     out = {}
     for name, nodes, pods in (
             ("SchedulingBasic", make_nodes(n), basic_pods(sizes["basic"], "mp")),
             ("TopologySpreading", make_nodes(n, zones=10), spread_pods(sizes["spread"], "ms"))):
+        store = APIStore()
+        if name == "SchedulingBasic":
+            # the store phase's columnar leg: one per-object and one
+            # coalescing watcher, unbounded, drained after the run
+            COLUMNAR_LEG.update(per=store.watch("pods", maxsize=0),
+                                coal=store.watch("pods", maxsize=0, coalesce=True),
+                                bind_before=metrics.store_bind_many_duration.snapshot(),
+                                gc_before=gc_full_collections())
         store, sched, got, launches, create_s, sched_s = drive_main_path(
-            name, nodes, pods, device, batch)
+            name, nodes, pods, device, batch, store=store)
         placed = [p for p in got if p.spec.node_name]
         check(len(placed) == len(pods),
               f"{name}: {len(placed)}/{len(pods)} pods bound through the store")
@@ -1307,7 +1345,103 @@ def phase_main_path(device, sizes, card):
             check(launches["greedy_scan"] > 0, f"{name}: kernel A never launched")
             check(launches["row_scatter"] > 0, f"{name}: kernel B never launched")
         out[name] = line
+        if name == "SchedulingBasic":
+            COLUMNAR_LEG.update(store=store, got=got, line=line,
+                                bind_after=metrics.store_bind_many_duration.snapshot(),
+                                gc_after=gc_full_collections())
     return out
+
+
+def gc_full_collections():
+    """The interpreter's full (generation 2) garbage collections so far: a
+    full collection over a large heap is a host pause that lands in
+    whichever stage clock is running."""
+    return gc.get_stats()[2]["collections"]
+
+
+def bind_transitions(store):
+    """(key, rv, node) of every unbound -> bound transition in the store's
+    history, in rv order (columnar bind batches flattened)."""
+    return [(ev.obj.key, ev.resource_version, ev.obj.spec.node_name)
+            for ev in store.history_events()
+            if ev.kind == "pods" and ev.type == "MODIFIED" and ev.obj.spec.node_name
+            and (ev.prev is None or not ev.prev.spec.node_name)]
+
+
+def bind_latency(before, after):
+    """store_bind_many_duration between two (sum, count) snapshots."""
+    count = after[1] - before[1]
+    return {"count": count, "mean_s": (after[0] - before[0]) / count if count else None}
+
+
+def phase_main_path_store(device, sizes, card, leg):
+    """main_path's columnar SchedulingBasic run against the same run on a
+    dict store: equal maps, pod resourceVersions and bind transitions; the
+    columnar leg's watchers drained without a dropped delivery."""
+    from kubernetes_tpu_torch.server import metrics
+    from kubernetes_tpu_torch.store import APIStore
+
+    t_phase = time.perf_counter()
+    n, batch, p = sizes["nodes"], sizes["batch"], sizes["basic"]
+    col = leg["store"]
+    check(col.columnar, "main_path_store: main_path's store is not columnar")
+    per, coal = leg["per"].drain(), leg["coal"].drain()
+    tel = col.watch_telemetry()
+    check(not tel["dropped"], f"main_path_store: dropped deliveries {tel['dropped']}")
+    check(not leg["per"].terminated and not leg["coal"].terminated,
+          "main_path_store: a columnar-leg watcher was terminated")
+    check(len(per) == 2 * p and [e.type for e in per].count("MODIFIED") == p,
+          f"main_path_store: the per-object watcher saw {len(per)} events, not {2 * p}")
+    coal_n = sum(len(c.events) for c in coal)
+    check(coal_n == 2 * p, f"main_path_store: the coalesced batches held {coal_n} events")
+    stats = col.columnar_stats()
+    before = metrics.store_bind_many_duration.snapshot()
+    gc.collect()
+    gc_before = gc_full_collections()
+    dstore, dsched, dgot, dlaunches, dcreate_s, dsched_s = drive_main_path(
+        "SchedulingBasic", make_nodes(n), basic_pods(p, "mp"), device, batch,
+        store=APIStore(columnar=False))
+    after = metrics.store_bind_many_duration.snapshot()
+    gc_after = gc_full_collections()
+    check(not dstore.columnar, "main_path_store: the dict leg's store is columnar")
+    cmap = {q.metadata.name: q.spec.node_name for q in leg["got"]}
+    dmap = {q.metadata.name: q.spec.node_name for q in dgot}
+    check(len(cmap) == p and all(cmap.values()), "main_path_store: columnar leg not all bound")
+    check(cmap == dmap, "main_path_store: the dict leg placed differently")
+    crv = {q.metadata.name: q.metadata.resource_version for q in leg["got"]}
+    drv = {q.metadata.name: q.metadata.resource_version for q in dgot}
+    check(crv == drv, "main_path_store: pod resourceVersions differ between the legs")
+    ctr, dtr = bind_transitions(col), bind_transitions(dstore)
+    check(len(ctr) == p and ctr == dtr,
+          f"main_path_store: bind transitions differ ({len(ctr)} against {len(dtr)})")
+    if device.type == "cuda":
+        check(dlaunches["greedy_scan"] > 0, "main_path_store: dict leg: kernel A never launched")
+        check(dlaunches["row_scatter"] > 0, "main_path_store: dict leg: kernel B never launched")
+    cline = leg["line"]
+    prop = tel["propagation"]
+    line = {"phase": "main_path_store", "workload": "SchedulingBasic", "nodes": n, "pods": p,
+            "equal": {"map": True, "pod_rvs": True, "bind_transitions": len(ctr)},
+            "columnar": {"pods_per_s": cline["pods_per_s"], "schedule_s": cline["schedule_s"],
+                         "commit_s": cline["stage_seconds"]["commit"],
+                         "stage_seconds": cline["stage_seconds"],
+                         "launches": cline["launches"],
+                         "store_bind_many": bind_latency(leg["bind_before"],
+                                                         leg["bind_after"]),
+                         "gc_full_collections": leg["gc_after"] - leg["gc_before"]},
+            "dict": {"pods_per_s": p / dsched_s, "schedule_s": dsched_s,
+                     "commit_s": dsched.stage_seconds["commit"],
+                     "stage_seconds": dsched.stage_seconds, "launches": dlaunches,
+                     "store_bind_many": bind_latency(before, after),
+                     "gc_full_collections": gc_after - gc_before},
+            "columnar_stats": {k: stats[k] for k in ("rows", "diverged", "materialized_total",
+                                                     "bound", "sig_captured")},
+            "watch": {"per_object_events": len(per), "coalesced_deliveries": len(coal),
+                      "coalesced_events": coal_n, "dropped": tel["dropped"],
+                      "rv_lag": [s["rv_lag"] for s in tel["subscribers"]],
+                      "propagation": {k: prop[k] for k in ("count", "p50_s", "p99_s")}},
+            "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(line)
+    return line
 
 
 def fast_workloads(sizes):
@@ -3119,6 +3253,7 @@ def defrag_leg(sizes, device, rebalance):
         out["map_after_cycles"] = {p.metadata.name: p.spec.node_name
                                    for p in store.list("pods")[0]}
         out["chain_after_cycles"] = sorted(rb._moves.items())
+        out["candidates_route"] = rb.candidates_route
         out["consolidation_cycles"] = len(out["cycles"])
         out["stats_after_cycles"] = rb.stats()
     store.create("podgroups", pg)
@@ -3127,17 +3262,23 @@ def defrag_leg(sizes, device, rebalance):
     want = len(members)
     bound = 0
     deadline = time.perf_counter() + 120.0
+    poll_s = 0.0
     while time.perf_counter() < deadline:
         sched.run_until_idle()
         sched.queue.flush_backoff_completed()
         sched.pump_events()
+        # this script's own poll: a LIST (a copy of every pod) each turn,
+        # timed apart so the scheduler's share of admission_s reads alone
+        tp = time.perf_counter()
         bound = sum(1 for p in store.list("pods")[0]
                     if p.metadata.name.startswith("train-") and p.spec.node_name)
+        poll_s += time.perf_counter() - tp
         if bound >= want:
             break
         time.sleep(0.02)
     sync(device)
     out["admission_s"] = time.perf_counter() - t0
+    out["admission_poll_s"] = poll_s
     out["launches"] = dict(kernels.LAUNCHES)
     out["bound"], out["members"] = bound, want
     out["victims"] = sched.gangpreempt.stats()["victims"]
@@ -3218,7 +3359,8 @@ def phase_main_path_defrag(device, sizes, card, inputs):
         line = {"phase": "main_path_defrag", "workload": "Defrag_5000", "leg": name,
                 "nodes": 20 * per, "slices": 20, "fillers": 20 * per, "gang": leg["members"],
                 "bound": leg["bound"], "victims": leg["victims"],
-                "admission_s": leg["admission_s"], "conservation": leg["conservation"],
+                "admission_s": leg["admission_s"], "admission_poll_s": leg["admission_poll_s"],
+                "conservation": leg["conservation"],
                 "launches": leg["launches"], "batches": leg["batches"],
                 "stage_seconds": leg["stage_seconds"], "pods_per_slice": leg["slice_pods"],
                 "leg_s": seconds, "card": card}
@@ -3229,6 +3371,7 @@ def phase_main_path_defrag(device, sizes, card, inputs):
                 ["frag"], "consolidation_cycles": leg["consolidation_cycles"],
                 "consolidation_migrations": migrations,
                 "consolidate_s": leg["consolidate_s"],
+                "candidates_route": leg["candidates_route"],
                 "pods_moved_per_s": migrations / leg["consolidate_s"],
                 "drained_slices": empty, "cycles": cyc, "cycle_ms": leg["cycle_ms"],
                 "trace": leg["trace"], "rebalance": leg["stats"],
@@ -3373,7 +3516,7 @@ def main(argv=None) -> int:
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
               "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
-              "preempt_nodes": 500, "preempt_constrained": 100,
+              "preempt_nodes": 500, "preempt_constrained": 50,
               "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
                            "dra_two": 16, "spread": 16}})
     try:
@@ -3389,6 +3532,8 @@ def main(argv=None) -> int:
         err_e, line_e = phase_kernel_e(device, sizes, args.seed)
         err_f, line_f = phase_kernel_f(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
+        phase_main_path_store(device, sizes, info["nvidia_smi"], COLUMNAR_LEG)
+        COLUMNAR_LEG.clear()
         fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
         gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
         preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])

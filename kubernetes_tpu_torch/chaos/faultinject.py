@@ -31,11 +31,14 @@ Two firing forms, split by lock discipline:
                               NEVER blocks — the only form legal under a lock.
 
 The registry keeps every site name of the JAX package, so a plan written
-for it validates here too. The port wires two of them: `solver.solve`
-(scheduler/batch.py BatchScheduler._solve_device) and `rebalance.cycle`
-(scheduler/rebalance.py). The others name layers the port has not ported
-yet; the registry says which ROADMAP.md item brings each, and a plan armed
-for one of them validates and never fires.
+for it validates here too. The port wires four of them: `solver.solve`
+(scheduler/batch.py BatchScheduler._solve_device), `rebalance.cycle`
+(scheduler/rebalance.py), `store.bind_many` (store/store.py
+APIStore.bind_many's entry, no lock held) and `watch.deliver`
+(store/store.py Watch._deliver and _deliver_coalesced, drop-only: the store
+lock is held). The others name layers the port has not ported yet; the
+registry says which ROADMAP.md item brings each, and a plan armed for one
+of them validates and never fires.
 
 Arming: programmatic `arm([FaultPlan(...), ...])` (tests), or the
 FAULT_INJECT env var at import time, e.g.
@@ -61,11 +64,10 @@ from ..obs import tracebuf as _tracebuf
 # in a plan are a hard arm() error — a typo'd site would otherwise silently
 # inject nothing and the chaos test would pass vacuously.
 SITES: Dict[str, str] = {
-    "store.bind_many": "store/store.py APIStore.bind_many entry (no lock held); "
-                       "not wired until the full store, ROADMAP.md item 7",
+    "store.bind_many": "store/store.py APIStore.bind_many entry (no lock held)",
     "solver.solve": "scheduler/batch.py BatchScheduler._solve_device",
-    "watch.deliver": "store/store.py Watch._deliver* (drop-only: store lock); "
-                     "not wired until ROADMAP.md item 7",
+    "watch.deliver": "store/store.py Watch._deliver and _deliver_coalesced "
+                     "(drop-only: store lock)",
     "bind.worker": "scheduler/batch.py BatchScheduler._bind_cycle; not wired "
                    "until pipelined binds, ROADMAP.md item 7",
     "kubelet.heartbeat": "agent/hollow.py HollowKubelet.heartbeat (drop-only); "

@@ -72,10 +72,13 @@ differences).
 Not in this slice (each raises or is named where it would act):
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
-  flight recorder, pod traces, metrics, the solver's Warning event, the
-  native commit, pipelined binds and assume expiry, sched_stats(), the
-  partitioned scheduler (partition_index stays None, no reroute hook), the
-  columnar cache rows                         queue 1 item 7
+  flight recorder, pod traces, metrics, the solver's Warning event,
+  sched_stats()                               queue 1 item 7d
+  the native commit, pipelined binds and assume expiry, the columnar
+  cache rows (_cache_columnar, assume_pods_columnar, _columnar_account and
+  the pod_bind_clone assume clone)            queue 1 item 7c
+  the partitioned scheduler (partition_index stays None, no reroute hook)
+                                              queue 1 item 7e
 """
 
 from __future__ import annotations
@@ -237,10 +240,19 @@ class BatchScheduler(Scheduler):
                     "no nodes available to schedule pods"))
             return len(qps)
         cluster, changed_nodes = self._tensor_cache.cluster_tensors(snapshot)
+        pods = [qp.pod for qp in qps]
+        # the store's columnar pod view (None on a dict store) re-seeds the
+        # pods' signature memos; the batch build primes them, and ONE
+        # batched capture writes the refs back into the store's sig column
+        # so rows re-synced by later status/relist writes stay seedable
+        store_cols = self.store.pod_columns()
         batch = build_pod_batch(
-            [qp.pod for qp in qps], snapshot, cluster, ns_labels=self._ns_labels,
+            pods, snapshot, cluster, ns_labels=self._ns_labels,
             hard_pod_affinity_weight=self._hard_pod_affinity_weight(),
-            reuse=self._tensor_cache, changed_nodes=changed_nodes, gangs=self.gangs)
+            reuse=self._tensor_cache, changed_nodes=changed_nodes, gangs=self.gangs,
+            store_cols=store_cols)
+        if store_cols is not None:
+            self.store.capture_sig_memos(pods)
         fallback_mask = batch.fallback_class[batch.class_of_pod]
         keep = ~self._strip_fallback_gangs(qps, batch, fallback_mask)
         device_idx = np.nonzero(~fallback_mask & keep)[0]

@@ -43,9 +43,11 @@ rebalancer is also inert on a SHARD pipeline of a partitioned scheduler
 (partition_index >= 0); the port's BatchScheduler has partition_index None
 (partitioned scheduling is ROADMAP.md queue 1 item 7).
 
-The port's lean store has no columnar pod view (item 7), so _candidates
-lists the pods; the list branch gives the columnar branch's candidate order
-(both sort by key before the cap).
+_candidates reads the store's columnar pod view (store.pod_columns()) to
+find the donor slice's rows without copying the whole cluster, then gets
+only those pods; on a dict store (APIStore(columnar=False)) it lists the
+pods, which gives the same candidates in the same order (both sort by key
+before the cap).
 """
 
 from __future__ import annotations
@@ -117,6 +119,9 @@ class Rebalancer:
         # victim key -> replacement key, recorded only after the victim's
         # delete committed; resolve_keys follows chains for conservation
         self._moves: Dict[str, str] = {}
+        # which route the last _candidates took: "columnar" (the store's
+        # pod view) or "list" (a dict store); None before the first plan
+        self.candidates_route: Optional[str] = None
         self._totals: Dict[str, float] = {
             "cycles": 0, "noop_cycles": 0, "plans": 0, "migrations": 0,
             "waves": 0, "slo_aborts": 0, "fault_aborts": 0,
@@ -313,16 +318,17 @@ class Rebalancer:
 
     def _candidates(self, cluster, slice_ids, donor) -> Tuple[list, bool]:
         """Movable pods on the donor slice, priority-ascending (ties by key
-        for determinism), PDB-screened. Uses a columnar view where the store
-        has one (the JAX package's; the port's with ROADMAP.md item 7), to
-        find rows without materializing the whole cluster; else store.list,
-        which gives the same order. Returns (pods, capped)."""
+        for determinism), PDB-screened. Uses the store's columnar view where
+        it has one, to find rows without materializing the whole cluster;
+        else store.list, which gives the same order. Returns (pods,
+        capped)."""
         store = self.sched.store
         donor_nodes = {cluster.node_names[i] for i in range(cluster.n)
                        if slice_ids[i] == donor}
         raw = []
         view = (store.pod_columns()
                 if hasattr(store, "pod_columns") else None)
+        self.candidates_route = "list" if view is None else "columnar"
         if view is not None:
             for row in range(view.n):
                 key = view.keys[row]

@@ -154,6 +154,9 @@ class Scheduler:
         # re-ingest (the bind path confirmed their assumes already)
         self._bind_origin = f"scheduler-torch-{next(_origin_seq)}"
         self._watch = None
+        # coalesced watch ingest: a batched store write arrives as ONE
+        # delivery; False takes every event per object (the parity oracle)
+        self.watch_coalesce = True
         self.scheduled_count = 0
         self.failed_count = 0
         self.preemption_count = 0
@@ -273,7 +276,7 @@ class Scheduler:
                     lister.add(obj)
         self._push_ns_labels()
         self._watch = self.store.watch(kind=self.WATCHED_KINDS, since_rv=rv,
-                                       maxsize=200_000, coalesce=True)
+                                       maxsize=200_000, coalesce=self.watch_coalesce)
 
     def pump_events(self, max_events: int = 10_000) -> int:
         """Drain pending watch deliveries into cache/queue. An evicted (slow)

@@ -40,6 +40,15 @@ from .class_compiler import (
 )
 from .ipa import IPATensors, compile_ipa
 
+# The pod-carried memo slots this module owns: `_class_sig` is the
+# class-signature memo (pod_class_signature), `_req_sig` the spec-identity
+# request-signature memo (_req_entry below), `_req_cache` the seeded PodInfo
+# request pair. They live in pod.__dict__, so every structural/bind clone
+# (which copies the dict at the C level) carries them for free — including
+# the columnar store's lazily materialized rows (store/columnar.py captures
+# the first two as its signature-ref column and relies on exactly this).
+SIG_MEMO_KEYS = ("_class_sig", "_req_sig", "_req_cache")
+
 MI = 1024 * 1024
 
 
@@ -502,7 +511,7 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
                     hard_pod_affinity_weight: int = 1,
                     reuse: Optional[TensorCache] = None,
                     changed_nodes: Optional[List[int]] = None,
-                    gangs=None) -> PodBatchTensors:
+                    gangs=None, store_cols=None) -> PodBatchTensors:
     """Group pods into classes, compile class tables, build PTS + IPA tensors.
 
     reuse + changed_nodes (from TensorCache.cluster_tensors) enable the
@@ -513,7 +522,15 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
     gangs (a scheduler.gang.GangDirectory) threads group-id rows through the
     batch: each pod's PodGroup index, its rank, and the per-class
     slice-packing bonus. Skipped entirely while the directory is inactive
-    (no PodGroups)."""
+    (no PodGroups).
+
+    store_cols (a store PodColumnsView) re-seeds the per-pod signature memos
+    from the store's sig COLUMN: pods freshly parsed by the watch ingest
+    carry no `_class_sig`/`_req_sig` memos, but the columnar store captured
+    an earlier parse's memo refs — when a column entry's identity anchors
+    (spec, labels) still match this pod object, the memos are re-seeded and
+    the signature loop hits instead of re-deriving. Never required for
+    correctness."""
     ns_labels = ns_labels or {}
     gang_of_pod = gang_keys = gang_bonus = gang_rank = None
     if gangs is not None and gangs.active:
@@ -561,6 +578,35 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
             pod.__dict__["_req_cache"] = got[1]
         return got
 
+    seed_memos = None
+    if store_cols is not None:
+        _key2row = store_cols.key2row
+        _sig_col = store_cols.sig
+
+        def seed_memos(pod):
+            # Re-seed the pod's signature memos from the store's sig COLUMN
+            # when the identity anchors still hold; a miss (fresh spec, no
+            # row) is harmless: the normal derivation runs. Returns True
+            # when anything was seeded (the sweep's dry-out signal).
+            d = pod.__dict__
+            row = _key2row.get(pod.key)
+            if row is None:
+                return False
+            ent = _sig_col[row]
+            if ent is None:
+                return False
+            cs, rs = ent
+            seeded = False
+            if (cs is not None and "_class_sig" not in d and len(cs) == 3
+                    and cs[0] is pod.spec and cs[1] is pod.metadata.labels):
+                d["_class_sig"] = cs
+                seeded = True
+            if (rs is not None and "_req_sig" not in d and len(rs) == 2
+                    and rs[0] is pod.spec):
+                d["_req_sig"] = rs
+                seeded = True
+            return seeded
+
     entry_rows: List[int] = []
     if pod_axis is not None:
         rep_pods = list(pod_axis.tables.rep_pods)
@@ -577,6 +623,21 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
         sig_to_class: Dict[tuple, int] = {}
         rep_pods = []
         class_rows: List[int] = []
+        if seed_memos is not None:
+            # a pre-pass over memo-less pods; adaptive dry-out: a batch whose
+            # first 64 memo-less pods find nothing in the column (rows synced
+            # before any memo existed) stops consulting it, so the seed path
+            # never costs more than the derivation it saves
+            probed = hits = 0
+            for pod in pods:
+                d = pod.__dict__
+                if "_class_sig" in d and "_req_sig" in d:
+                    continue
+                if seed_memos(pod):
+                    hits += 1
+                probed += 1
+                if probed >= 64 and not hits:
+                    break
         for pod in pods:
             sig = pod_class_signature(pod)
             ci = sig_to_class.get(sig)

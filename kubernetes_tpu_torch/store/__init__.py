@@ -1,9 +1,10 @@
-"""L1 — the API store (versioned objects, watches, atomic binds)."""
+"""L1 — the API store (versioned objects, watches, atomic binds, columnar
+pod rows)."""
 
 from .store import (  # noqa: F401
     ADDED,
+    BOOKMARK,
     DELETED,
-    KINDS,
     MODIFIED,
     AlreadyBoundError,
     AlreadyExistsError,
@@ -11,9 +12,14 @@ from .store import (  # noqa: F401
     CoalescedEvent,
     ConflictError,
     Event,
+    is_bind_conflict,
+    LazyBindBatch,
+    LockOrderViolation,
+    MutationDetectedError,
+    MutationDetector,
     NotFoundError,
-    ResourceVersionTooOldError,
-    Watch,
     pod_bind_clone,
     pod_structural_clone,
+    ResourceVersionTooOldError,
+    Watch,
 )

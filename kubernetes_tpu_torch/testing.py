@@ -443,7 +443,8 @@ def pod_conservation_report(store, scheduler, keys):
         else:
             lost.append(key)
     keyset = set(keys)
-    # the store's history: unbound -> bound transitions per key
+    # the store's history (columnar bind batches flattened into their
+    # per-object events): unbound -> bound transitions per key
     bind_counts: Dict[str, int] = {}
     for ev in store.history_events():
         if ev.kind != "pods" or ev.type != "MODIFIED":
@@ -475,6 +476,33 @@ def assert_pod_conservation(store, scheduler, keys):
     assert not rep["double_bound"], (f"{len(rep['double_bound'])} pod(s) DOUBLE-BOUND: "
                                      f"{rep['double_bound'][:10]}")
     return rep
+
+
+def mutation_detector_guard(monkeypatch):
+    """Shared body for a force-enabled mutation-detector autouse fixture.
+    Use from a test module as
+
+        @pytest.fixture(autouse=True)
+        def _force_mutation_detector(monkeypatch):
+            yield from mutation_detector_guard(monkeypatch)
+
+    Every APIStore the module builds runs with the detector ON, and every
+    store is checked at teardown — a consumer mutating an event object (or
+    a store write reaching one) fails the module that caused it."""
+    from .store import APIStore
+
+    monkeypatch.setenv("CACHE_MUTATION_DETECTOR", "1")
+    stores = []
+    orig = APIStore.__init__
+
+    def wrapped(self, *a, **kw):
+        orig(self, *a, **kw)
+        stores.append(self)
+
+    monkeypatch.setattr(APIStore, "__init__", wrapped)
+    yield
+    for s in stores:
+        s.check_mutations()
 
 
 def transport_problem(seed, g, n, r=3, ties=False, scarce=False, dead_group=False,

@@ -148,10 +148,11 @@ def test_tables_match_jax():
     assert set(tfi.SITES) == set(jfi.SITES)
     assert tfi.DROP_ONLY_SITES == jfi.DROP_ONLY_SITES
     assert tfi.MODES == jfi.MODES
-    # the two sites the port wires say where; the others name their item
-    for site in ("solver.solve", "rebalance.cycle"):
+    # the four sites the port wires say where; the others name their item
+    wired = {"solver.solve", "rebalance.cycle", "store.bind_many", "watch.deliver"}
+    for site in wired:
         assert "not wired" not in tfi.SITES[site]
-    for site in set(tfi.SITES) - {"solver.solve", "rebalance.cycle"}:
+    for site in set(tfi.SITES) - wired:
         assert "not wired until" in tfi.SITES[site]
 
 

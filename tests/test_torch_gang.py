@@ -162,8 +162,9 @@ def test_podgroup_is_stored_watched_and_parsed():
 
 def test_store_refuses_other_kinds_and_deletes_pods_in_one_batch():
     store = TStore()
-    with pytest.raises(ValueError, match="not stored"):
-        store.create("deployments", tt.make_pod_group("x", 1))
+    # any kind is stored, as in the JAX store (the lean store raised here)
+    store.create("deployments", tt.make_pod_group("x", 1))
+    assert store.get("deployments", "default/x").spec.min_member == 1
     for i in range(3):
         store.create("pods", tt.MakePod(f"v{i}").node("n0").obj())
     w = store.watch(kind="pods", coalesce=True)

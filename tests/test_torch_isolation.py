@@ -7,7 +7,9 @@ it imported; another preempts through the serial scheduler and the batch
 scheduler, both built from a configuration; another consolidates a fragmented cluster with the rebalancer
 (kernel I's plain version) under an armed fault injector and trace buffer;
 another runs a batch of device pods and every fallback class (volumes, DRA,
-spread inclusion policies) through the per-pod route; a static pass over every module of kubernetes_tpu_torch and
+spread inclusion policies) through the per-pod route; another drives the
+full store (columnar rows, the mutation detector, bounded history, watch
+telemetry, an armed watch.deliver site); a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
 """
@@ -266,6 +268,62 @@ def test_fallback_batch_imports_no_jax_and_no_jax_package():
             "kubernetes_tpu_torch.scheduler.plugins.dynamic_resources",
             "kubernetes_tpu_torch.api.storage",
             "kubernetes_tpu_torch.api.dra"} <= set(got["loaded"])
+    assert got["modules"] == []
+
+
+_FULL_STORE = r"""
+import json, sys
+import kubernetes_tpu_torch.chaos.faultinject as fi
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod, assert_pod_conservation
+
+out = {}
+for columnar in (True, False):
+    store = APIStore(columnar=columnar, mutation_detector=True, history_limit=64)
+    per = store.watch("pods", maxsize=0)
+    coal = store.watch("pods", maxsize=0, coalesce=True)
+    for i in range(4):
+        store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "8", "memory": "16Gi"}).obj())
+    sched = BatchScheduler(store, device="cpu", solver="exact")
+    sched.sync()
+    pods = [MakePod(f"p{i}").req({"cpu": "500m"}).obj() for i in range(40)]
+    fi.arm([fi.FaultPlan("watch.deliver", "fail", count=1, match="pods")])
+    store.create_many("pods", pods)
+    fi.disarm()
+    sched.resync_from_store()
+    sched.run_until_idle()
+    assert_pod_conservation(store, sched, [p.key for p in pods])
+    store.check_mutations()
+    per.drain(), coal.drain()
+    tel = store.watch_telemetry()
+    out[str(columnar)] = {"bound": sum(1 for p in store.list("pods")[0] if p.spec.node_name),
+                          "columnar": store.columnar,
+                          "rows": (store.columnar_stats() or {}).get("rows"),
+                          "dropped": tel["dropped"], "floor": store._history_floor_rv > 0}
+print(json.dumps({"out": out,
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.startswith(("kubernetes_tpu_torch.store",
+                                                    "kubernetes_tpu_torch.server"))),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_full_store_imports_no_jax_and_no_jax_package():
+    """The full store (columnar rows, the mutation detector, a bounded
+    history, watch telemetry into the store's metric series, an armed
+    watch.deliver site) under the batch scheduler, columnar and dict, loads
+    neither jax nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _FULL_STORE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["out"]["True"] == {"bound": 40, "columnar": True, "rows": 40,
+                                  "dropped": {"chaos": 1}, "floor": True}
+    assert got["out"]["False"] == {"bound": 40, "columnar": False, "rows": None,
+                                   "dropped": {"chaos": 1}, "floor": True}
+    assert {"kubernetes_tpu_torch.store.store", "kubernetes_tpu_torch.store.columnar",
+            "kubernetes_tpu_torch.server.metrics"} <= set(got["loaded"])
     assert got["modules"] == []
 
 
