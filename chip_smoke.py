@@ -69,6 +69,20 @@ Phases, each printing one JSON line:
              watch_telemetry() (subscriber rv lag, drops by reason,
              propagation count and p50/p99), each leg's full garbage
              collections and the phase's seconds
+  main_path_commit
+             the host commit: main_path's SchedulingBasic run (the default
+             pipeline: columnar cache rows, binds on the supervised worker
+             thread with retry, the g++ commit engines) against the same
+             shape on the object-path oracle (columnar=False,
+             pipeline_binds=False, APIStore(native_commit=False)): equal
+             map, pod resourceVersions and bind transitions, kernels A and B
+             launched in both; under armed store.bind_many=fail:count=2 and
+             native.commit=fail:count=1: every pod bound once, three bind
+             retries counted, no assume left; and solver="native" (the host
+             C engine, no kernel launched by design): the scan's map.
+             Reported per run: pods/s, stage_seconds, the bind worker's
+             seconds and flush_binds' wait, store_bind_many_duration,
+             restarts and retries, the cache rows, full garbage collections
   main_path_fast
              BatchScheduler(solver="fast") on SchedulingBasic,
              TopologySpreading, PodAntiAffinity and PodAffinity (and
@@ -1247,10 +1261,11 @@ RUN_COUNTS = {}
 
 
 def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=(),
-                    store=None):
+                    store=None, sched_kw=None, faults=None):
     """One main-path run through a store (APIStore() unless one is given),
     returning (store, sched, the listed pods, launches, create s, schedule
-    s)."""
+    s). sched_kw passes to BatchScheduler; faults (FaultPlans) are armed for
+    the timed run and disarmed after it."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
@@ -1260,21 +1275,33 @@ def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound
     if bound:
         store.create_many("pods", list(bound))
     # the call a user makes: device="cuda" (the default), not a pinned index
-    sched = BatchScheduler(store, device=device.type, solver=solver, batch_size=batch_size)
+    sched = BatchScheduler(store, device=device.type, solver=solver, batch_size=batch_size,
+                           **(sched_kw or {}))
     sched.sync()
     # start each timed run from a collected heap: the garbage of the phases
     # before it must not land in this run's stage clocks
     gc.collect()
+    if faults:
+        from kubernetes_tpu_torch.chaos import faultinject
+
+        faultinject.arm(faults)
     kernels.reset_launch_counts()
+    gc0, gcs0 = gc_full_collections(), gc_full_seconds()
     t0 = time.perf_counter()
     store.create_many("pods", pods)
     t1 = time.perf_counter()
-    sched.run_until_idle()
+    try:
+        sched.run_until_idle()
+    finally:
+        if faults:
+            faultinject.disarm()
     sync(device)
     t2 = time.perf_counter()
     launches = dict(kernels.LAUNCHES)
+    # full collections (count, host seconds) inside the timed run
     RUN_COUNTS.update(cuda_launches=dict(kernels.CUDA_LAUNCHES),
-                      host_syncs=dict(kernels.HOST_SYNCS))
+                      host_syncs=dict(kernels.HOST_SYNCS),
+                      gc_full=(gc_full_collections() - gc0, gc_full_seconds() - gcs0))
     sched.stop()
     bound, _ = store.list("pods")
     return store, sched, bound, launches, t1 - t0, t2 - t1
@@ -1317,8 +1344,7 @@ def phase_main_path(device, sizes, card):
             # coalescing watcher, unbounded, drained after the run
             COLUMNAR_LEG.update(per=store.watch("pods", maxsize=0),
                                 coal=store.watch("pods", maxsize=0, coalesce=True),
-                                bind_before=metrics.store_bind_many_duration.snapshot(),
-                                gc_before=gc_full_collections())
+                                bind_before=metrics.store_bind_many_duration.snapshot())
         store, sched, got, launches, create_s, sched_s = drive_main_path(
             name, nodes, pods, device, batch, store=store)
         placed = [p for p in got if p.spec.node_name]
@@ -1346,9 +1372,9 @@ def phase_main_path(device, sizes, card):
             check(launches["row_scatter"] > 0, f"{name}: kernel B never launched")
         out[name] = line
         if name == "SchedulingBasic":
-            COLUMNAR_LEG.update(store=store, got=got, line=line,
+            COLUMNAR_LEG.update(store=store, sched=sched, got=got, line=line,
                                 bind_after=metrics.store_bind_many_duration.snapshot(),
-                                gc_after=gc_full_collections())
+                                gc_full=RUN_COUNTS["gc_full"])
     return out
 
 
@@ -1357,6 +1383,27 @@ def gc_full_collections():
     full collection over a large heap is a host pause that lands in
     whichever stage clock is running."""
     return gc.get_stats()[2]["collections"]
+
+
+_GC_FULL = {"s": 0.0, "t0": None}
+
+
+def _gc_full_timer(phase, info):
+    if info.get("generation") != 2:
+        return
+    if phase == "start":
+        _GC_FULL["t0"] = time.perf_counter()
+    elif _GC_FULL["t0"] is not None:
+        _GC_FULL["s"] += time.perf_counter() - _GC_FULL["t0"]
+        _GC_FULL["t0"] = None
+
+
+def gc_full_seconds():
+    """Host seconds spent in full garbage collections so far (timed by a
+    gc callback installed on the first call)."""
+    if _gc_full_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_full_timer)
+    return _GC_FULL["s"]
 
 
 def bind_transitions(store):
@@ -1397,12 +1444,11 @@ def phase_main_path_store(device, sizes, card, leg):
     stats = col.columnar_stats()
     before = metrics.store_bind_many_duration.snapshot()
     gc.collect()
-    gc_before = gc_full_collections()
     dstore, dsched, dgot, dlaunches, dcreate_s, dsched_s = drive_main_path(
         "SchedulingBasic", make_nodes(n), basic_pods(p, "mp"), device, batch,
         store=APIStore(columnar=False))
     after = metrics.store_bind_many_duration.snapshot()
-    gc_after = gc_full_collections()
+    dgc = RUN_COUNTS["gc_full"]
     check(not dstore.columnar, "main_path_store: the dict leg's store is columnar")
     cmap = {q.metadata.name: q.spec.node_name for q in leg["got"]}
     dmap = {q.metadata.name: q.spec.node_name for q in dgot}
@@ -1427,12 +1473,15 @@ def phase_main_path_store(device, sizes, card, leg):
                          "launches": cline["launches"],
                          "store_bind_many": bind_latency(leg["bind_before"],
                                                          leg["bind_after"]),
-                         "gc_full_collections": leg["gc_after"] - leg["gc_before"]},
+                         "gc_full_collections": leg["gc_full"][0],
+                         "gc_full_s": leg["gc_full"][1],
+                         "bind_seconds": dict(leg["sched"].bind_seconds)},
             "dict": {"pods_per_s": p / dsched_s, "schedule_s": dsched_s,
                      "commit_s": dsched.stage_seconds["commit"],
                      "stage_seconds": dsched.stage_seconds, "launches": dlaunches,
                      "store_bind_many": bind_latency(before, after),
-                     "gc_full_collections": gc_after - gc_before},
+                     "gc_full_collections": dgc[0], "gc_full_s": dgc[1],
+                     "bind_seconds": dict(dsched.bind_seconds)},
             "columnar_stats": {k: stats[k] for k in ("rows", "diverged", "materialized_total",
                                                      "bound", "sig_captured")},
             "watch": {"per_object_events": len(per), "coalesced_deliveries": len(coal),
@@ -1440,6 +1489,98 @@ def phase_main_path_store(device, sizes, card, leg):
                       "rv_lag": [s["rv_lag"] for s in tel["subscribers"]],
                       "propagation": {k: prop[k] for k in ("count", "p50_s", "p99_s")}},
             "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(line)
+    return line
+
+
+def commit_leg(sched, p, sched_s, launches, bind_before, bind_after, gc_full):
+    """One run's host-commit numbers: pods/s, the stage clocks, the bind
+    path's own clocks (bind on the worker, flush_binds' wait), the store's
+    bind_many latency, the worker's restarts and retries, the columnar cache
+    rows, full garbage collections and the kernel launches."""
+    return {"pods_per_s": p / sched_s, "schedule_s": sched_s,
+            "stage_seconds": dict(sched.stage_seconds), "bind_seconds": dict(sched.bind_seconds),
+            "store_bind_many": bind_latency(bind_before, bind_after),
+            "bind_worker_restarts": sched.bind_worker_restarts,
+            "retry_counts": dict(sched.retry_counts),
+            "bind_failures": len(sched.take_bind_failures()),
+            "assumed_left": sched.cache.assumed_count(),
+            "cache_rows": sched.cache.columnar_rows(),
+            "gc_full_collections": gc_full[0], "gc_full_s": gc_full[1], "launches": launches}
+
+
+def phase_main_path_commit(device, sizes, card, leg):
+    """main_path's exact SchedulingBasic run (the default host commit:
+    columnar cache rows, pipelined binds, the native commit engine) held
+    against three more runs of the same shape: the object-path oracle
+    (columnar=False, pipeline_binds=False, APIStore(native_commit=False)),
+    equal map, pod resourceVersions and bind transitions, kernels A and B
+    launched in both; the default pipeline under an armed
+    store.bind_many=fail:count=2 and native.commit=fail:count=1, every pod
+    bound, the three retries counted, no assume left; and solver="native",
+    the host C engine, whose map equals the scan's and which launches no
+    kernel by design."""
+    from kubernetes_tpu_torch.chaos.faultinject import FaultPlan
+    from kubernetes_tpu_torch.server import metrics
+    from kubernetes_tpu_torch.store import APIStore
+
+    t_phase = time.perf_counter()
+    n, batch, p = sizes["nodes"], sizes["batch"], sizes["basic"]
+    main_sched, main_line = leg["sched"], leg["line"]
+    main_map = {q.metadata.name: q.spec.node_name for q in leg["got"]}
+    main_rv = {q.metadata.name: q.metadata.resource_version for q in leg["got"]}
+    main_tr = bind_transitions(leg["store"])
+    check(len(main_map) == p and all(main_map.values()), "main_path_commit: main run not bound")
+    check(main_sched.columnar and main_sched.pipeline_binds and main_sched.store._native_commit,
+          "main_path_commit: main_path did not run the default host commit")
+    out = {"main": commit_leg(main_sched, p, main_line["schedule_s"], main_line["launches"],
+                              leg["bind_before"], leg["bind_after"],
+                              leg["gc_full"])}
+    out["main"]["watchers"] = 2
+    runs = (("oracle", dict(sched_kw={"columnar": False, "pipeline_binds": False},
+                            store=APIStore(native_commit=False))),
+            ("faults", dict(faults=[FaultPlan("store.bind_many", "fail", count=2),
+                                    FaultPlan("native.commit", "fail", count=1)])),
+            ("native", dict(solver="native")))
+    for name, kw in runs:
+        gc.collect()
+        before = metrics.store_bind_many_duration.snapshot()
+        store, sched, got, launches, _create_s, sched_s = drive_main_path(
+            f"SchedulingBasic/{name}", make_nodes(n), basic_pods(p, "mp"), device, batch, **kw)
+        after = metrics.store_bind_many_duration.snapshot()
+        ln = out[name] = commit_leg(sched, p, sched_s, launches, before, after,
+                                    RUN_COUNTS["gc_full"])
+        gmap = {q.metadata.name: q.spec.node_name for q in got}
+        check(len(gmap) == p and all(gmap.values()), f"main_path_commit: {name}: not all bound")
+        check(gmap == main_map, f"main_path_commit: {name}: the map differs from main_path's")
+        check(ln["assumed_left"] == 0 and ln["bind_failures"] == 0,
+              f"main_path_commit: {name}: assumes left or bind failures")
+        if name == "oracle":
+            check(store.columnar and not store._native_commit and ln["cache_rows"] == 0,
+                  "main_path_commit: the oracle ran columnar rows or the native commit")
+            ln["equal"] = {"map": True,
+                           "pod_rvs": {q.metadata.name: q.metadata.resource_version
+                                       for q in got} == main_rv,
+                           "bind_transitions": bind_transitions(store) == main_tr}
+            check(ln["equal"]["pod_rvs"], "main_path_commit: oracle: pod RVs differ")
+            check(ln["equal"]["bind_transitions"] and len(main_tr) == p,
+                  "main_path_commit: oracle: bind transitions differ")
+            if device.type == "cuda":
+                check(launches["greedy_scan"] > 0 and launches["row_scatter"] > 0,
+                      "main_path_commit: oracle: kernel A or B never launched")
+        elif name == "faults":
+            check(ln["retry_counts"]["bind"] == 3,
+                  f"main_path_commit: faults: {ln['retry_counts']} retries, not 3")
+            ln["bind_transitions"] = len(bind_transitions(store))
+            check(ln["bind_transitions"] == p, "main_path_commit: faults: a pod bound twice")
+        else:
+            check(sched._solve_path == "native" and not any(launches.values()),
+                  f"main_path_commit: native: path {sched._solve_path}, launches {launches}")
+    if device.type == "cuda":
+        check(main_line["launches"]["greedy_scan"] > 0 and main_line["launches"]["row_scatter"] > 0,
+              "main_path_commit: main: kernel A or B never launched")
+    line = {"phase": "main_path_commit", "workload": "SchedulingBasic", "nodes": n, "pods": p,
+            "batch": batch, **out, "phase_s": time.perf_counter() - t_phase, "card": card}
     emit(line)
     return line
 
@@ -3533,6 +3674,7 @@ def main(argv=None) -> int:
         err_f, line_f = phase_kernel_f(device, sizes, args.seed)
         main = phase_main_path(device, sizes, info["nvidia_smi"])
         phase_main_path_store(device, sizes, info["nvidia_smi"], COLUMNAR_LEG)
+        phase_main_path_commit(device, sizes, info["nvidia_smi"], COLUMNAR_LEG)
         COLUMNAR_LEG.clear()
         fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
         gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])

@@ -68,14 +68,18 @@ SITES: Dict[str, str] = {
     "solver.solve": "scheduler/batch.py BatchScheduler._solve_device",
     "watch.deliver": "store/store.py Watch._deliver and _deliver_coalesced "
                      "(drop-only: store lock)",
-    "bind.worker": "scheduler/batch.py BatchScheduler._bind_cycle; not wired "
-                   "until pipelined binds, ROADMAP.md item 7",
+    # the bind worker: once per drain cycle, before the merged chunk's
+    # bind_many (a fail plan is an escaped exception the supervisor counts
+    # and retries once; a kill plan is the worker's hard death)
+    "bind.worker": "scheduler/batch.py BatchScheduler._bind_cycle (bind worker, "
+                   "no lock held)",
     "kubelet.heartbeat": "agent/hollow.py HollowKubelet.heartbeat (drop-only); "
                          "not wired until the agent, ROADMAP.md item 7",
     # the native commit boundary: bind_many/delete_pods between the
     # validate/clone phase and the commit phase (no lock held)
     "native.commit": "store/store.py bind_many/delete_pods native phase gap "
-                     "(no lock held); not wired until native/, ROADMAP.md item 7",
+                     "(no lock held; fires when the native commit engine is "
+                     "selected)",
     # the partitioned dispatch layer: once per pipeline drive cycle, key =
     # "partition-<i>" (a kill plan is that partition's hard death)
     "partition.dispatch": "scheduler/partition.py "

@@ -10,6 +10,10 @@ solver inputs, and the solver places the batch:
               kernel C); constrained batches: propose-and-repair
               (models/repair.py, kernels C and D, kernel A for the residual);
               a declined shape runs the scan
+  native      constraint-free, gang-free batches: the sequential greedy
+              placement on the host in C (native/hostsched.cpp
+              greedy_assign, the scan's placements; an explicit host mode
+              that launches no kernel); other batches run the scan
   auction,    constraint-free, gang-free batches: the group transportation
   sinkhorn    problem (models/transport.py: rows by kernel J, the auction's
               phases by kernel E or the Sinkhorn iterations by kernel F,
@@ -21,6 +25,30 @@ The assignments are assumed into the cache and bound through the store. A
 solver exception requeues the batch's device pods with backoff and feeds the
 circuit breaker (scheduler/breaker.py), which degrades every mode but exact
 to the scan after `breaker_threshold` consecutive failures.
+
+The host commit (JAX batch.py :525-700, :1054, :1676-2160), the JAX
+defaults: with columnar=True a gang-free, constraint-free, port-free device
+batch lands in the cache as columnar ROWS (Cache.assume_pods_columnar, no
+per-pod object; scheduler/cachecols.py) and any other batch through the
+structural assume of pod_bind_clone clones; either way the resource totals
+follow as ONE scatter-add over the batch (_columnar_account: the g++
+commit_deltas, outside every lock), which also feeds TensorCache's
+generation diff (apply_assume_deltas), so kernel B scatters exactly the
+touched rows into the device mirrors. columnar=False is the per-pod oracle
+(structural clones, Cache.assume_pods, per-object watch ingest). With
+pipeline_binds=True the bind_many writes run on a supervised worker thread
+in chunks of bind_chunk pods, overlapped with the next batch's tensorize and
+solve; the worker only writes to the store and the cache (no kernel, no
+CUDA tensor). A bind_many exception is retried bind_retries times with
+jittered exponential backoff (_bind_chunk_with_retry); pods still failing
+are forgotten, requeued and logged (take_bind_failures). An exception that
+escapes the worker is counted and its chunk retried once; a dead worker's
+chunks are recovered by the liveness check. finish_binding (or the bulk
+self-confirm) starts each assume's TTL, and sweep_expired_assumes expires
+the unconfirmed ones. run_until_idle flushes the binds before it declares
+idle; flush_binds waits for them. The columnar rows collapse into PodInfos
+before a constrained batch's snapshot, before device-reject preemption and
+before the per-pod cycle, whose walks need object rows.
 
 Gangs (scheduler/gang.py, JAX batch.py :393-720, :914-1060), in every mode:
 the queue stages a PodGroup's members until quorum and admits them
@@ -72,13 +100,12 @@ differences).
 Not in this slice (each raises or is named where it would act):
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
-  flight recorder, pod traces, metrics, the solver's Warning event,
-  sched_stats()                               queue 1 item 7d
-  the native commit, pipelined binds and assume expiry, the columnar
-  cache rows (_cache_columnar, assume_pods_columnar, _columnar_account and
-  the pod_bind_clone assume clone)            queue 1 item 7c
-  the partitioned scheduler (partition_index stays None, no reroute hook)
-                                              queue 1 item 7e
+  flight recorder, pod traces, metrics (batch_retries_total: the retries
+  are counted in `retry_counts`), the solver's Warning event,
+  sched_stats(), the background start() loop
+                                              queue 1 item 7d
+  the partitioned scheduler (partition_index stays None, no reroute hook,
+  no conflict_sink or partition conflicts)    queue 1 item 7e
 """
 
 from __future__ import annotations
@@ -86,6 +113,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import queue as _queue
+import random as _random
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -93,13 +123,17 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..chaos import faultinject
+from ..chaos.faultinject import FaultKill
 from ..models.gangcover import alignment_groups, mean_neighbor_distance, rank_align
 from ..models.repair import repair_solve
 from ..models.transport import transport_solve
 from ..models.waterfill import make_groups, waterfill_solve
+from ..native import hostcommit
+from ..native.hostsched import commit_deltas_plain, native_commit_deltas, native_greedy_solve
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
 from ..snapshot.tensorizer import TensorCache, build_pod_batch
-from ..store import MODIFIED, APIStore, NotFoundError, pod_structural_clone
+from ..store import MODIFIED, APIStore, NotFoundError, pod_bind_clone, pod_structural_clone
+from . import cachecols
 from .breaker import REPRESENTATIVE, SolverCircuitBreaker
 from .framework import CycleState, PodInfo, Status
 from .gang import GangDirectory, gang_veto_mask, node_slice_positions, ring_lengths
@@ -108,12 +142,19 @@ from .plugins import default_plugins
 from .plugins.default_preemption import DefaultPreemption
 from .queue import QueuedPodInfo
 from .runtime import Framework
-from .serial import NOT_PORTED, ScheduleResult, Scheduler
+from .serial import ScheduleResult, Scheduler
 
-SOLVERS = ("exact", "fast", "auto", "auction", "sinkhorn")
-SOLVER_ROADMAP = {"native": 7}
+SOLVERS = ("exact", "fast", "auto", "native", "auction", "sinkhorn")
 
 log = logging.getLogger(__name__)
+
+
+class _RequeuedChunk(list):
+    """A bind chunk getting its ONE supervised retry after an escaped
+    bind-worker exception (or a dead-worker recovery). A second escape fails
+    its pods through the normal bind-error path instead of requeueing again:
+    no livelock on a deterministic fault."""
+
 
 class BatchScheduler(Scheduler):
     """Batched scheduler on one device.
@@ -122,21 +163,28 @@ class BatchScheduler(Scheduler):
     scheduler), "fast" (waterfill for constraint-free batches,
     propose-and-repair for constrained ones), "auto" (the same routing), or
     "auction" / "sinkhorn" (the transport solvers for constraint-free,
-    gang-free batches without host ports; the scan for the others).
-    "native" raises naming its ROADMAP item.
+    gang-free batches without host ports; the scan for the others), or
+    "native" (constraint-free, gang-free batches placed by the host C
+    engine; the scan for the others).
     device: "cuda" (default) runs the kernels on the card and raises where
     torch.cuda.is_available() is false; "cpu" runs their plain versions.
     framework: a port Framework (scheduler/runtime.py), or profiles= (in
     **kw): one per scheduler name; with neither, Framework(default_plugins()).
     A profile whose PreFilter, Filter, PreScore or Score plugins, plugin
     arguments or Score weights differ from the default's raises: the solvers
-    encode the default's. rank_align gates the rank-to-ring permutation of
+    encode the default's. columnar, pipeline_binds, bind_retries and
+    bind_retry_base_s select the host commit (module docstring; the JAX
+    defaults). rank_align gates the rank-to-ring permutation of
     ranked gang members; gang_preemption installs the gang victim cover;
     the other keyword arguments (clock, profiles, pod_initial_backoff,
     pod_max_backoff, percentage_of_nodes_to_score) pass to Scheduler."""
 
+    BIND_FAILURE_LOG_CAP = 10_000  # take_bind_failures log bound
+
     def __init__(self, store: APIStore, framework: Optional[Framework] = None, *,
                  device="cuda", batch_size: int = 4096, solver: str = "exact",
+                 columnar: bool = True, pipeline_binds: bool = True,
+                 bind_retries: int = 3, bind_retry_base_s: float = 0.05,
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
                  rank_align: bool = True, gang_preemption: bool = True, **kw):
         self.device = resolve_device(device)
@@ -146,10 +194,7 @@ class BatchScheduler(Scheduler):
         if framework is None and kw.get("profiles") is None:
             framework = Framework(default_plugins())
         if solver not in SOLVERS:
-            item = SOLVER_ROADMAP.get(solver)
-            if item is None:
-                raise ValueError(f"unknown solver {solver!r}")
-            raise NotImplementedError(f"solver {solver!r} is " + NOT_PORTED.format(item))
+            raise ValueError(f"unknown solver {solver!r}")
         super().__init__(store, framework, **kw)
         encoded = _encoded_view(Framework(default_plugins()))
         for name, fw in self.profiles.items():
@@ -161,7 +206,46 @@ class BatchScheduler(Scheduler):
                     "(ROADMAP.md queue 3, deliberate differences)")
         self.batch_size = batch_size
         self.solver = solver
+        # columnar=True is the batched host pipeline: coalesced watch ingest,
+        # the structural assume + one scatter-add, the bulk self-confirm;
+        # False restores the per-pod paths (the parity oracle)
+        self.columnar = columnar
+        self.watch_coalesce = columnar
+        # cache-row mode: eligible device batches land as columnar cache
+        # rows, resolved once here (STORE_COLUMNAR=0 sweeps the whole
+        # pipeline to its object-path oracle)
+        self._cache_columnar = columnar and cachecols.env_enabled()
+        # bind pipelining (schedule_one.go bindingCycle in a goroutine): the
+        # assume runs synchronously so the next solve's snapshot sees the
+        # capacity; the bind_many writes run on a worker thread in chunks of
+        # bind_chunk pods, overlapped with the next batch
+        self.pipeline_binds = pipeline_binds
         self.bind_chunk = 4096
+        self._bind_q: _queue.Queue = _queue.Queue()
+        self._bind_worker: Optional[threading.Thread] = None
+        self._bind_err_lock = threading.Lock()
+        self._bind_errors: List = []
+        self._bind_successes = 0  # folded into scheduled_count on this thread
+        # assumed pods whose worker-side confirm missed (expired assume or a
+        # foreign write): re-ingested on the scheduling thread at the drain
+        self._bind_confirm_leftovers: List = []
+        # in-flight bind chunks (each owing one task_done), recorded by the
+        # worker before the commit and cleared after it: non-empty with a
+        # DEAD worker means a hard kill stranded them
+        self._bind_inflight: List = []
+        self.bind_worker_restarts = 0  # escapes counted + dead workers replaced
+        # (pod key, message) of asynchronous bind failures, drained by
+        # take_bind_failures(); bounded, evictions counted
+        self.bind_failures: deque = deque(maxlen=self.BIND_FAILURE_LOG_CAP)
+        self.bind_failures_dropped = 0
+        self.bind_retries = bind_retries
+        self.bind_retry_base_s = bind_retry_base_s
+        # pods (or, for "bind", attempts) retried per stage: the JAX
+        # batch_retries_total series' increments (the metric is item 7d)
+        self.retry_counts = {"bind": 0, "worker": 0, "dispatch": 0}
+        # host seconds of the bind writes (the worker's, when pipelined) and
+        # of flush_binds' wait for them (JAX flightrec's outside buckets)
+        self.bind_seconds = {"bind": 0.0, "bind_wait": 0.0}
         self._tensor_cache = TensorCache()
         self.batches_solved = 0
         # fallback-class pods routed through the per-pod cycle, and those it
@@ -233,6 +317,16 @@ class BatchScheduler(Scheduler):
         solver = self.breaker.effective_solver(self.solver)
         self._last_repair = None
         t0 = time.perf_counter()
+        if self.cache.columnar_rows():
+            # a CONSTRAINED batch walks the snapshot's pod lists (spread
+            # selector counts, inter-pod affinity terms): collapse the
+            # columnar cache rows first (a superset of has_constraints, early
+            # exit); the constraint-free batch never materializes
+            for qp in qps:
+                spec = qp.pod.spec
+                if spec.affinity is not None or spec.topology_spread_constraints:
+                    self.cache.materialize_columnar_rows()
+                    break
         snapshot = self.cache.update_snapshot()
         if len(snapshot) == 0:
             for qp in qps:
@@ -278,7 +372,7 @@ class BatchScheduler(Scheduler):
             self.stage_seconds["solve"] += t2 - t1
             self.solve_seconds.append(t2 - t1)
             if assignment is not None:
-                self._commit(qps, device_idx, assignment, snapshot, cluster, sub, gang)
+                self._commit(qps, device_idx, assignment, snapshot, cluster, batch, sub, gang)
                 self.stage_seconds["commit"] += time.perf_counter() - t2
         if fallback_idx.size:
             # the per-pod route, after the device commit and its rejects, in
@@ -379,10 +473,17 @@ class BatchScheduler(Scheduler):
         # the batch would have run (a constrained fast-mode batch: repair)
         if faultinject.ACTIVE is not None:
             faultinject.ACTIVE.fire("solver.solve")
+        assignment = None
+        if solver == "native" and constraint_free and not has_gang:
+            # the explicit host mode: the C engine places the batch, no
+            # device upload (the dirty rows stay pending for the next
+            # device_views)
+            self._solve_path = "native"
+            assignment, _ = native_greedy_solve(cluster, sub)
+            return np.asarray(assignment, dtype=np.int32)
         # cluster tensors ride the device mirrors (kernel B)
         views = self._tensor_cache.device_views(cluster, self.device)
         inputs, d_max = make_inputs(cluster, sub, self.device, views=views)
-        assignment = None
         if use_transport:
             self._solve_path = solver
             solved = transport_solve(inputs, make_groups(sub), method=solver,
@@ -414,7 +515,7 @@ class BatchScheduler(Scheduler):
 
     def _note_repair(self, rstats) -> None:
         """Fold one constrained batch's RepairStats into the running totals
-        (the repair metrics come with ROADMAP.md queue 1 item 7)."""
+        (the repair metrics come with ROADMAP.md queue 1 item 7d)."""
         self._last_repair = rstats
         t = self.repair_totals
         t["batches"] += 1
@@ -438,17 +539,34 @@ class BatchScheduler(Scheduler):
                     self.solver, self._solve_path, len(qps_dev),
                     "; circuit breaker OPEN" if tripped else "", exc_info=e)
 
-    def _commit(self, qps, device_idx, assignment, snapshot, cluster, sub, gang) -> None:
-        """Assume every placement first, then bind, then handle the rejects
-        (preemption or failure; handling them mid-loop would see capacity
-        promised to not-yet-bound pods), then requeue the vetoed gangs."""
+    def _commit(self, qps, device_idx, assignment, snapshot, cluster, batch, sub,
+                gang) -> None:
+        """Assume every placement first, then dispatch the binds, then handle
+        the rejects (preemption or failure; handling them mid-loop would see
+        capacity promised to not-yet-bound pods), then requeue the vetoed
+        gangs. The assume takes one of three forms (module docstring):
+        columnar rows, the structural assume + one scatter-add, or the
+        per-pod oracle."""
         node_names = cluster.node_names
         n = len(node_names)
+        has_gang = gang is not None
+        use_columnar = self.columnar and batch.raw_req is not None
+        # zero-object dispatch: a gang-free, constraint-free, port-free
+        # batch hands the bind path the ORIGINAL pod refs (it reads only key
+        # and target node) and lands in the cache as columnar rows
+        cols_rows_ok = (use_columnar and self._cache_columnar and not has_gang
+                        and not batch.has_constraints
+                        and batch.class_has_host_ports is not None
+                        and not bool(batch.class_has_host_ports[
+                            batch.class_of_pod[device_idx]].any()))
+        clone = pod_bind_clone if use_columnar else pod_structural_clone
         assign_list = np.asarray(assignment).tolist()
-        sub_gang = np.asarray(sub.gang_of_pod).tolist() if gang is not None else None
-        veto_list = gang["veto"].tolist() if gang is not None else None
+        sub_gang = np.asarray(sub.gang_of_pod).tolist() if has_gang else None
+        veto_list = gang["veto"].tolist() if has_gang else None
         gang_requeue: Dict[int, List[QueuedPodInfo]] = {}
         to_bind = []
+        bind_rows: List[int] = []  # full-batch pod row per to_bind entry
+        bind_nodes: List[int] = []  # cluster node index per to_bind entry
         bind_gang: List[int] = []  # gang id per to_bind entry (gang batches only)
         rejected = []
         for j, pi in enumerate(device_idx.tolist()):
@@ -468,14 +586,46 @@ class BatchScheduler(Scheduler):
                     rejected.append((j, qps[pi]))
             else:
                 qp = qps[pi]
-                to_bind.append((qp, node_names[nidx], pod_structural_clone(qp.pod)))
+                to_bind.append((qp, node_names[nidx],
+                                qp.pod if cols_rows_ok else clone(qp.pod)))
+                bind_rows.append(pi)
+                bind_nodes.append(nidx)
                 if sub_gang is not None:
                     bind_gang.append(gid)
         if to_bind:
-            bad = self.cache.assume_pods([(assumed, node) for _qp, node, assumed in to_bind])
+            pairs = [(assumed, node) for _qp, node, assumed in to_bind]
+            batch_has_ports = True
+            if cols_rows_ok:
+                batch_has_ports = False  # port-free by the dispatch gate
+            elif use_columnar:
+                batch_has_ports = bool(
+                    batch.class_has_host_ports is None
+                    or batch.class_has_host_ports[batch.class_of_pod[bind_rows]].any())
+            # assume/dispatch failure domain: an exception in this window
+            # rolls back every entry whose chunk has NOT reached the bind
+            # path and requeues it with backoff; dispatched chunks belong to
+            # the bind path's own retry and error handling
+            accounted = False
+            dispatched_hi = 0
+            try:
+                if cols_rows_ok:
+                    bad = self.cache.assume_pods_columnar(pairs)
+                elif use_columnar:
+                    bad = self.cache.assume_pods_structural(pairs, check_ports=batch_has_ports)
+                else:
+                    bad = self.cache.assume_pods(pairs)
+            except FaultKill:
+                raise
+            except Exception as e:
+                self._rollback_undispatched(e, to_bind, bind_gang, 0, use_columnar, False,
+                                            batch_has_ports)
+                to_bind = []
+                bad = []
             bad_gangs = set()
             for i, msg in sorted(bad, reverse=True):
                 qp, _node, _assumed = to_bind.pop(i)
+                bind_rows.pop(i)
+                bind_nodes.pop(i)
                 gid = bind_gang.pop(i) if bind_gang else -1
                 if gid >= 0:
                     bad_gangs.add(gid)
@@ -484,26 +634,52 @@ class BatchScheduler(Scheduler):
                     self._handle_failure(qp, Status.error(msg))
             if bad_gangs:
                 # all-or-nothing at assume time: a gang that lost a member
-                # releases every assumed sibling BEFORE any bind
+                # releases every assumed sibling BEFORE any bind. Before the
+                # scatter-add the release is the structural inverse
+                # (forget_pod would subtract totals never added)
                 released = []
                 for i in range(len(to_bind) - 1, -1, -1):
                     gid = bind_gang[i]
                     if gid in bad_gangs:
                         qp, _node, assumed = to_bind.pop(i)
+                        bind_rows.pop(i)
+                        bind_nodes.pop(i)
                         bind_gang.pop(i)
                         released.append(assumed)
                         gang_requeue.setdefault(gid, []).append(qp)
-                for assumed in released:
-                    self.cache.forget_pod(assumed)
+                if use_columnar:
+                    self.cache.forget_pods_structural(released, check_ports=batch_has_ports)
+                else:
+                    for assumed in released:
+                        self.cache.forget_pod(assumed)
                 gang["info"]["assume_vetoed"] = len(bad_gangs)
                 gang["info"]["released"] = len(released)
-            # surviving members count toward quorum from assume on (our own
-            # bind confirmations bypass the event stream)
-            for i, (_qp, _node, assumed) in enumerate(to_bind):
-                if bind_gang and bind_gang[i] >= 0:
-                    self.gangs.note_assumed(assumed)
-            for lo in range(0, len(to_bind), self.bind_chunk):
-                self._bind_chunk(to_bind[lo:lo + self.bind_chunk])
+            if bind_gang:
+                # surviving members count toward quorum from assume on (our
+                # own bind confirmations bypass the event stream)
+                for i, (_qp, _node, assumed) in enumerate(to_bind):
+                    if bind_gang[i] >= 0:
+                        self.gangs.note_assumed(assumed)
+            try:
+                if use_columnar and to_bind:
+                    self._columnar_account(batch, cluster, snapshot, bind_rows, bind_nodes,
+                                           batch_has_ports)
+                    accounted = True
+                for lo in range(0, len(to_bind), self.bind_chunk):
+                    chunk = to_bind[lo:lo + self.bind_chunk]
+                    if self.pipeline_binds:
+                        self._ensure_bind_worker()
+                        self._bind_q.put(chunk)
+                    else:
+                        self._bind_batch(chunk)
+                    dispatched_hi = lo + len(chunk)
+                if not self.pipeline_binds:
+                    self._drain_bind_results()
+            except FaultKill:
+                raise
+            except Exception as e:
+                self._rollback_undispatched(e, to_bind, bind_gang, dispatched_hi, use_columnar,
+                                            accounted, batch_has_ports)
         if rejected:
             self._handle_device_rejects(rejected, snapshot, cluster, sub, assignment)
         if gang_requeue:
@@ -519,6 +695,62 @@ class BatchScheduler(Scheduler):
                                                  gang["need"])
             self._requeue_gangs(gang_requeue, sub.gang_keys or [], gang["hopeless"],
                                 gang["solver_vetoed"], ctx, info)
+
+    def _rollback_undispatched(self, e, to_bind, bind_gang, dispatched, use_columnar,
+                               accounted, batch_has_ports) -> int:
+        """Assume/dispatch failure domain: roll back every to_bind entry at
+        index >= `dispatched` (its chunk never reached the bind path) and
+        requeue it with backoff. Before _columnar_account ran, the rollback
+        is the STRUCTURAL inverse (the scatter-add never added the totals);
+        after it, forget_pod is the exact inverse. A failure INSIDE
+        _columnar_account leaves the few already-poked nodes over-counted
+        (the safe direction) until the diff path requantizes or
+        resync_from_store rebuilds."""
+        stranded = to_bind[dispatched:]
+        if not stranded:
+            return 0
+        released = [assumed for _qp, _node, assumed in stranded]
+        if use_columnar and not accounted:
+            self.cache.forget_pods_structural(released, check_ports=batch_has_ports)
+        else:
+            for assumed in released:
+                self.cache.forget_pod(assumed)
+        if bind_gang:
+            for i in range(dispatched, len(to_bind)):
+                if bind_gang[i] >= 0:
+                    self.gangs.note_forgotten(to_bind[i][2])
+        self.queue.add_backoff([qp for qp, _node, _assumed in stranded])
+        self.retry_counts["dispatch"] += len(stranded)
+        self.recorder.event(
+            stranded[0][0].pod, "Warning", "SchedulerError",
+            f"assume/dispatch failed ({type(e).__name__}: {str(e)[:120]}); "
+            f"{len(stranded)} assumed pod(s) rolled back and requeued")
+        return len(stranded)
+
+    def _columnar_account(self, batch, cluster, snapshot, bind_rows, bind_nodes,
+                          has_ports: bool = True) -> None:
+        """Phase 2 of the columnar assume: the per-node requested-resource
+        deltas of the whole solved batch as ONE scatter-add keyed by the
+        tensorizer's node index (the g++ commit_deltas, which releases the
+        GIL, so NO lock is held here; HOSTSCHED_NATIVE_COMMIT=0 selects the
+        numpy version), one Resource poke a touched node in the cache, and,
+        when nothing foreign intervened and no host ports are in play, a
+        direct feed of TensorCache's generation diff: the next batch skips
+        the per-node requantize walk and kernel B scatters exactly the
+        touched rows."""
+        rows = np.asarray(bind_rows, dtype=np.int64)
+        nodes = np.asarray(bind_nodes, dtype=np.int64)
+        deltas = native_commit_deltas if hostcommit.selected() else commit_deltas_plain
+        d_used, d_used_nz, d_count, touched = deltas(rows, nodes, batch.raw_req,
+                                                     batch.raw_req_nz, cluster.n)
+        final_gen = self.cache.apply_node_resource_deltas(
+            cluster.resource_dims,
+            [(cluster.node_names[i], d_used[i], d_used_nz[i]) for i in touched],
+            expected_gen=snapshot.generation)
+        if final_gen is not None and not has_ports:
+            self._tensor_cache.apply_assume_deltas(
+                touched, d_used[touched], d_used_nz[touched], d_count[touched],
+                tensorized_gen=snapshot.generation, assume_gen=final_gen)
 
     def _requeue_gangs(self, groups: Dict[int, List[QueuedPodInfo]], keys: List[str],
                        hopeless, preempt_gids, preempt_ctx, gang_info: Dict) -> None:
@@ -600,41 +832,280 @@ class BatchScheduler(Scheduler):
         gang_info["rank_aligned"] = int((aligned != a).sum())
         return aligned.astype(np.int32)
 
-    def _bind_chunk(self, items) -> None:
-        """One bind_many for a chunk of assumed placements, then the assume
-        confirmations our own (origin-tagged) bind events would have made."""
+    # -- the bind pipeline (JAX batch.py :1676-2031) ---------------------------
+
+    def _ensure_bind_worker(self) -> None:
+        if self._bind_worker is not None and not self._bind_worker.is_alive():
+            # a hard-dead worker's in-flight chunks and task_done debt are
+            # recovered BEFORE a replacement starts: its first cycle would
+            # overwrite the shared _bind_inflight record
+            self._recover_dead_worker()
+        if self._bind_worker is None:
+            # the queue is BOUND at thread start: a resync swaps self._bind_q
+            # for a fresh queue, and the old worker keeps draining (and
+            # exits on) the queue it was born with
+            self._bind_worker = threading.Thread(
+                target=self._bind_loop, args=(self._bind_q,), daemon=True,
+                name=f"{self._bind_origin}-bind")
+            self._bind_worker.start()
+
+    def _bind_loop(self, q: _queue.Queue) -> None:
+        """The SUPERVISED bind worker: an exception that escapes a cycle
+        (past _bind_batch's own error handling) is counted and the loop
+        continues, after _bind_cycle requeued the in-flight chunk for ONE
+        retry. An injected FaultKill is a hard thread death, recovered by the
+        liveness check in _drain_bind_results."""
+        while True:
+            try:
+                if self._bind_cycle(q):
+                    return
+            except FaultKill:
+                # hard death by design: the in-flight chunk stays recorded,
+                # its task_done debt unsettled, as a real thread-killing
+                # failure leaves them; the liveness check recovers both
+                return
+            except Exception:
+                with self._bind_err_lock:
+                    self.bind_worker_restarts += 1
+
+    def _bind_cycle(self, q: _queue.Queue) -> bool:
+        """One drain cycle: the items queued at wake-up are merged up to
+        bind_chunk pods a bind_many + confirm, so commit(N) runs while the
+        scheduling thread works on batch N+1. Returns True on the shutdown
+        sentinel. The merged chunks are recorded in _bind_inflight BEFORE the
+        commit and cleared, their task_done debt settled, on every handled
+        path; only a hard kill leaves them recorded."""
+        item = q.get()
+        if item is None:
+            q.task_done()
+            return True
+        batches = [item]  # each queue item is a LIST of (qp, node, assumed)
+        merged = len(item)
+        while merged < self.bind_chunk:
+            try:
+                nxt = q.get_nowait()
+            except _queue.Empty:
+                break
+            if nxt is None:
+                # shutdown mid-merge: put the sentinel back for the NEXT
+                # cycle so this cycle's chunk commits normally
+                q.put(None)
+                q.task_done()
+                break
+            batches.append(nxt)
+            merged += len(nxt)
+        with self._bind_err_lock:
+            self._bind_inflight = batches
+        handled = False
+        try:
+            if faultinject.ACTIVE is not None:
+                faultinject.ACTIVE.fire("bind.worker")
+            self._bind_batch([t for b in batches for t in b])
+            handled = True
+        except Exception:
+            self._requeue_inflight(batches, q)
+            handled = True
+            raise  # the supervisor counts the escape
+        finally:
+            if handled:
+                with self._bind_err_lock:
+                    self._bind_inflight = []
+                for _ in batches:
+                    q.task_done()
+        return False
+
+    def _requeue_inflight(self, batches, q: _queue.Queue) -> None:
+        """Give each escaped in-flight chunk ONE more trip through the bind
+        queue; a chunk that already retried fails its pods through the
+        normal bind-error path (requeued by _drain_bind_results)."""
+        for b in batches:
+            if isinstance(b, _RequeuedChunk):
+                with self._bind_err_lock:
+                    for qp, _node, assumed in b:
+                        self.cache.forget_pod(assumed)
+                        self.gangs.note_forgotten(assumed)
+                        self._bind_errors.append((qp, Status.error(
+                            "bind worker failed twice on this chunk")))
+            else:
+                q.put(_RequeuedChunk(b))
+        with self._bind_err_lock:
+            self.retry_counts["worker"] += sum(len(b) for b in batches)
+
+    def _check_bind_worker_alive(self) -> None:
+        """Dead-worker liveness check, run every drain: recover a hard-dead
+        worker's stranded chunks and task_done debt, and restart the worker
+        if work remains."""
+        w = self._bind_worker
+        if w is None or w.is_alive():
+            return
+        self._recover_dead_worker()
+        if self._bind_q.unfinished_tasks:
+            self._ensure_bind_worker()
+
+    def _recover_dead_worker(self) -> None:
+        """Settle a hard-dead worker's estate (on the scheduling thread, by
+        whichever of the liveness drain and the enqueue path sees the death
+        first): requeue its in-flight chunks for the supervised retry, settle
+        their task_done debt, count the restart, and clear the worker so
+        _ensure_bind_worker starts a replacement."""
+        with self._bind_err_lock:
+            inflight, self._bind_inflight = self._bind_inflight, []
+            self.bind_worker_restarts += 1
+        self._bind_worker = None
+        if inflight:
+            self._requeue_inflight(inflight, self._bind_q)
+            for _ in inflight:
+                self._bind_q.task_done()  # the dead worker's unmatched gets
+
+    def _bind_batch(self, items) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._bind_batch_inner(items)
+        finally:
+            self.bind_seconds["bind"] += time.perf_counter() - t0
+
+    def _bind_batch_inner(self, items) -> None:
+        """bind_many in chunks of bind_chunk (each holds the store locks
+        once); a chunk whose retries are exhausted fails ONLY its own pods.
+        Then the confirm: on the coalesced pipeline the bulk self-confirm
+        (our own origin-tagged events are skipped on ingest), on the per-pod
+        oracle finish_binding_bulk (the TTL; the events confirm)."""
         triples = [(qp.pod.metadata.namespace, qp.pod.metadata.name, node)
                    for qp, node, _assumed in items]
-        _bound, errors = self.store.bind_many(triples, origin=self._bind_origin)
+        errors = []
+        for lo in range(0, len(triples), self.bind_chunk):
+            chunk = triples[lo:lo + self.bind_chunk]
+            exc = self._bind_chunk_with_retry(chunk, errors)
+            if exc is not None:
+                errors.extend((f"{ns}/{name}", str(exc)) for ns, name, _node in chunk)
+        if not errors:
+            if self.watch_coalesce:
+                pairs = [(qp.pod.key, node) for qp, node, _a in items]
+                leftover = self.cache.confirm_assumed_bulk(pairs)
+                with self._bind_err_lock:
+                    self._bind_successes += len(items)
+                    if leftover:
+                        self._bind_confirm_leftovers.extend(items[i][2] for i in leftover)
+            else:
+                self.cache.finish_binding_bulk([a for _qp, _node, a in items])
+                with self._bind_err_lock:
+                    self._bind_successes += len(items)
+            return
         errmap = dict(errors)
         confirm = []
-        for qp, node, assumed in items:
-            msg = errmap.get(qp.pod.key)
-            if msg is None:
-                confirm.append((qp.pod.key, node))
-                self.scheduled_count += 1
-            else:
-                self.cache.forget_pod(assumed)
-                self.gangs.note_forgotten(assumed)
-                self._handle_failure(qp, Status.error(msg))
-        for i in self.cache.confirm_assumed_bulk(confirm):
-            # assume expired or a foreign write got in first: ingest the
-            # committed object like any foreign MODIFIED
+        with self._bind_err_lock:
+            for qp, node, assumed in items:
+                msg = errmap.get(qp.pod.key)
+                if msg is None:
+                    if self.watch_coalesce:
+                        confirm.append((qp.pod.key, node, assumed))
+                    else:
+                        self.cache.finish_binding(assumed)
+                    self._bind_successes += 1
+                else:
+                    self.cache.forget_pod(assumed)
+                    self.gangs.note_forgotten(assumed)
+                    self._bind_errors.append((qp, Status.error(msg)))
+            if confirm:
+                leftover = self.cache.confirm_assumed_bulk([(k, nd) for k, nd, _a in confirm])
+                self._bind_confirm_leftovers.extend(confirm[i][2] for i in leftover)
+
+    def _bind_chunk_with_retry(self, chunk, errors) -> Optional[Exception]:
+        """One chunk's bind_many with transient-failure retry: an EXCEPTION
+        from bind_many is infrastructure (per-pod conflicts come back in the
+        error list and are never retried), so the chunk retries up to
+        bind_retries times under exponential backoff with jitter before its
+        pods are declared failed. Returns the last exception, or None. Runs
+        with NO lock held: the sleeps stall only the bind path."""
+        last: Optional[Exception] = None
+        for attempt in range(self.bind_retries + 1):
+            if attempt:
+                with self._bind_err_lock:
+                    self.retry_counts["bind"] += 1
+                time.sleep(self.bind_retry_base_s * (2 ** (attempt - 1))
+                           * (1.0 + _random.random()))
             try:
-                cur = self.store.get("pods", confirm[i][0])
+                _bound, errs = self.store.bind_many(chunk, origin=self._bind_origin)
+                errors.extend(errs)
+                return None
+            except Exception as e:
+                last = e
+        return last
+
+    def _drain_bind_results(self) -> None:
+        """Fold completed binds into the counters and re-handle failures on
+        the scheduling thread (handleBindingCycleError -> requeue); also log
+        them for take_bind_failures. Does not wait for in-flight binds. Runs
+        the dead-worker liveness check."""
+        if self.pipeline_binds:
+            self._check_bind_worker_alive()
+        with self._bind_err_lock:
+            done, self._bind_successes = self._bind_successes, 0
+            errs, self._bind_errors = self._bind_errors, []
+            leftovers, self._bind_confirm_leftovers = self._bind_confirm_leftovers, []
+        self.scheduled_count += done
+        for pod in leftovers:
+            # the worker-side confirm missed (expired assume, foreign write):
+            # re-read the COMMITTED object (the assume-time object is stale,
+            # and the pod may be gone) and ingest it like a foreign MODIFIED
+            try:
+                cur = self.store.get("pods", pod.key)
             except NotFoundError:
                 continue
             self._handle_pod(MODIFIED, cur)
+        failures = self.bind_failures
+        for qp, status in errs:
+            msg = status.message()
+            if len(failures) == failures.maxlen:
+                self.bind_failures_dropped += 1
+            failures.append((qp.pod.key, msg))
+            self._handle_failure(qp, status)
+
+    def take_bind_failures(self) -> List:
+        """Drain the (pod key, error message) log of the bind failures seen
+        since the last call (the pods were already requeued)."""
+        out = list(self.bind_failures)
+        self.bind_failures.clear()
+        return out
+
+    def flush_binds(self) -> None:
+        """Wait for the queued bind writes, then drain their results. The wait
+        (`bind_seconds["bind_wait"]`) wakes on task_done and re-checks the
+        worker between naps, so a dead worker is replaced and its chunk
+        requeued instead of wedging the flush."""
+        t0 = time.perf_counter()
+        if self._bind_worker is not None:
+            q = self._bind_q
+            while True:
+                with q.all_tasks_done:
+                    if not q.unfinished_tasks:
+                        break
+                    q.all_tasks_done.wait(timeout=0.05)
+                self._check_bind_worker_alive()
+        self.bind_seconds["bind_wait"] += time.perf_counter() - t0
+        self._drain_bind_results()
+
+    def stop(self) -> None:
+        """Stop the watch like the base class, and release the bind worker
+        (parked in q.get() it would pin this scheduler's object graph). Items
+        queued before the sentinel still commit."""
+        super().stop()
+        if self._bind_worker is not None:
+            self._bind_q.put(None)
+            self._bind_q = _queue.Queue()
+            self._bind_worker = None
 
     # -- idle loops, resync, stats --------------------------------------------
 
     def run_until_idle(self, max_cycles: int = 10_000) -> int:
         """Drive batches until the active queue drains; before declaring idle,
-        pump events and run the parked-gang deadline sweep; at idle, let an
-        attached rebalancer take a paced cycle."""
+        flush the in-flight binds (which may requeue failures), pump events
+        and sweep the expired assumes and parked gangs; at idle, let an
+        attached rebalancer take a paced cycle; flush once more at the end."""
         n = 0
         while n < max_cycles:
             if self.schedule_batch() == 0:
+                self.flush_binds()
                 self.pump_events()
                 self.sweep_expired_assumes()
                 if self.schedule_batch() == 0:
@@ -647,6 +1118,7 @@ class BatchScheduler(Scheduler):
                             continue
                     break
             n += 1
+        self.flush_binds()
         return n
 
     def enable_rebalancer(self, **kwargs):
@@ -660,23 +1132,40 @@ class BatchScheduler(Scheduler):
         return self.rebalancer
 
     def sweep_expired_assumes(self) -> List[str]:
-        """The gang preemptor's deadline: a cover whose victim deletions
-        stalled releases its parked gang to the normal retry ladder. The
-        cache's assume expiry comes with pipelined binds (ROADMAP.md queue 1
-        item 7); until then no assume expires and the list is empty."""
+        """The base sweep (the cache's expired assumes: gang quorums counted
+        back out, pending pods requeued) plus the gang preemptor's deadline:
+        a cover whose victim deletions stalled releases its parked gang to
+        the normal retry ladder. Returns the expired pod keys."""
+        expired = super().sweep_expired_assumes()
         if self.gangpreempt is not None:
             self.gangpreempt.sweep(self.clock.now())
-        return []
+        return expired
 
-    def resync_from_store(self) -> None:
+    def resync_from_store(self) -> Dict[str, int]:
         """Rebuild all scheduler state from the store, as a restarted
-        scheduler would: a fresh cache and queue from the LIST, the tensor
-        cache and in-flight cover tracking dropped."""
+        scheduler would: the in-flight binds flushed (their pods are then
+        either bound or pending in the store, which decides), the bind
+        pipeline restarted empty, a fresh cache and queue from the LIST, the
+        tensor cache and in-flight cover tracking dropped. Returns {nodes,
+        bound, pending, dropped_assumes}."""
+        self.flush_binds()
+        dropped = self.cache.assumed_count()
+        if self._bind_worker is not None:
+            self._bind_q.put(None)  # the old worker exits on its own queue
+        self._bind_q = _queue.Queue()
+        self._bind_worker = None
+        with self._bind_err_lock:
+            self._bind_inflight = []
+            self._bind_errors = []
+            self._bind_successes = 0
+            self._bind_confirm_leftovers = []
         self._tensor_cache = TensorCache()
         if self.gangpreempt is not None:
             self.gangpreempt.reset()
         self.queue.clear()
-        self._rebuild_from_store(preserve_queue=False)
+        counts = self._rebuild_from_store(preserve_queue=False)
+        counts["dropped_assumes"] = dropped
+        return counts
 
     def _preemption_plugin(self, fw: Framework) -> Optional[DefaultPreemption]:
         """The profile's DefaultPreemption: the per-pod dry run and the victim
@@ -708,6 +1197,26 @@ class BatchScheduler(Scheduler):
         chosen node per pod is verified with the serial filters. Constrained
         batches keep the serial PostFilter path, because evicting victims can
         change PTS/IPA feasibility in ways the tier math does not model."""
+        if self.cache.columnar_rows():
+            # placements of earlier batches held as columnar rows have no
+            # PodInfo, so the victim walk below cannot see them: collapse
+            # them and patch the local (pre-batch) snapshot clones in place.
+            # Rows of THIS batch stay out of the patch: the dry run sees
+            # those through placed_by_node, and the next update_snapshot
+            # re-clones every touched node anyway.
+            batch_keys = {p.key for p in sub.pods}
+            mat: list = []
+            self.cache.materialize_columnar_rows(mat)
+            for node_name, pi in mat:
+                if pi.pod.key in batch_keys:
+                    continue
+                ni = snapshot.node_info_map.get(node_name)
+                if ni is not None:
+                    # a raw append: the scatter-add already folded the
+                    # resources into this clone; keep len(pods) + col_count
+                    # exact
+                    ni.pods.append(pi)
+                    ni.col_count -= 1
         # post-batch capacity: fold every in-batch assignment into used state
         used = cluster.used.astype(np.int64).copy()
         pod_count = cluster.pod_count.astype(np.int64).copy()
@@ -976,6 +1485,8 @@ def _subset_batch(batch, idx):
         req=batch.req[idx],
         req_nz=batch.req_nz[idx],
         balanced_active=batch.balanced_active[idx],
+        raw_req=None if batch.raw_req is None else batch.raw_req[idx],
+        raw_req_nz=None if batch.raw_req_nz is None else batch.raw_req_nz[idx],
         gang_of_pod=None if batch.gang_of_pod is None else batch.gang_of_pod[idx],
         gang_rank=None if batch.gang_rank is None else batch.gang_rank[idx],
     )

@@ -19,7 +19,7 @@ OPEN -> HALF_OPEN transition on cooldown expiry) and reports the outcome of
 the solve with record_success()/record_failure(). Failures of the DEGRADED
 solver are counted but never change state: there is nothing further to
 degrade to, and the pods requeue with backoff either way. The state gauge
-and the Warning event come with the metrics (ROADMAP.md queue 1 item 7).
+and the Warning event come with the metrics (ROADMAP.md queue 1 item 7d).
 """
 
 from __future__ import annotations

@@ -178,6 +178,7 @@ class NodeInfo:
         "used_ports",
         "image_states",
         "generation",
+        "col_count",
     )
 
     def __init__(self, node=None):
@@ -191,6 +192,13 @@ class NodeInfo:
         self.used_ports: Set[Tuple[str, str, int]] = set()  # (hostIP, proto, port)
         self.image_states: Dict[str, ImageStateSummary] = {}
         self.generation = 0
+        # Pods held as columnar cache rows (scheduler/cachecols.py) rather
+        # than PodInfo objects. Their resources are already folded into
+        # `requested`/`non_zero_requested` by the phase-2 scatter; this count
+        # keeps pod-population checks (the tensorizer's pod_count) exact
+        # without materializing them. Rows are constraint-free by the
+        # dispatch gate, so the affinity and port structures owe no entries.
+        self.col_count = 0
         if node is not None:
             self.set_node(node)
 
@@ -246,6 +254,7 @@ class NodeInfo:
         ni.used_ports = set(self.used_ports)
         ni.image_states = dict(self.image_states)
         ni.generation = self.generation
+        ni.col_count = self.col_count
         return ni
 
 

@@ -143,10 +143,9 @@ class GangDirectory:
         """Count expired assumes back OUT of the quorum: the pod keys whose
         assume expired stop counting as placed, so a gang with expired
         assumed members re-evaluates its quorum against reality instead of
-        silently under-counting. The port's cache has no assume expiry yet
-        (it comes with pipelined binds, ROADMAP.md queue 1 item 7), so
-        nothing calls this today. Returns how many placed entries were
-        removed."""
+        silently under-counting (Scheduler.sweep_expired_assumes calls it
+        with the keys the cache expired). Returns how many placed entries
+        were removed."""
         removed = 0
         with self._lock:
             for group in list(self._placed):

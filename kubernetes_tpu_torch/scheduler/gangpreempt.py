@@ -30,7 +30,7 @@ Victim eligibility: priority below the gang's MINIMUM member priority, not
 itself a gang member, not blocked by an exhausted PodDisruptionBudget, and on
 a node the gang's class can use. Everything here runs on the scheduling
 thread, off the hot path. The preemption metrics come with ROADMAP.md queue
-1 item 7; the totals dict (stats()) carries the same counts.
+1 item 7d; the totals dict (stats()) carries the same counts.
 """
 
 from __future__ import annotations

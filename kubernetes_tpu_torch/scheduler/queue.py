@@ -10,7 +10,7 @@ plugin replaces it through its less(). A cluster event moves the
 unschedulable pods that its QueueingHints select (move_pods_for_event, fed by
 scheduler/serial.py _move_for_event from each pod's unschedulable_plugins).
 The background loop that calls the flushes comes with the daemon (ROADMAP.md
-queue 1 item 7).
+queue 1 item 7g).
 
 Gang gating (scheduler/gang.py): with gang hooks installed, members of a
 PodGroup are held in a STAGING area, a fourth tier beside active, backoff

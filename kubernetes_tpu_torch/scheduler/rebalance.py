@@ -41,7 +41,7 @@ silently double-count the migration budget, so claims go through a
 module-level weak registry and losers count inert_conflict no-ops. The
 rebalancer is also inert on a SHARD pipeline of a partitioned scheduler
 (partition_index >= 0); the port's BatchScheduler has partition_index None
-(partitioned scheduling is ROADMAP.md queue 1 item 7).
+(partitioned scheduling is ROADMAP.md queue 1 item 7e).
 
 _candidates reads the store's columnar pod view (store.pod_columns()) to
 find the donor slice's rows without copying the whole cluster, then gets

@@ -28,6 +28,13 @@ victim off the gang preemptor's in-flight covers. The directory and the
 preemptor are installed by BatchScheduler; each hook is gated on them.
 Failures are narrated as FailedScheduling events (api/events.py).
 
+Assume expiry (JAX serial.py :906-935): the cache runs on the scheduler's
+clock; a bound assume's TTL starts at finish_binding, and
+sweep_expired_assumes drops the assumes whose TTL ran out unconfirmed,
+counts expired gang members back out of their quorum and requeues the pods
+still pending in the store. The per-pod cycle collapses the batch path's
+columnar cache rows before it snapshots (the plugins walk pod lists).
+
 Storage and DRA (JAX serial.py :32-34, :186-196, :537-553): the volume
 plugins of every profile share VolumeLister handles, filled from the store's
 STORAGE_KINDS at LIST time, kept current by their watch events and cleared
@@ -137,7 +144,7 @@ class Scheduler:
         self.framework = profiles.get(DEFAULT_SCHEDULER_NAME) or next(iter(profiles.values()))
         self.store = store
         self.clock = clock or Clock()
-        self.cache = Cache()
+        self.cache = Cache(clock=self.clock)
         # QueueSort from the default profile (the reference requires every
         # profile to share one, validation.go); the default PrioritySort is
         # the queue's own tuple key (the same order, cheaper heap operations)
@@ -230,14 +237,17 @@ class Scheduler:
         (no event can fall between the list and the watch)."""
         self._rebuild_from_store(preserve_queue=False, initial=True)
 
-    def _rebuild_from_store(self, preserve_queue: bool, initial: bool = False) -> None:
+    def _rebuild_from_store(self, preserve_queue: bool,
+                            initial: bool = False) -> Dict[str, int]:
         """The LIST into a fresh cache, then the WATCH. A relist or resync
         (not `initial`) also clears the volume listers first (an informer
         cache replace); the initial sync keeps objects a caller put into a
-        lister it passed in, as the JAX sync does."""
+        lister it passed in, as the JAX sync does. Returns {nodes, bound,
+        pending}: the listed nodes, and the listed non-terminal pods bound
+        and pending."""
         if self._watch is not None:
             self._watch.stop()
-        self.cache = Cache()
+        self.cache = Cache(clock=self.clock)
         self._ns_labels.clear()
         if not initial:
             for lister in self._volume_listers:
@@ -252,12 +262,14 @@ class Scheduler:
             for pg in lists["podgroups"]:
                 self.gangs.observe_podgroup(ADDED, pg)
         known_pending = set()
+        bound = 0
         for p in lists["pods"]:
             if self.gangs is not None:
                 self.gangs.observe_pod(ADDED, p)
             if p.spec.node_name:
                 if not p.is_terminal():
                     self.cache.add_pod(p)
+                    bound += 1
             elif not p.is_terminal():
                 known_pending.add(p.key)
                 if not (preserve_queue and self.queue.update(p)):
@@ -277,6 +289,8 @@ class Scheduler:
         self._push_ns_labels()
         self._watch = self.store.watch(kind=self.WATCHED_KINDS, since_rv=rv,
                                        maxsize=200_000, coalesce=self.watch_coalesce)
+        return {"nodes": len(lists["nodes"]), "bound": bound,
+                "pending": len(known_pending)}
 
     def pump_events(self, max_events: int = 10_000) -> int:
         """Drain pending watch deliveries into cache/queue. An evicted (slow)
@@ -464,6 +478,9 @@ class Scheduler:
     def schedule_pod(self, pod: Pod, snapshot: Optional[Snapshot] = None) -> ScheduleResult:
         """schedulePod :410 — snapshot, prefilter, filter, score, select."""
         if snapshot is None:
+            # the plugins walk snapshot pod lists: collapse the batch path's
+            # columnar cache rows first (a no-op on the pure serial path)
+            self.cache.materialize_columnar_rows()
             snapshot = self.cache.update_snapshot()
         res = ScheduleResult()
         if len(snapshot) == 0:
@@ -560,14 +577,14 @@ class Scheduler:
         """assume (:945) -> Reserve -> Permit -> PreBind -> bind (:967) ->
         PostBind; binds synchronously. The assumed pod is a STRUCTURAL clone
         (schedule_one.go:148 DeepCopy analog): own metadata/spec/status
-        objects, shared immutable innards. Our own bind's MODIFIED event
-        confirms the assume on ingest (the cache's assume TTL comes with
-        pipelined binds, ROADMAP.md queue 1 item 7)."""
+        objects, shared immutable innards. finish_binding starts the
+        assume's TTL; our own bind's MODIFIED event confirms it on ingest."""
         pod = qp.pod
         framework = self._fw(pod) or self.framework
         assumed = pod_structural_clone(pod)
-        bad = self.cache.assume_pods([(assumed, result.suggested_host)])
-        if bad:
+        try:
+            self.cache.assume_pod(assumed, result.suggested_host)
+        except ValueError:
             self._handle_failure(qp, Status.error("pod already in cache"))
             return False
         state = result.state if result.state is not None else CycleState()
@@ -587,6 +604,7 @@ class Scheduler:
             if not st.is_success():
                 raise RuntimeError(f"prebind: {st.message()}")
             self.store.bind(pod.metadata.namespace, pod.metadata.name, result.suggested_host)
+            self.cache.finish_binding(assumed)
             if self.gangs is not None:
                 self.gangs.note_assumed(assumed)
             framework.run_post_bind(state, assumed, result.suggested_host)
@@ -614,6 +632,27 @@ class Scheduler:
         if st.is_success() and nominated:
             qp.pod.status.nominated_node_name = nominated
             self.preemption_count += 1
+
+    def sweep_expired_assumes(self) -> List[str]:
+        """Expire the assumed pods whose bind never confirmed (cache.go's
+        durationToExpireAssumedPod cleanup, scheduler.go:57-59) and act on
+        it: gang quorums count the expired members back out, and the pods
+        still pending in the store re-enter the queue (an expired assume
+        means our bind never landed), which re-stages gang members under
+        their group. Returns the expired pod keys."""
+        expired = self.cache.cleanup_expired_assumed_pods()
+        if not expired:
+            return expired
+        if self.gangs is not None and self.gangs.active:
+            self.gangs.note_expired_keys(expired)
+        for key in expired:
+            try:
+                pod = self.store.get("pods", key)
+            except NotFoundError:
+                continue
+            if not pod.spec.node_name and not pod.is_terminal():
+                self._handle_pod(ADDED, pod)
+        return expired
 
     def run_until_idle(self, max_cycles: int = 100_000) -> int:
         """Drive the loop until the active queue drains (test/bench harness)."""

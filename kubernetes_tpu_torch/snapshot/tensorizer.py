@@ -68,6 +68,34 @@ def _quantize(r: Resource, resource_dims: Sequence[str], is_request: bool) -> Li
     return out
 
 
+def _raw_vec(r: Resource, resource_dims: Sequence[str]) -> List[int]:
+    """Unquantized resource vector (milli-CPU, bytes, bytes, scalar counts).
+    The columnar accounting path accumulates THESE and quantizes the totals,
+    so its rows stay bit-identical to quantizing NodeInfo.requested (the sum
+    of per-pod MiB ceilings is not the ceiling of the byte sum)."""
+    out = []
+    for name in resource_dims:
+        if name == CPU:
+            out.append(r.milli_cpu)
+        elif name == MEMORY:
+            out.append(r.memory)
+        elif name == EPHEMERAL_STORAGE:
+            out.append(r.ephemeral_storage)
+        else:
+            out.append(r.scalar.get(name, 0))
+    return out
+
+
+def _quantize_raw_rows(raw: np.ndarray, resource_dims: Sequence[str]) -> np.ndarray:
+    """Vectorized request-side quantization of raw [K, R] rows: the columnar
+    equivalent of _quantize(..., is_request=True) per node."""
+    out = raw.astype(np.int64, copy=True)
+    for di, name in enumerate(resource_dims):
+        if name in (MEMORY, EPHEMERAL_STORAGE):
+            out[:, di] = -(-out[:, di] // MI)
+    return out.astype(np.int32)
+
+
 @dataclass
 class ClusterTensors:
     """Node-axis tensors + class tables + topology-spread tensors (all numpy;
@@ -128,6 +156,13 @@ class PodBatchTensors:
     # classes whose pods the batched path does not place (DRA claims,
     # scheduling-relevant volumes, non-default PTS inclusion policies)
     fallback_class: np.ndarray  # [C] bool
+
+    # columnar accounting inputs (see _raw_vec): unquantized per-pod request
+    # vectors and the per-class host-port flag that gates the tensor-cache
+    # assume fast path (host-port pods need a port-row recompute)
+    raw_req: Optional[np.ndarray] = None  # [P, R] int64
+    raw_req_nz: Optional[np.ndarray] = None  # [P, R] int64
+    class_has_host_ports: Optional[np.ndarray] = None  # [C] bool
 
     # gang rows (scheduler/gang.py): group id per pod (-1 = not a member),
     # the group keys those ids index, and the per-(class, node) slice-packing
@@ -301,6 +336,14 @@ class TensorCache:
         self._mirror_set = None
         # previous PodBatchTensors (pod-axis reuse for same-backlog re-solves)
         self._last_batch = None
+        # columnar assume state: raw (unquantized) per-node request totals,
+        # the cache generation the current tensors are consistent with, and
+        # the rows + generation a pending apply_assume_deltas covers
+        self._raw_used: Optional[np.ndarray] = None  # [N, R] int64
+        self._raw_used_nz: Optional[np.ndarray] = None
+        self._tensorized_gen: Optional[int] = None
+        self._assume_gen: Optional[int] = None
+        self._assume_rows: Optional[set] = None
 
     # -- cluster tensors -------------------------------------------------------
 
@@ -311,6 +354,25 @@ class TensorCache:
         prev_nis = self.node_infos
         if self.cluster is None or prev_nis is None or len(prev_nis) != len(nis):
             return self._full(snapshot)
+        if self._assume_gen is not None and snapshot.generation == self._assume_gen:
+            # columnar fast path: every cache mutation since the last
+            # tensorize was our own assume batch, whose deltas are already
+            # in used/used_nz/pod_count (apply_assume_deltas): no per-node
+            # requantize, no label/taint/port re-checks. The rows still go
+            # back as `changed` so selector-class counts recount them when a
+            # constrained batch follows.
+            changed = sorted(self._assume_rows)
+            self._assume_gen = None
+            self._assume_rows = None
+            cluster = self.cluster
+            for i in changed:
+                cluster.cols.node_infos[i] = nis[i]
+            self.snap = snapshot
+            self.node_infos = list(nis)
+            self._tensorized_gen = snapshot.generation
+            return cluster, changed
+        self._assume_gen = None
+        self._assume_rows = None
         if (snapshot.changed_names is not None and self.snap is not None
                 and snapshot.changed_from_gen == self.snap.generation):
             # the snapshot carries the diff relative to exactly the snapshot
@@ -332,6 +394,7 @@ class TensorCache:
         if not changed:
             self.snap = snapshot
             self.node_infos = list(nis)
+            self._tensorized_gen = snapshot.generation
             return cluster, []
         self._dirty_rows.update(changed)
         dims = cluster.resource_dims
@@ -345,8 +408,11 @@ class TensorCache:
                 _quantize(ni.requested, dims, is_request=True), dtype=np.int32)
             cluster.used_nz[i] = np.array(
                 _quantize(ni.non_zero_requested, dims, is_request=True), dtype=np.int32)
-            cluster.pod_count[i] = len(ni.pods)
+            cluster.pod_count[i] = len(ni.pods) + ni.col_count
             cluster.max_pods[i] = ni.allocatable.allowed_pod_number
+            if self._raw_used is not None:
+                self._raw_used[i] = _raw_vec(ni.requested, dims)
+                self._raw_used_nz[i] = _raw_vec(ni.non_zero_requested, dims)
         # port usage rows (NodeColumns caches them for class table compile)
         cols = cluster.cols
         for i in changed:
@@ -360,6 +426,7 @@ class TensorCache:
             cols.port_matrix[i] = row
         self.snap = snapshot
         self.node_infos = list(nis)
+        self._tensorized_gen = snapshot.generation
         return cluster, changed
 
     def _full(self, snapshot: Snapshot) -> Tuple[ClusterTensors, None]:
@@ -373,7 +440,49 @@ class TensorCache:
         self._device_selcls_host = None
         self._dirty_rows.clear()
         self._dirty_all = True
+        dims = self.cluster.resource_dims
+        self._raw_used = np.array(
+            [_raw_vec(ni.requested, dims) for ni in self.node_infos],
+            dtype=np.int64).reshape(len(self.node_infos), len(dims))
+        self._raw_used_nz = np.array(
+            [_raw_vec(ni.non_zero_requested, dims) for ni in self.node_infos],
+            dtype=np.int64).reshape(len(self.node_infos), len(dims))
+        self._tensorized_gen = snapshot.generation
+        self._assume_gen = None
+        self._assume_rows = None
         return self.cluster, None
+
+    def apply_assume_deltas(self, rows: np.ndarray, d_raw_used: np.ndarray,
+                            d_raw_used_nz: np.ndarray, d_count: np.ndarray,
+                            tensorized_gen: int, assume_gen: int) -> bool:
+        """Columnar assume accounting: fold a solved batch's per-node raw
+        request deltas (the scatter-add keyed by the tensorizer's node index,
+        computed by the batch scheduler) straight into the cluster tensors,
+        then requantize only the touched rows, vectorized. The rows join the
+        dirty set, so kernel B scatters exactly them into the device mirrors
+        on the next device_views. Records assume_gen (the cache generation
+        after the matching Cache.apply_node_resource_deltas) so the next
+        cluster_tensors can prove the snapshot diff is fully explained by
+        this batch and skip the per-node walk. Returns False (no-op) when the
+        tensors are not at tensorized_gen: a foreign mutation slipped in and
+        the normal incremental path must requantize instead."""
+        if (self.cluster is None or self._raw_used is None
+                or self._tensorized_gen != tensorized_gen):
+            return False
+        rows = np.asarray(rows)
+        dims = self.cluster.resource_dims
+        self._raw_used[rows] += d_raw_used
+        self._raw_used_nz[rows] += d_raw_used_nz
+        self.cluster.used[rows] = _quantize_raw_rows(self._raw_used[rows], dims)
+        self.cluster.used_nz[rows] = _quantize_raw_rows(self._raw_used_nz[rows], dims)
+        self.cluster.pod_count[rows] = (
+            self.cluster.pod_count[rows] + d_count.astype(self.cluster.pod_count.dtype))
+        self._dirty_rows.update(int(i) for i in rows)
+        if self._assume_rows is None:
+            self._assume_rows = set()
+        self._assume_rows.update(int(i) for i in rows)
+        self._assume_gen = assume_gen
+        return True
 
     # -- device mirrors (the diff -> device stream of cache.go:186) -----------
 
@@ -476,7 +585,9 @@ def build_cluster_tensors(snapshot: Snapshot, extra_resource_dims: Sequence[str]
         alloc[i] = _quantize(ni.allocatable, resource_dims, is_request=False)
         used[i] = _quantize(ni.requested, resource_dims, is_request=True)
         used_nz[i] = _quantize(ni.non_zero_requested, resource_dims, is_request=True)
-        pod_count[i] = len(ni.pods)
+        # columnar cache rows count toward the node's pod population
+        # without being materialized as PodInfo objects
+        pod_count[i] = len(ni.pods) + ni.col_count
         max_pods[i] = ni.allocatable.allowed_pod_number
 
     cols = NodeColumns(node_infos)
@@ -546,7 +657,7 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
     # memoize by container-resources signature: template-stamped pods compute
     # their request vectors exactly once
     req_cache: Dict[tuple, tuple] = {}
-    req_entries: List[tuple] = []  # (quant, quant_nz, active)
+    req_entries: List[tuple] = []  # (quant, quant_nz, active, raw, raw_nz)
 
     def _req_entry(pod) -> tuple:
         # request-signature memo keyed by spec identity (any change parses a
@@ -570,6 +681,8 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
                 _quantize(prnz, cluster.resource_dims, is_request=True),
                 # BalancedAllocation PreScore skip rule (balanced_allocation.go)
                 pr.milli_cpu != 0 or pr.memory != 0,
+                _raw_vec(pr, cluster.resource_dims),
+                _raw_vec(prnz, cluster.resource_dims),
             ))
             got = (len(req_entries) - 1, (pr, prnz))
             req_cache[sig] = got
@@ -615,14 +728,20 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
             req = pod_axis.req
             req_nz = pod_axis.req_nz
             balanced_active = pod_axis.balanced_active
+            raw_req = pod_axis.raw_req
+            raw_req_nz = pod_axis.raw_req_nz
         else:
             for pod in pods:
                 entry_rows.append(_req_entry(pod)[0])
     else:
-        # one fused pass per pod: class signature + request-memo row
+        # one fused pass per pod: class signature + request-memo row; the
+        # native commit engine runs the same loop over the same dicts (misses
+        # call back into the Python helpers), HOSTSCHED_NATIVE_COMMIT=0 the
+        # Python loop below
+        from ..native import hostcommit
+
         sig_to_class: Dict[tuple, int] = {}
         rep_pods = []
-        class_rows: List[int] = []
         if seed_memos is not None:
             # a pre-pass over memo-less pods; adaptive dry-out: a batch whose
             # first 64 memo-less pods find nothing in the column (rows synced
@@ -638,16 +757,23 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
                 probed += 1
                 if probed >= 64 and not hits:
                     break
-        for pod in pods:
-            sig = pod_class_signature(pod)
-            ci = sig_to_class.get(sig)
-            if ci is None:
-                ci = len(rep_pods)
-                sig_to_class[sig] = ci
-                rep_pods.append(pod)
-            class_rows.append(ci)
-            entry_rows.append(_req_entry(pod)[0])
-        class_of_pod = np.asarray(class_rows, dtype=np.int32)
+        if pods and hostcommit.selected():
+            def _entry_cb(pod):
+                return _req_entry(pod)[0]
+            class_of_pod, entry_rows = hostcommit.batch_rows(
+                pods, sig_to_class, rep_pods, req_cache, pod_class_signature, _entry_cb)
+        else:
+            class_rows: List[int] = []
+            for pod in pods:
+                sig = pod_class_signature(pod)
+                ci = sig_to_class.get(sig)
+                if ci is None:
+                    ci = len(rep_pods)
+                    sig_to_class[sig] = ci
+                    rep_pods.append(pod)
+                class_rows.append(ci)
+                entry_rows.append(_req_entry(pod)[0])
+            class_of_pod = np.asarray(class_rows, dtype=np.int32)
 
     if len(entry_rows):
         eidx = np.asarray(entry_rows)
@@ -655,10 +781,14 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
         req = np.array([e[0] for e in req_entries], dtype=np.int64).reshape(ne, r)[eidx]
         req_nz = np.array([e[1] for e in req_entries], dtype=np.int64).reshape(ne, r)[eidx]
         balanced_active = np.array([e[2] for e in req_entries], dtype=bool)[eidx]
+        raw_req = np.array([e[3] for e in req_entries], dtype=np.int64).reshape(ne, r)[eidx]
+        raw_req_nz = np.array([e[4] for e in req_entries], dtype=np.int64).reshape(ne, r)[eidx]
     elif pod_axis is None:
         req = np.zeros((0, r), dtype=np.int64)
         req_nz = np.zeros((0, r), dtype=np.int64)
         balanced_active = np.zeros(0, dtype=bool)
+        raw_req = np.zeros((0, r), dtype=np.int64)
+        raw_req_nz = np.zeros((0, r), dtype=np.int64)
 
     tables = compile_class_tables(rep_pods, cluster.cols)
 
@@ -796,6 +926,11 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
     ct_class, ct_key, ct_sel, ct_max_skew, ct_min_domains, ct_self = rows_to_arrays(ct_rows, True)
     st_class, st_key, st_sel, st_max_skew, st_self = rows_to_arrays(st_rows, False)
 
+    from ..scheduler.framework import _host_ports
+
+    class_has_host_ports = np.array(
+        [any(True for _ in _host_ports(p)) for p in rep_pods], dtype=bool)
+
     out = PodBatchTensors(
         pods=list(pods),
         class_of_pod=class_of_pod,
@@ -810,6 +945,9 @@ def build_pod_batch(pods: Sequence[Pod], snapshot: Snapshot,
         class_matches_selcls=class_matches,
         ipa=ipa,
         fallback_class=fallback_class,
+        raw_req=np.asarray(raw_req, dtype=np.int64),
+        raw_req_nz=np.asarray(raw_req_nz, dtype=np.int64),
+        class_has_host_ports=class_has_host_ports,
         gang_of_pod=gang_of_pod,
         gang_keys=gang_keys or None,
         gang_bonus=gang_bonus,

@@ -44,9 +44,12 @@ Fallback: no numpy, `STORE_COLUMNAR=0`, `APIStore(columnar=False)`, or a
 store configured without the lazy/deep-copy event contract all disable the
 columns — the dict store is the oracle and stays bit-for-bit.
 
+`bind_prepare(native=)` runs the validate/intern loop in the g++ commit
+engine (native/hostcommit.cpp hc_columnar_prepare), byte-identical to the
+Python loop here.
+
 Not in this slice: the shared-memory backing of the numeric columns
-(`attach_arena`; ROADMAP.md queue 1 item 7e) and the g++ prepare loop that
-`bind_prepare`'s `native` argument selects (item 7c: it is always None).
+(`attach_arena`; ROADMAP.md queue 1 item 7e).
 """
 
 from __future__ import annotations
@@ -325,43 +328,44 @@ class PodColumns:
         (the commit phase re-validates raced rows against these: every row
         write bumps row_rv, and remove() poisons it with -1, so a changed
         value is exactly "this row raced"). Error messages match the dict
-        path byte-for-byte. `native` selects the g++ prepare loop, which
-        this slice does not have (ROADMAP.md queue 1 item 7c): it must be
-        None."""
+        path byte-for-byte. `native` (the loaded hostcommit module) runs the
+        same loop in the g++ engine; bindings must then be a sequence."""
         if native is not None:
-            raise ValueError("the native columnar prepare loop is not ported "
-                             "(ROADMAP.md queue 1 item 7c)")
-        key2row = self.key2row
-        node_id = self.node_id
-        names = self.node_names
-        node_ids = self._node_ids
-        row_list: List[int] = []
-        id_list: List[int] = []
-        keys = []
-        for namespace, name, node_name in bindings:
-            key = f"{namespace}/{name}"
-            row = key2row.get(key)
-            if row is None:
-                errors.append((key, f"pods {key} not found"))
-                continue
-            cur = node_id[row]
-            if cur >= 0:
-                errors.append(
-                    (key,
-                     f"pod {key} is already bound to {names[cur]}"))
-                continue
-            nid = node_ids.get(node_name)
-            if nid is None:
-                # append-then-map, matching the C loop: a failure
-                # between the two leaves only an orphan table entry
-                nid = len(names)
-                names.append(node_name)
-                node_ids[node_name] = nid
-            row_list.append(row)
-            id_list.append(nid)
-            keys.append(key)
-        rows = np.asarray(row_list, dtype=np.int32)
-        ids = np.asarray(id_list, dtype=np.int32)
+            rows, ids, keys = native.columnar_prepare(
+                self.key2row, bindings, self._node_ids, self.node_names,
+                self.node_id, errors)
+        else:
+            key2row = self.key2row
+            node_id = self.node_id
+            names = self.node_names
+            node_ids = self._node_ids
+            row_list: List[int] = []
+            id_list: List[int] = []
+            keys = []
+            for namespace, name, node_name in bindings:
+                key = f"{namespace}/{name}"
+                row = key2row.get(key)
+                if row is None:
+                    errors.append((key, f"pods {key} not found"))
+                    continue
+                cur = node_id[row]
+                if cur >= 0:
+                    errors.append(
+                        (key,
+                         f"pod {key} is already bound to {names[cur]}"))
+                    continue
+                nid = node_ids.get(node_name)
+                if nid is None:
+                    # append-then-map, matching the C loop: a failure
+                    # between the two leaves only an orphan table entry
+                    nid = len(names)
+                    names.append(node_name)
+                    node_ids[node_name] = nid
+                row_list.append(row)
+                id_list.append(nid)
+                keys.append(key)
+            rows = np.asarray(row_list, dtype=np.int32)
+            ids = np.asarray(id_list, dtype=np.int32)
         rv_snap = self.row_rv[rows].copy() if len(rows) else \
             np.zeros(0, dtype=np.int64)
         return rows, ids, keys, rv_snap

@@ -71,12 +71,29 @@ dict store stays the oracle: columnar=False, STORE_COLUMNAR=0, a missing
 numpy, or a store without the lazy/deep-copy event contract run the pure
 dict path, with the same placements, RV sequence and event streams.
 
-Not in this slice: the g++ commit engine (`native_commit`; ROADMAP.md queue
-1 item 7c), the shared-memory column arena (`enable_shm`, `shm_name`,
-`shm_close`) and the lock-graph witness the ordered locks would record into
-(item 7e), and the API serializer the mutation detector fingerprints
-through (item 7f: until then it walks the objects' fields, or their own
-`to_dict`).
+Native commit engine: the store's hot loops (bind_many's validate+clone
+prepare and its commit, the columnar prepare, delete_pods' commit) also run
+through the g++ C-API engine (native/hostcommit.cpp), which replays exactly
+the same object operations, byte-identical to the Python loops here (the
+oracle; tests/test_torch_native.py holds rows, RV sequence and event streams
+equal). Selection: APIStore(native_commit=) or env STORE_NATIVE_COMMIT, and
+the engine-level HOSTSCHED_NATIVE_COMMIT switch; a selected engine whose
+build fails raises. The `native.commit` fault site fires in the phase gap
+(no lock held) when the engine is selected.
+
+  NATIVE LOCK RULE: the PyDLL commit entries HOLD the GIL and are legal
+  under the store locks (plain interpreter work, cheaper). The
+  GIL-RELEASING kernels (ctypes CDLL in native/hostsched.py:
+  native_greedy_solve, native_commit_deltas) must NEVER run inside a store
+  or scheduler lock: dropping the GIL while holding a store lock invites
+  every lock/GIL interleaving (a GIL-waiting thread that needs this lock, a
+  lock-waiting thread that holds the GIL).
+
+Not in this slice: the shared-memory column arena (`enable_shm`,
+`shm_name`, `shm_close`) and the lock-graph witness the ordered locks would
+record into (ROADMAP.md queue 1 item 7e), and the API serializer the
+mutation detector fingerprints through (item 7f: until then it walks the
+objects' fields, or their own `to_dict`).
 """
 
 from __future__ import annotations
@@ -740,6 +757,7 @@ class APIStore:
                  lazy_pod_events: Optional[bool] = None,
                  lock_order_check: Optional[bool] = None,
                  watch_propagation: bool = True,
+                 native_commit: Optional[bool] = None,
                  columnar: Optional[bool] = None,
                  history_limit: int = 50_000):
         import os
@@ -777,6 +795,15 @@ class APIStore:
             lazy_pod_events = os.environ.get(
                 "STORE_LAZY_POD_EVENTS", "").lower() not in ("0", "false")
         self._lazy_pod_events = lazy_pod_events
+        # native host commit engine (module docstring): default on;
+        # STORE_NATIVE_COMMIT=0 or the constructor argument select the
+        # Python loops (the parity tests' oracle). The engine is loaded at
+        # the first commit, so a fresh checkout's one-time g++ build never
+        # blocks construction.
+        if native_commit is None:
+            native_commit = os.environ.get(
+                "STORE_NATIVE_COMMIT", "").lower() not in ("0", "false")
+        self._native_commit = native_commit
         # columnar pod-row table (module docstring): default on
         # when numpy is importable AND the store carries the lazy/deep-copy
         # event contract the column commit path is written against; the
@@ -824,6 +851,17 @@ class APIStore:
         self._prop_settle_s = 0.0
 
     # -- helpers ---------------------------------------------------------------
+
+    def _native_commit_engine(self):
+        """The loaded C-API commit engine, or None where this store or the
+        HOSTSCHED_NATIVE_COMMIT switch selects the Python loops. The first
+        call pays the one-time g++ build and raises if it fails; call it
+        before taking a store lock."""
+        if not self._native_commit:
+            return None
+        from ..native import hostcommit
+
+        return hostcommit if hostcommit.selected() else None
 
     @property
     def rv(self) -> int:
@@ -1624,25 +1662,36 @@ class APIStore:
         errors: List[Tuple[str, str]] = []
         prepared: List = []  # (key, old stored pod, new clone, node_name)
         pods = self._objects["pods"]
+        native = self._native_commit_engine()
         with self._pods_lock:
-            for namespace, name, node_name in bindings:
-                key = f"{namespace}/{name}"
-                pod = pods.get(key)
-                if pod is None:
-                    errors.append((key, f"pods {key} not found"))
-                    continue
-                if pod.spec.node_name:
-                    errors.append(
-                        (key, f"pod {key} is already bound to {pod.spec.node_name}"))
-                    continue
-                new = pod_bind_clone(pod)
-                new.spec.node_name = node_name
-                prepared.append((key, pod, new, node_name))
+            if native is not None:
+                # the native validate+clone loop: identical entries and
+                # errors (PyDLL: GIL held, legal under the shard)
+                native.bind_prepare(pods, bindings, prepared, errors)
+            else:
+                for namespace, name, node_name in bindings:
+                    key = f"{namespace}/{name}"
+                    pod = pods.get(key)
+                    if pod is None:
+                        errors.append((key, f"pods {key} not found"))
+                        continue
+                    if pod.spec.node_name:
+                        errors.append(
+                            (key, f"pod {key} is already bound to {pod.spec.node_name}"))
+                        continue
+                    new = pod_bind_clone(pod)
+                    new.spec.node_name = node_name
+                    prepared.append((key, pod, new, node_name))
         bound = 0
         if not prepared:
             _metrics.store_bind_many_duration.observe(
                 time.perf_counter() - t0)
             return bound, errors
+        if native is not None and _chaos.ACTIVE is not None:
+            # injected native-commit failure in the phase gap: clones made,
+            # NOTHING committed, no lock held, so the store is untouched and
+            # the caller's retry/requeue machinery must conserve every pod
+            _chaos.ACTIVE.fire("native.commit")
         events: List[Event] = []
         # mode decided once per batch; rv and the event constructor live in
         # locals — the loop below runs once a pod of a whole solver batch
@@ -1655,38 +1704,45 @@ class APIStore:
                 rv = self._rv
                 # shared propagation stamp for the whole commit (one read)
                 t_commit = self._commit_stamp()
-                for key, old, new, node_name in prepared:
-                    if get(key) is not old:
-                        # raced between the phases: re-validate on the
-                        # current row (also catches duplicate keys within
-                        # one batch — the second commit sees the first)
-                        cur = get(key)
-                        if cur is None:
-                            errors.append((key, f"pods {key} not found"))
-                            continue
-                        if cur.spec.node_name:
-                            errors.append(
-                                (key, f"pod {key} is already bound to "
-                                      f"{cur.spec.node_name}"))
-                            continue
-                        old = cur
-                        new = pod_bind_clone(cur)
-                        new.spec.node_name = node_name
-                    rv += 1
-                    new.metadata.resource_version = rv
-                    pods[key] = new
-                    if lazy_on:
-                        append(_make_event(MODIFIED, "pods", new, rv, old,
-                                           [None, pod_bind_clone],
-                                           t_commit))
-                    elif eager:
-                        append(_make_event(MODIFIED, "pods",
-                                           pod_bind_clone(new), rv, old,
-                                           commit_ts=t_commit))
-                    else:
-                        append(_make_event(MODIFIED, "pods", new, rv, old,
-                                           commit_ts=t_commit))
-                    bound += 1
+                if native is not None:
+                    mode = 1 if lazy_on else (2 if eager else 0)
+                    rv, bound = native.bind_commit(
+                        pods, prepared, events, errors, rv, mode, t_commit,
+                        pod_bind_clone, MODIFIED)
+                else:
+                    for key, old, new, node_name in prepared:
+                        if get(key) is not old:
+                            # raced between the phases: re-validate on the
+                            # current row (also catches duplicate keys
+                            # within one batch — the second commit sees the
+                            # first)
+                            cur = get(key)
+                            if cur is None:
+                                errors.append((key, f"pods {key} not found"))
+                                continue
+                            if cur.spec.node_name:
+                                errors.append(
+                                    (key, f"pod {key} is already bound to "
+                                          f"{cur.spec.node_name}"))
+                                continue
+                            old = cur
+                            new = pod_bind_clone(cur)
+                            new.spec.node_name = node_name
+                        rv += 1
+                        new.metadata.resource_version = rv
+                        pods[key] = new
+                        if lazy_on:
+                            append(_make_event(MODIFIED, "pods", new, rv, old,
+                                               [None, pod_bind_clone],
+                                               t_commit))
+                        elif eager:
+                            append(_make_event(MODIFIED, "pods",
+                                               pod_bind_clone(new), rv, old,
+                                               commit_ts=t_commit))
+                        else:
+                            append(_make_event(MODIFIED, "pods", new, rv, old,
+                                               commit_ts=t_commit))
+                        bound += 1
                 self._rv = rv
                 self._emit_batch(MODIFIED, "pods", events, origin)
         _metrics.store_bind_many_duration.observe(time.perf_counter() - t0)
@@ -1705,12 +1761,19 @@ class APIStore:
         the dict path's stored-object identity check."""
         cols = self._cols
         errors: List[Tuple[str, str]] = []
+        native = self._native_commit_engine()
+        if native is not None and not isinstance(bindings, (list, tuple)):
+            bindings = list(bindings)
         with self._pods_lock:
-            rows, ids, keys, rv_snap = cols.bind_prepare(bindings, errors)
+            rows, ids, keys, rv_snap = cols.bind_prepare(bindings, errors, native)
         if not len(rows):
             _metrics.store_bind_many_duration.observe(
                 time.perf_counter() - t0)
             return 0, errors
+        if native is not None and _chaos.ACTIVE is not None:
+            # the same phase-gap boundary as the dict path: rows validated,
+            # NOTHING committed, no lock held
+            _chaos.ACTIVE.fire("native.commit")
         bound = 0
         with self._lock:
             with self._pods_lock:
@@ -1775,6 +1838,10 @@ class APIStore:
         errors: List[Tuple[str, str]] = []
         events: List[Event] = []
         deleted = 0
+        native = self._native_commit_engine()
+        if native is not None and _chaos.ACTIVE is not None:
+            # the same injected boundary as bind_many's (no lock held yet)
+            _chaos.ACTIVE.fire("native.commit")
         with self._pods_pair:
             pods = self._objects["pods"]
             if self._cols is not None:
@@ -1784,40 +1851,48 @@ class APIStore:
                 for key in keys:
                     self._cols.materialize_key(key, pods)
             t_commit = self._commit_stamp()
-            # build-then-pop: every clone/event is constructed BEFORE any
-            # row is removed, so a mid-batch failure leaves the store
-            # untouched (no popped-but-never-narrated pods); a duplicate key
-            # errors like the pop it replaces
-            rv = self._rv
-            found: List[str] = []
-            seen = set()
-            for key in keys:
-                old = None if key in seen else pods.get(key)
-                if old is None:
-                    errors.append((key, f"pods {key} not found"))
-                    continue
-                seen.add(key)
-                found.append(key)
-                rv += 1
-                if not self._deep_copy:
-                    old.metadata.resource_version = rv
-                    events.append(_make_event(DELETED, "pods", old, rv,
-                                              old, commit_ts=t_commit))
-                else:
-                    obj = pod_structural_clone(old)
-                    obj.metadata.resource_version = rv
-                    if self._lazy_pod_events:
-                        events.append(_make_event(
-                            DELETED, "pods", obj, rv, old,
-                            [None, pod_structural_clone], t_commit))
+            if native is not None:
+                mode = (0 if not self._deep_copy
+                        else 1 if self._lazy_pod_events else 2)
+                self._rv, deleted = native.delete_commit(
+                    pods, keys, events, errors, self._rv, mode, t_commit,
+                    pod_structural_clone, DELETED)
+            else:
+                # build-then-pop, exactly like the native engine: every
+                # clone/event is constructed BEFORE any row is removed, so a
+                # mid-batch failure leaves the store untouched (no
+                # popped-but-never-narrated pods); a duplicate key errors
+                # like the pop it replaces
+                rv = self._rv
+                found: List[str] = []
+                seen = set()
+                for key in keys:
+                    old = None if key in seen else pods.get(key)
+                    if old is None:
+                        errors.append((key, f"pods {key} not found"))
+                        continue
+                    seen.add(key)
+                    found.append(key)
+                    rv += 1
+                    if not self._deep_copy:
+                        old.metadata.resource_version = rv
+                        events.append(_make_event(DELETED, "pods", old, rv,
+                                                  old, commit_ts=t_commit))
                     else:
-                        events.append(_make_event(
-                            DELETED, "pods", pod_structural_clone(obj),
-                            rv, old, commit_ts=t_commit))
-                deleted += 1
-            for key in found:
-                del pods[key]
-            self._rv = rv
+                        obj = pod_structural_clone(old)
+                        obj.metadata.resource_version = rv
+                        if self._lazy_pod_events:
+                            events.append(_make_event(
+                                DELETED, "pods", obj, rv, old,
+                                [None, pod_structural_clone], t_commit))
+                        else:
+                            events.append(_make_event(
+                                DELETED, "pods", pod_structural_clone(obj),
+                                rv, old, commit_ts=t_commit))
+                    deleted += 1
+                for key in found:
+                    del pods[key]
+                self._rv = rv
             if self._cols is not None:
                 # drop the freed rows (no-op for error keys that never had
                 # one; second occurrence of a duplicate is already gone)

@@ -454,7 +454,10 @@ def pod_conservation_report(store, scheduler, keys):
                 and obj.key in keyset:
             bind_counts[obj.key] = bind_counts.get(obj.key, 0) + 1
     double: List[str] = [k for k, n in bind_counts.items() if n > 1]
-    # the scheduler cache never accounts one pod on two nodes
+    # the scheduler cache never accounts one pod on two nodes; columnar cache
+    # rows collapse into PodInfos first, so the walk counts every accounted
+    # pod, not only the materialized ones
+    scheduler.cache.materialize_columnar_rows()
     seen: Dict[str, int] = {}
     for ni in scheduler.cache.update_snapshot().node_info_list:
         for pi in ni.pods:

@@ -7,8 +7,8 @@ host-port, constrained or gang batch under them runs the scan as in JAX).
 Also: an injected solver exception (waterfill, or transport_solve)
 requeues the batch with backoff and trips the circuit breaker exactly as
 in JAX, a fallback-class pod is refused with the reason that names its
-ROADMAP item, unported options raise, and the port's store keeps its
-contract.
+ROADMAP item, solver="native" places as JAX's native mode, and the port's
+store keeps its contract.
 """
 
 import random
@@ -141,10 +141,33 @@ def test_device_rejects_fail_unschedulable():
     assert sum(1 for p in pods if p.spec.node_name) == 2
 
 
-@pytest.mark.parametrize("solver,item", [("native", 7)])
-def test_unported_solvers_raise_with_roadmap_item(solver, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        TBatch(TStore(), device="cpu", solver=solver)
+@pytest.mark.parametrize("workload", PARITY_WORKLOADS + MIXED_WORKLOADS,
+                         ids=lambda w: w.__name__)
+def test_native_solver_matches_jax(workload):
+    """solver="native": constraint-free, gang-free batches placed by the host
+    C engine (the port's own copy of hostsched.cpp), the others by the scan,
+    the same map as the JAX package's native mode."""
+    got, tsched = assert_same_placements(workload, solver="native")
+    assert tsched.breaker.failures_total == 0
+
+
+def test_native_solver_takes_constraint_free_batches_only():
+    """The native path runs for a constraint-free batch and declines a
+    constrained one to the scan, as in JAX."""
+    store = TStore()
+    for i in range(3):
+        store.create("nodes", tt.MakeNode(f"n{i}").capacity({"cpu": "4"}).obj())
+    store.create("pods", tt.MakePod("free").req({"cpu": "1"}).obj())
+    sched = TBatch(store, device="cpu", solver="native")
+    sched.sync()
+    sched.run_until_idle()
+    assert sched._solve_path == "native"
+    store.create("pods", tt.MakePod("spread").labels({"app": "a"}).req({"cpu": "1"})
+                 .topology_spread(1, "kubernetes.io/hostname", "DoNotSchedule",
+                                  {"app": "a"}).obj())
+    sched.run_until_idle()
+    assert sched._solve_path == "exact"
+    assert all(p.spec.node_name for p in store.list("pods")[0])
 
 
 @pytest.mark.parametrize("solver", ["fast", "auto"])

@@ -148,8 +148,9 @@ def test_tables_match_jax():
     assert set(tfi.SITES) == set(jfi.SITES)
     assert tfi.DROP_ONLY_SITES == jfi.DROP_ONLY_SITES
     assert tfi.MODES == jfi.MODES
-    # the four sites the port wires say where; the others name their item
-    wired = {"solver.solve", "rebalance.cycle", "store.bind_many", "watch.deliver"}
+    # the six sites the port wires say where; the others name their item
+    wired = {"solver.solve", "rebalance.cycle", "store.bind_many", "watch.deliver",
+             "bind.worker", "native.commit"}
     for site in wired:
         assert "not wired" not in tfi.SITES[site]
     for site in set(tfi.SITES) - wired:

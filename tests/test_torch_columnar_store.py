@@ -171,12 +171,6 @@ def test_env_kill_switch(monkeypatch):
     assert APIStore().columnar is True is JStore().columnar
 
 
-def test_native_prepare_is_not_ported():
-    store = APIStore()
-    with pytest.raises(ValueError, match="7c"):
-        store._cols.bind_prepare([("default", "a", "n")], [], native=object())
-
-
 # -- the lazy steady state ---------------------------------------------------------------
 
 
@@ -383,30 +377,31 @@ def _cluster(store, n=8, m=MakeNode):
 @pytest.mark.parametrize("columnar", [True, False], ids=["columnar", "dict"])
 def test_bind_many_fault_under_the_scheduler_conserves_pods(columnar):
     """An injected store.bind_many failure under the batch scheduler: the
-    pods stay assumed (none lost, none bound twice); the port has no bind
-    retry yet, so a resync from the store re-queues them and every pod binds
-    exactly once."""
+    bind retry absorbs it (one retry counted), every pod binds exactly once
+    and none is left assumed; a resync from the store then finds them all
+    bound."""
     store = APIStore(columnar=columnar)
     _cluster(store)
-    sched = TBatch(store, device="cpu", batch_size=256, solver="fast")
+    sched = TBatch(store, device="cpu", batch_size=256, solver="fast", bind_retry_base_s=0.001)
     sched.sync()
     pods = _pods(64, "cc")
     keys = [p.key for p in pods]
     store.create_many("pods", pods, consume=True)
     tfi.arm([tfi.FaultPlan("store.bind_many", "fail", count=1)])
     try:
-        with pytest.raises(tfi.FaultInjected):
-            sched.run_until_idle()
+        sched.run_until_idle()
     finally:
         tfi.disarm()
-    rep = pod_conservation_report(store, sched, keys)
-    assert rep["counts"]["lost"] == rep["counts"]["double_bound"] == 0
-    assert rep["counts"]["bound"] == 0
-    sched.resync_from_store()
+    rep = assert_pod_conservation(store, sched, keys)
+    assert rep["counts"]["bound"] == 64 and sched.retry_counts["bind"] == 1
+    assert sched.take_bind_failures() == [] and sched.cache.assumed_count() == 0
+    counts = sched.resync_from_store()
+    assert counts["bound"] == 64 and counts["pending"] == counts["dropped_assumes"] == 0
     sched.run_until_idle()
     rep = assert_pod_conservation(store, sched, keys)
     assert rep["counts"]["bound"] == 64
     store.check_mutations()
+    sched.stop()
 
 
 @pytest.mark.parametrize("columnar", [True, False], ids=["columnar", "dict"])

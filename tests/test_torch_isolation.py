@@ -9,7 +9,9 @@ scheduler, both built from a configuration; another consolidates a fragmented cl
 another runs a batch of device pods and every fallback class (volumes, DRA,
 spread inclusion policies) through the per-pod route; another drives the
 full store (columnar rows, the mutation detector, bounded history, watch
-telemetry, an armed watch.deliver site); a static pass over every module of kubernetes_tpu_torch and
+telemetry, an armed watch.deliver site); another runs the host commit
+(columnar cache rows, the g++ engines, pipelined binds under armed bind
+faults) and solver="native"; a static pass over every module of kubernetes_tpu_torch and
 chip_smoke.py finds no such import; and the entry points default to the
 card, raising where none is present (decided inside each test).
 """
@@ -324,6 +326,59 @@ def test_full_store_imports_no_jax_and_no_jax_package():
                                    "dropped": {"chaos": 1}, "floor": True}
     assert {"kubernetes_tpu_torch.store.store", "kubernetes_tpu_torch.store.columnar",
             "kubernetes_tpu_torch.server.metrics"} <= set(got["loaded"])
+    assert got["modules"] == []
+
+
+_COMMIT = r"""
+import json, sys
+import kubernetes_tpu_torch.chaos.faultinject as fi
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod, assert_pod_conservation
+
+out = {}
+for solver in ("exact", "native"):
+    store = APIStore()
+    for i in range(4):
+        store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "8", "memory": "16Gi"}).obj())
+    sched = BatchScheduler(store, device="cpu", solver=solver, bind_retry_base_s=0.001)
+    sched.sync()
+    pods = [MakePod(f"p{i}").req({"cpu": "500m"}).obj() for i in range(40)]
+    fi.arm([fi.FaultPlan("store.bind_many", "fail", count=2),
+            fi.FaultPlan("native.commit", "fail", count=1)])
+    store.create_many("pods", pods)
+    sched.run_until_idle()
+    fi.disarm()
+    rows = sched.cache.columnar_rows()
+    assert_pod_conservation(store, sched, [p.key for p in pods])
+    out[solver] = {"bound": sum(1 for p in store.list("pods")[0] if p.spec.node_name),
+                   "rows": rows, "path": sched._solve_path,
+                   "retries": sched.retry_counts["bind"],
+                   "assumed": sched.cache.assumed_count()}
+    sched.stop()
+print(json.dumps({"out": out,
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.startswith(("kubernetes_tpu_torch.native",
+                                                    "kubernetes_tpu_torch.scheduler.cachecols"))),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_commit_pipeline_imports_no_jax_and_no_jax_package():
+    """The host commit (columnar cache rows, the g++ engines, pipelined binds
+    with an armed store.bind_many and native.commit site) and
+    solver="native" load the native modules and scheduler/cachecols, and
+    neither jax nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _COMMIT], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    for solver in ("exact", "native"):
+        assert got["out"][solver] == {"bound": 40, "rows": 40, "path": solver,
+                                      "retries": 3, "assumed": 0}
+    assert {"kubernetes_tpu_torch.native", "kubernetes_tpu_torch.native.hostcommit",
+            "kubernetes_tpu_torch.native.hostsched",
+            "kubernetes_tpu_torch.scheduler.cachecols"} <= set(got["loaded"])
     assert got["modules"] == []
 
 

@@ -60,8 +60,10 @@ class Env:
 
     def batch(self, solver="exact", **kw):
         if self.port:
+            # the JAX side's configuration: synchronous binds (the worker's
+            # pace would interleave its RVs with the per-pod route's writes)
             self.sched = TBatch(self.store, self.framework(), device="cpu", solver=solver,
-                                clock=self.clock, **kw)
+                                pipeline_binds=False, clock=self.clock, **kw)
         else:
             self.sched = JBatch(self.store, self.framework(), solver=solver,
                                 pipeline_binds=False, clock=self.clock, **kw)
