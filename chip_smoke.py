@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
              identical nodes (ties across CTA boundaries to the lowest
              index), pods that fit nowhere, the hostname key (d_max = N) and
              70,000 nodes (the global-scratch path); exact equality of
-             assignment, used and pod_count; each line gives the cluster
+             assignment, used and pod_count (on (a)-(c) over the first
+             4,096 pods, the batch the main path hands the kernel; the
+             kernel is timed on all of them); each line gives the cluster
              plan and us a pod step. kernel_A_timing: the main path's 5,000 x
              4,096 batch (one node a thread) and device time
   kernel_B   the mirror-scatter kernel: one mirror (scatter_rows /
@@ -55,7 +57,15 @@ Phases, each printing one JSON line:
              over-committed, zone skew <= 1, kernel launch counts > 0 (kernel
              B: one launch per incremental batch), solve seconds a batch;
              the SchedulingBasic store (columnar, the default) carries one
-             per-object and one coalescing pods watcher
+             per-object and one coalescing pods watcher. The flight recorder
+             is on (the default): each run prints the recorder's stage table
+             (p50 / p99 per stage, the JAX stage names) beside the port's
+             stage_seconds, the recorder's measured self-time (its taps, the
+             pod tracer's and the time series', accumulated while they ran)
+             as a share of run_until_idle, and the critical path
+             (obs/critpath.py) over the sampled pods: each component's p50
+             and p99, the dominant one, and the components' sum against the
+             measured submit->bound at the mean (equal by construction)
   main_path_store
              exact SchedulingBasic once more on APIStore(columnar=False), held
              against main_path's columnar run: equal {pod: node} maps, equal
@@ -78,8 +88,15 @@ Phases, each printing one JSON line:
              map, pod resourceVersions and bind transitions, kernels A and B
              launched in both; under armed store.bind_many=fail:count=2 and
              native.commit=fail:count=1: every pod bound once, three bind
-             retries counted, no assume left; and solver="native" (the host
-             C engine, no kernel launched by design): the scan's map.
+             retries counted, no assume left, and the trace ring armed
+             (obs/tracebuf.py): its Chrome export valid, with the fired
+             FaultInject instants, the bind-chunk spans and one envelope a
+             batch, its armed self-time as a share of the leg and the
+             measured cost of the disarmed check; and solver="native" (the
+             host C engine, no kernel launched by design): the scan's map.
+             The oracle runs with flight_recorder=False, so its equal map,
+             RVs and bind transitions are the recorder-off check on the
+             card.
              Reported per run: pods/s, stage_seconds, the bind worker's
              seconds and flush_binds' wait, store_bind_many_duration,
              restarts and retries, the cache rows, full garbage collections
@@ -103,7 +120,7 @@ Phases, each printing one JSON line:
              "exact" (B, A), victims prepared synchronously and on the async
              worker; the same shape at 5,000 nodes (auto, sync and async,
              batches of 4,096, so the preemptors span two batches);
-             and a constrained case (500 nodes in 10 zones, 50 preemptors
+             and a constrained case (500 nodes in 10 zones, 30 preemptors
              with a zone spread, exact: the serial PostFilter). Gates: every
              high pod bound, no node over-committed, every victim lower in
              priority than its preemptor and on the node it was narrated on,
@@ -196,11 +213,13 @@ Phases, each printing one JSON line:
              line, the timed case us an iteration
   main_path_transport
              BatchScheduler(solver="auction" and "sinkhorn") on Transport_50k
-             (5,000 nodes of 16 cpu / 64Gi / 110 pods, 50,000 pods of
-             500m/1Gi: 13 batches of one group, warm duals across them) and
-             TransportMixed (5,000 nodes of 8 cpu / 16Gi, even ones
-             disk=ssd, 10,000 pods in four shapes, every fourth with
-             nodeSelector disk=ssd: 8 groups a batch): every pod bound, no
+             (5,000 nodes of 16 cpu / 64Gi / 110 pods, the first 25,000 of
+             its 50,000 pods of 500m/1Gi: 7 batches of one group, warm duals
+             across them) and TransportMixed (5,000 nodes of 8 cpu / 16Gi,
+             even ones disk=ssd, the first 5,000 of its 10,000 pods in four
+             shapes, every fourth with nodeSelector disk=ssd: 8 groups a
+             batch; the kernel phases and transport_direct keep the full
+             sets): every pod bound, no
              over-commit, ssd pods on ssd nodes, the transport path with no
              solver failure, kernels J and E/F launched; a CPU rerun places
              the auction identically and the sinkhorn the same count; the
@@ -259,6 +278,7 @@ at a reduced size.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import random
@@ -1261,11 +1281,14 @@ RUN_COUNTS = {}
 
 
 def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound=(),
-                    store=None, sched_kw=None, faults=None):
+                    store=None, sched_kw=None, faults=None, trace=False):
     """One main-path run through a store (APIStore() unless one is given),
     returning (store, sched, the listed pods, launches, create s, schedule
     s). sched_kw passes to BatchScheduler; faults (FaultPlans) are armed for
-    the timed run and disarmed after it."""
+    the timed run and disarmed after it; trace arms the trace ring for it
+    (RUN_COUNTS["trace"]: the buffer and the run's wall seconds).
+    RUN_COUNTS["instr_s"] is the flight recorder's self-time over the run."""
+    from kubernetes_tpu_torch.obs import tracebuf
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
@@ -1287,6 +1310,8 @@ def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound
         faultinject.arm(faults)
     kernels.reset_launch_counts()
     gc0, gcs0 = gc_full_collections(), gc_full_seconds()
+    instr0 = sched.flightrec.self_seconds
+    buf = tracebuf.arm() if trace else None
     t0 = time.perf_counter()
     store.create_many("pods", pods)
     t1 = time.perf_counter()
@@ -1295,8 +1320,14 @@ def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound
     finally:
         if faults:
             faultinject.disarm()
+        if trace:
+            tracebuf.disarm()
     sync(device)
     t2 = time.perf_counter()
+    # read before any read surface runs: the tracer's read-side settlement
+    # is rendering cost, not the run's
+    RUN_COUNTS["instr_s"] = sched.flightrec.self_seconds - instr0
+    RUN_COUNTS["trace"] = (buf, t2 - t0)
     launches = dict(kernels.LAUNCHES)
     # full collections (count, host seconds) inside the timed run
     RUN_COUNTS.update(cuda_launches=dict(kernels.CUDA_LAUNCHES),
@@ -1305,6 +1336,58 @@ def drive_main_path(name, nodes, pods, device, batch_size, solver="exact", bound
     sched.stop()
     bound, _ = store.list("pods")
     return store, sched, bound, launches, t1 - t0, t2 - t1
+
+
+def stage_table(sched):
+    """The flight recorder's aggregate stage table: {stage: p50, p99, total
+    ms, batches}."""
+    return {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"], "total_ms": v["total_ms"],
+                "batches": v["batches"]}
+            for k, v in sched.flightrec.stage_table().items()}
+
+
+def critical_path(spans, table):
+    """critpath.analyze over sampled spans: the components' p50 / p99 / mean,
+    the dominant component and its share, and the sum of the components
+    against the measured submit->bound (mean, p50, p99)."""
+    from kubernetes_tpu_torch.obs import critpath
+
+    cp = critpath.analyze(spans, stage_table=table)
+    ov = cp["overall"] or {}
+    out = {"spans": cp["spans_analyzed"], "build_ratio": cp["build_ratio"],
+           "dominant": ov.get("dominant"), "dominant_share": ov.get("dominant_share"),
+           "components": ov.get("components"),
+           **{k: ov.get(k) for k in ("sum_mean_ms", "total_mean_ms", "sum_p50_ms",
+                                     "total_p50_ms", "sum_p99_ms", "total_p99_ms")}}
+    if cp["spans_analyzed"]:
+        check(abs(out["sum_mean_ms"] - out["total_mean_ms"])
+              <= 1e-3 + 1e-6 * abs(out["total_mean_ms"]),
+              f"critpath: components sum to {out['sum_mean_ms']} ms, submit->bound "
+              f"{out['total_mean_ms']} ms at the mean")
+    return out
+
+
+def observability(name, sched, run_s, instr_s):
+    """What the flight recorder, the pod tracer and the time series saw of
+    one run: the stage table, their measured self-time as a share of the
+    run (accumulated tap time, never a difference of two runs), the
+    submit->bound latency of every pod and the critical path of the sampled
+    ones."""
+    check(sched.flightrec.enabled and sched.podtrace.enabled and sched.timeseries.enabled,
+          f"{name}: the recorder is not on by default")
+    table = stage_table(sched)
+    raw = sched.flightrec.stage_table()
+    snap = sched.podtrace.snapshot()
+    out = {"stage_table": table,
+           "self_s": instr_s, "self_share": instr_s / run_s if run_s > 0 else None,
+           "timeseries_self_s": sched.timeseries.self_seconds,
+           "tracer_flush_s": snap["flush_seconds"], "records": len(sched.flightrec),
+           "windows_closed": sched.timeseries.windows_closed,
+           "latency": snap["latency"], "sampled_spans": len(snap["spans"]),
+           "critpath": critical_path(snap["spans"], raw)}
+    check(out["records"] > 0 and out["critpath"]["spans"] > 0,
+          f"{name}: no flight record or no sampled span")
+    return out
 
 
 def check_no_overcommit(bound, nodes):
@@ -1347,6 +1430,7 @@ def phase_main_path(device, sizes, card):
                                 bind_before=metrics.store_bind_many_duration.snapshot())
         store, sched, got, launches, create_s, sched_s = drive_main_path(
             name, nodes, pods, device, batch, store=store)
+        instr_s = RUN_COUNTS["instr_s"]
         placed = [p for p in got if p.spec.node_name]
         check(len(placed) == len(pods),
               f"{name}: {len(placed)}/{len(pods)} pods bound through the store")
@@ -1357,7 +1441,12 @@ def phase_main_path(device, sizes, card):
                 "pods_per_s": len(pods) / sched_s,
                 "schedule_s": sched_s, "create_s": create_s,
                 "solve_s_per_batch": sum(sched.solve_seconds) / max(len(sched.solve_seconds), 1),
-                "stage_seconds": sched.stage_seconds, "card": card}
+                "stage_seconds": sched.stage_seconds,
+                "observability": observability(name, sched, sched_s, instr_s), "card": card}
+        if name == "SchedulingBasic":
+            # the exact main path's pods/s of the slice before the recorder
+            # was on by default (PERF.md §6), for the reader
+            line["pods_per_s_before"] = [4255, 4443]
         if name == "TopologySpreading":
             zones = {}
             for p in placed:
@@ -1509,6 +1598,36 @@ def commit_leg(sched, p, sched_s, launches, bind_before, bind_after, gc_full):
             "gc_full_collections": gc_full[0], "gc_full_s": gc_full[1], "launches": launches}
 
 
+def armed_trace(sched, buf, wall_s):
+    """The faults leg's trace ring: the Chrome export (with the sampled
+    spans' flow arrows) must validate and hold the fired FaultInject
+    instants, the bind-chunk spans and one batch envelope a batch; the
+    ring's accumulated tap self-time as a share of the leg, and the measured
+    cost of the disarmed check."""
+    from kubernetes_tpu_torch.obs import tracebuf
+
+    doc = buf.export(spans=sched.podtrace.snapshot()["spans"])
+    res = tracebuf.validate_export(doc)
+    evs = doc["traceEvents"]
+    faults = sorted(ev["name"] for ev in evs if ev["ph"] == "i" and ev.get("cat") == "chaos")
+    binds = sum(1 for ev in evs if ev["ph"] == "X" and ev["name"] == "bind_chunk")
+    begins = sum(1 for ev in evs if ev["ph"] == "B" and ev["name"] == "batch")
+    st = buf.status()
+    check(res["valid"], f"main_path_commit: faults: the trace export is invalid: {res['errors']}")
+    check(faults.count("fault:store.bind_many") == 2 and "fault:native.commit" in faults,
+          f"main_path_commit: faults: the trace holds the fault instants {faults}")
+    check(binds > 0, "main_path_commit: faults: no bind-chunk span in the trace")
+    check(begins == sched.batches_solved == len(sched.flightrec),
+          f"main_path_commit: faults: {begins} batch envelopes, {sched.batches_solved} batches")
+    check(st["trace_events_dropped_total"] == 0, "main_path_commit: faults: the ring dropped")
+    return {"valid": True, "events": st["trace_events_total"], "tracks": res["tracks"],
+            "instants": res["instants"], "fault_instants": faults, "bind_spans": binds,
+            "batch_envelopes": begins, "flow_pairs": res["flow_pairs"],
+            "armed_self_s": buf.self_seconds,
+            "armed_share": buf.self_seconds / wall_s if wall_s > 0 else None,
+            "disabled_check_ns": tracebuf.disabled_check_cost_ns()}
+
+
 def phase_main_path_commit(device, sizes, card, leg):
     """main_path's exact SchedulingBasic run (the default host commit:
     columnar cache rows, pipelined binds, the native commit engine) held
@@ -1537,10 +1656,14 @@ def phase_main_path_commit(device, sizes, card, leg):
                               leg["bind_before"], leg["bind_after"],
                               leg["gc_full"])}
     out["main"]["watchers"] = 2
-    runs = (("oracle", dict(sched_kw={"columnar": False, "pipeline_binds": False},
+    from kubernetes_tpu_torch.obs import tracebuf
+
+    runs = (("oracle", dict(sched_kw={"columnar": False, "pipeline_binds": False,
+                                      "flight_recorder": False},
                             store=APIStore(native_commit=False))),
             ("faults", dict(faults=[FaultPlan("store.bind_many", "fail", count=2),
-                                    FaultPlan("native.commit", "fail", count=1)])),
+                                    FaultPlan("native.commit", "fail", count=1)],
+                            trace=True)),
             ("native", dict(solver="native")))
     for name, kw in runs:
         gc.collect()
@@ -1558,6 +1681,10 @@ def phase_main_path_commit(device, sizes, card, leg):
         if name == "oracle":
             check(store.columnar and not store._native_commit and ln["cache_rows"] == 0,
                   "main_path_commit: the oracle ran columnar rows or the native commit")
+            check(not sched.flightrec.enabled and len(sched.flightrec) == 0
+                  and sched.podtrace.completed_total == 0,
+                  "main_path_commit: oracle: the recorder was not off")
+            ln["flight_recorder"] = False
             ln["equal"] = {"map": True,
                            "pod_rvs": {q.metadata.name: q.metadata.resource_version
                                        for q in got} == main_rv,
@@ -1573,6 +1700,7 @@ def phase_main_path_commit(device, sizes, card, leg):
                   f"main_path_commit: faults: {ln['retry_counts']} retries, not 3")
             ln["bind_transitions"] = len(bind_transitions(store))
             check(ln["bind_transitions"] == p, "main_path_commit: faults: a pod bound twice")
+            ln["trace"] = armed_trace(sched, *RUN_COUNTS["trace"])
         else:
             check(sched._solve_path == "native" and not any(launches.values()),
                   f"main_path_commit: native: path {sched._solve_path}, launches {launches}")
@@ -2248,10 +2376,42 @@ def fallback_case(sizes, seed):
                              devices_per_slice=8, csi_limit=3, **sizes["fallback"])
 
 
-def drive_fallback(w, device, batch_size, deadline_s=300.0):
+class TracerClock:
+    """The pod tracer's clock in main_path_fallback: the scheduler's
+    FakeClock plus the real seconds since the pod wave was created. The
+    FakeClock (stepped past every backoff, so the CPU rerun replays the same
+    cycle) stamps nothing the tracer could split; with this clock the
+    sampled spans measure the real time from the wave's admission, while
+    every scheduling decision still reads the FakeClock. The bind stamps,
+    which the scheduler passes in from its own clock, are read from this
+    one when the tracer takes them (install)."""
+
+    def __init__(self, fake):
+        self.fake = fake
+        self.t0 = time.perf_counter()
+
+    def now(self):
+        return self.fake.now() + time.perf_counter() - self.t0
+
+    def install(self, tracer):
+        tracer._clock = self
+        chunk_bound, pod_bound = tracer.chunk_bound, tracer.pod_bound
+
+        def chunk(items, _t_commit, _t_confirm, errkeys=frozenset()):
+            now = self.now()
+            chunk_bound(items, now, now, errkeys=errkeys)
+
+        tracer.chunk_bound = chunk
+        tracer.pod_bound = lambda qp, _now: pod_bound(qp, self.now())
+
+
+def drive_fallback(w, device, batch_size, deadline_s=300.0, trace_all=False):
     """BatchScheduler(solver="auto", DynamicResourceAllocation on) over the
     storage and DRA objects, then the pod wave; run_until_idle and a
-    FakeClock stepped past every backoff until the queue is empty."""
+    FakeClock stepped past every backoff until the queue is empty. With
+    trace_all the pod tracer samples every pod, keeps every span and stamps
+    on a TracerClock (the critical path of the fallback pods apart from the
+    batch pods)."""
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
     from kubernetes_tpu_torch.store import APIStore
@@ -2263,12 +2423,18 @@ def drive_fallback(w, device, batch_size, deadline_s=300.0):
         store, clock = APIStore(), FakeClock(1000.0)
         for kind in FALLBACK_KINDS:
             store.create_many(kind, w[kind])
+        n_pods = len(w["pods"])
         sched = BatchScheduler(store, device=device.type, solver="auto", batch_size=batch_size,
-                               clock=clock)
+                               clock=clock, **({"trace_sample_k": n_pods} if trace_all else {}))
         sched.sync()
         gc.collect()
         kernels.reset_launch_counts()
+        if trace_all:
+            tracer = sched.podtrace
+            tracer._done = collections.deque(maxlen=n_pods)  # keep every span
         t0 = time.perf_counter()
+        if trace_all:
+            TracerClock(clock).install(tracer)
         store.create_many("pods", w["pods"])
         rounds = 0
         while True:
@@ -2371,7 +2537,7 @@ def phase_main_path_fallback(device, sizes, card):
 
     w = fallback_case(sizes, 0)
     batch = sizes["batch"]
-    r = drive_fallback(w, device, batch)
+    r = drive_fallback(w, device, batch, trace_all=True)
     counts, skew = check_fallback_run(w, r)
     t0 = time.perf_counter()
     c = drive_fallback(fallback_case(sizes, 0), torch.device("cpu"), batch)
@@ -2398,9 +2564,29 @@ def phase_main_path_fallback(device, sizes, card):
             "fallback_s_per_pod": sched.stage_seconds["fallback"] / max(sched.fallback_pods, 1),
             "stage_seconds": sched.stage_seconds,
             "solve_s_per_batch": [round(x, 6) for x in sched.solve_seconds],
-            "launches": r["launches"], "cpu_rerun_s": cpu_s, "cpu_equal": True, "card": card}
+            "launches": r["launches"], "cpu_rerun_s": cpu_s, "cpu_equal": True,
+            "stage_table": stage_table(sched), "critpath": fallback_critpath(w, sched),
+            "card": card}
     emit(line)
     return line
+
+
+def fallback_critpath(w, sched):
+    """The critical path of the fallback pods and of the batch pods apart
+    (every pod sampled, TracerClock stamps): where the seconds of a
+    fallback pod go between its admission and its per-pod bind."""
+    snap = sched.podtrace.snapshot()
+    table = sched.flightrec.stage_table()
+    fb = set(w["class_of"])
+    spans = snap["spans"]
+    check(len(spans) == len(w["pods"]) and all(sp["complete"] for sp in spans),
+          f"fallback: {len(spans)} spans for {len(w['pods'])} pods, or one incomplete")
+    out = {}
+    for label, keep in (("fallback", True), ("batch", False)):
+        part = [sp for sp in spans if (sp["pod"].split("/", 1)[1] in fb) == keep]
+        out[label] = critical_path(part, table)
+    out["latency"] = snap["latency"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3151,7 +3337,13 @@ def phase_main_path_transport(device, sizes, card):
     from kubernetes_tpu_torch.ops import kernels
 
     out = {}
-    for name, build in transport_workloads(sizes).items():
+    for name, full in transport_workloads(sizes).items():
+        def build(full=full, k=sizes["transport_path_pods"][name]):
+            # the main path's depth cut; the kernels and the one-call solve
+            # keep the full pod sets
+            nodes, pods = full()
+            return nodes, pods[:k]
+
         nodes, pods = build()
         quality = {}
         for solver in ("auction", "sinkhorn"):
@@ -3646,18 +3838,20 @@ def main(argv=None) -> int:
               "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
               "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
+              "transport_path_pods": {"Transport_50k": 5000, "TransportMixed": 1000},
               "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
               "preempt_nodes": 100, "preempt_constrained": 20,
               "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
                            "dra_two": 2, "spread": 4}}
              if args.small else
-             {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 10000,
+             {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 4096,
               "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
+              "transport_path_pods": {"Transport_50k": 25000, "TransportMixed": 5000},
               "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
-              "preempt_nodes": 500, "preempt_constrained": 50,
+              "preempt_nodes": 500, "preempt_constrained": 30,
               "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
                            "dra_two": 16, "spread": 16}})
     try:

@@ -97,15 +97,35 @@ plugins, arguments and weights, so a profile that changes them raises
 the default encoding; the port refuses it (ROADMAP.md queue 3, deliberate
 differences).
 
+Observability (JAX batch.py :70-112, :223-340, :1373-1627, :1826-2031), on
+by default (flight_recorder=True) as in the JAX package: schedule_batch
+marks each stage on a StageClock under the JAX stage names (ingest, pop,
+tensorize, build_pod_batch, solve, assume, dispatch, reject, fallback),
+observes them into the stage histograms, logs a `Trace("ScheduleBatch")`
+past trace_threshold, and appends ONE flight record a batch
+(scheduler/flightrec.py: counts, outcome, solver, reasons, gang and repair
+dicts, breaker, error); the bind worker's writes, flush_binds' wait and the
+queue's bulk admission accrue to the recorder's outside buckets. The pod
+tracer (scheduler/podtrace.py) samples sample_k pods a window at admission
+and stamps them at pop, solve, assume, dispatch and bind; the time series
+(obs/timeseries.py) windows every batch; an armed trace ring
+(obs/tracebuf.py) gets the batch envelope, the bind chunks and the
+gang-preemption instants. The server's series (server/metrics.py) count
+retries by stage (batch_retries_total), gang vetoes and covers, repair
+rounds and violations, the breaker state and the queue depth. A solver
+failure narrates one SchedulerError Warning event. sched_stats() is the
+whole read surface. Recording changes no placement, RV, event or bind:
+flight_recorder=False gives the same outputs. The port's own
+`stage_seconds`, `bind_seconds` and `retry_counts` stay beside them.
+
 Not in this slice (each raises or is named where it would act):
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
-  flight recorder, pod traces, metrics (batch_retries_total: the retries
-  are counted in `retry_counts`), the solver's Warning event,
-  sched_stats(), the background start() loop
-                                              queue 1 item 7d
   the partitioned scheduler (partition_index stays None, no reroute hook,
-  no conflict_sink or partition conflicts)    queue 1 item 7e
+  no conflict_sink, partition conflicts or partition series)
+                                              queue 1 item 7e
+  the background start() loop, the /debug routes and `ktl sched`
+                                              queue 1 item 7g
 """
 
 from __future__ import annotations
@@ -130,16 +150,22 @@ from ..models.transport import transport_solve
 from ..models.waterfill import make_groups, waterfill_solve
 from ..native import hostcommit
 from ..native.hostsched import commit_deltas_plain, native_commit_deltas, native_greedy_solve
+from ..obs import tracebuf as _tracebuf
+from ..obs.timeseries import TimeSeriesRecorder
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
+from ..server import metrics
 from ..snapshot.tensorizer import TensorCache, build_pod_batch
 from ..store import MODIFIED, APIStore, NotFoundError, pod_bind_clone, pod_structural_clone
+from ..utils.tracing import Trace
 from . import cachecols
 from .breaker import REPRESENTATIVE, SolverCircuitBreaker
+from .flightrec import FlightRecorder, StageClock, register_scheduler
 from .framework import CycleState, PodInfo, Status
 from .gang import GangDirectory, gang_veto_mask, node_slice_positions, ring_lengths
 from .gangpreempt import GangPreemptor, flatten_snapshot_victims
 from .plugins import default_plugins
 from .plugins.default_preemption import DefaultPreemption
+from .podtrace import PodTracer
 from .queue import QueuedPodInfo
 from .runtime import Framework
 from .serial import ScheduleResult, Scheduler
@@ -176,8 +202,12 @@ class BatchScheduler(Scheduler):
     bind_retry_base_s select the host commit (module docstring; the JAX
     defaults). rank_align gates the rank-to-ring permutation of
     ranked gang members; gang_preemption installs the gang victim cover;
-    the other keyword arguments (clock, profiles, pod_initial_backoff,
-    pod_max_backoff, percentage_of_nodes_to_score) pass to Scheduler."""
+    flight_recorder (default True, as in the JAX package) switches the
+    flight recorder of flight_capacity records, the time series of
+    ts_window_s windows and, unless pod_trace says otherwise, the pod
+    tracer sampling trace_sample_k pods a window; the other keyword
+    arguments (clock, profiles, pod_initial_backoff, pod_max_backoff,
+    percentage_of_nodes_to_score) pass to Scheduler."""
 
     BIND_FAILURE_LOG_CAP = 10_000  # take_bind_failures log bound
 
@@ -186,7 +216,12 @@ class BatchScheduler(Scheduler):
                  columnar: bool = True, pipeline_binds: bool = True,
                  bind_retries: int = 3, bind_retry_base_s: float = 0.05,
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
-                 rank_align: bool = True, gang_preemption: bool = True, **kw):
+                 rank_align: bool = True, gang_preemption: bool = True,
+                 flight_recorder: bool = True,
+                 flight_capacity: int = FlightRecorder.DEFAULT_CAPACITY,
+                 pod_trace: Optional[bool] = None,
+                 trace_sample_k: int = PodTracer.DEFAULT_SAMPLE_K,
+                 ts_window_s: float = 5.0, **kw):
         self.device = resolve_device(device)
         if framework is not None and not isinstance(framework, Framework):
             raise TypeError("framework must be a kubernetes_tpu_torch Framework, got "
@@ -206,6 +241,40 @@ class BatchScheduler(Scheduler):
                     "(ROADMAP.md queue 3, deliberate differences)")
         self.batch_size = batch_size
         self.solver = solver
+        # flight recorder (scheduler/flightrec.py): per-batch stage timing
+        # and a bounded record ring. Stage marks are per BATCH (a handful of
+        # perf_counter reads), so the recorder changes no placement and its
+        # self-time stays inside the <2% budget.
+        self.flightrec = FlightRecorder(capacity=flight_capacity, enabled=flight_recorder)
+        self.queue.stat_sink = self.flightrec
+        # sampled pod lifecycle tracer (scheduler/podtrace.py): reservoir-
+        # samples sample_k pods a window at queue admission, stamps the
+        # pipeline edges with SHARED per-batch / per-chunk timestamps, and
+        # feeds the all-pods submit->bound histogram. Follows the recorder's
+        # switch unless pod_trace says otherwise.
+        self.podtrace = PodTracer(
+            clock=self.clock, sample_k=trace_sample_k,
+            enabled=flight_recorder if pod_trace is None else pod_trace,
+            stat_sink=self.flightrec)
+        self.queue.trace_sink = self.podtrace
+        # windowed time series (obs/timeseries.py): ONE note_batch tap a
+        # batch; the recorder forwards its outside buckets (bind, bind_wait,
+        # queue_add) so the overlapped stages window too. No stat_sink: its
+        # taps run inside the callers' measured self-time windows already.
+        self.timeseries = TimeSeriesRecorder(window_s=ts_window_s, enabled=flight_recorder)
+        self.flightrec.timeseries = self.timeseries
+        # an obs/resource.py ResourceSampler (attach_resource_sampler): RSS,
+        # GC, live-object and per-thread CPU columns in every window
+        self.resource_sampler = None
+        # queue-depth gauge refresh throttle: the telemetry scan is
+        # O(queue), so the gauges update at most once a second
+        self._q_telemetry_next = 0.0
+        self._q_telemetry_last: Optional[Dict] = None
+        self._q_telemetry_lock = threading.Lock()
+        # per-batch unschedulable-reason attribution (set during
+        # schedule_batch; _handle_failure taps Status.plugin into it)
+        self._batch_reasons: Optional[Dict[str, int]] = None
+        self.trace_threshold = 1.0  # ScheduleBatch Trace log threshold (s)
         # columnar=True is the batched host pipeline: coalesced watch ingest,
         # the structural assume + one scatter-add, the bulk self-confirm;
         # False restores the per-pod paths (the parity oracle)
@@ -240,8 +309,9 @@ class BatchScheduler(Scheduler):
         self.bind_failures_dropped = 0
         self.bind_retries = bind_retries
         self.bind_retry_base_s = bind_retry_base_s
-        # pods (or, for "bind", attempts) retried per stage: the JAX
-        # batch_retries_total series' increments (the metric is item 7d)
+        # pods (or, for "bind", attempts) retried per stage: the increments
+        # of batch_retries_total at those stages (solve retries are counted
+        # by the series alone, as in the JAX package)
         self.retry_counts = {"bind": 0, "worker": 0, "dispatch": 0}
         # host seconds of the bind writes (the worker's, when pipelined) and
         # of flush_binds' wait for them (JAX flightrec's outside buckets)
@@ -297,25 +367,102 @@ class BatchScheduler(Scheduler):
         # background rebalancer (scheduler/rebalance.py): installed by
         # enable_rebalancer(); run_until_idle's idle path paces it
         self.rebalancer = None
+        self._register_window_probes()
+        register_scheduler(self._bind_origin, self)
 
     def schedule_cycle(self) -> int:
         return self.schedule_batch()
 
     def schedule_batch(self) -> int:
-        """Drain up to batch_size pods, solve jointly, bind. Returns #pods handled."""
+        """Drain up to batch_size pods, solve jointly, bind. Returns #pods handled.
+
+        Instrumented per BATCH, never per pod: a StageClock marks each stage
+        boundary, the marks feed the stage histograms and a
+        Trace("ScheduleBatch") (logged past trace_threshold), and ONE flight
+        record captures the batch's outcome, counts and unschedulable-reason
+        attribution; batch_solve_duration is observed with the outcome on
+        every path that pops a batch. An empty pop records nothing (its pump
+        folds into the outside buckets)."""
+        fr = self.flightrec
+        clock = StageClock()
+        # queue_add accrues into the recorder's outside bucket inside this
+        # pump: difference it out so "ingest" stays disjoint from it
+        sub0 = fr.outside_seconds("queue_add")
         # pump until the watch drains (bounded: sustained arrival must not
         # starve scheduling)
         for _ in range(8):
             if self.pump_events(max_events=self.batch_size) < self.batch_size:
                 break
+        clock.mark("ingest")
+        clock.sub("ingest", fr.outside_seconds("queue_add") - sub0)
         qps = self.queue.pop_batch(self.batch_size)
+        clock.mark("pop")
         if not qps:
+            for name, sec in clock.stages.items():
+                fr.add_outside(name, sec)
             return 0
         self.batches_solved += 1
+        metrics.batch_size_gauge.set(len(qps))
+        # ONE full-batch pass finds the sampled pods; later stage stamps
+        # touch only the <= sample_k hits
+        self.podtrace.batch_popped(qps)
+        trace = Trace("ScheduleBatch", pods=len(qps))
+        failed0 = self.failed_count
+        victims0 = self.preempt_victims_total
+        self._batch_reasons = reasons = {}
+        outcome = "error"  # overwritten unless the body raises
         # circuit breaker: the configured solver while CLOSED, the scan while
         # OPEN, a single probe of the configured one when HALF_OPEN
-        solver = self.breaker.effective_solver(self.solver)
+        out: Dict = {"solver": self.breaker.effective_solver(self.solver)}
         self._last_repair = None
+        metrics.solver_breaker_state.set(self.breaker.code)
+        try:
+            self._schedule_batch_inner(qps, clock, trace, out)
+            outcome = ("scheduled" if out.get("dispatched", 0) + out.get("serial_scheduled", 0)
+                       else "error" if "batch_error" in out else "unschedulable")
+            return len(qps)
+        finally:
+            self._batch_reasons = None
+            t_fin = time.perf_counter()
+            total = clock.total()
+            for name, sec in clock.stages.items():
+                metrics.batch_stage_duration.observe(sec, name)
+            metrics.batch_solve_duration.observe(total, outcome)
+            if self.gangs.active:
+                metrics.gang_staged.set(self.queue.gang_staged_count())
+            scheduled = out.get("dispatched", 0) + out.get("serial_scheduled", 0)
+            fr.record(
+                pods=len(qps), nodes=out.get("nodes", 0), outcome=outcome,
+                solver=out["solver"], stages=clock.stages, total_s=total,
+                scheduled=scheduled, unschedulable=self.failed_count - failed0,
+                fallback=out.get("fallback", 0),
+                preempted=self.preempt_victims_total - victims0,
+                reasons=reasons, gang=out.get("gang"),
+                repair=(self._last_repair.as_dict()
+                        if self._last_repair is not None else None),
+                solver_iterations=getattr(self.transport_state, "iterations", None),
+                breaker=self.breaker.state if self.breaker.state != "closed" else None,
+                error=out.get("batch_error"))
+            # ONE time-series tap a batch, inside the self-time window
+            self.timeseries.note_batch(clock.stages, pods=len(qps), scheduled=scheduled,
+                                       failed=self.failed_count - failed0)
+            # an armed trace ring gets the batch envelope and its stage
+            # slices on this pipeline's track
+            if _tracebuf.ACTIVE is not None:
+                tb = _tracebuf.ACTIVE
+                tb.attach_clock(self.clock)
+                tb.note_batch(self._thread_label("sched"), t_end=t_fin, stages=clock.stages,
+                              pods=len(qps), scheduled=scheduled, outcome=outcome,
+                              solver=out["solver"], breaker=self.breaker.state)
+            trace.log_if_long(self.trace_threshold)
+            self._update_queue_telemetry()
+            fr.note_self_time(time.perf_counter() - t_fin)
+
+    def _schedule_batch_inner(self, qps, clock, trace, out: Dict) -> None:
+        """The batch pipeline body (schedule_batch owns the bookkeeping
+        around it). Fills `out` with nodes, dispatched, fallback,
+        serial_scheduled, gang and batch_error for the flight record."""
+        solver = out["solver"]
         t0 = time.perf_counter()
         if self.cache.columnar_rows():
             # a CONSTRAINED batch walks the snapshot's pod lists (spread
@@ -328,12 +475,16 @@ class BatchScheduler(Scheduler):
                     self.cache.materialize_columnar_rows()
                     break
         snapshot = self.cache.update_snapshot()
+        out["nodes"] = len(snapshot)
         if len(snapshot) == 0:
+            clock.mark("tensorize")
             for qp in qps:
                 self._handle_failure(qp, Status.unschedulable(
                     "no nodes available to schedule pods"))
-            return len(qps)
+            return
         cluster, changed_nodes = self._tensor_cache.cluster_tensors(snapshot)
+        clock.mark("tensorize")
+        trace.step("Tensorized cluster", nodes=len(snapshot))
         pods = [qp.pod for qp in qps]
         # the store's columnar pod view (None on a dict store) re-seeds the
         # pods' signature memos; the batch build primes them, and ONE
@@ -351,6 +502,10 @@ class BatchScheduler(Scheduler):
         keep = ~self._strip_fallback_gangs(qps, batch, fallback_mask)
         device_idx = np.nonzero(~fallback_mask & keep)[0]
         fallback_idx = np.nonzero(fallback_mask & keep)[0]
+        out["fallback"] = int(fallback_idx.size)
+        clock.mark("build_pod_batch")
+        trace.step("Built pod batch", device=int(device_idx.size),
+                   fallback=int(fallback_idx.size))
         t1 = time.perf_counter()
         self.stage_seconds["tensorize"] += t1 - t0
 
@@ -361,18 +516,25 @@ class BatchScheduler(Scheduler):
                 assignment = self._solve_device(solver, cluster, batch, sub, has_gang)
             except Exception as e:
                 # nothing is assumed yet: the device pods requeue as a unit
-                self._handle_solver_error(e, qps, device_idx)
+                self._handle_solver_error(e, qps, device_idx, solver, out)
+                clock.mark("solve")
+                trace.step("Solver failed; batch requeued", error=type(e).__name__)
                 assignment = None
             else:
                 self.breaker.record_success(self._solve_path, self.solver)
             gang = None
             if assignment is not None and has_gang:
                 assignment, gang = self._gang_veto(cluster, sub, assignment)
+                out["gang"] = gang["info"]
             t2 = time.perf_counter()
             self.stage_seconds["solve"] += t2 - t1
             self.solve_seconds.append(t2 - t1)
             if assignment is not None:
-                self._commit(qps, device_idx, assignment, snapshot, cluster, batch, sub, gang)
+                clock.mark("solve")
+                trace.step("Device solve done", solver=solver)
+                self.podtrace.batch_stage("solve")  # shared per-batch stamp
+                self._commit(qps, device_idx, assignment, snapshot, cluster, batch, sub, gang,
+                             clock, trace, out)
                 self.stage_seconds["commit"] += time.perf_counter() - t2
         if fallback_idx.size:
             # the per-pod route, after the device commit and its rejects, in
@@ -381,10 +543,12 @@ class BatchScheduler(Scheduler):
             fb0 = self.scheduled_count
             for pi in fallback_idx.tolist():
                 self._serial_one(qps[pi])
+            out["serial_scheduled"] = self.scheduled_count - fb0
             self.fallback_pods += int(fallback_idx.size)
-            self.serial_scheduled += self.scheduled_count - fb0
+            self.serial_scheduled += out["serial_scheduled"]
             self.stage_seconds["fallback"] += time.perf_counter() - t3
-        return len(qps)
+            clock.mark("fallback")
+            trace.step("Serial fallback done", pods=int(fallback_idx.size))
 
     def _serial_one(self, qp: QueuedPodInfo) -> None:
         """One fallback-class pod through the per-pod cycle: on failure the
@@ -412,6 +576,7 @@ class BatchScheduler(Scheduler):
         strip = np.isin(gof, bad)
         names = ", ".join(batch.gang_keys[g] for g in bad.tolist())
         self.gang_vetoes += int(bad.size)
+        metrics.gang_vetoed_total.inc(int(bad.size), reason="serial_fallback")
         rows = np.nonzero(strip)[0].tolist()
         self.recorder.event(
             qps[rows[0]].pod, "Warning", "GangVetoed",
@@ -443,6 +608,7 @@ class BatchScheduler(Scheduler):
             solver_vetoed = set(np.unique(sub.gang_of_pod[veto]).tolist())
             self.gang_vetoes += len(solver_vetoed)
             gang_info["vetoed"] = len(solver_vetoed)
+            metrics.gang_vetoed_total.inc(len(solver_vetoed), reason="solver")
             assignment = np.where(veto, -1, assignment)
         if (self.rank_align and sub.gang_rank is not None
                 and bool((np.asarray(sub.gang_rank) >= 0).any())):
@@ -514,8 +680,8 @@ class BatchScheduler(Scheduler):
         return np.asarray(assignment, dtype=np.int32)
 
     def _note_repair(self, rstats) -> None:
-        """Fold one constrained batch's RepairStats into the running totals
-        (the repair metrics come with ROADMAP.md queue 1 item 7d)."""
+        """Fold one constrained batch's RepairStats into the metrics and the
+        running totals (ONE call a batch, never per pod)."""
         self._last_repair = rstats
         t = self.repair_totals
         t["batches"] += 1
@@ -524,29 +690,45 @@ class BatchScheduler(Scheduler):
         t["repaired"] += rstats.repaired
         t["residual"] += rstats.residual
         t["full_scan"] += int(rstats.full_scan)
-        for v in rstats.violations.values():
-            t["violations"] += v
+        metrics.constraint_repair_rounds.observe(rstats.rounds)
+        for kind, v in rstats.violations.items():
+            if v:
+                t["violations"] += v
+                metrics.constraint_violations_total.inc(v, kind=kind)
 
-    def _handle_solver_error(self, e, qps, device_idx) -> None:
+    def _handle_solver_error(self, e, qps, device_idx, solver, out: Dict) -> None:
         """Solver failure domain: requeue the device pods with backoff (the
-        pods are fine, so no cluster event is needed before the retry) and
-        feed the circuit breaker."""
+        pods are fine, so no cluster event is needed before the retry), feed
+        the circuit breaker, count the retries and narrate ONCE a batch (a
+        100k-pod batch must not write 100k events)."""
         qps_dev = [qps[pi] for pi in device_idx.tolist()]
         tripped = self.breaker.record_failure(self._solve_path, self.solver)
+        metrics.solver_breaker_state.set(self.breaker.code)
+        metrics.batch_retries_total.inc(len(qps_dev), stage="solve", reason=type(e).__name__)
         self.queue.add_backoff(qps_dev)
-        self.last_solver_error = f"{type(e).__name__}: {e}"[:200]
+        sink = self._batch_reasons
+        if sink is not None:
+            sink["SolverError"] = sink.get("SolverError", 0) + len(qps_dev)
+        self.last_solver_error = out["batch_error"] = f"{type(e).__name__}: {e}"[:200]
         log.warning("solver %s failed on path %s; %d pod(s) requeued with backoff%s",
                     self.solver, self._solve_path, len(qps_dev),
                     "; circuit breaker OPEN" if tripped else "", exc_info=e)
+        msg = (f"solver {solver} failed ({type(e).__name__}: {str(e)[:120]});"
+               f" {len(qps_dev)} pod(s) requeued with backoff")
+        if tripped:
+            msg += (f"; circuit breaker OPEN — degrading to "
+                    f"{self.breaker.effective_solver(self.solver)} for "
+                    f"{self.breaker.cooldown_s:g}s")
+        self.recorder.event(qps_dev[0].pod, "Warning", "SchedulerError", msg)
 
     def _commit(self, qps, device_idx, assignment, snapshot, cluster, batch, sub,
-                gang) -> None:
+                gang, clock, trace, out: Dict) -> None:
         """Assume every placement first, then dispatch the binds, then handle
         the rejects (preemption or failure; handling them mid-loop would see
         capacity promised to not-yet-bound pods), then requeue the vetoed
         gangs. The assume takes one of three forms (module docstring):
         columnar rows, the structural assume + one scatter-add, or the
-        per-pod oracle."""
+        per-pod oracle. Marks the assume, dispatch and reject stages."""
         node_names = cluster.node_names
         n = len(node_names)
         has_gang = gang is not None
@@ -607,6 +789,7 @@ class BatchScheduler(Scheduler):
             # the bind path's own retry and error handling
             accounted = False
             dispatched_hi = 0
+            sync_bind_s = 0.0
             try:
                 if cols_rows_ok:
                     bad = self.cache.assume_pods_columnar(pairs)
@@ -618,7 +801,7 @@ class BatchScheduler(Scheduler):
                 raise
             except Exception as e:
                 self._rollback_undispatched(e, to_bind, bind_gang, 0, use_columnar, False,
-                                            batch_has_ports)
+                                            batch_has_ports, out)
                 to_bind = []
                 bad = []
             bad_gangs = set()
@@ -654,6 +837,7 @@ class BatchScheduler(Scheduler):
                         self.cache.forget_pod(assumed)
                 gang["info"]["assume_vetoed"] = len(bad_gangs)
                 gang["info"]["released"] = len(released)
+                metrics.gang_vetoed_total.inc(len(bad_gangs), reason="assume")
             if bind_gang:
                 # surviving members count toward quorum from assume on (our
                 # own bind confirmations bypass the event stream)
@@ -665,13 +849,23 @@ class BatchScheduler(Scheduler):
                     self._columnar_account(batch, cluster, snapshot, bind_rows, bind_nodes,
                                            batch_has_ports)
                     accounted = True
+                clock.mark("assume")
+                trace.step("Assumed placements", bound=len(to_bind))
+                self.podtrace.batch_stage("assume")
+                out["dispatched"] = len(to_bind)
+                # the dispatch edge is the hand-over to the bind path,
+                # stamped BEFORE the chunk loop so the synchronous-bind mode
+                # (which completes spans inside the loop) records it too
+                self.podtrace.batch_stage("dispatch")
                 for lo in range(0, len(to_bind), self.bind_chunk):
                     chunk = to_bind[lo:lo + self.bind_chunk]
                     if self.pipeline_binds:
                         self._ensure_bind_worker()
                         self._bind_q.put(chunk)
                     else:
+                        tb0 = time.perf_counter()
                         self._bind_batch(chunk)
+                        sync_bind_s += time.perf_counter() - tb0
                     dispatched_hi = lo + len(chunk)
                 if not self.pipeline_binds:
                     self._drain_bind_results()
@@ -679,7 +873,13 @@ class BatchScheduler(Scheduler):
                 raise
             except Exception as e:
                 self._rollback_undispatched(e, to_bind, bind_gang, dispatched_hi, use_columnar,
-                                            accounted, batch_has_ports)
+                                            accounted, batch_has_ports, out)
+                out["dispatched"] = dispatched_hi
+            clock.mark("dispatch")
+            # synchronous binds ran inside the dispatch span AND are observed
+            # as the "bind" stage by _bind_batch: keep the stages disjoint
+            clock.sub("dispatch", sync_bind_s)
+            trace.step("Dispatched binds")
         if rejected:
             self._handle_device_rejects(rejected, snapshot, cluster, sub, assignment)
         if gang_requeue:
@@ -695,9 +895,14 @@ class BatchScheduler(Scheduler):
                                                  gang["need"])
             self._requeue_gangs(gang_requeue, sub.gang_keys or [], gang["hopeless"],
                                 gang["solver_vetoed"], ctx, info)
+        if rejected or gang_requeue:
+            clock.mark("reject")
+            trace.step("Handled rejects", rejected=len(rejected))
+        else:
+            clock.skip()
 
     def _rollback_undispatched(self, e, to_bind, bind_gang, dispatched, use_columnar,
-                               accounted, batch_has_ports) -> int:
+                               accounted, batch_has_ports, out: Dict) -> int:
         """Assume/dispatch failure domain: roll back every to_bind entry at
         index >= `dispatched` (its chunk never reached the bind path) and
         requeue it with backoff. Before _columnar_account ran, the rollback
@@ -721,6 +926,11 @@ class BatchScheduler(Scheduler):
                     self.gangs.note_forgotten(to_bind[i][2])
         self.queue.add_backoff([qp for qp, _node, _assumed in stranded])
         self.retry_counts["dispatch"] += len(stranded)
+        metrics.batch_retries_total.inc(len(stranded), stage="dispatch", reason=type(e).__name__)
+        sink = self._batch_reasons
+        if sink is not None:
+            sink["DispatchError"] = sink.get("DispatchError", 0) + len(stranded)
+        out["batch_error"] = f"{type(e).__name__}: {e}"[:200]
         self.recorder.event(
             stranded[0][0].pod, "Warning", "SchedulerError",
             f"assume/dispatch failed ({type(e).__name__}: {str(e)[:120]}); "
@@ -773,16 +983,30 @@ class BatchScheduler(Scheduler):
                 continue
             if preempt_ctx is not None and gid in preempt_gids:
                 got = self.gangpreempt.try_preempt(key, gid, members, preempt_ctx)
+                # trace timeline: one instant an ATTEMPT (a gang, never a
+                # member)
+                if _tracebuf.ACTIVE is not None:
+                    fired = got is not None and not got.get("vetoed")
+                    _tracebuf.ACTIVE.instant(
+                        self._thread_label("sched"),
+                        "gang_preempt:%s" % ("fired" if fired else "vetoed"), cat="gang",
+                        args={"gang": key, "victims": (got or {}).get("victims", 0)})
                 if got is not None and not got.get("vetoed"):
                     gang_info["preempted"] = gang_info.get("preempted", 0) + 1
                     gang_info["preempt_victims"] = (gang_info.get("preempt_victims", 0)
                                                     + got["victims"])
                     gang_info["cover_cost"] = gang_info.get("cover_cost", 0) + got["cost"]
+                    if self._batch_reasons is not None:
+                        self._batch_reasons["GangPreemption"] = (
+                            self._batch_reasons.get("GangPreemption", 0) + len(members))
                     continue
                 if got is not None:
                     gang_info["preempt_vetoed_partial"] = (
                         gang_info.get("preempt_vetoed_partial", 0) + 1)
             self.failed_count += len(members)
+            if self._batch_reasons is not None:
+                self._batch_reasons["GangScheduling"] = (
+                    self._batch_reasons.get("GangScheduling", 0) + len(members))
             for m in members:
                 m.unschedulable_plugins = ("GangScheduling",)
             self.recorder.event(
@@ -796,7 +1020,9 @@ class BatchScheduler(Scheduler):
         interchangeable, permute WHICH member gets WHICH node so rank order
         follows ring position (kernel H). The node multiset is untouched:
         feasibility, capacity and the veto see the same placements. Records
-        the mean neighbor distance before and after in gang_info."""
+        the mean neighbor distance before and after in gang_info: that
+        telemetry is pure-Python per member, so like every non-essential
+        measurement it rides the flight recorder's switch."""
         slice_ids, pos = node_slice_positions(cluster)
         if slice_ids is None:
             return assignment  # no slice topology: adjacency is moot
@@ -814,6 +1040,8 @@ class BatchScheduler(Scheduler):
                             2**28 + np.arange(cluster.n))
         pos_key = np.where(a >= 0, node_key[np.maximum(a, 0)], 2**30)
         aligned = rank_align(a, groups, eff_rank, pos_key, device=self.device)
+        if not self.flightrec.enabled:
+            return aligned.astype(np.int32)
         ranked = ranks >= 0
         ring_len = ring_lengths(slice_ids, pos)
 
@@ -848,6 +1076,11 @@ class BatchScheduler(Scheduler):
                 target=self._bind_loop, args=(self._bind_q,), daemon=True,
                 name=f"{self._bind_origin}-bind")
             self._bind_worker.start()
+            if self.resource_sampler is not None:
+                # re-registering the label points the CPU column at the
+                # replacement worker (a restart keeps one column)
+                self.resource_sampler.register_thread(self._thread_label("bind"),
+                                                      self._bind_worker)
 
     def _bind_loop(self, q: _queue.Queue) -> None:
         """The SUPERVISED bind worker: an exception that escapes a cycle
@@ -928,8 +1161,11 @@ class BatchScheduler(Scheduler):
                             "bind worker failed twice on this chunk")))
             else:
                 q.put(_RequeuedChunk(b))
+        n = sum(len(b) for b in batches)
         with self._bind_err_lock:
-            self.retry_counts["worker"] += sum(len(b) for b in batches)
+            self.retry_counts["worker"] += n
+        # pods, not chunks: the series' unit at every requeue stage
+        metrics.batch_retries_total.inc(n, stage="worker", reason="escaped")
 
     def _check_bind_worker_alive(self) -> None:
         """Dead-worker liveness check, run every drain: recover a hard-dead
@@ -958,11 +1194,21 @@ class BatchScheduler(Scheduler):
                 self._bind_q.task_done()  # the dead worker's unmatched gets
 
     def _bind_batch(self, items) -> None:
+        """One bind sub-batch, timed into `bind_seconds["bind"]`, the flight
+        recorder's "bind" outside bucket and the stage histogram; an armed
+        trace ring gets one slice on the bind track."""
         t0 = time.perf_counter()
         try:
             self._bind_batch_inner(items)
         finally:
-            self.bind_seconds["bind"] += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.bind_seconds["bind"] += t1 - t0
+            self.flightrec.add_outside("bind", t1 - t0)
+            metrics.batch_stage_duration.observe(t1 - t0, "bind")
+            if _tracebuf.ACTIVE is not None:
+                _tracebuf.ACTIVE.note_span(self._thread_label("bind"), "bind_chunk", t0, t1,
+                                           cat="bind", args={"pods": len(items)})
+            self.flightrec.note_self_time(time.perf_counter() - t1)
 
     def _bind_batch_inner(self, items) -> None:
         """bind_many in chunks of bind_chunk (each holds the store locks
@@ -978,6 +1224,10 @@ class BatchScheduler(Scheduler):
             exc = self._bind_chunk_with_retry(chunk, errors)
             if exc is not None:
                 errors.extend((f"{ns}/{name}", str(exc)) for ns, name, _node in chunk)
+        # the pod tracer: ONE commit stamp for the whole chunk; the confirm
+        # stamp is read after the assume-confirm settles below
+        pt = self.podtrace
+        t_commit = self.clock.now() if pt.enabled else 0.0
         if not errors:
             if self.watch_coalesce:
                 pairs = [(qp.pod.key, node) for qp, node, _a in items]
@@ -990,6 +1240,8 @@ class BatchScheduler(Scheduler):
                 self.cache.finish_binding_bulk([a for _qp, _node, a in items])
                 with self._bind_err_lock:
                     self._bind_successes += len(items)
+            if pt.enabled:
+                pt.chunk_bound(items, t_commit, self.clock.now())
             return
         errmap = dict(errors)
         confirm = []
@@ -1009,6 +1261,10 @@ class BatchScheduler(Scheduler):
             if confirm:
                 leftover = self.cache.confirm_assumed_bulk([(k, nd) for k, nd, _a in confirm])
                 self._bind_confirm_leftovers.extend(confirm[i][2] for i in leftover)
+        if pt.enabled:
+            # the failed pods stay out of the latency histogram and the
+            # sampled stamps: they re-enter the queue and bind later
+            pt.chunk_bound(items, t_commit, self.clock.now(), errkeys=frozenset(errmap))
 
     def _bind_chunk_with_retry(self, chunk, errors) -> Optional[Exception]:
         """One chunk's bind_many with transient-failure retry: an EXCEPTION
@@ -1022,6 +1278,7 @@ class BatchScheduler(Scheduler):
             if attempt:
                 with self._bind_err_lock:
                     self.retry_counts["bind"] += 1
+                metrics.batch_retries_total.inc(stage="bind", reason="transient")
                 time.sleep(self.bind_retry_base_s * (2 ** (attempt - 1))
                            * (1.0 + _random.random()))
             try:
@@ -1053,6 +1310,9 @@ class BatchScheduler(Scheduler):
             except NotFoundError:
                 continue
             self._handle_pod(MODIFIED, cur)
+        if errs:
+            self.flightrec.note_bind_failures(
+                [(qp.pod.key, status.message()) for qp, status in errs])
         failures = self.bind_failures
         for qp, status in errs:
             msg = status.message()
@@ -1082,7 +1342,9 @@ class BatchScheduler(Scheduler):
                         break
                     q.all_tasks_done.wait(timeout=0.05)
                 self._check_bind_worker_alive()
-        self.bind_seconds["bind_wait"] += time.perf_counter() - t0
+        waited = time.perf_counter() - t0
+        self.bind_seconds["bind_wait"] += waited
+        self.flightrec.add_outside("bind_wait", waited)
         self._drain_bind_results()
 
     def stop(self) -> None:
@@ -1432,22 +1694,190 @@ class BatchScheduler(Scheduler):
         return remaining
 
     def gang_stats(self) -> Optional[Dict]:
-        """The gang part of the JAX sched_stats(): None while no PodGroup
-        exists."""
+        """sched_stats()["gang"]: None while no PodGroup exists. Sets the
+        quorum-expired-assumes gauge."""
         if not self.gangs.active:
             return None
+        expired = self.gangs.quorum_expired_count(self.cache.contains)
+        metrics.gang_quorum_expired_assumes.set(expired)
         return {"staged": self.queue.gang_staged_count(),
                 "parked": self.queue.gang_parked_count(),
                 "vetoes": self.gang_vetoes,
-                "quorum_expired_assumes": self.gangs.quorum_expired_count(self.cache.contains),
+                "quorum_expired_assumes": expired,
                 "preemption": (self.gangpreempt.stats()
                                if self.gangpreempt is not None else None)}
 
     def rebalance_stats(self) -> Optional[Dict]:
-        """The rebalance part of the JAX sched_stats(): the fragmentation
-        score and the migration/wave/abort totals; None until
-        enable_rebalancer()."""
+        """sched_stats()["rebalance"]: the fragmentation score and the
+        migration/wave/abort totals; None until enable_rebalancer()."""
         return self.rebalancer.stats() if self.rebalancer is not None else None
+
+    # -- observability (JAX batch.py :1373-1645) -------------------------------
+
+    def _handle_failure(self, qp: QueuedPodInfo, status: Status,
+                        failed_nodes: Optional[Dict[str, Status]] = None) -> None:
+        """Taps the failure's attribution (plugin, else the reason text) into
+        the current batch's flight record, then the shared requeue path.
+        (The partitioned scheduler's reroute hook comes with ROADMAP.md
+        queue 1 item 7e.)"""
+        sink = self._batch_reasons
+        if sink is not None:
+            key = status.plugin or (status.reasons[0][:80] if status.reasons
+                                    else status.code.name.lower())
+            sink[key] = sink.get(key, 0) + 1
+        super()._handle_failure(qp, status, failed_nodes)
+
+    def _update_queue_telemetry(self, want_dict: bool = False) -> Optional[Dict]:
+        """Refresh the scheduler_queue_depth{tier} gauges and the oldest-
+        pending-age gauge: once a pump (schedule_batch's bookkeeping),
+        throttled to once a second of the scheduler clock, because the scan
+        is O(queue) under the queue lock. A read (want_dict=True) inside the
+        window gets the cached dict instead of a rescan."""
+        with self._q_telemetry_lock:
+            now = self.clock.now()
+            if now < self._q_telemetry_next and self._q_telemetry_last is not None:
+                return self._q_telemetry_last if want_dict else None
+            self._q_telemetry_next = now + 1.0
+        t0 = time.perf_counter()
+        tel = self.queue.telemetry()
+        for tier in ("active", "backoff", "unschedulable", "gang_staged", "gang_parked"):
+            metrics.queue_depth.set(tel[tier], tier=tier)
+        metrics.queue_oldest_age.set(tel["oldest_pending_age_s"])
+        self.flightrec.note_self_time(time.perf_counter() - t0)
+        self._q_telemetry_last = tel
+        return tel
+
+    def sched_stats(self) -> Dict:
+        """The live counters, the flight recorder's stage table (p50/p99
+        columns), the submit->bound latency distribution, the tracer's
+        health, the recent time-series windows and the last batch record:
+        the payload the JAX package serves at /debug/schedstats (its route
+        comes with ROADMAP.md queue 1 item 7g)."""
+        tel = self._update_queue_telemetry(want_dict=True)
+        # read the windows FIRST: the read settles an expired open window,
+        # and the counters below must describe the settled state
+        windows = self.timeseries.windows(last=12)
+        fr = self.flightrec
+        pt = self.podtrace
+        return {
+            "solver": self.solver,
+            "batch_size": self.batch_size,
+            "batches_solved": self.batches_solved,
+            "scheduled": self.scheduled_count,
+            "failed": self.failed_count,
+            "preemptions": self.preemption_count,
+            "preempt_victims": self.preempt_victims_total,
+            "queue": {"active": tel["active"], "backoff": tel["backoff"],
+                      "unschedulable": tel["unschedulable"],
+                      "gang_staged": tel["gang_staged"],
+                      "gang_parked": tel.get("gang_parked", 0),
+                      "oldest_pending_age_s": round(tel["oldest_pending_age_s"], 3)},
+            "latency": pt.latency_stats(),
+            "trace": {"enabled": pt.enabled, "sample_k": pt.sample_k,
+                      "completed": pt.completed_total,
+                      "live_incomplete": pt.live_incomplete,
+                      "windows_rotated": pt.windows_rotated},
+            "watch": self._watch_summary(),
+            "gang": self.gang_stats(),
+            "repair": (dict(self.repair_totals, last=self._last_repair.as_dict())
+                       if self._last_repair is not None
+                       else dict(self.repair_totals)
+                       if self.repair_totals["batches"] else None),
+            "breaker": self.breaker.describe(),
+            # the partitioned scheduler's shard identity (item 7e)
+            "partition": None,
+            "rebalance": self.rebalance_stats(),
+            "bind_worker": {"restarts": self.bind_worker_restarts,
+                            "failures_logged": len(self.bind_failures),
+                            "failures_dropped": self.bind_failures_dropped},
+            "store_columnar": self.store.columnar_stats(),
+            "cache_columnar": self.cache.columnar_stats(),
+            "recorder": {"enabled": fr.enabled, "capacity": fr.capacity,
+                         "records": len(fr), "self_seconds": round(fr.self_seconds, 6)},
+            "tracebuf": _tracebuf.status(),
+            "stages": fr.stage_table(),
+            "timeseries": {"enabled": self.timeseries.enabled,
+                           "window_s": self.timeseries.window_s,
+                           "capacity": self.timeseries.capacity,
+                           "windows_closed": self.timeseries.windows_closed,
+                           "self_seconds": round(self.timeseries.self_seconds, 6)},
+            "windows": windows,
+            "resource": (self.resource_sampler.summary()
+                         if self.resource_sampler is not None else None),
+            "last_batch": fr.last(),
+        }
+
+    def _register_window_probes(self) -> None:
+        """Window-close probes (obs/timeseries.py), each run ONCE a closed
+        window: queue depth (O(tiers)), breaker state, watch-bus lag, pod-
+        object materializations and the resource sampler's latest columns.
+        Each reads its attributes at fire time. (The partition probe comes
+        with ROADMAP.md queue 1 item 7e.)"""
+        ts = self.timeseries
+        ts.add_probe("queue", lambda: self.queue.depths())
+        ts.add_probe("breaker", lambda: {"state": self.breaker.state})
+        ts.add_probe("watch", lambda: self.store.watch_lag())
+        ts.add_probe("resource", self._resource_window_probe)
+        # the live zero-object gauge: per-window pod-object materializations
+        # across the store's and the cache's columnar rows (0 at the
+        # columnar steady state)
+        self._alloc_probe_total: Optional[int] = None
+        ts.add_probe("alloc", self._alloc_window_probe)
+
+    def _alloc_window_probe(self) -> Dict:
+        st = self.store.columnar_stats()
+        total = int(self.cache.columnar_materialized()) + (
+            int(st.get("materialized_total", 0)) if st is not None else 0)
+        prev = self._alloc_probe_total
+        self._alloc_probe_total = total
+        return {"pod_obj_allocs": total - prev if prev is not None else total,
+                "materialized_total": total}
+
+    def _resource_window_probe(self) -> Optional[Dict]:
+        s = self.resource_sampler
+        if s is None:
+            return None
+        last = s.latest()
+        if last is None:
+            return None
+        return {"rss_mb": last["rss_mb"],
+                "alloc_blocks": last["alloc_blocks"],
+                "gc_collections": last["gc"]["collections"],
+                "gc_pause_s": last["gc"]["pause_s"],
+                # cumulative sampler self-time at window close (difference
+                # consecutive windows for the per-window overhead)
+                "sampler_self_s": round(s.self_seconds, 6),
+                "threads": {k: v["cpu_s"] for k, v in last["threads"].items()}}
+
+    def _thread_label(self, role: str) -> str:
+        return (f"p{self.partition_index}-{role}"
+                if self.partition_index is not None else role)
+
+    def attach_resource_sampler(self, sampler) -> None:
+        """Wire an obs/resource.py ResourceSampler: its latest columns join
+        every closed window (the rss/alloc slope gates' feed), and the bind
+        worker registers for per-thread CPU attribution, now if it runs and
+        as it spawns. (The scheduling loop thread registers with start(),
+        ROADMAP.md queue 1 item 7g.)"""
+        self.resource_sampler = sampler
+        if sampler is not None and self._bind_worker is not None:
+            sampler.register_thread(self._thread_label("bind"), self._bind_worker)
+
+    def _watch_summary(self) -> Dict:
+        """The store watch bus seen from this scheduler: settled
+        commit->dequeue propagation, subscriber counts and the worst
+        delivered-RV lag (one watch_telemetry() call)."""
+        try:
+            tel = self.store.watch_telemetry()
+        except Exception as e:  # a wedged store must not break the read
+            return {"error": str(e)}
+        subs = tel.get("subscribers") or []
+        return {
+            "subscribers": len(subs),
+            "max_rv_lag": max((s.get("rv_lag", 0) for s in subs), default=0),
+            "dropped": tel.get("dropped") or {},
+            "propagation": tel.get("propagation") or {},
+        }
 
 
 # plugins that act only on fallback-class pods: for any other pod their

@@ -18,8 +18,13 @@ The scheduler calls effective_solver() once per batch (which performs the
 OPEN -> HALF_OPEN transition on cooldown expiry) and reports the outcome of
 the solve with record_success()/record_failure(). Failures of the DEGRADED
 solver are counted but never change state: there is nothing further to
-degrade to, and the pods requeue with backoff either way. The state gauge
-and the Warning event come with the metrics (ROADMAP.md queue 1 item 7d).
+degrade to, and the pods requeue with backoff either way.
+
+Observability: the batch scheduler sets the scheduler_solver_breaker_state
+gauge (`code`: 0 closed / 1 half-open / 2 open) at every batch and every
+failure, narrates each solver failure as one SchedulerError Warning event
+(naming the trip), and carries the breaker state and the effective solver
+in every flight record; describe() is sched_stats()["breaker"].
 """
 
 from __future__ import annotations

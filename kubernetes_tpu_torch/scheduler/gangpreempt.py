@@ -29,8 +29,9 @@ granularity:
 Victim eligibility: priority below the gang's MINIMUM member priority, not
 itself a gang member, not blocked by an exhausted PodDisruptionBudget, and on
 a node the gang's class can use. Everything here runs on the scheduling
-thread, off the hot path. The preemption metrics come with ROADMAP.md queue
-1 item 7d; the totals dict (stats()) carries the same counts.
+thread, off the hot path. A fired cover counts one
+scheduler_gang_preempted_total{reason="victim_cover"} (server/metrics.py);
+the totals dict (stats()) carries the same counts.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import numpy as np
 from ..api import compute_pod_resource_request
 from ..api.podgroup import pod_group_key
 from ..models.gangcover import COVER_MAX_VICTIMS, cover_curves_batched, victim_order
+from ..server import metrics
 from ..snapshot.tensorizer import _quantize
 from .gang import node_slice_ids
 
@@ -346,6 +348,7 @@ class GangPreemptor:
             self.totals["slices_ripped"] += 1
         sched.queue.park_gang(gang_key, members)
         sched.preempt_victims_total += k
+        metrics.gang_preempted_total.inc(reason="victim_cover")
         # later gangs vetoed in this SAME batch must reason against the
         # post-eviction pool/room, never double-count these victims
         self.consume_cover(ctx, cover)

@@ -70,6 +70,9 @@ class DefaultPreemption:
         # goroutine per candidate; a queue bounds thread count under batches)
         self._prep_q: Optional[_queue.Queue] = None
         self._prep_thread: Optional[threading.Thread] = None
+        # error types of failed bulk deletes already logged (one warning a
+        # type, not a victim set: no log storms)
+        self._bulk_delete_warned: set = set()
 
     def set_handles(self, framework, store, recorder=None) -> None:
         """Injected by the Scheduler (the reference passes framework.Handle)."""
@@ -248,8 +251,27 @@ class DefaultPreemption:
 
     def _delete_victims(self, victims) -> None:
         """One store critical section and one coalesced DELETED delivery for
-        the whole victim set; a victim already gone is a per-key miss."""
-        self.store.delete_pods([v.key for v in victims])
+        the whole victim set; a victim already gone is a per-key miss. A
+        failing bulk delete falls back to per-pod deletes, logged once per
+        error type (utils/tracing.py default_logger)."""
+        try:
+            self.store.delete_pods([v.key for v in victims])
+            return
+        except Exception as e:
+            kind = type(e).__name__
+            if kind not in self._bulk_delete_warned:
+                self._bulk_delete_warned.add(kind)
+                from ...utils.tracing import default_logger
+
+                default_logger.warning(
+                    "delete_pods (bulk victim deletion) failed; falling "
+                    "back to per-pod deletes", error=f"{kind}: {e}",
+                    victims=len(victims))
+        for v in victims:
+            try:
+                self.store.delete("pods", v.key)
+            except Exception:
+                pass
 
     def _ensure_prep_worker(self) -> None:
         if self._prep_q is None:

@@ -12,6 +12,12 @@ scheduler/serial.py _move_for_event from each pod's unschedulable_plugins).
 The background loop that calls the flushes comes with the daemon (ROADMAP.md
 queue 1 item 7g).
 
+Observability sinks, installed by BatchScheduler: stat_sink (the flight
+recorder) times each bulk admission into its "queue_add" bucket, and
+trace_sink (the pod tracer) is handed every admission batch's
+QueuedPodInfos for reservoir sampling, after the queue lock is released.
+telemetry() and depths() are the gauges' and the time series' reads.
+
 Gang gating (scheduler/gang.py): with gang hooks installed, members of a
 PodGroup are held in a STAGING area, a fourth tier beside active, backoff
 and unschedulable, until the group reaches quorum (staged + already placed
@@ -27,10 +33,12 @@ from __future__ import annotations
 import heapq
 import itertools
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import Pod
+from ..server import metrics
 from ..utils import Clock
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0  # seconds (scheduler.go:252)
@@ -64,6 +72,18 @@ class QueuedPodInfo:
     # the plugins that rejected the pod's last attempt: the QueueingHints
     # that may move it back read them (scheduler/serial.py _move_for_event)
     unschedulable_plugins: Tuple[str, ...] = ()
+    # first-admission time, NEVER reset by requeues (timestamp is): the
+    # submit->bound latency the pod tracer observes spans every retry. Set
+    # from the admission batch's shared clock read, no per-pod clock calls.
+    submit_ts: float = 0.0
+    # the pod's live PodSpan when it is in the tracer's sample, linked at
+    # sampling time (scheduler/podtrace.py): the bind path's per-chunk pass
+    # pays ONE attribute read per pod. None for the unsampled ~100%.
+    trace_span: object = field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if not self.submit_ts:
+            self.submit_ts = self.timestamp
 
     @property
     def key(self) -> str:
@@ -102,6 +122,14 @@ class SchedulingQueue:
         # parked gangs (victim cover fired): off every retry loop until the
         # preemptor releases them; still pending for the conservation check
         self._gang_parked: Dict[str, Dict[str, QueuedPodInfo]] = {}
+        # stage-timing sink (a FlightRecorder, installed by BatchScheduler):
+        # bulk-admission wall time accrues to its "queue_add" bucket so the
+        # batch pipeline's stage table can attribute ingest sub-stages
+        self.stat_sink = None
+        # lifecycle-trace sink (a PodTracer, installed by BatchScheduler):
+        # notified once per admission batch, AFTER the queue lock releases,
+        # with the freshly admitted QueuedPodInfos for reservoir sampling
+        self.trace_sink = None
 
     def set_gang_hooks(self, gang_of, gang_ready, gang_active) -> None:
         """Install gang gating: gang_of(pod) names the pod's group (None for
@@ -129,15 +157,43 @@ class SchedulingQueue:
 
     def add(self, pod: Pod) -> None:
         with self._lock:
-            self._push_active(QueuedPodInfo(pod=pod, timestamp=self._clock.now()))
+            qp = QueuedPodInfo(pod=pod, timestamp=self._clock.now())
+            self._push_active(qp)
             self._lock.notify()
+        ts = self.trace_sink
+        if ts is not None:
+            ts.admitted((qp,))
 
     def add_batch(self, pods: List[Pod]) -> None:
         """Admission of one coalesced watch delivery: one lock, one clock
         read, the same pop order as len(pods) calls of add(). The caller has
-        run PreEnqueue on every pod."""
+        run PreEnqueue on every pod. With an enabled stat_sink the admission
+        is timed into its "queue_add" bucket (and the stage histogram); the
+        trace_sink samples the admitted pods after the lock is released."""
         if not pods:
             return
+        sink = self.stat_sink
+        if sink is not None and sink.enabled:
+            admitted = []
+            t0 = time.perf_counter()
+            try:
+                admitted = self._add_batch_locked(pods)
+            finally:
+                t1 = time.perf_counter()
+                sink.add_outside("queue_add", t1 - t0)
+                metrics.batch_stage_duration.observe(t1 - t0, "queue_add")
+                sink.note_self_time(time.perf_counter() - t1)
+        else:
+            admitted = self._add_batch_locked(pods)
+        ts = self.trace_sink
+        if ts is not None and admitted:
+            ts.admitted(admitted)
+
+    def _add_batch_locked(self, pods: List[Pod]) -> List[QueuedPodInfo]:
+        """add_batch's body under the lock; returns the QueuedPodInfos that
+        entered the active tier, in admission order (released gang members
+        included)."""
+        admitted: List[QueuedPodInfo] = []
         with self._lock:
             now = self._clock.now()
             gang_of = self._gang_gate()
@@ -150,9 +206,12 @@ class SchedulingQueue:
                 if group is not None:
                     for m in self._gang_stage(group, qp):
                         self._heap_push(m)
+                        admitted.append(m)
                     continue
                 self._heap_push(qp)
+                admitted.append(qp)
             self._lock.notify_all()
+        return admitted
 
     def _push_active(self, qp: QueuedPodInfo) -> None:
         self._unschedulable.pop(qp.key, None)
@@ -348,6 +407,7 @@ class SchedulingQueue:
         members staged under a group with NO PodGroup (deleted, or never
         created) are released as ordinary pods after the same window; a
         group with a live PodGroup below quorum keeps waiting."""
+        released = 0
         with self._lock:
             now = self._clock.now()
             moved = False
@@ -366,10 +426,13 @@ class SchedulingQueue:
                         staged.pop(key)
                         self._heap_push(qp)
                         moved = True
+                        released += 1
                 if not staged:
                     self._gang_staging.pop(group, None)
             if moved:
                 self._lock.notify_all()
+        if released:
+            metrics.gang_orphan_released_total.inc(released)
 
     # -- pop -------------------------------------------------------------------
 
@@ -527,3 +590,37 @@ class SchedulingQueue:
     def gang_parked_count(self) -> int:
         with self._lock:
             return sum(len(s) for s in self._gang_parked.values())
+
+    def depths(self) -> Dict[str, int]:
+        """Per-tier depth dict WITHOUT the O(queue) oldest-age scan
+        telemetry() pays: the window-close probe (obs/timeseries.py) reads
+        this unthrottled, so it stays O(tiers)."""
+        with self._lock:
+            return {"active": len(self._active),
+                    "backoff": len(self._backoff),
+                    "unschedulable": len(self._unschedulable),
+                    "gang_staged": sum(len(s) for s in self._gang_staging.values()),
+                    "gang_parked": sum(len(s) for s in self._gang_parked.values())}
+
+    def telemetry(self) -> Dict[str, float]:
+        """Queue depth by tier plus the age of the oldest pod still waiting
+        anywhere (first-admission time, so a pod cycling through backoff
+        keeps aging). One O(queue) scan a call: the batch scheduler updates
+        its gauges per pump, throttled, never per pod."""
+        with self._lock:
+            now = self._clock.now()
+            waiting = itertools.chain(
+                (e[2] for e in self._active),
+                (e[2] for e in self._backoff),
+                self._unschedulable.values(),
+                (qp for members in self._gang_tiers() for qp in members.values()))
+            oldest = min((qp.submit_ts or qp.timestamp for qp in waiting), default=None)
+            return {
+                "active": len(self._active),
+                "backoff": len(self._backoff),
+                "unschedulable": len(self._unschedulable),
+                "gang_staged": sum(len(s) for s in self._gang_staging.values()),
+                "gang_parked": sum(len(s) for s in self._gang_parked.values()),
+                "oldest_pending_age_s": (max(0.0, now - oldest)
+                                         if oldest is not None else 0.0),
+            }

@@ -41,15 +41,24 @@ STORAGE_KINDS at LIST time, kept current by their watch events and cleared
 on a relist; DynamicResources reads claims, slices and classes through the
 store, so their events only move pods (QueueingHints).
 
+Observability (JAX serial.py :127-132, :254, :382-389, :616, :646, :770-790,
+:834): schedule_pod runs under a `Trace("Scheduling")` logged past 100 ms
+(utils/tracing.py), schedule_one records the scheduling_attempts,
+attempt-duration and pending-pods series (server/metrics.py), and the
+flight recorder and pod tracer that BatchScheduler installs (`flightrec`,
+`podtrace`, None on the serial loop) bill the watch's settlement time,
+close a deleted pod's sampled span (note_deleted), stamp a pod bound by the
+per-pod commit (pod_bound) and drop the live spans on a crash resync
+(drop_live).
+
 Not in this module: HTTP extenders (`extenders=` raises, ROADMAP.md queue 1
-item 6) and the observability of the JAX loop — its 100-ms `Trace` log of
-slow cycles, the scheduling metrics, the background start() thread (item
-7).
+item 6) and the background start() thread (item 7g).
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -57,10 +66,12 @@ from ..api import Pod
 from ..api.events import EventRecorder
 from ..api.podgroup import pod_group_key
 from ..api.types import DEFAULT_SCHEDULER_NAME, PodCondition
+from ..server import metrics
 from ..store import (ADDED, DELETED, MODIFIED, APIStore, CoalescedEvent, NotFoundError,
                      pod_structural_clone)
 from ..utils import Clock
 from ..utils.featuregate import feature_gates
+from ..utils.tracing import Trace
 from .cache import Cache
 from .framework import Code, CycleState, NodeInfo, Snapshot, Status
 from .queue import (DEFAULT_POD_INITIAL_BACKOFF, DEFAULT_POD_MAX_BACKOFF, QueuedPodInfo,
@@ -161,6 +172,12 @@ class Scheduler:
         # re-ingest (the bind path confirmed their assumes already)
         self._bind_origin = f"scheduler-torch-{next(_origin_seq)}"
         self._watch = None
+        # pipeline flight recorder (scheduler/flightrec.py), installed by
+        # BatchScheduler; None on the serial loop, every hook gated on it
+        self.flightrec = None
+        # sampled pod lifecycle tracer (scheduler/podtrace.py), installed by
+        # BatchScheduler; None on the serial loop, hooks gated on it
+        self.podtrace = None
         # coalesced watch ingest: a batched store write arrives as ONE
         # delivery; False takes every event per object (the parity oracle)
         self.watch_coalesce = True
@@ -248,6 +265,12 @@ class Scheduler:
         if self._watch is not None:
             self._watch.stop()
         self.cache = Cache(clock=self.clock)
+        if self.podtrace is not None and not preserve_queue and not initial:
+            # a crash resync discards the queue, so the in-flight spans point
+            # at QueuedPodInfos about to be replaced and can never complete:
+            # drop them (counted as evicted). A relist KEEPS the queue's
+            # objects and their span links, so their spans finish normally.
+            self.podtrace.drop_live()
         self._ns_labels.clear()
         if not initial:
             for lister in self._volume_listers:
@@ -289,6 +312,9 @@ class Scheduler:
         self._push_ns_labels()
         self._watch = self.store.watch(kind=self.WATCHED_KINDS, since_rv=rv,
                                        maxsize=200_000, coalesce=self.watch_coalesce)
+        # watch-propagation tap: settlement on OUR drain thread bills the
+        # flight recorder's budget (the serial loop has none)
+        self._watch.stat_sink = self.flightrec
         return {"nodes": len(lists["nodes"]), "bound": bound,
                 "pending": len(known_pending)}
 
@@ -450,6 +476,11 @@ class Scheduler:
                 # membership changed: a staged gang may have reached quorum
                 self.queue.reconsider_gangs()
         if pod.is_terminal() or etype == DELETED:
+            pt = self.podtrace
+            if etype == DELETED and not pod.is_terminal() and pt is not None and pt.enabled:
+                # close a sampled span and remember the owner for the
+                # evict->replace link; O(1) for unsampled pods
+                pt.note_deleted(pod)
             if pod.spec.node_name:
                 # a bound pod turning terminal frees its resources, the same
                 # schedulability signal as an assigned-pod delete
@@ -476,12 +507,22 @@ class Scheduler:
     # -- core scheduling (schedule_one.go) -------------------------------------
 
     def schedule_pod(self, pod: Pod, snapshot: Optional[Snapshot] = None) -> ScheduleResult:
-        """schedulePod :410 — snapshot, prefilter, filter, score, select."""
+        """schedulePod :410 — snapshot, prefilter, filter, score, select.
+        Traced with the reference's 100ms log threshold (schedule_one.go:411)."""
+        trace = Trace("Scheduling", pod=pod.key)
+        try:
+            return self._schedule_pod_traced(pod, snapshot, trace)
+        finally:
+            trace.log_if_long(0.1)
+
+    def _schedule_pod_traced(self, pod: Pod, snapshot: Optional[Snapshot],
+                             trace) -> ScheduleResult:
         if snapshot is None:
             # the plugins walk snapshot pod lists: collapse the batch path's
             # columnar cache rows first (a no-op on the pure serial path)
             self.cache.materialize_columnar_rows()
             snapshot = self.cache.update_snapshot()
+            trace.step("Snapshotting scheduler cache done")
         res = ScheduleResult()
         if len(snapshot) == 0:
             res.status = Status.unschedulable("no nodes available to schedule pods")
@@ -525,10 +566,14 @@ class Scheduler:
             else:
                 res.failed_nodes[ni.node.metadata.name] = st
         res.feasible_nodes = len(feasible)
+        trace.step("Computing predicates done",
+                   evaluated=res.evaluated_nodes, feasible=len(feasible))
         if not feasible:
             res.status = Status.unschedulable(f"0/{len(snapshot)} nodes are available", plugin="")
             return res
-        return self._score_and_select(state, pod, feasible, res)
+        out = self._score_and_select(state, pod, feasible, res)
+        trace.step("Prioritizing done")
+        return out
 
     def _score_and_select(self, state: CycleState, pod, feasible: List[NodeInfo],
                           res: ScheduleResult) -> ScheduleResult:
@@ -561,7 +606,15 @@ class Scheduler:
         qp = self.queue.pop(timeout=timeout)
         if qp is None:
             return False
+        t0 = time.perf_counter()
         result = self.schedule_pod(qp.pod)
+        metrics.scheduling_attempts.inc(
+            result="scheduled" if result.suggested_host else "unschedulable")
+        metrics.scheduling_attempt_duration.observe(time.perf_counter() - t0)
+        active, backoff, unsched = self.queue.lengths()
+        metrics.pending_pods.set(active, queue="active")
+        metrics.pending_pods.set(backoff, queue="backoff")
+        metrics.pending_pods.set(unsched, queue="unschedulable")
         if not result.suggested_host:
             self._maybe_preempt(qp, result)
             self._handle_failure(qp, result.status, result.failed_nodes)
@@ -609,6 +662,12 @@ class Scheduler:
                 self.gangs.note_assumed(assumed)
             framework.run_post_bind(state, assumed, result.suggested_host)
             self.scheduled_count += 1
+            pt = self.podtrace
+            if pt is not None and pt.enabled:
+                # a pod bound by the per-pod commit joins the submit->bound
+                # distribution and, if sampled, completes its span here (the
+                # per-pod loop's own granularity)
+                pt.pod_bound(qp, self.clock.now())
             self.recorder.event(
                 pod, "Normal", "Scheduled",
                 f"Successfully assigned {pod.key} to {result.suggested_host}")

@@ -1,13 +1,16 @@
 """Prometheus-style metric primitives and the store's series.
 
-The counterpart of `kubernetes_tpu/server/metrics.py`, lean: the
-primitives (Counter, Gauge, Histogram, LabeledHistogram, GaugeFunc,
-Registry, global_registry) and the series the API store records into —
-the bind_many commit latency, dropped watch deliveries by reason, the
-commit-to-dequeue watch propagation histogram, and the per-subscriber
-queue-length and delivered-RV-lag gauges read from live stores at render
-time. The scheduler's series come with ROADMAP.md queue 1 item 7d; the
-/metrics endpoint and the REST server with item 7g.
+The counterpart of `kubernetes_tpu/server/metrics.py`: the primitives
+(Counter, Gauge, Histogram, LabeledHistogram, GaugeFunc, Registry,
+global_registry), the scheduler's series (attempts, batch solve and stage
+latency, retries, the breaker state, queue depth and age, submit-to-bound
+latency, constraint repair, gangs, controllers, resource sampling), and the
+series the API store records into — the bind_many commit latency, dropped
+watch deliveries by reason, the commit-to-dequeue watch propagation
+histogram, and the per-subscriber queue-length and delivered-RV-lag gauges
+read from live stores at render time. The partitioned scheduler's series
+come with ROADMAP.md queue 1 item 7e; the /metrics endpoint and the REST
+server with item 7g.
 """
 
 from __future__ import annotations
@@ -311,8 +314,56 @@ class Registry:
 
 global_registry = Registry()
 
-# the bucket layout of the store's commit-latency histogram: down to 100us
+# the scheduler's key series (metrics/metrics.go)
+scheduling_attempts = global_registry.counter(
+    "scheduler_schedule_attempts_total", "Scheduling attempts by result")
+scheduling_attempt_duration = global_registry.histogram(
+    "scheduler_scheduling_attempt_duration_seconds", "Scheduling attempt latency")
+pending_pods = global_registry.gauge(
+    "scheduler_pending_pods", "Pending pods by queue")
+batch_solve_duration = global_registry.labeled_histogram(
+    "scheduler_batch_solve_duration_seconds",
+    "Batch solve latency by outcome", label="outcome")
+batch_size_gauge = global_registry.gauge(
+    "scheduler_batch_size", "Pods in the last solved batch")
+
+# per-stage timing of the batched schedule->bind->confirm loop (the
+# extension-point histograms of framework_duration_seconds, reframed for the
+# pipeline stages). Buckets reach down to 100us: most stages of a small
+# batch land well under the serial path's 1ms floor.
 STAGE_BUCKETS = (0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10)
+batch_stage_duration = global_registry.labeled_histogram(
+    "scheduler_batch_stage_duration_seconds",
+    "Batched pipeline stage latency", label="stage", buckets=STAGE_BUCKETS)
+
+# failure-domain observability: the solver circuit breaker's live state and
+# the pipeline's transient-retry volume by stage
+solver_breaker_state = global_registry.gauge(
+    "scheduler_solver_breaker_state",
+    "Solver circuit breaker state (0 closed, 1 half-open, 2 open)")
+batch_retries_total = global_registry.counter(
+    "scheduler_batch_retries_total",
+    "Pods requeued (stage=solve/assume/dispatch/worker) or chunks retried "
+    "(stage=bind) on transient pipeline failures, by stage and reason")
+
+# pod-latency observability: queue depth per tier + oldest-pending age
+# (updated per pump, never per pod — scheduler/batch.py throttles the depth
+# scan), and the aggregate submit->bound latency of EVERY pod, observed in
+# bulk per bind chunk from batch-boundary timestamps (scheduler/podtrace.py)
+queue_depth = global_registry.gauge(
+    "scheduler_queue_depth",
+    "Queued pods by tier (active / backoff / unschedulable / gang_staged)")
+queue_oldest_age = global_registry.gauge(
+    "scheduler_queue_oldest_pending_age_seconds",
+    "Age of the oldest pod still waiting in any queue tier")
+# log-spaced out to 5 minutes: submit->bound spans queue wait + solve + bind,
+# and a chaos/backoff excursion must land in a finite bucket, not +Inf
+E2E_LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                       0.5, 1, 2.5, 5, 10, 30, 60, 120, 300)
+pod_e2e_latency = global_registry.histogram(
+    "scheduler_pod_submit_to_bound_seconds",
+    "Pod latency from queue admission to committed bind",
+    buckets=E2E_LATENCY_BUCKETS)
 
 # store commit latency: one observation per bind_many call (a bind chunk)
 # around the two-phase commit
@@ -399,3 +450,107 @@ store_watch_rv_lag = global_registry.gauge_func(
     "Store commits not yet dequeued per live watch subscriber",
     fn=_watch_rv_lag_samples)
 
+# reconcile-loop telemetry: every controller observes ONE duration per
+# process() loop (never per key) into this family; workqueue depth comes
+# from the live controller registry at render time (obs/reconcile.py)
+controller_reconcile_duration = global_registry.labeled_histogram(
+    "controller_reconcile_duration_seconds",
+    "Reconcile loop latency per controller (one observation per loop)",
+    label="controller", buckets=STAGE_BUCKETS)
+controller_sync_errors = global_registry.counter(
+    "controller_sync_errors_total",
+    "sync(key) exceptions per controller (each one also requeues its key)")
+
+
+def _controller_depth_samples():
+    from ..obs.reconcile import workqueue_depth_samples
+
+    return workqueue_depth_samples()
+
+
+controller_workqueue_depth = global_registry.gauge_func(
+    "controller_workqueue_depth",
+    "Dirty keys awaiting reconcile per live controller (read at render time)",
+    fn=_controller_depth_samples)
+
+# steady-state resource telemetry: read from live obs/resource.py samplers
+# at render time (the GaugeFunc pattern — the sampler thread owns the
+# cadence, a scrape just reads the latest sample)
+
+
+def _resource_samples(field):
+    from ..obs.resource import live_samplers
+
+    out = []
+    for s in live_samplers():
+        last = s.latest()
+        if last is not None and last.get(field) is not None:
+            # the sampler label keeps concurrent samplers' series distinct
+            # (duplicate identical label sets are invalid exposition)
+            out.append(({"sampler": s.id}, float(last[field])))
+    return out
+
+
+process_rss_mb = global_registry.gauge_func(
+    "process_resident_memory_megabytes",
+    "Resident set size from the resource sampler's latest sample",
+    fn=lambda: _resource_samples("rss_mb"))
+process_alloc_blocks = global_registry.gauge_func(
+    "process_allocated_blocks",
+    "sys.getallocatedblocks() from the resource sampler's latest sample "
+    "(the deterministic live-object leak signal)",
+    fn=lambda: _resource_samples("alloc_blocks"))
+
+
+def _thread_cpu_samples():
+    from ..obs.resource import live_samplers
+
+    out = []
+    for s in live_samplers():
+        last = s.latest()
+        if last is None:
+            continue
+        for name, t in last.get("threads", {}).items():
+            out.append(({"sampler": s.id, "thread": name},
+                        float(t["cpu_s"])))
+    return out
+
+
+scheduler_thread_cpu = global_registry.gauge_func(
+    "scheduler_thread_cpu_seconds",
+    "Per-registered-thread CPU seconds (sched/bind threads; clock source "
+    "published by the sampler's honesty flag)",
+    fn=_thread_cpu_samples)
+
+# constraint propose-and-repair observability: repair-round count per
+# constrained batch (a distribution pinned at the round bound means the
+# repair loop is thrashing and the residual scan is doing the real work) and
+# final-state violations found by the repair check, by kind — both observed
+# ONCE per batch from RepairStats, never per pod
+constraint_repair_rounds = global_registry.histogram(
+    "scheduler_constraint_repair_rounds",
+    "Rip-and-repropose rounds per constrained batch (models/repair.py)",
+    buckets=(0, 1, 2, 3, 4, 8, 16))
+constraint_violations_total = global_registry.counter(
+    "scheduler_constraint_violations_total",
+    "Constraint violations found by the repair path's final-state check, "
+    "by kind (anti_affinity / existing_anti_affinity / affinity / "
+    "topology_spread)")
+
+# gang scheduling observability (the partition_* series of the JAX package
+# come with the partitioned scheduler, ROADMAP.md queue 1 item 7e)
+gang_staged = global_registry.gauge(
+    "scheduler_gang_staged", "Gang members parked in queue staging")
+gang_vetoed_total = global_registry.counter(
+    "scheduler_gang_vetoed_total", "Gangs stripped post-solve by reason")
+gang_orphan_released_total = global_registry.counter(
+    "scheduler_gang_orphan_released_total",
+    "Staged gang members released as ordinary pods (PodGroup gone)")
+gang_preempted_total = global_registry.counter(
+    "scheduler_gang_preempted_total",
+    "Gangs admitted by preemption, by reason (victim_cover = a min-cost "
+    "victim set on one ICI slice was evicted for the whole quorum)")
+gang_quorum_expired_assumes = global_registry.gauge(
+    "scheduler_gang_quorum_expired_assumes",
+    "Placed gang members still counted toward quorum whose cache entry "
+    "expired (the not-yet-fixed quorum leak, now measurable)")

@@ -7,10 +7,12 @@ instants of a firing are equal between the packages. Then the
 TestSolverBreaker cases: the breaker's state machine on both breakers, and
 the cases that drive a scheduler through the injected `solver.solve` fault
 on both packages over identical stores, with the same breaker states,
-requeues, solve paths and end placements. The reference's
-test_retry_metric_counts_solver_requeues reads a metric the port does not
-have yet (metrics: ROADMAP.md queue 1 item 7). The reference's mutation
-detector belongs to its full store (item 7) and is left out here.
+requeues, solve paths and end placements, and
+test_retry_metric_counts_solver_requeues: the batch_retries_total series
+counts the requeued pods by stage and reason on both packages, beside the
+one SchedulerError Warning event. Like the reference's tests, the module
+runs under the mutation detector (`mutation_detector_guard`) of both
+packages' stores.
 """
 
 import dataclasses
@@ -28,15 +30,32 @@ import kubernetes_tpu.chaos.faultinject as jfi
 import kubernetes_tpu.obs.tracebuf as jtb
 import kubernetes_tpu_torch.chaos.faultinject as tfi
 import kubernetes_tpu_torch.obs.tracebuf as ttb
+import kubernetes_tpu.server.metrics as jm
+import kubernetes_tpu_torch.server.metrics as tm
 from kubernetes_tpu.scheduler.breaker import SolverCircuitBreaker as JBreaker
+from kubernetes_tpu.testing import mutation_detector_guard as j_mutation_detector_guard
 from kubernetes_tpu.utils import FakeClock as JFakeClock
 from kubernetes_tpu_torch.scheduler.breaker import SolverCircuitBreaker as TBreaker
+from kubernetes_tpu_torch.testing import mutation_detector_guard as t_mutation_detector_guard
 from kubernetes_tpu_torch.utils import FakeClock as TFakeClock
 
 ROOT = Path(__file__).resolve().parent.parent
 INJECTORS = [pytest.param(jfi, id="jax"), pytest.param(tfi, id="port")]
 BREAKERS = [pytest.param((JBreaker, JFakeClock), id="jax"),
             pytest.param((TBreaker, TFakeClock), id="port")]
+
+
+@pytest.fixture(autouse=True)
+def _force_mutation_detector(monkeypatch):
+    """Chaos paths clone and roll back aggressively: every store of either
+    package built here runs with the mutation detector on and is checked at
+    teardown (tests/test_chaos.py runs the reference's module so)."""
+    guards = [j_mutation_detector_guard(monkeypatch), t_mutation_detector_guard(monkeypatch)]
+    for g in guards:
+        next(g)
+    yield
+    for g in guards:
+        next(g, None)
 
 
 @pytest.fixture(autouse=True)
@@ -453,3 +472,24 @@ def test_repair_fault_trips_breaker_to_scan_and_recovers():
     assert got == want
     assert got[0] == "repair" and got[4] == "repair"
     assert got[5]["state"] == "closed" and got[5]["recoveries"] == 1
+
+
+def _retry_metric(port):
+    env = chaos_env(port, "exact", breaker_threshold=100)
+    fi, m = (tfi, tm) if port else (jfi, jm)
+    before = m.batch_retries_total.value(stage="solve", reason="FaultInjected")
+    env.store.create_many("pods", pods(env, 5, prefix="m"))
+    env.sched.pump_events()
+    fi.arm([fi.FaultPlan("solver.solve", "fail", count=1)])
+    env.batch()
+    after = m.batch_retries_total.value(stage="solve", reason="FaultInjected")
+    events = sorted((e.type, e.reason, e.involved_name, e.message)
+                    for e in env.store.list("events")[0] if e.reason == "SchedulerError")
+    return after - before, events
+
+
+def test_retry_metric_counts_solver_requeues():
+    got, want = _retry_metric(True), _retry_metric(False)
+    assert got == want
+    assert got[0] == 5 and len(got[1]) == 1 and got[1][0][0] == "Warning"
+    assert "5 pod(s) requeued with backoff" in got[1][0][3]

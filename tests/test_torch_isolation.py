@@ -382,6 +382,64 @@ def test_commit_pipeline_imports_no_jax_and_no_jax_package():
     assert got["modules"] == []
 
 
+_OBS = r"""
+import json, sys
+import kubernetes_tpu_torch.obs as obs
+import kubernetes_tpu_torch.obs.critpath as critpath
+import kubernetes_tpu_torch.obs.reconcile as reconcile
+import kubernetes_tpu_torch.obs.resource as resource
+import kubernetes_tpu_torch.obs.timeseries as timeseries
+import kubernetes_tpu_torch.obs.tracebuf as tracebuf
+import kubernetes_tpu_torch.scheduler.debugger as debugger
+import kubernetes_tpu_torch.scheduler.flightrec as flightrec
+import kubernetes_tpu_torch.scheduler.podtrace as podtrace
+import kubernetes_tpu_torch.scheduler.slo as slo
+import kubernetes_tpu_torch.utils.tracing as tracing
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, MakePod
+
+buf = tracebuf.arm()
+store = APIStore()
+for i in range(4):
+    store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "8", "memory": "16Gi"}).obj())
+sched = BatchScheduler(store, device="cpu", solver="fast")
+sched.attach_resource_sampler(obs.ResourceSampler(interval_s=0.05))
+sched.sync()
+store.create_many("pods", [MakePod(f"p{i}").req({"cpu": "500m"}).obj() for i in range(40)])
+sched.run_until_idle()
+stats = sched.sched_stats()
+tracebuf.disarm()
+spans = sched.podtrace.snapshot()["spans"]
+doc = buf.export(spans=spans)
+crit = critpath.analyze(spans, stage_table=sched.flightrec.stage_table())
+sched.stop()
+print(json.dumps({
+    "recorder": stats["recorder"]["enabled"], "records": stats["recorder"]["records"],
+    "scheduled": stats["scheduled"], "latency": stats["latency"]["count"],
+    "valid": tracebuf.validate_export(doc)["valid"], "spans": crit["spans_analyzed"],
+    "slo": slo.evaluate_slo(stats, slo.NORTH_STAR_SLO)["pass"],
+    "dump": sorted(debugger.dump(sched)["nodes"]),
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_observability_imports_no_jax_and_no_jax_package():
+    """Every observability module, a BatchScheduler on the CPU with the
+    recorder on (the default), an armed trace ring and sched_stats(): the
+    recorder records, the export validates, and neither jax nor the JAX
+    package is loaded."""
+    out = subprocess.run([sys.executable, "-c", _OBS], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["recorder"] is True and got["records"] >= 1
+    assert got["scheduled"] == got["latency"] == got["spans"] == 40
+    assert got["valid"] is True and got["slo"] is True
+    assert got["dump"] == ["n0", "n1", "n2", "n3"]
+    assert got["modules"] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -13,10 +13,10 @@ conservation, and the SLO abort. The cycle summaries, stats(), the end
 are equal, and so are the trace events the cycles leave in an armed
 trace buffer. Every comparison is exact.
 
-The reference tests run under the JAX package's mutation detector
-(`mutation_detector_guard`), which belongs to its full store; the port's
-lean store has none yet (ROADMAP.md queue 1 item 7), so these tests leave it
-out. The columnar store's materialization counter of
+As the reference tests run under the JAX package's mutation detector
+(`mutation_detector_guard`), every store of either package built here runs
+with its mutation detector on and is checked at teardown. The columnar
+store's materialization counter of
 test_noop_cycle_is_allocation_free is replaced here by what the port can
 observe: a below-threshold cycle lists no pods, selects no candidates and
 plans nothing.
@@ -36,11 +36,26 @@ from kubernetes_tpu.api import ObjectMeta as JMeta
 from kubernetes_tpu.api import Selector as JSelector
 from kubernetes_tpu.api.policy import PodDisruptionBudget as JPDB
 from kubernetes_tpu.scheduler import rebalance as jrb
+from kubernetes_tpu.testing import mutation_detector_guard as j_mutation_detector_guard
 from kubernetes_tpu_torch.api import ObjectMeta as TMeta
 from kubernetes_tpu_torch.api import Selector as TSelector
 from kubernetes_tpu_torch.api.policy import PodDisruptionBudget as TPDB
 from kubernetes_tpu_torch.ops import kernels
 from kubernetes_tpu_torch.scheduler import rebalance as trb
+from kubernetes_tpu_torch.testing import mutation_detector_guard as t_mutation_detector_guard
+
+
+@pytest.fixture(autouse=True)
+def _force_mutation_detector(monkeypatch):
+    """Every store of either package runs with the mutation detector on and
+    is checked at teardown (tests/test_rebalance.py runs the reference's
+    module so)."""
+    guards = [j_mutation_detector_guard(monkeypatch), t_mutation_detector_guard(monkeypatch)]
+    for g in guards:
+        next(g)
+    yield
+    for g in guards:
+        next(g, None)
 
 
 @pytest.fixture(autouse=True)
