@@ -213,8 +213,8 @@ Phases, each printing one JSON line:
              line, the timed case us an iteration
   main_path_transport
              BatchScheduler(solver="auction" and "sinkhorn") on Transport_50k
-             (5,000 nodes of 16 cpu / 64Gi / 110 pods, the first 25,000 of
-             its 50,000 pods of 500m/1Gi: 7 batches of one group, warm duals
+             (5,000 nodes of 16 cpu / 64Gi / 110 pods, the first 12,288 of
+             its 50,000 pods of 500m/1Gi: 3 batches of one group, warm duals
              across them) and TransportMixed (5,000 nodes of 8 cpu / 16Gi,
              even ones disk=ssd, the first 5,000 of its 10,000 pods in four
              shapes, every fourth with nodeSelector disk=ssd: 8 groups a
@@ -258,6 +258,42 @@ Phases, each printing one JSON line:
              tree's rebuilds and leaf updates as the kernel counts them
              (checked against testing.defrag_tree_model's) and the device
              time, cases a, b and e the wall time
+  main_path_partition
+             the partitioned and multi-process schedulers at the JAX
+             rungs' shapes (bench.py _partitioned_e2e, rung_partitioned,
+             rung_multiprocess): 1,000 nodes of 16 cpu / 64Gi / 110 pods,
+             20,000 pods of 500m / 1Gi, batch = every pending pod,
+             solver="fast", device="cuda", the garbage collector collected,
+             frozen and disabled in each timed window. (a) Partitioned_2x:
+             one BatchScheduler, then PartitionedScheduler(partitions=2)
+             on a fresh store (hash shards), each followed by an untimed
+             second wave of 2,000 pods (the incremental batch, where kernel
+             B launches: a first batch uploads the mirrors whole): pods/s of
+             both, the partition rows, conflicts, reroutes, the merged stage
+             table, kernels B and C launched by each pipeline (ops/kernels.py
+             SCOPED_LAUNCHES); gates: conservation, every node in exactly
+             one shard and every bound pod accounted by its node's
+             pipeline, the map equal to a CPU rerun (concurrent=False).
+             (b) Residual_zones: the nodes in 10 zones, partition_by="zone",
+             plus 1,000 zone-spread pods (maxSkew 1) that the global
+             residual pass places (C and D launched there; A exactly when
+             the repair leaves pods to the scan; no B: the pass is rebuilt
+             from a LIST, its one batch a whole upload); gates: a residual
+             pass, spread skew <= 1, the CPU rerun's map. (c)
+             Partition_kill: partition.dispatch=kill on partition-1 after
+             its first cycle; gates: one partition absorbed, conservation.
+             (d) MultiProcess_2w: MPScheduler(processes=2) on the zoned
+             nodes, the 20,000 pods and the spread pods (these through the
+             owner's residual BatchScheduler on the card); gates: mode
+             "mp", conservation, the residual's launches, no worker pid
+             among nvidia-smi's compute apps and no CUDA library in a
+             worker's /proc/<pid>/maps (read while they live), no
+             /dev/shm/kttorch-* segment left after stop(); then the same
+             pods in 4 waves with process.worker=kill on worker-1 at its
+             second round: a restart, conservation. Reported: the cores
+             and concurrent_drive (whether the pipelines overlapped) and
+             overlap_cpu_s (owner and worker CPU seconds beyond the wall)
+  timing     each phase's wall seconds
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -322,7 +358,7 @@ def check(cond, msg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def make_nodes(n, zones=0, taints=False, seed=0):
+def make_nodes(n, zones=0, taints=False, seed=0, cpu="8", mem="32Gi"):
     from kubernetes_tpu_torch.testing import MakeNode
 
     rng = random.Random(seed)
@@ -332,7 +368,7 @@ def make_nodes(n, zones=0, taints=False, seed=0):
         if zones:
             labels[ZONE] = f"zone-{i % zones}"
         b = MakeNode(f"node-{i}").labels(labels).capacity(
-            {"cpu": "8", "memory": "32Gi", "pods": "110"})
+            {"cpu": cpu, "memory": mem, "pods": "110"})
         if taints and i % 7 == 0:
             b = b.taints([{"key": "spot", "value": "true", "effect": "NoSchedule"}])
         elif taints and rng.random() < 0.1:
@@ -3811,6 +3847,453 @@ def phase_kernel_i(device, sizes, seed, inputs):
             lines["e_request_runs"])
 
 
+# ---------------------------------------------------------------------------
+# main_path_partition: the partitioned and multi-process schedulers
+# ---------------------------------------------------------------------------
+
+PART_CHUNK = 10_000  # create_many chunk of the reference rungs
+
+
+def partition_workload(sizes, prefix, spread=0):
+    """A fresh pod list (the store consumes the objects): the rungs' plain
+    500m / 1Gi pods, then `spread` zone-spread pods (maxSkew 1)."""
+    return basic_pods(sizes["part_pods"], prefix) + spread_pods(spread, prefix + "-sp")
+
+
+def pod_map(store):
+    """{pod key: node name, "" unbound}, read from the store's pod columns
+    (a LIST would deep-copy 20,000 pods for it)."""
+    v = store.pod_columns()
+    return {v.keys[i]: v.node_names[v.node_id[i]] if v.node_id[i] >= 0 else ""
+            for i in range(v.n) if v.keys[i] is not None and v.row_rv[i] >= 0}
+
+
+def fw_factory():
+    from kubernetes_tpu_torch.scheduler.plugins import default_plugins
+    from kubernetes_tpu_torch.scheduler.runtime import Framework
+
+    return Framework(default_plugins())
+
+
+def drive_partitioned(device, nodes, pods, partitions, partition_by="hash",
+                      concurrent=None, faults=None, wave2=()):
+    """One partitioned (or, at partitions=1, standalone BatchScheduler) run
+    on a fresh store, the way bench.py _partitioned_e2e drives it: the nodes,
+    sync, the pods in chunks of 10,000, then run_until_idle timed with the
+    garbage collector collected, frozen and disabled. batch = every pending
+    pod, solver="fast" (the phase unfreezes at its end, not this run). Then
+    `wave2`, a second wave of pods, untimed: each
+    pipeline's second batch is an incremental one, the batch that launches
+    kernel B (a first batch after a sync uploads the mirrors whole). The
+    launch counts are set to 0 just before the timed run and read after the
+    second wave. Returns a dict of the run."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.scheduler.partition import PartitionedScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    kw = dict(device=device.type, batch_size=len(pods), solver="fast")
+    if partitions == 1:
+        sched = BatchScheduler(store, fw_factory(), **kw)
+    else:
+        sched = PartitionedScheduler(store, fw_factory, partitions=partitions,
+                                     partition_by=partition_by, concurrent=concurrent, **kw)
+    sched.sync()
+    keys = [p.key for p in pods]
+    for lo in range(0, len(pods), PART_CHUNK):
+        store.create_many("pods", pods[lo:lo + PART_CHUNK], consume=True)
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    if faults:
+        from kubernetes_tpu_torch.chaos import faultinject
+
+        faultinject.arm(faults)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        sched.run_until_idle()
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        if faults:
+            faultinject.disarm()
+        # the objects stay frozen until the phase ends (its gc.unfreeze):
+        # the collections of the later legs traverse only their own heap
+        gc.enable()
+    if wave2:
+        keys += [p.key for p in wave2]
+        store.create_many("pods", list(wave2), consume=True)
+        sched.run_until_idle()
+        sync(device)
+    launches = dict(kernels.LAUNCHES)
+    scoped = {k: dict(v) for k, v in kernels.SCOPED_LAUNCHES.items()}
+    sched.flush_binds()
+    return {"store": store, "sched": sched, "wall_s": wall, "keys": keys,
+            "map": pod_map(store), "launches": launches, "scoped": scoped}
+
+
+def conservation(run, name):
+    """pod_conservation_report over the run's keys: every pod bound exactly
+    once (none lost; none double-bound in the store's history nor in two
+    pipelines' caches)."""
+    from kubernetes_tpu_torch.testing import pod_conservation_report
+
+    rep = pod_conservation_report(run["store"], run["sched"], run["keys"])
+    c = rep["counts"]
+    check(c["lost"] == 0 and c["double_bound"] == 0 and c["bound"] == len(run["keys"]),
+          f"{name}: conservation {c}")
+    return c
+
+
+def check_shard_ownership(run, name):
+    """Each live pipeline's cache holds only nodes its partition owns, the
+    shards are disjoint and cover every node, and every bound pod is
+    accounted by the pipeline that owns its node (after the pipelines
+    ingest the residual pass's binds). Returns {partition: pods}."""
+    sched = run["sched"]
+    sched.pump_events()
+    router = sched.router
+    owner_of = {}
+    per_part = {}
+    for i, pipe in enumerate(sched.pipelines):
+        if i in sched._dead:
+            continue
+        pipe.cache.materialize_columnar_rows()
+        snap = pipe.cache.update_snapshot()
+        pods = 0
+        for ni in snap.node_info_list:
+            node = ni.node.metadata.name
+            check(router.partition_of_node_name(node) == i,
+                  f"{name}: partition {i} holds node {node} of partition "
+                  f"{router.partition_of_node_name(node)}")
+            check(node not in owner_of, f"{name}: node {node} in two shards")
+            owner_of[node] = i
+            for pi in ni.pods:
+                check(run["map"].get(pi.pod.key) == node,
+                      f"{name}: partition {i} accounts {pi.pod.key} on {node}, the store "
+                      f"on {run['map'].get(pi.pod.key)}")
+                pods += 1
+        per_part[i] = pods
+    bound = [k for k, n in run["map"].items() if n]
+    check(len(owner_of) == len(sched.store.list("nodes")[0]),
+          f"{name}: the shards hold {len(owner_of)} nodes")
+    check(sum(per_part.values()) == len(bound),
+          f"{name}: the shards account {sum(per_part.values())} of {len(bound)} bound pods")
+    return per_part
+
+
+def partition_rows(sched):
+    st = sched.sched_stats()
+    return st, [{k: r[k] for k in ("index", "dead", "nodes", "scheduled", "failed", "conflicts",
+                                   "reroutes", "breaker", "queue")} for r in st["rows"]]
+
+
+def pipeline_launches(run, names=("row_scatter", "waterfill", "repair_check", "greedy_scan")):
+    return {scope: {k: counts.get(k, 0) for k in names}
+            for scope, counts in sorted(run["scoped"].items())}
+
+
+def cores():
+    import os
+
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count()
+
+
+def gpu_pids():
+    """The pids nvidia-smi lists as holding a compute context on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return sorted(int(ln) for ln in out.stdout.split() if ln.strip().isdigit())
+
+
+def maps_cuda(pid):
+    """Whether the process maps a CUDA library (libcuda, libcudart or
+    torch's CUDA library) in /proc/<pid>/maps; None where it cannot be
+    read."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            text = f.read()
+    except OSError:
+        return None
+    return any(lib in text for lib in ("libcuda.so", "libtorch_cuda", "libcudart"))
+
+
+def phase_main_path_partition(device, sizes, card):
+    """The partitioned and multi-process schedulers on the reference's own
+    rungs (bench.py _partitioned_e2e, rung_partitioned, rung_multiprocess):
+    1,000 nodes of 16 cpu / 64Gi, 20,000 pods of 500m / 1Gi, batch = every
+    pending pod, solver="fast", device="cuda" on every leg; each leg's
+    launch counts are set to 0 just before its run and read just after."""
+    t_phase = time.perf_counter()
+    # the heap the earlier phases left is frozen for the phase: collections
+    # here then traverse only this phase's objects (a full collection over
+    # the whole smoke's heap takes ~1 s, PERF.md §5)
+    gc.collect()
+    gc.freeze()
+    try:
+        out = partition_legs(device, sizes, card)
+    finally:
+        gc.unfreeze()
+        gc.collect()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def partition_legs(device, sizes, card):
+    from kubernetes_tpu_torch.chaos.faultinject import FaultPlan
+
+    n = sizes["part_nodes"]
+    on_card = device.type == "cuda"
+    cpu = type(device)("cpu")
+    out = {}
+
+    # (a) Partitioned_2x: one pipeline, then two hash partitions, fresh stores
+    # the partitioned rungs' nodes (bench.py _partitioned_e2e)
+    nodes = make_nodes(n, cpu="16", mem="64Gi")
+    wave2 = sizes["part_wave2"]
+    one = drive_partitioned(device, nodes, partition_workload(sizes, "pa"), 1,
+                            wave2=basic_pods(wave2, "pa-w2"))
+    c1 = conservation(one, "Partitioned_2x 1p")
+    one_launches = one["launches"]
+    one["sched"].stop()
+    two = drive_partitioned(device, nodes, partition_workload(sizes, "pb"), 2,
+                            wave2=basic_pods(wave2, "pb-w2"))
+    c2 = conservation(two, "Partitioned_2x 2p")
+    per_part = check_shard_ownership(two, "Partitioned_2x 2p")
+    st, rows = partition_rows(two["sched"])
+    rerun = drive_partitioned(cpu, nodes, partition_workload(sizes, "pb"), 2, concurrent=False,
+                              wave2=basic_pods(wave2, "pb-w2"))
+    check(rerun["map"] == two["map"], "Partitioned_2x: the 2p map differs from its CPU rerun ("
+          f"{sum(rerun['map'][k] != v for k, v in two['map'].items())} pods)")
+    rerun["sched"].stop()
+    if on_card:
+        check(one_launches["waterfill"] > 0 and one_launches["row_scatter"] > 0,
+              f"Partitioned_2x 1p: kernels B and C not both launched: {one_launches}")
+        for i in range(2):
+            got = two["scoped"].get(f"p{i}", {})
+            check(got.get("waterfill", 0) > 0 and got.get("row_scatter", 0) > 0,
+                  f"Partitioned_2x: pipeline p{i} launched B {got.get('row_scatter')} "
+                  f"and C {got.get('waterfill')}")
+    pods_n = sizes["part_pods"]
+    line = {"phase": "main_path_partition", "leg": "Partitioned_2x", "nodes": n, "pods": pods_n,
+            "solver": "fast", "batch": pods_n, "device": device.type, "wave2_pods": wave2,
+            "gc": "collected, frozen and disabled in the timed window",
+            "pods_per_s_1p": pods_n / one["wall_s"], "wall_s_1p": one["wall_s"],
+            "pods_per_s_2p": pods_n / two["wall_s"], "wall_s_2p": two["wall_s"],
+            "speedup_vs_1p": one["wall_s"] / two["wall_s"],
+            "cores": cores(), "concurrent_drive": st["concurrent_drive"],
+            "conservation_2p": c2, "rows": rows, "conflicts": st["conflicts"],
+            "reroutes": st["reroutes"], "residual_passes": st["residual"]["passes"],
+            "pods_per_partition_cache": per_part, "stages_merged": st["stages_merged"],
+            "stage_table_1p": stage_table(one["sched"]),
+            "launches_1p": {k: one_launches[k] for k in ("row_scatter", "waterfill")},
+            "launches_per_pipeline": pipeline_launches(two),
+            "cpu_rerun_map_equal": True, "card": card}
+    emit(line)
+    out["Partitioned_2x"] = line
+    two["sched"].stop()
+    del one, two, rerun
+
+    # (b) the residual pass: 10 zones, zone partitions, plus zone-spread pods
+    zoned = make_nodes(n, zones=10, cpu="16", mem="64Gi")
+    spread = sizes["part_spread"]
+    res = drive_partitioned(device, zoned, partition_workload(sizes, "pz", spread), 2,
+                            partition_by="zone")
+    cz = conservation(res, "Residual_zones")
+    check_shard_ownership(res, "Residual_zones")
+    sched = res["sched"]
+    st, rows = partition_rows(sched)
+    check(sched.residual_passes >= 1, "Residual_zones: no residual pass ran")
+    per_zone = collections.Counter(int(res["map"][k].rsplit("-", 1)[1]) % 10
+                                   for k in res["keys"] if "-sp-" in k)
+    skew = max(per_zone.values()) - min(per_zone.values())
+    check(len(per_zone) == 10 and skew <= 1, f"Residual_zones: spread skew {skew} > 1")
+    repair = dict(sched._residual.repair_totals)
+    rl = res["scoped"].get("residual", {})
+    if on_card:
+        # the residual pipeline is rebuilt from a LIST each pass, so its one
+        # batch uploads the mirrors whole (no kernel B); C proposes, D checks
+        check(rl.get("waterfill", 0) > 0 and rl.get("repair_check", 0) > 0,
+              f"Residual_zones: the residual pass launched C and D {rl}")
+        # kernel A is the repair's residual placer: it launches exactly when
+        # a proposal round leaves pods to the scan (or a full scan runs)
+        wants_a = repair["residual"] > 0 or repair["full_scan"] > 0
+        check((rl.get("greedy_scan", 0) > 0) == wants_a,
+              f"Residual_zones: kernel A launched {rl.get('greedy_scan', 0)} times, the "
+              f"repair's residual was {repair['residual']} pods")
+    rerun = drive_partitioned(cpu, zoned, partition_workload(sizes, "pz", spread), 2,
+                              partition_by="zone", concurrent=False)
+    check(rerun["map"] == res["map"], "Residual_zones: the map differs from its CPU rerun ("
+          f"{sum(rerun['map'][k] != v for k, v in res['map'].items())} pods)")
+    rerun["sched"].stop()
+    line = {"phase": "main_path_partition", "leg": "Residual_zones", "nodes": n, "zones": 10,
+            "pods": len(res["keys"]), "spread_pods": spread, "partition_by": "zone",
+            "pods_per_s": cz["bound"] / res["wall_s"], "wall_s": res["wall_s"],
+            "residual_passes": sched.residual_passes, "residual": st["residual"],
+            "residual_stage_seconds": sched._residual.stage_seconds,
+            "residual_stage_table": stage_table(sched._residual),
+            "repair": repair, "spread_skew": skew, "rows": rows,
+            "conflicts": st["conflicts"], "reroutes": st["reroutes"],
+            "launches_per_pipeline": pipeline_launches(res),
+            "concurrent_drive": st["concurrent_drive"], "cpu_rerun_map_equal": True,
+            "card": card}
+    emit(line)
+    out["Residual_zones"] = line
+    sched.stop()
+    del res, rerun
+
+    # (c) a partition killed after its first drive cycle (bench.py:2101-2155)
+    kill = drive_partitioned(device, nodes, partition_workload(sizes, "pk"), 2,
+                             faults=[FaultPlan("partition.dispatch", "kill",
+                                               match="partition-1", after=1)])
+    ck = conservation(kill, "Partition_kill")
+    sched = kill["sched"]
+    check(sched.partitions_absorbed == 1, f"Partition_kill: {sched.partitions_absorbed} "
+          "partitions absorbed")
+    st, rows = partition_rows(sched)
+    line = {"phase": "main_path_partition", "leg": "Partition_kill", "nodes": n,
+            "pods": len(kill["keys"]), "wall_s": kill["wall_s"],
+            "partitions_absorbed": sched.partitions_absorbed, "live": st["live"],
+            "conservation": ck, "conflicts": st["conflicts"], "rows": rows,
+            "launches_per_pipeline": pipeline_launches(kill), "card": card}
+    emit(line)
+    out["Partition_kill"] = line
+    sched.stop()
+    del kill
+
+    # (d) MultiProcess_2w: two worker processes over the shared columns; the
+    # spread pods go to the owner's residual BatchScheduler on the card
+    out["MultiProcess_2w"] = mp_leg(device, zoned, sizes, card, spread)
+    return out
+
+
+def mp_run(device, nodes, pods, waves=1, faults=None):
+    """One MPScheduler(processes=2) run on a fresh store; the pods arrive in
+    `waves` equal waves, run_until_idle after each. Returns a dict."""
+    import os
+
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.mpsched import MPScheduler
+    from kubernetes_tpu_torch.store import APIStore
+
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    sched = MPScheduler(store, fw_factory, processes=2, device=device.type,
+                        batch_size=len(pods), solver="fast")
+    check(sched.mode == "mp" and sched.fallback is None,
+          f"MultiProcess_2w: ran mode {sched.mode}, fallback {sched.fallback}")
+    keys = [p.key for p in pods]
+    sched.sync()
+    if faults:
+        from kubernetes_tpu_torch.chaos import faultinject
+
+        faultinject.arm(faults)
+    kernels.reset_launch_counts()
+    per = -(-len(pods) // waves)
+    tms0 = os.times()
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, len(pods), per):
+            store.create_many("pods", pods[lo:lo + per], consume=True)
+            sched.run_until_idle()
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        if faults:
+            faultinject.disarm()
+    tms1 = os.times()
+    sched.run_until_idle()
+    sched.flush_binds()
+    return {"store": store, "sched": sched, "wall_s": wall, "keys": keys,
+            "owner_cpu_s": (tms1.user - tms0.user) + (tms1.system - tms0.system),
+            "launches": dict(kernels.LAUNCHES),
+            "scoped": {k: dict(v) for k, v in kernels.SCOPED_LAUNCHES.items()},
+            "map": pod_map(store)}
+
+
+def mp_leg(device, nodes, sizes, card, spread):
+    """MultiProcess_2w (bench.py rung_multiprocess) with the spread pods
+    added, then its SIGKILL leg. Gates: mode "mp" (never the thread
+    fallback), conservation, the residual's launches, no worker holding a
+    CUDA context, no segment of the port's prefix left after stop()."""
+    import os
+
+    from kubernetes_tpu_torch.chaos.faultinject import FaultPlan
+    from kubernetes_tpu_torch.store import shm
+
+    before = set(shm.leaked_segments())
+    run = mp_run(device, nodes, partition_workload(sizes, "mpb", spread))
+    sched = run["sched"]
+    try:
+        cm = conservation(run, "MultiProcess_2w")
+        st = sched.sched_stats()["processes"]
+        worker_pids = [w["pid"] for w in st["workers"]]
+        check(all(w["state"] == "live" for w in st["workers"]) and len(worker_pids) == 2,
+              f"MultiProcess_2w: workers {st['workers']}")
+        # read while the workers live: none holds a context on the card
+        listed = gpu_pids() if device.type == "cuda" else []
+        worker_maps = {pid: maps_cuda(pid) for pid in worker_pids}
+        check(not set(worker_pids) & set(listed),
+              f"MultiProcess_2w: a worker holds a CUDA context ({listed})")
+        check(not any(worker_maps.values()),
+              f"MultiProcess_2w: a worker maps a CUDA library {worker_maps}")
+        rl = run["scoped"].get("residual", {})
+        if device.type == "cuda":
+            check(sum(rl.values()) > 0, f"MultiProcess_2w: the residual launched nothing {rl}")
+        per_zone = collections.Counter(int(run["map"][k].rsplit("-", 1)[1]) % 10
+                                       for k in run["keys"] if "-sp-" in k)
+        skew = max(per_zone.values()) - min(per_zone.values()) if per_zone else 0
+        check(not spread or (len(per_zone) == 10 and skew <= 1),
+              f"MultiProcess_2w: spread skew {skew} > 1")
+        line = {"phase": "main_path_partition", "leg": "MultiProcess_2w",
+                "nodes": len(nodes), "pods": len(run["keys"]), "spread_pods": spread,
+                "mode": sched.mode, "fallback": sched.fallback,
+                "pods_per_s": cm["bound"] / run["wall_s"], "wall_s": run["wall_s"],
+                "rounds": st["rounds"], "stale_intents": st["stale_intents"],
+                "bind_conflicts": st["bind_conflicts"], "residual": st["residual"],
+                "owner_cpu_s": run["owner_cpu_s"], "worker_cpu_s": st["worker_cpu_s"],
+                "overlap_cpu_s": max(0.0, run["owner_cpu_s"] + st["worker_cpu_s"]
+                                     - run["wall_s"]),
+                "cores": cores(), "conservation": cm, "spread_skew": skew,
+                "residual_launches": rl, "owner_pid": os.getpid(),
+                "worker_pids": worker_pids, "gpu_pids": listed,
+                "owner_listed_by_nvidia_smi": os.getpid() in listed,
+                "worker_maps_cuda": worker_maps, "per_worker": st["workers"]}
+    finally:
+        sched.stop()
+    leaked = [seg for seg in shm.leaked_segments() if seg not in before]
+    check(not leaked, f"MultiProcess_2w: segments left after stop(): {leaked}")
+    line["shm_unlink_clean"] = True
+    del run, sched
+    # the SIGKILL leg: worker 1 killed at its second round (4 waves)
+    before = set(shm.leaked_segments())
+    run = mp_run(device, nodes, partition_workload(sizes, "mpk"), waves=4,
+                 faults=[FaultPlan("process.worker", "kill", match="worker-1", after=1)])
+    sched = run["sched"]
+    try:
+        ck = conservation(run, "MultiProcess_2w kill")
+        st = sched.sched_stats()["processes"]
+        check(st["worker_restarts"] >= 1, f"MultiProcess_2w kill: {st['worker_restarts']} "
+              "worker restarts")
+        line["kill"] = {"pods": len(run["keys"]), "waves": 4, "wall_s": run["wall_s"],
+                        "worker_restarts": st["worker_restarts"], "rounds": st["rounds"],
+                        "stale_intents": st["stale_intents"],
+                        "bind_conflicts": st["bind_conflicts"], "conservation": ck}
+    finally:
+        sched.stop()
+    leaked = [seg for seg in shm.leaked_segments() if seg not in before]
+    check(not leaked, f"MultiProcess_2w kill: segments left after stop(): {leaked}")
+    line["card"] = card
+    emit(line)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3841,6 +4324,7 @@ def main(argv=None) -> int:
               "transport_path_pods": {"Transport_50k": 5000, "TransportMixed": 1000},
               "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
               "preempt_nodes": 100, "preempt_constrained": 20,
+              "part_nodes": 100, "part_pods": 2000, "part_spread": 100, "part_wave2": 200,
               "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
                            "dra_two": 2, "spread": 4}}
              if args.small else
@@ -3849,38 +4333,54 @@ def main(argv=None) -> int:
               "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
               "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
               "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
-              "transport_path_pods": {"Transport_50k": 25000, "TransportMixed": 5000},
+              "transport_path_pods": {"Transport_50k": 12288, "TransportMixed": 5000},
               "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
               "preempt_nodes": 500, "preempt_constrained": 30,
+              "part_nodes": 1000, "part_pods": 20000, "part_spread": 1000, "part_wave2": 2000,
               "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
                            "dra_two": 16, "spread": 16}})
+    seconds = {}  # each phase's wall seconds, printed before the kernels line
+
+    def timed(name, fn, *fargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*fargs)
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 3)
+
     try:
-        info = phase_device(device)
-        phase_build()
-        err_a, timing_a = phase_kernel_a(device, sizes, args.seed)
-        err_b, line_b = phase_kernel_b(device, sizes, args.seed)
-        err_c, line_c = phase_kernel_c(device, sizes, args.seed)
-        err_d, (timing_d, *timing_d_more) = phase_kernel_d(device, sizes, args.seed)
-        err_g, line_g, line_g_batch = phase_kernel_g(device, sizes, args.seed)
-        err_h, line_h, line_h_2k, line_h_c = phase_kernel_h(device, sizes, args.seed)
-        err_j, line_j, line_j_row = phase_kernel_j(device, sizes, args.seed)
-        err_e, line_e = phase_kernel_e(device, sizes, args.seed)
-        err_f, line_f = phase_kernel_f(device, sizes, args.seed)
-        main = phase_main_path(device, sizes, info["nvidia_smi"])
-        phase_main_path_store(device, sizes, info["nvidia_smi"], COLUMNAR_LEG)
-        phase_main_path_commit(device, sizes, info["nvidia_smi"], COLUMNAR_LEG)
+        info = timed("device", phase_device, device)
+        card = info["nvidia_smi"]
+        timed("build", phase_build)
+        err_a, timing_a = timed("kernel_A", phase_kernel_a, device, sizes, args.seed)
+        err_b, line_b = timed("kernel_B", phase_kernel_b, device, sizes, args.seed)
+        err_c, line_c = timed("kernel_C", phase_kernel_c, device, sizes, args.seed)
+        err_d, (timing_d, *timing_d_more) = timed("kernel_D", phase_kernel_d, device, sizes,
+                                                  args.seed)
+        err_g, line_g, line_g_batch = timed("kernel_G", phase_kernel_g, device, sizes, args.seed)
+        err_h, line_h, line_h_2k, line_h_c = timed("kernel_H", phase_kernel_h, device, sizes,
+                                                   args.seed)
+        err_j, line_j, line_j_row = timed("kernel_J", phase_kernel_j, device, sizes, args.seed)
+        err_e, line_e = timed("kernel_E", phase_kernel_e, device, sizes, args.seed)
+        err_f, line_f = timed("kernel_F", phase_kernel_f, device, sizes, args.seed)
+        main = timed("main_path", phase_main_path, device, sizes, card)
+        timed("main_path_store", phase_main_path_store, device, sizes, card, COLUMNAR_LEG)
+        timed("main_path_commit", phase_main_path_commit, device, sizes, card, COLUMNAR_LEG)
         COLUMNAR_LEG.clear()
-        fast = phase_main_path_fast(device, sizes, info["nvidia_smi"])
-        gang = phase_main_path_gang(device, sizes, info["nvidia_smi"])
-        preempt = phase_main_path_gang_preempt(device, sizes, info["nvidia_smi"])
-        pod_preempt = phase_main_path_preempt(device, sizes, info["nvidia_smi"])
-        fallback = phase_main_path_fallback(device, sizes, info["nvidia_smi"])
-        transport = phase_main_path_transport(device, sizes, info["nvidia_smi"])
-        phase_transport_direct(device, sizes, info["nvidia_smi"])
+        fast = timed("main_path_fast", phase_main_path_fast, device, sizes, card)
+        gang = timed("main_path_gang", phase_main_path_gang, device, sizes, card)
+        preempt = timed("main_path_gang_preempt", phase_main_path_gang_preempt, device, sizes,
+                        card)
+        pod_preempt = timed("main_path_preempt", phase_main_path_preempt, device, sizes, card)
+        fallback = timed("main_path_fallback", phase_main_path_fallback, device, sizes, card)
+        transport = timed("main_path_transport", phase_main_path_transport, device, sizes, card)
+        timed("transport_direct", phase_transport_direct, device, sizes, card)
         inputs = DefragInputs()
-        defrag = phase_main_path_defrag(device, sizes, info["nvidia_smi"], inputs)
-        err_i, line_i, line_i_cap, line_i_runs = phase_kernel_i(device, sizes, args.seed,
-                                                                inputs)
+        defrag = timed("main_path_defrag", phase_main_path_defrag, device, sizes, card, inputs)
+        err_i, line_i, line_i_cap, line_i_runs = timed("kernel_I", phase_kernel_i, device,
+                                                       sizes, args.seed, inputs)
+        partition = timed("main_path_partition", phase_main_path_partition, device, sizes,
+                          card)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3894,6 +4394,13 @@ def main(argv=None) -> int:
     # the per-pod preemption path's launches of A, B and C, summed over its runs
     preempt_sum = {k: sum(ln["launches"][k] for ln in pod_preempt.values())
                    for k in ("greedy_scan", "row_scatter", "waterfill")}
+    # the partitioned path's launches of A, B, C and D: Partitioned_2x's two
+    # pipelines, Residual_zones' pipelines and residual pass, and
+    # MultiProcess_2w's residual BatchScheduler
+    partition_sum = {k: sum(c.get(k, 0) for leg in ("Partitioned_2x", "Residual_zones")
+                            for c in partition[leg]["launches_per_pipeline"].values())
+                     + partition["MultiProcess_2w"]["residual_launches"].get(k, 0)
+                     for k in ("greedy_scan", "row_scatter", "waterfill", "repair_check")}
     launches = main["SchedulingBasic"]["launches"]
     kernels = [
         {"name": "greedy_scan", "route": "cuda", "source": KERNEL_A_SRC,
@@ -3904,7 +4411,8 @@ def main(argv=None) -> int:
          "device_ms": timing_a["device_ms"], "us_per_pod_step": timing_a["us_per_pod_step"],
          "cluster_size": timing_a["plan"]["cluster_size"],
          "threads_per_cta": timing_a["plan"]["threads"],
-         "preempt_path_launches": preempt_sum["greedy_scan"]},
+         "preempt_path_launches": preempt_sum["greedy_scan"],
+         "partition_path_launches": partition_sum["greedy_scan"]},
         {"name": "row_scatter", "route": "cuda", "source": KERNEL_B_SRC,
          "replaces": "kubernetes_tpu/snapshot/tensorizer.py:399",
          "launches": launches["row_scatter"], "max_abs_err": err_b, "ms": line_b["ms"],
@@ -3915,7 +4423,8 @@ def main(argv=None) -> int:
          "batch_ms": {k: v["ms"] for k, v in line_b["batch"].items()},
          "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()},
          "preempt_path_launches": preempt_sum["row_scatter"],
-         "fallback_path_launches": fallback["launches"]["row_scatter"]},
+         "fallback_path_launches": fallback["launches"]["row_scatter"],
+         "partition_path_launches": partition_sum["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -3929,7 +4438,8 @@ def main(argv=None) -> int:
          "host_syncs_per_batch": {k: ln["waterfill_host_syncs_per_batch"]
                                   for k, ln in fast.items()},
          "preempt_path_launches": preempt_sum["waterfill"],
-         "fallback_path_launches": fallback["launches"]["waterfill"]},
+         "fallback_path_launches": fallback["launches"]["waterfill"],
+         "partition_path_launches": partition_sum["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),
@@ -3938,6 +4448,7 @@ def main(argv=None) -> int:
          "library": "none: no single PyTorch call computes the violation check",
          "checked": True, "shape": timing_d["shape"], "device_ms": timing_d["device_ms"],
          "cuda_launches_per_call": timing_d["cuda_launches"], "plan": timing_d["plan"],
+         "partition_path_launches": partition_sum["repair_check"],
          "more_shapes": {ln["case"]: {k: ln[k] for k in ("shape", "ms", "device_ms", "plain_ms",
                                                         "bound_ms", "bound_by", "plan")}
                          for ln in timing_d_more}},
@@ -4012,6 +4523,7 @@ def main(argv=None) -> int:
          "runs_ms": line_i_runs["ms"], "runs_device_ms": line_i_runs["device_ms"],
          "runs_rebuilds": line_i_runs["rebuilds"]},
     ]
+    emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 3)})
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:
         print(ln)

@@ -31,14 +31,16 @@ Two firing forms, split by lock discipline:
                               NEVER blocks — the only form legal under a lock.
 
 The registry keeps every site name of the JAX package, so a plan written
-for it validates here too. The port wires four of them: `solver.solve`
-(scheduler/batch.py BatchScheduler._solve_device), `rebalance.cycle`
-(scheduler/rebalance.py), `store.bind_many` (store/store.py
-APIStore.bind_many's entry, no lock held) and `watch.deliver`
-(store/store.py Watch._deliver and _deliver_coalesced, drop-only: the store
-lock is held). The others name layers the port has not ported yet; the
-registry says which ROADMAP.md item brings each, and a plan armed for one
-of them validates and never fires.
+for it validates here too. The port wires all but one of them:
+`solver.solve` (scheduler/batch.py BatchScheduler._solve_device),
+`rebalance.cycle` (scheduler/rebalance.py), `store.bind_many` (store/store.py
+APIStore.bind_many's entry, no lock held), `watch.deliver` (store/store.py
+Watch._deliver and _deliver_coalesced, drop-only: the store lock is held),
+`bind.worker` and `native.commit`, `partition.dispatch`
+(scheduler/partition.py) and `process.worker` (scheduler/mpsched.py). The
+other, `kubelet.heartbeat`, names a layer the port has not ported yet; the
+registry says which ROADMAP.md item brings it, and a plan armed for it
+validates and never fires.
 
 Arming: programmatic `arm([FaultPlan(...), ...])` (tests), or the
 FAULT_INJECT env var at import time, e.g.
@@ -81,10 +83,12 @@ SITES: Dict[str, str] = {
                      "(no lock held; fires when the native commit engine is "
                      "selected)",
     # the partitioned dispatch layer: once per pipeline drive cycle, key =
-    # "partition-<i>" (a kill plan is that partition's hard death)
+    # "partition-<i>" (so `match=` scopes a plan to one partition). fail and
+    # rate plans are absorbed dispatch hiccups (the cycle retries, the
+    # coordinator counts dispatch_faults); a kill plan is that partition's
+    # HARD death, absorbed by the survivors (remap + resync)
     "partition.dispatch": "scheduler/partition.py "
-                          "PartitionedScheduler._drive_pipeline (no lock); "
-                          "not wired until ROADMAP.md item 7",
+                          "PartitionedScheduler._drive_pipeline (no lock)",
     # the background rebalancer: fires in scheduler/rebalance.py
     # Rebalancer.cycle at cycle start (key="cycle"), at every migration-wave
     # boundary (key="wave-<i>"), and MID-WAVE between replacement
@@ -95,10 +99,13 @@ SITES: Dict[str, str] = {
     "rebalance.cycle": "scheduler/rebalance.py Rebalancer.cycle / wave "
                        "boundaries + midwave gap (no lock held)",
     # the multi-process scheduler: once per worker per round in the owner
-    # process, key = "worker-<i>" (a kill plan SIGKILLs the worker process)
-    "process.worker": "scheduler/mpsched.py MPScheduler._dispatch_round "
-                      "(owner side, no lock held); not wired until "
-                      "ROADMAP.md item 7",
+    # process, before that worker's round is dispatched, key = "worker-<i>".
+    # fail and rate plans skip that worker's round (its pods re-offer next
+    # round, counted in dispatch_faults); a kill plan SIGKILLs the REAL
+    # worker process, which the supervisor detects, respawns and reconciles
+    "process.worker": "scheduler/mpsched.py MPScheduler._round "
+                      "(owner side, no lock held; kill = SIGKILL the worker "
+                      "process)",
 }
 
 # sites that fire under a lock (or inside a loop that must not stall): only

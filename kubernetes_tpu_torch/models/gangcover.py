@@ -249,7 +249,7 @@ def cover_curves_batched(slices: Sequence[Tuple[np.ndarray, ...]], req: np.ndarr
     if device.type == "cuda":
         from ..ops import kernels
 
-        kernels.HOST_SYNCS["cover_curve"] += 1
+        kernels.bump(kernels.HOST_SYNCS, "cover_curve")
     return [host[i, :len(x[3]) + 1] for i, x in enumerate(slices)]
 
 

@@ -512,7 +512,7 @@ def repair_solve(inp: SolverInputs, batch, d_max: int, *, has_gang: bool = False
         if ctx.device.type == "cuda":
             from ..ops import kernels
 
-            kernels.HOST_SYNCS["waterfill"] += 2
+            kernels.bump(kernels.HOST_SYNCS, "waterfill", 2)
         if has_port:
             ctx.port_taken = ctx.port_taken | (
                 (k_per_node > 0)[:, None] & inp.class_ports[cls][None, :])

@@ -227,7 +227,7 @@ def waterfill_solve(inp: SolverInputs, groups: List[Tuple[np.ndarray, int]]):
         if inp.alloc.device.type == "cuda":
             from ..ops import kernels
 
-            kernels.HOST_SYNCS["waterfill"] += 1
+            kernels.bump(kernels.HOST_SYNCS, "waterfill")
         at = 0
         for members, c in placed:
             chosen = np.full(len(members), -1, dtype=np.int32)

@@ -9,9 +9,12 @@ module is the join: existing per-BATCH / per-window / per-cycle
 instrumentation forwards ONE extra tap into a shared ring, and export()
 emits the standard trace-event JSON (name/ph/ts/pid/tid) so a capture window
 opens as a single causal timeline. Each pipeline lands on its own track
-(tid = pipeline label: ``sched`` / ``bind``, ``p0-sched`` once the
-partitioned scheduler lands, ROADMAP.md queue 1 item 7e), so overlap of the
-bind worker with the next solve is visible as overlapping slices.
+(tid = pipeline label: ``sched`` / ``bind``; ``p<i>-sched`` / ``p<i>-bind``
+for partition i of the partitioned scheduler and ``p-1-*`` for its residual
+pass; ``w<i>-sched`` for worker process i of the multi-process scheduler,
+stamped in the owner from the worker's own perf_counter), so overlap of the
+bind worker with the next solve, and of one partition with another, is
+visible as overlapping slices.
 
 Discipline (the reference's HP001 rule):
 

@@ -10,7 +10,9 @@ build raises.
 The launch wrappers check device, dtype, shape and contiguity, launch on
 torch's current stream without synchronizing, raise if the C entry returns a
 CUDA error, and count their launches in LAUNCHES (a launch is counted where
-it happens and nowhere else). Kernels C, D, E, F, G, H, I and J also count
+it happens and nowhere else, through bump(), under one lock, because the
+partitioned scheduler's pipelines launch from several threads; _lib builds
+and binds each library once under its own lock for the same reason). Kernels C, D, E, F, G, H, I and J also count
 the CUDA kernels their C entry launched (CUDA_LAUNCHES), and the host reads
 of their results are counted in HOST_SYNCS (by E's wrapper, and for C and G
 by the models that read them). A, C, D, E, F and H are one thread-block
@@ -36,6 +38,7 @@ launch; I walks the victims in one block over a tournament tree
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -43,6 +46,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -67,12 +71,51 @@ CUDA_LAUNCHES: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill":
 HOST_SYNCS: Dict[str, int] = {"auction_phase": 0, "sinkhorn": 0, "waterfill": 0,
                               "cover_curve": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one library is built and bound once per process, even when several solve
+# pipelines (scheduler/partition.py) reach an unbuilt kernel together
+_LIB_LOCK = threading.Lock()
+# the counters are bumped from every pipeline thread; `+=` on a dict entry is
+# a read-modify-write the ctypes launches between them let interleave
+_COUNT_LOCK = threading.Lock()
+# LAUNCHES again, split by the launching thread's scope (launch_scope): the
+# partitioned scheduler scopes each pipeline's drive ("p0", "p1", ...) and
+# its residual pass ("residual"), so a run's launches read per pipeline
+SCOPED_LAUNCHES: Dict[str, Dict[str, int]] = {}
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def launch_scope(label: str):
+    """Attribute the launches this thread makes inside the block to `label`
+    in SCOPED_LAUNCHES as well (nested scopes: the innermost wins)."""
+    prev = getattr(_SCOPE, "label", None)
+    _SCOPE.label = label
+    try:
+        yield
+    finally:
+        _SCOPE.label = prev
+
+
+def bump(counts: Dict[str, int], name: str, n: int = 1) -> None:
+    """Add n to one of LAUNCHES, CUDA_LAUNCHES or HOST_SYNCS, under the
+    counters' lock (so concurrent pipelines lose no count); a launch made
+    inside a launch_scope also counts under its label."""
+    label = getattr(_SCOPE, "label", None)
+    with _COUNT_LOCK:
+        counts[name] += n
+        if label is not None and counts is LAUNCHES:
+            scoped = SCOPED_LAUNCHES.get(label)
+            if scoped is None:
+                scoped = SCOPED_LAUNCHES[label] = dict.fromkeys(LAUNCHES, 0)
+            scoped[name] += n
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CUDA_LAUNCHES, HOST_SYNCS):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (LAUNCHES, CUDA_LAUNCHES, HOST_SYNCS):
+            for name in counts:
+                counts[name] = 0
+        SCOPED_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -125,7 +168,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if out.exists():
             logs[name] = ""
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # unique per process and thread: two builds never share a file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
@@ -181,80 +225,90 @@ def _cluster_size(lib: ctypes.CDLL, name: str) -> int:
 
 def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        if name == "greedy_scan":
-            _bind_args_entry(lib, name, _GreedyScanArgs)
-            lib.greedy_scan_plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            lib.greedy_scan_plan.restype = ctypes.c_int
-            lib.greedy_scan_plan_size.argtypes = []
-            lib.greedy_scan_plan_size.restype = ctypes.c_int
-            if lib.greedy_scan_plan_size() != ctypes.sizeof(_GreedyScanPlan):
-                raise RuntimeError("GreedyScanPlan layout differs between "
-                                   "csrc/greedy_scan.cu and ops/kernels.py")
-        elif name == "row_scatter":
-            lib.mirror_scatter_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                                  ctypes.c_void_p]
-            lib.mirror_scatter_launch.restype = ctypes.c_int
-            lib.mirror_set_size.argtypes = []
-            lib.mirror_set_size.restype = ctypes.c_int
-            if lib.mirror_set_size() != ctypes.sizeof(_MirrorSet):
-                raise RuntimeError("MirrorSet layout differs between csrc/row_scatter.cu and "
-                                   "ops/kernels.py")
-        elif name == "waterfill":
-            _bind_cluster_entry(lib, name, name, _WaterfillArgs)
-        elif name == "repair_check":
-            _bind_cluster_entry(lib, name, name, _RepairCheckArgs)
-            lib.repair_check_smem_budget.restype = ctypes.c_int
-            lib.repair_check_smem_bytes.argtypes = [ctypes.c_int] * 6
-            lib.repair_check_smem_bytes.restype = ctypes.c_longlong
-            if (lib.repair_check_smem_budget() != REPAIR_SMEM_BUDGET
-                    or any(lib.repair_check_smem_bytes(*shape) != repair_smem_bytes(*shape)
-                           for shape in ((0, 16, 1, 2, 10, 10), (1, 8, 3, 40, 5000, 625),
-                                         (2, 16, 5, 410, 70000, 4375)))):
-                raise RuntimeError("kernel D's layout differs between csrc/repair_check.cu and "
-                                   "ops/kernels.py")
-        elif name == "cover_curve":
-            _bind_args_entry(lib, name, _CoverCurveArgs)
-            for fn in (lib.cover_curve_max_r, lib.cover_curve_smem_budget):
-                fn.argtypes = []
-                fn.restype = ctypes.c_int
-        elif name == "rank_align":
-            _bind_cluster_entry(lib, name, name, _RankAlignArgs)
-            lib.rank_align_smem_rows.restype = ctypes.c_int
-            if lib.rank_align_smem_rows() != RANK_ALIGN_SMEM_MAX:
-                raise RuntimeError("RA_SMEM_ROWS differs between csrc/rank_align.cu and "
-                                   "ops/kernels.py")
-        elif name == "feasibility_rows":
-            _bind_cluster_entry(lib, name, name, _FeasRowsArgs)
-            lib.feasibility_rows_max_clusters.argtypes = [ctypes.c_int]
-            lib.feasibility_rows_max_clusters.restype = ctypes.c_int
-        elif name == "auction_phase":
-            _bind_cluster_entry(lib, name, "auction", _AuctionArgs)
-            lib.auction_max_r.argtypes = []
-            lib.auction_max_r.restype = ctypes.c_int
-        elif name == "defrag_assign":
-            _bind_args_entry(lib, name, _DefragArgs)
-            lib.defrag_assign_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                                 ctypes.POINTER(ctypes.c_int)]
-            lib.defrag_assign_max_r.argtypes = []
-            lib.defrag_assign_max_r.restype = ctypes.c_int
-            lib.defrag_assign_group.argtypes = [ctypes.c_int]
-            lib.defrag_assign_group.restype = ctypes.c_int
-            lib.defrag_assign_uses_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.defrag_assign_uses_smem.restype = ctypes.c_int
-            lib.defrag_assign_stride.argtypes = [ctypes.c_int]
-            lib.defrag_assign_stride.restype = ctypes.c_int
-            lib.defrag_assign_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.defrag_assign_smem_bytes.restype = ctypes.c_longlong
-            if any(lib.defrag_assign_group(n) != defrag_group(n)
-                   for n in (1, 5000, 8192, 16385, 1 << 20)):
-                raise RuntimeError("the tree's group differs between csrc/defrag_assign.cu and "
-                                   "ops/kernels.py")
-        else:
-            _bind_cluster_entry(lib, name, name, _SinkhornArgs)
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LIB_LOCK:
+        lib = _LIBS.get(name)  # another thread may have bound it meanwhile
+        if lib is None:
+            lib = _bind(name)
+            _LIBS[name] = lib
+    return lib
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    """Build the named kernel if needed, load it and declare its entries."""
+    build([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    if name == "greedy_scan":
+        _bind_args_entry(lib, name, _GreedyScanArgs)
+        lib.greedy_scan_plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.greedy_scan_plan.restype = ctypes.c_int
+        lib.greedy_scan_plan_size.argtypes = []
+        lib.greedy_scan_plan_size.restype = ctypes.c_int
+        if lib.greedy_scan_plan_size() != ctypes.sizeof(_GreedyScanPlan):
+            raise RuntimeError("GreedyScanPlan layout differs between "
+                               "csrc/greedy_scan.cu and ops/kernels.py")
+    elif name == "row_scatter":
+        lib.mirror_scatter_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_void_p]
+        lib.mirror_scatter_launch.restype = ctypes.c_int
+        lib.mirror_set_size.argtypes = []
+        lib.mirror_set_size.restype = ctypes.c_int
+        if lib.mirror_set_size() != ctypes.sizeof(_MirrorSet):
+            raise RuntimeError("MirrorSet layout differs between csrc/row_scatter.cu and "
+                               "ops/kernels.py")
+    elif name == "waterfill":
+        _bind_cluster_entry(lib, name, name, _WaterfillArgs)
+    elif name == "repair_check":
+        _bind_cluster_entry(lib, name, name, _RepairCheckArgs)
+        lib.repair_check_smem_budget.restype = ctypes.c_int
+        lib.repair_check_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.repair_check_smem_bytes.restype = ctypes.c_longlong
+        if (lib.repair_check_smem_budget() != REPAIR_SMEM_BUDGET
+                or any(lib.repair_check_smem_bytes(*shape) != repair_smem_bytes(*shape)
+                       for shape in ((0, 16, 1, 2, 10, 10), (1, 8, 3, 40, 5000, 625),
+                                     (2, 16, 5, 410, 70000, 4375)))):
+            raise RuntimeError("kernel D's layout differs between csrc/repair_check.cu and "
+                               "ops/kernels.py")
+    elif name == "cover_curve":
+        _bind_args_entry(lib, name, _CoverCurveArgs)
+        for fn in (lib.cover_curve_max_r, lib.cover_curve_smem_budget):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+    elif name == "rank_align":
+        _bind_cluster_entry(lib, name, name, _RankAlignArgs)
+        lib.rank_align_smem_rows.restype = ctypes.c_int
+        if lib.rank_align_smem_rows() != RANK_ALIGN_SMEM_MAX:
+            raise RuntimeError("RA_SMEM_ROWS differs between csrc/rank_align.cu and "
+                               "ops/kernels.py")
+    elif name == "feasibility_rows":
+        _bind_cluster_entry(lib, name, name, _FeasRowsArgs)
+        lib.feasibility_rows_max_clusters.argtypes = [ctypes.c_int]
+        lib.feasibility_rows_max_clusters.restype = ctypes.c_int
+    elif name == "auction_phase":
+        _bind_cluster_entry(lib, name, "auction", _AuctionArgs)
+        lib.auction_max_r.argtypes = []
+        lib.auction_max_r.restype = ctypes.c_int
+    elif name == "defrag_assign":
+        _bind_args_entry(lib, name, _DefragArgs)
+        lib.defrag_assign_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.defrag_assign_max_r.argtypes = []
+        lib.defrag_assign_max_r.restype = ctypes.c_int
+        lib.defrag_assign_group.argtypes = [ctypes.c_int]
+        lib.defrag_assign_group.restype = ctypes.c_int
+        lib.defrag_assign_uses_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.defrag_assign_uses_smem.restype = ctypes.c_int
+        lib.defrag_assign_stride.argtypes = [ctypes.c_int]
+        lib.defrag_assign_stride.restype = ctypes.c_int
+        lib.defrag_assign_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.defrag_assign_smem_bytes.restype = ctypes.c_longlong
+        if any(lib.defrag_assign_group(n) != defrag_group(n)
+               for n in (1, 5000, 8192, 16385, 1 << 20)):
+            raise RuntimeError("the tree's group differs between csrc/defrag_assign.cu and "
+                               "ops/kernels.py")
+    else:
+        _bind_cluster_entry(lib, name, name, _SinkhornArgs)
     return lib
 
 
@@ -395,7 +449,7 @@ def launch_greedy_scan(inp: SolverInputs, d_max: int, has_ipa: bool, has_ct: boo
         global_bytes_per_cta=plan.gbytes,
         in_smem=[nm for i, nm in enumerate(SCAN_REGIONS) if plan.in_smem >> i & 1])
     err = lib.greedy_scan_launch(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
-    LAUNCHES["greedy_scan"] += 1
+    bump(LAUNCHES, "greedy_scan")
     _raise_on(err, "greedy_scan launch")
     return assignment, used, pod_count
 
@@ -486,7 +540,7 @@ def launch_mirror_scatter(mset: MirrorSet, packed: torch.Tensor, k: int) -> None
         return
     err = _lib("row_scatter").mirror_scatter_launch(ctypes.byref(mset.struct), packed.data_ptr(),
                                                     k, _stream_handle(packed.get_device()))
-    LAUNCHES["row_scatter"] += 1
+    bump(LAUNCHES, "row_scatter")
     _raise_on(err, "mirror_scatter launch")
 
 
@@ -611,8 +665,8 @@ def launch_waterfill_group(alloc, used, used_nz, pod_count, max_pods,
     launched = ctypes.c_int(0)
     err = lib.waterfill_launch(ctypes.byref(args), _stream_handle(alloc.get_device()),
                                ctypes.byref(launched))
-    LAUNCHES["waterfill"] += 1
-    CUDA_LAUNCHES["waterfill"] += launched.value
+    bump(LAUNCHES, "waterfill")
+    bump(CUDA_LAUNCHES, "waterfill", launched.value)
     _raise_on(err, "waterfill launch")
     return k_per_node, chosen
 
@@ -739,8 +793,8 @@ def launch_repair_check_packed(node_of, cls_of, dyn_selcls, dyn_grp, topo_id,
     launched = ctypes.c_int(0)
     err = lib.repair_check_launch(ctypes.byref(args), _stream_handle(index),
                                   ctypes.byref(launched))
-    LAUNCHES["repair_check"] += 1
-    CUDA_LAUNCHES["repair_check"] += launched.value
+    bump(LAUNCHES, "repair_check")
+    bump(CUDA_LAUNCHES, "repair_check", launched.value)
     _raise_on(err, "repair_check launch")
     return out
 
@@ -825,8 +879,8 @@ def launch_cover_curves(free, headroom, eligible, v_node, v_req, req) -> torch.T
                            eligible=ptr(eligible), v_node=ptr(v_node), v_req=ptr(v_req),
                            req=req.data_ptr(), caps=caps.data_ptr(), gscratch=ptr(gscratch))
     err = lib.cover_curve_launch(ctypes.byref(args), _stream_handle(free.get_device()))
-    LAUNCHES["cover_curve"] += 1
-    CUDA_LAUNCHES["cover_curve"] += int(s > 0)
+    bump(LAUNCHES, "cover_curve")
+    bump(CUDA_LAUNCHES, "cover_curve", int(s > 0))
     _raise_on(err, "cover_curve launch")
     return caps
 
@@ -908,8 +962,8 @@ def launch_rank_align(assignment, group_id, rank, pos_key,
     LAST_RANK_ALIGN_PLAN = plan
     launched = ctypes.c_int(0)
     err = lib.rank_align_launch(ctypes.byref(args), _stream_handle(index), ctypes.byref(launched))
-    LAUNCHES["rank_align"] += 1
-    CUDA_LAUNCHES["rank_align"] += launched.value
+    bump(LAUNCHES, "rank_align")
+    bump(CUDA_LAUNCHES, "rank_align", launched.value)
     _raise_on(err, "rank_align launch")
     return out
 
@@ -1015,8 +1069,8 @@ def launch_feasibility_rows(inp: SolverInputs, reqs, req_nzs, clss, bals):
     launched = ctypes.c_int(0)
     err = lib.feasibility_rows_launch(ctypes.byref(args), _stream_handle(inp.alloc.get_device()),
                                       ctypes.byref(launched))
-    LAUNCHES["feasibility_rows"] += 1
-    CUDA_LAUNCHES["feasibility_rows"] += launched.value
+    bump(LAUNCHES, "feasibility_rows")
+    bump(CUDA_LAUNCHES, "feasibility_rows", launched.value)
     _raise_on(err, "feasibility_rows launch")
     return feas, total
 
@@ -1176,11 +1230,11 @@ def launch_auction_phase(utility, jcap, supply, slots, req, free, x0, price0, le
     launched = ctypes.c_int(0)
     err = lib.auction_phase_launch(ctypes.byref(args), _stream_handle(utility.get_device()),
                                    ctypes.byref(launched))
-    LAUNCHES["auction_phase"] += 1
-    CUDA_LAUNCHES["auction_phase"] += launched.value
+    bump(LAUNCHES, "auction_phase")
+    bump(CUDA_LAUNCHES, "auction_phase", launched.value)
     _raise_on(err, "auction_phase launch")
     rounds = int(rounds_t)  # the phase's one host read
-    HOST_SYNCS["auction_phase"] += 1
+    bump(HOST_SYNCS, "auction_phase")
     return x, price, level, rounds
 
 
@@ -1340,8 +1394,8 @@ def launch_sinkhorn_iters(utility, feasible, supply, cap, f0, g0, eps: float, it
     launched = ctypes.c_int(0)
     err = lib.sinkhorn_launch(ctypes.byref(args), _stream_handle(utility.get_device()),
                               ctypes.byref(launched))
-    LAUNCHES["sinkhorn"] += 1
-    CUDA_LAUNCHES["sinkhorn"] += launched.value
+    bump(LAUNCHES, "sinkhorn")
+    bump(CUDA_LAUNCHES, "sinkhorn", launched.value)
     _raise_on(err, "sinkhorn launch")
     return f, gg, out_plan
 
@@ -1426,7 +1480,7 @@ def launch_defrag_assign(free, headroom, target_ok, v_req, v_valid) -> torch.Ten
     launched = ctypes.c_int(0)
     err = lib.defrag_assign_launch(ctypes.byref(args), _stream_handle(free.get_device()),
                                    ctypes.byref(launched))
-    LAUNCHES["defrag_assign"] += 1
-    CUDA_LAUNCHES["defrag_assign"] += launched.value
+    bump(LAUNCHES, "defrag_assign")
+    bump(CUDA_LAUNCHES, "defrag_assign", launched.value)
     _raise_on(err, "defrag_assign launch")
     return out

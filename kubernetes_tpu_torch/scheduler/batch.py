@@ -118,12 +118,22 @@ whole read surface. Recording changes no placement, RV, event or bind:
 flight_recorder=False gives the same outputs. The port's own
 `stage_seconds`, `bind_seconds` and `retry_counts` stay beside them.
 
+Partitioned dispatch (JAX batch.py :189-202, :1376-1400, :1490-1497,
+:1586-1591, :1978-1987): a PartitionedScheduler (scheduler/partition.py)
+sets partition_index, the serial loop's node filter and pod gate, and two
+hooks on each shard pipeline. reroute_hook(qp, status) takes a plain
+UNSCHEDULABLE verdict of a pipeline that sees one node shard and hands the
+pod to another partition or the global residual pass (no event, no status
+patch, no failed_count; partition_reroutes counts it); conflict_sink(qp,
+msg) takes a LOST cross-partition bind race (store.is_bind_conflict: the
+pod IS bound, so the pipeline drops it instead of requeueing;
+partition_conflicts counts it). sched_stats()["partition"] and the
+"partition" window probe publish them, and the bind worker's trace track
+and thread name carry the partition (p<i>-bind). Standalone, all are inert.
+
 Not in this slice (each raises or is named where it would act):
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
-  the partitioned scheduler (partition_index stays None, no reroute hook,
-  no conflict_sink, partition conflicts or partition series)
-                                              queue 1 item 7e
   the background start() loop, the /debug routes and `ktl sched`
                                               queue 1 item 7g
 """
@@ -155,12 +165,13 @@ from ..obs.timeseries import TimeSeriesRecorder
 from ..ops.solver import greedy_scan_solve, make_inputs, resolve_device
 from ..server import metrics
 from ..snapshot.tensorizer import TensorCache, build_pod_batch
-from ..store import MODIFIED, APIStore, NotFoundError, pod_bind_clone, pod_structural_clone
+from ..store import (MODIFIED, APIStore, NotFoundError, is_bind_conflict, pod_bind_clone,
+                     pod_structural_clone)
 from ..utils.tracing import Trace
 from . import cachecols
 from .breaker import REPRESENTATIVE, SolverCircuitBreaker
 from .flightrec import FlightRecorder, StageClock, register_scheduler
-from .framework import CycleState, PodInfo, Status
+from .framework import Code, CycleState, PodInfo, Status
 from .gang import GangDirectory, gang_veto_mask, node_slice_positions, ring_lengths
 from .gangpreempt import GangPreemptor, flatten_snapshot_victims
 from .plugins import default_plugins
@@ -361,9 +372,15 @@ class BatchScheduler(Scheduler):
         # on one slice
         self.gangpreempt = GangPreemptor(self) if gang_preemption else None
         self.preempt_victims_total = 0  # victims chosen by _batch_preempt
-        # a shard pipeline of a partitioned scheduler sets its index (item
-        # 7); None is a standalone scheduler, which sees the whole cluster
+        # partitioned scheduling (scheduler/partition.py): installed by
+        # PartitionedScheduler on its pipelines, all inert on a standalone
+        # scheduler (module docstring). partition_index is the shard (-1
+        # the global residual pass); None sees the whole cluster.
         self.partition_index: Optional[int] = None
+        self.reroute_hook = None
+        self.conflict_sink = None
+        self.partition_conflicts = 0  # bind conflicts this pipeline LOST
+        self.partition_reroutes = 0  # pods handed to another partition
         # background rebalancer (scheduler/rebalance.py): installed by
         # enable_rebalancer(); run_until_idle's idle path paces it
         self.rebalancer = None
@@ -1314,8 +1331,18 @@ class BatchScheduler(Scheduler):
             self.flightrec.note_bind_failures(
                 [(qp.pod.key, status.message()) for qp, status in errs])
         failures = self.bind_failures
+        csink = self.conflict_sink
         for qp, status in errs:
             msg = status.message()
+            if csink is not None and is_bind_conflict(msg):
+                # a lost cross-partition bind race: the conflict is a FACT
+                # (the pod is bound, the store decided the winner), so this
+                # pipeline drops it (the assume was forgotten on the error
+                # path) and the coordinator counts the absorbed race.
+                # Requeueing would schedule a bound pod.
+                self.partition_conflicts += 1
+                csink(qp, msg)
+                continue
             if len(failures) == failures.maxlen:
                 self.bind_failures_dropped += 1
             failures.append((qp.pod.key, msg))
@@ -1718,8 +1745,19 @@ class BatchScheduler(Scheduler):
                         failed_nodes: Optional[Dict[str, Status]] = None) -> None:
         """Taps the failure's attribution (plugin, else the reason text) into
         the current batch's flight record, then the shared requeue path.
-        (The partitioned scheduler's reroute hook comes with ROADMAP.md
-        queue 1 item 7e.)"""
+
+        Partitioned re-route: an UNSCHEDULABLE verdict from a pipeline that
+        sees one node shard is not a cluster verdict — the reroute hook
+        offers the pod to the next partition (or the global residual pass)
+        instead of parking it, UNLESS preemption nominated a node here
+        (victims are terminating on OUR shard; the pod waits locally). A
+        re-routed pod is not a failure: no event, no status patch, no
+        failed_count."""
+        hook = self.reroute_hook
+        if (hook is not None and status.code == Code.UNSCHEDULABLE
+                and not qp.pod.status.nominated_node_name and hook(qp, status)):
+            self.partition_reroutes += 1
+            return
         sink = self._batch_reasons
         if sink is not None:
             key = status.plugin or (status.reasons[0][:80] if status.reasons
@@ -1784,8 +1822,13 @@ class BatchScheduler(Scheduler):
                        else dict(self.repair_totals)
                        if self.repair_totals["batches"] else None),
             "breaker": self.breaker.describe(),
-            # the partitioned scheduler's shard identity (item 7e)
-            "partition": None,
+            # partitioned mode: this pipeline's shard identity and the
+            # absorbed cross-partition races; None standalone
+            "partition": ({"index": self.partition_index,
+                           "nodes": self.cache.node_count(),
+                           "conflicts": self.partition_conflicts,
+                           "reroutes": self.partition_reroutes}
+                          if self.partition_index is not None else None),
             "rebalance": self.rebalance_stats(),
             "bind_worker": {"restarts": self.bind_worker_restarts,
                             "failures_logged": len(self.bind_failures),
@@ -1809,14 +1852,15 @@ class BatchScheduler(Scheduler):
 
     def _register_window_probes(self) -> None:
         """Window-close probes (obs/timeseries.py), each run ONCE a closed
-        window: queue depth (O(tiers)), breaker state, watch-bus lag, pod-
-        object materializations and the resource sampler's latest columns.
-        Each reads its attributes at fire time. (The partition probe comes
-        with ROADMAP.md queue 1 item 7e.)"""
+        window: queue depth (O(tiers)), breaker state, watch-bus lag, the
+        partition's conflict/reroute counters, pod-object materializations
+        and the resource sampler's latest columns. Each reads its attributes
+        at fire time (partition_index is installed after __init__)."""
         ts = self.timeseries
         ts.add_probe("queue", lambda: self.queue.depths())
         ts.add_probe("breaker", lambda: {"state": self.breaker.state})
         ts.add_probe("watch", lambda: self.store.watch_lag())
+        ts.add_probe("partition", self._partition_window_probe)
         ts.add_probe("resource", self._resource_window_probe)
         # the live zero-object gauge: per-window pod-object materializations
         # across the store's and the cache's columnar rows (0 at the
@@ -1832,6 +1876,13 @@ class BatchScheduler(Scheduler):
         self._alloc_probe_total = total
         return {"pod_obj_allocs": total - prev if prev is not None else total,
                 "materialized_total": total}
+
+    def _partition_window_probe(self) -> Optional[Dict]:
+        if self.partition_index is None:
+            return None
+        return {"index": self.partition_index,
+                "conflicts": self.partition_conflicts,
+                "reroutes": self.partition_reroutes}
 
     def _resource_window_probe(self) -> Optional[Dict]:
         s = self.resource_sampler

@@ -562,6 +562,32 @@ class SchedulingQueue:
     def _gang_tiers(self):
         return itertools.chain(self._gang_staging.values(), self._gang_parked.values())
 
+    def contains(self, key: str) -> bool:
+        """O(1) membership probe across every tier (active, backoff,
+        unschedulable; gang staging and parking by a scan of their small
+        group dicts). The partitioned dispatch layer calls this once a
+        FOREIGN bound-pod event to clean a stale local entry after losing a
+        cross-partition race, so it must never cost an O(queue) scan."""
+        with self._lock:
+            if (key in self._in_active or key in self._unschedulable
+                    or key in self._backoff_of):
+                return True
+            return any(key in members for members in self._gang_tiers())
+
+    def add_requeued(self, qps: List[QueuedPodInfo]) -> None:
+        """Admit EXISTING QueuedPodInfos straight into the active tier,
+        keeping their attempt counts and timestamps: the partitioned
+        dispatch layer re-routes a pod that proved infeasible in one node
+        shard to the next partition's queue through here. No backoff: the
+        pod was offered the wrong shard, and the router's hop count bounds
+        the re-routing, so this cannot livelock."""
+        if not qps:
+            return
+        with self._lock:
+            for qp in qps:
+                self._push_active(qp)
+            self._lock.notify_all()
+
     def tracked_keys(self) -> List[str]:
         """Keys of every pod the queue knows, across all tiers (gang staging
         and parking included)."""

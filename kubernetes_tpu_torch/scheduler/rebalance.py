@@ -40,8 +40,9 @@ Exactly ONE rebalancer may run against a store: a second instance would
 silently double-count the migration budget, so claims go through a
 module-level weak registry and losers count inert_conflict no-ops. The
 rebalancer is also inert on a SHARD pipeline of a partitioned scheduler
-(partition_index >= 0); the port's BatchScheduler has partition_index None
-(partitioned scheduling is ROADMAP.md queue 1 item 7e).
+(partition_index >= 0, scheduler/partition.py): a shard's view is partial.
+Only the residual full-view pipeline (partition_index == -1) or a
+standalone scheduler (None) migrates.
 
 _candidates reads the store's columnar pod view (store.pod_columns()) to
 find the donor slice's rows without copying the whole cluster, then gets

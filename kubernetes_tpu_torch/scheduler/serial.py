@@ -51,6 +51,15 @@ close a deleted pod's sampled span (note_deleted), stamp a pod bound by the
 per-pod commit (pod_bound) and drop the live spans on a crash resync
 (drop_live).
 
+Partitioned dispatch (JAX serial.py :138-160, :225, :313-334, :400-416,
+:517-526, :570-582): a shard pipeline of scheduler/partition.py carries a
+node filter (LIST rows and node events outside its shard stay out of the
+cache; a node re-slotted away is removed), a pod gate (pod events and LIST
+rows of other partitions are skipped, after the gang directory counted
+them, since quorums are cluster-scoped) and its peers' bind origins (a
+peer's coalesced bind batch is skipped whole). All three are None or empty
+on a standalone scheduler.
+
 Not in this module: HTTP extenders (`extenders=` raises, ROADMAP.md queue 1
 item 6) and the background start() thread (item 7g).
 """
@@ -171,6 +180,23 @@ class Scheduler:
         # our own bind batches come back tagged with this origin and need no
         # re-ingest (the bind path confirmed their assumes already)
         self._bind_origin = f"scheduler-torch-{next(_origin_seq)}"
+        # partitioned dispatch hooks (scheduler/partition.py), installed by
+        # PartitionedScheduler on its shard pipelines; all None standalone:
+        #   _node_filter(node) -> bool: this pipeline's node shard (takes
+        #       the Node OBJECT — zone partitioning reads its labels); a
+        #       filtered node is never added to the cache.
+        #   _pod_gate(etype, pod) -> bool: is this pod event MINE to ingest
+        #       (bound pods by their node's shard, pending pods by the
+        #       router); the gate may also clean a stale queue entry for a
+        #       pod another partition just bound.
+        self._node_filter = None
+        self._pod_gate = None
+        # bind origins of PEER partition pipelines (disjoint shards): a
+        # peer's coalesced bind batch holds only pods bound onto the peer's
+        # nodes, none of which this pipeline owns, so the whole batch is
+        # skipped in O(1) instead of gating every event. A stale local queue
+        # entry for such a pod self-heals through the bind-conflict path.
+        self._peer_bind_origins: frozenset = frozenset()
         self._watch = None
         # pipeline flight recorder (scheduler/flightrec.py), installed by
         # BatchScheduler; None on the serial loop, every hook gated on it
@@ -276,8 +302,11 @@ class Scheduler:
             for lister in self._volume_listers:
                 lister.clear()
         lists, rv = self.store.list_many(self.LISTED_KINDS)
+        nf = self._node_filter
+        gate = self._pod_gate
         for n in lists["nodes"]:
-            self.cache.add_node(n)
+            if nf is None or nf(n):
+                self.cache.add_node(n)
         if self.gangs is not None:
             # quorums must be known BEFORE pods are ingested, or the gang
             # members of the initial backlog would all wait in staging
@@ -288,7 +317,11 @@ class Scheduler:
         bound = 0
         for p in lists["pods"]:
             if self.gangs is not None:
+                # BEFORE the partition gate: gang quorums count bound
+                # members wherever they run (cluster-scoped)
                 self.gangs.observe_pod(ADDED, p)
+            if gate is not None and not gate(ADDED, p):
+                continue  # another partition's pod (dispatch layer routing)
             if p.spec.node_name:
                 if not p.is_terminal():
                     self.cache.add_pod(p)
@@ -342,12 +375,22 @@ class Scheduler:
         events = cev.events
         if cev.kind == "pods" and cev.type == MODIFIED and cev.origin == self._bind_origin:
             return len(events)
+        if (cev.kind == "pods" and cev.type == MODIFIED and cev.origin is not None
+                and cev.origin in self._peer_bind_origins):
+            # a peer partition's bind batch: every event is a pod committed
+            # onto THAT pipeline's disjoint node shard. MODIFIED only: an
+            # origin-tagged DELETE batch frees capacity a later resync must
+            # not be the first to notice
+            return len(events)
         if cev.kind == "pods" and cev.type == ADDED:
             admit: List[Pod] = []
+            gate = self._pod_gate
             for ev in events:
                 pod = ev.obj
                 if pod.spec.node_name or pod.is_terminal() or not self._responsible(pod):
                     self._handle_pod(ADDED, pod)
+                elif gate is not None and not gate(ADDED, pod):
+                    continue  # another partition's pod (dispatch layer)
                 elif self._gate_pending_pod(pod):
                     admit.append(pod)
             self.queue.add_batch(admit)
@@ -427,6 +470,16 @@ class Scheduler:
 
     def _handle_event(self, ev) -> None:
         if ev.kind == "nodes":
+            nf = self._node_filter
+            if nf is not None and not nf(ev.obj):
+                # not (or NO LONGER) this pipeline's shard: a routing
+                # migration (zone mode — the zone label appearing after a
+                # hash-fallback placement) re-slots a node to another
+                # partition, and the old owner must drop it or two solvers
+                # would each see the node's full capacity. remove_node of a
+                # never-owned node is a no-op.
+                self.cache.remove_node(ev.obj.metadata.name)
+                return
             if ev.type == DELETED:
                 self.cache.remove_node(ev.obj.metadata.name)
             else:
@@ -466,6 +519,18 @@ class Scheduler:
             gp = self.gangpreempt
             if gp is not None and gp.has_waiting:
                 gp.note_pod_deleted(pod.key)
+        gate = self._pod_gate
+        if gate is not None and not gate(etype, pod):
+            # routed to another partition (dispatch layer), but gang quorum
+            # accounting is CLUSTER-scoped: a member bound on a foreign shard
+            # still counts toward this pipeline's gang directory, and a
+            # membership change still re-evaluates the staged quorums
+            if self.gangs is not None and self.gangs.active:
+                self.gangs.observe_pod(etype, pod)
+                if (etype == DELETED or pod.is_terminal() or pod.spec.node_name) \
+                        and pod_group_key(pod):
+                    self.queue.reconsider_gangs()
+            return
         if self.gangs is not None:
             # bound members count toward quorum, deletes and terminals free
             # the slot (our own bind confirmations bypass this path: they

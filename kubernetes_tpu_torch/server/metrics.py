@@ -4,13 +4,13 @@ The counterpart of `kubernetes_tpu/server/metrics.py`: the primitives
 (Counter, Gauge, Histogram, LabeledHistogram, GaugeFunc, Registry,
 global_registry), the scheduler's series (attempts, batch solve and stage
 latency, retries, the breaker state, queue depth and age, submit-to-bound
-latency, constraint repair, gangs, controllers, resource sampling), and the
+latency, constraint repair, the partitioned scheduler's conflicts, reroutes
+and deaths, gangs, controllers, resource sampling), and the
 series the API store records into — the bind_many commit latency, dropped
 watch deliveries by reason, the commit-to-dequeue watch propagation
 histogram, and the per-subscriber queue-length and delivered-RV-lag gauges
-read from live stores at render time. The partitioned scheduler's series
-come with ROADMAP.md queue 1 item 7e; the /metrics endpoint and the REST
-server with item 7g.
+read from live stores at render time. The /metrics endpoint and the REST
+server come with ROADMAP.md queue 1 item 7g.
 """
 
 from __future__ import annotations
@@ -537,8 +537,18 @@ constraint_violations_total = global_registry.counter(
     "by kind (anti_affinity / existing_anti_affinity / affinity / "
     "topology_spread)")
 
-# gang scheduling observability (the partition_* series of the JAX package
-# come with the partitioned scheduler, ROADMAP.md queue 1 item 7e)
+# the partitioned scheduler (scheduler/partition.py) and gang scheduling
+partition_conflicts_total = global_registry.counter(
+    "scheduler_partition_conflicts_total",
+    "Cross-partition bind races LOST by a partition (the pod was already "
+    "bound — an absorbed fact, not an error), by partition")
+partition_reroutes_total = global_registry.counter(
+    "scheduler_partition_reroutes_total",
+    "Pods the dispatch layer re-routed out of a shard that declined them, "
+    "by source partition and target (a partition index or 'residual')")
+partition_deaths_total = global_registry.counter(
+    "scheduler_partition_deaths_total",
+    "Hard partition deaths absorbed by the surviving pipelines")
 gang_staged = global_registry.gauge(
     "scheduler_gang_staged", "Gang members parked in queue staging")
 gang_vetoed_total = global_registry.counter(

@@ -48,8 +48,10 @@ columns — the dict store is the oracle and stays bit-for-bit.
 engine (native/hostcommit.cpp hc_columnar_prepare), byte-identical to the
 Python loop here.
 
-Not in this slice: the shared-memory backing of the numeric columns
-(`attach_arena`; ROADMAP.md queue 1 item 7e).
+Shared-memory backing: attach_arena() migrates the numeric columns into a
+store/shm.py arena (APIStore.enable_shm), after which every mutation here
+lands in the shared bytes that worker processes (scheduler/mpsched.py) map
+read-only; a grow remaps the arena and every new row count is published.
 """
 
 from __future__ import annotations
@@ -160,6 +162,11 @@ class PodColumns:
         self.diverged = np.zeros(cap, dtype=bool)
         self._free: List[int] = []
         self._diverged_n = 0
+        # optional shared-memory backing: when attach_arena() migrates the
+        # numeric columns into a store/shm.py arena, the attrs above are
+        # rebound to the arena's shared arrays and worker processes map the
+        # same bytes read-only
+        self._arena = None
         # interned string tables (append-only: lock-free reads are safe)
         self.node_names: List[str] = []
         self._node_ids: Dict[str, int] = {}
@@ -186,6 +193,34 @@ class PodColumns:
 
     # -- row lifecycle ---------------------------------------------------------
 
+    # the numeric columns an shm arena carries across the process boundary
+    # (schema: store/shm.py POD_COLS_SCHEMA) and the fills their fresh
+    # regions need (-1 is a sentinel everywhere it appears)
+    _SHM_ATTRS = ("ns_id", "node_id", "row_rv", "phase_id", "priority",
+                  "rank", "diverged")
+    _SHM_FILLS = {"ns_id": -1, "node_id": -1, "row_rv": -1, "phase_id": -1,
+                  "rank": -1}
+
+    def attach_arena(self, arena) -> None:
+        """Migrate the numeric columns into a store/shm.py ShmArena: each
+        attr above is rebound to the arena's shared array (contents copied,
+        fresh region filled with the column's sentinel). Caller holds the
+        pods shard; after this every mutation below lands directly in the
+        shared bytes and worker processes see it without pickling."""
+        cap = len(self.keys)
+        if arena.capacity < cap:
+            arena.grow(cap)
+        for attr in self._SHM_ATTRS:
+            src = getattr(self, attr)
+            dst = arena.arrays[attr]
+            dst[: len(src)] = src
+            fill = self._SHM_FILLS.get(attr)
+            if fill is not None and len(dst) > len(src):
+                dst[len(src):] = fill
+            setattr(self, attr, dst)
+        self._arena = arena
+        arena.publish(self.n)
+
     def _grow(self) -> None:
         cap = len(self.keys)
         new = cap * 2
@@ -196,6 +231,18 @@ class PodColumns:
         self.name.extend([None] * pad)
         self.gang.extend([""] * pad)
         self.sig.extend([None] * pad)
+        arena = self._arena
+        if arena is not None:
+            if arena.capacity < new:
+                old_cap = arena.capacity
+                arena.grow(new)
+                for attr in self._SHM_ATTRS:
+                    arr = arena.arrays[attr]
+                    fill = self._SHM_FILLS.get(attr)
+                    if fill is not None:
+                        arr[old_cap:] = fill
+                    setattr(self, attr, arr)
+            return
         for attr, fill in (("ns_id", -1), ("node_id", -1), ("phase_id", -1),
                            ("rank", -1)):
             old = getattr(self, attr)
@@ -222,6 +269,8 @@ class PodColumns:
             if row >= len(self.keys):
                 self._grow()
             self.n += 1
+            if self._arena is not None:
+                self._arena.publish(self.n)
         self.keys[row] = key
         meta = pod.metadata
         self.uid[row] = meta.uid
@@ -473,6 +522,11 @@ class PodColumns:
     # -- telemetry -------------------------------------------------------------
 
     def stats(self) -> Dict[str, Any]:
+        if self._arena is not None:
+            return dict(self._base_stats(), shm=self._arena.stats())
+        return self._base_stats()
+
+    def _base_stats(self) -> Dict[str, Any]:
         return {
             "rows": len(self.key2row),
             "capacity": len(self.keys),

@@ -36,6 +36,10 @@ every other client:
       1  | _pods_lock      | the `pods` rows AND the columnar pod-row
          |                 | table (store/columnar.py PodColumns)
       2  | _nodes_lock     | the `nodes` rows
+    leaf | partition locks | PartitionRouter._route_lock /
+         |                 | PartitionedScheduler._dispatch_lock — strictly
+         |                 | after the whole store chain
+         |                 | (scheduler/partition.py lock discipline)
 
   bind_many validates under the pods shard ALONE (the expensive part); the
   commit (contiguous RV range, row/column writes, event emission) then runs
@@ -89,11 +93,16 @@ build fails raises. The `native.commit` fault site fires in the phase gap
   every lock/GIL interleaving (a GIL-waiting thread that needs this lock, a
   lock-waiting thread that holds the GIL).
 
-Not in this slice: the shared-memory column arena (`enable_shm`,
-`shm_name`, `shm_close`) and the lock-graph witness the ordered locks would
-record into (ROADMAP.md queue 1 item 7e), and the API serializer the
-mutation detector fingerprints through (item 7f: until then it walks the
-objects' fields, or their own `to_dict`).
+Shared-memory columns: enable_shm() moves the columnar pod rows' numeric
+columns into a store/shm.py arena that worker processes map read-only
+(scheduler/mpsched.py); the store stays the only writer, under the pods
+shard as before, and shm_close() unlinks the arena (its caller owns that).
+The ordered locks record every (held -> acquired) edge into the lock-graph
+witness (store/lockgraph.py).
+
+Not in this slice: the API serializer the mutation detector fingerprints
+through (ROADMAP.md queue 1 item 7f: until then it walks the objects'
+fields, or their own `to_dict`).
 """
 
 from __future__ import annotations
@@ -665,17 +674,25 @@ class _OrderedRLock:
     Rule: acquiring a lock of LOWER rank than one already held (global 0 <
     pods shard 1 < nodes shard 2) raises LockOrderViolation — unless the
     thread already holds the lock (reentrant acquires never deadlock). The
-    stack is per-store, so two independent stores never alias ranks. The
-    acquisition edges are not recorded (the lock-graph witness is ROADMAP.md
-    queue 1 item 7e)."""
+    stack is per-store, so two independent stores never alias ranks.
 
-    __slots__ = ("_lock", "_rank", "_name", "_state")
+    Every fresh acquisition made while another ordered lock is held also
+    RECORDS the edge (held -> acquired) into the lock-graph witness
+    (store/lockgraph.py), whose diff() holds the run's edge set against the
+    ordering table. The record is one dict hit; the stack is captured only
+    on an edge's first sighting."""
 
-    def __init__(self, name: str, rank: int, state: _LockOrderState):
+    __slots__ = ("_lock", "_rank", "_name", "_state", "_witness")
+
+    def __init__(self, name: str, rank: int, state: _LockOrderState,
+                 witness=None):
+        from .lockgraph import WITNESS
+
         self._lock = threading.RLock()
         self._rank = rank
         self._name = name
         self._state = state
+        self._witness = WITNESS if witness is None else witness
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         stack = self._state.stack
@@ -687,6 +704,10 @@ class _OrderedRLock:
                         f"{held._name}: store/store.py mandates _lock "
                         "(global RV) -> _pods_lock (pods shard) -> "
                         "_nodes_lock (nodes shard), never reversed")
+            if stack:
+                top = stack[-1]
+                self._witness.record(top._name, top._rank,
+                                     self._name, self._rank)
         ok = self._lock.acquire(blocking, timeout)
         if ok:
             stack.append(self)
@@ -1585,6 +1606,56 @@ class APIStore:
             return None
         with self._pods_lock:
             return self._cols.stats()
+
+    def enable_shm(self) -> Optional[str]:
+        """Back the columnar numeric columns with a shared-memory arena
+        (store/shm.py): the existing columns migrate into named /dev/shm
+        segments a worker process can map read-only by the returned base
+        name. Idempotent (returns the live arena's name); None on the dict
+        path or where shared memory is unavailable. The store stays the ONLY
+        writer: everything still mutates under the pods shard, into shared
+        bytes."""
+        if self._cols is None:
+            return None
+        from . import shm as _shm
+
+        if not _shm.available():
+            return None
+        with self._pods_lock:
+            if self._cols._arena is not None:
+                return self._cols._arena.base_name
+            arena = _shm.ShmArena(_shm.POD_COLS_SCHEMA, capacity=len(self._cols.keys))
+            try:
+                self._cols.attach_arena(arena)
+            except Exception:
+                arena.close()
+                raise
+            return arena.base_name
+
+    @property
+    def shm_name(self) -> Optional[str]:
+        """The live pod-column arena's base name (None until enable_shm)."""
+        cols = self._cols
+        return cols._arena.base_name if cols is not None and cols._arena is not None else None
+
+    def shm_close(self) -> None:
+        """Detach and unlink the pod-column arena (idempotent). Whoever called
+        enable_shm() owns calling this on its stop/finally path, so a
+        teardown never leaks /dev/shm segments. The columns fall back to
+        private numpy arrays with their contents preserved."""
+        if self._cols is None:
+            return
+        with self._pods_lock:
+            arena = self._cols._arena
+            if arena is None:
+                return
+            cols = self._cols
+            cap = len(cols.keys)
+            for attr in cols._SHM_ATTRS:
+                shared = getattr(cols, attr)
+                setattr(cols, attr, _columnar.np.array(shared[:cap], copy=True))
+            cols._arena = None
+            arena.close()
 
     # -- scheduling-specific transactional surfaces ----------------------------
 

@@ -426,9 +426,26 @@ def pod_conservation_report(store, scheduler, keys):
       lost          none of the above
       double_bound  bound more than once in the store's event history, or
                     accounted on two nodes in the scheduler cache
+
+    A coordinator (scheduler/partition.py PartitionedScheduler,
+    scheduler/mpsched.py MPScheduler) exposes conservation_members(): (its
+    live pipelines, its residual pipeline or None). Pending-tracking is the
+    UNION of their queues and caches; the pipelines' caches are DISJOINT, so
+    one pod accounted by two of them is the cross-partition double, while
+    the residual's cache deliberately MIRRORS every bound pod and is
+    checked for internal duplicates alone.
     """
     pods = {p.key: p for p in store.list("pods")[0]}
-    queue_keys = set(scheduler.queue.tracked_keys())
+    members = getattr(scheduler, "conservation_members", None)
+    if members is not None:
+        disjoint, mirror = members()
+        trackers = list(disjoint) + ([mirror] if mirror is not None else [])
+    else:
+        disjoint, mirror = [scheduler], None
+        trackers = [scheduler]
+    queue_keys = set()
+    for s in trackers:
+        queue_keys.update(s.queue.tracked_keys())
     bound, pending, failed, lost = [], [], [], []
     for key in keys:
         pod = pods.get(key)
@@ -438,7 +455,7 @@ def pod_conservation_report(store, scheduler, keys):
             bound.append(key)
         elif pod.is_terminal():
             failed.append(key)
-        elif key in queue_keys or scheduler.cache.is_assumed(key):
+        elif key in queue_keys or any(s.cache.is_assumed(key) for s in trackers):
             pending.append(key)
         else:
             lost.append(key)
@@ -454,16 +471,27 @@ def pod_conservation_report(store, scheduler, keys):
                 and obj.key in keyset:
             bind_counts[obj.key] = bind_counts.get(obj.key, 0) + 1
     double: List[str] = [k for k, n in bind_counts.items() if n > 1]
-    # the scheduler cache never accounts one pod on two nodes; columnar cache
-    # rows collapse into PodInfos first, so the walk counts every accounted
-    # pod, not only the materialized ones
-    scheduler.cache.materialize_columnar_rows()
+
+    def accounted(s) -> Dict[str, int]:
+        # columnar cache rows collapse into PodInfos first, so the walk
+        # counts every accounted pod, not only the materialized ones
+        s.cache.materialize_columnar_rows()
+        seen: Dict[str, int] = {}
+        for ni in s.cache.update_snapshot().node_info_list:
+            for pi in ni.pods:
+                if pi.pod.key in keyset:
+                    seen[pi.pod.key] = seen.get(pi.pod.key, 0) + 1
+        return seen
+
+    # the scheduler caches never account one pod on two nodes, merged over
+    # the disjoint pipelines
     seen: Dict[str, int] = {}
-    for ni in scheduler.cache.update_snapshot().node_info_list:
-        for pi in ni.pods:
-            if pi.pod.key in keyset:
-                seen[pi.pod.key] = seen.get(pi.pod.key, 0) + 1
+    for s in disjoint:
+        for k, n in accounted(s).items():
+            seen[k] = seen.get(k, 0) + n
     double.extend(k for k, n in seen.items() if n > 1 and k not in double)
+    if mirror is not None:
+        double.extend(k for k, n in accounted(mirror).items() if n > 1 and k not in double)
     return {"bound": bound, "pending": pending, "failed": failed, "lost": lost,
             "double_bound": double,
             "counts": {"submitted": len(keys), "bound": len(bound), "pending": len(pending),

@@ -167,9 +167,9 @@ def test_tables_match_jax():
     assert set(tfi.SITES) == set(jfi.SITES)
     assert tfi.DROP_ONLY_SITES == jfi.DROP_ONLY_SITES
     assert tfi.MODES == jfi.MODES
-    # the six sites the port wires say where; the others name their item
+    # the sites the port wires say where; the others name their item
     wired = {"solver.solve", "rebalance.cycle", "store.bind_many", "watch.deliver",
-             "bind.worker", "native.commit"}
+             "bind.worker", "native.commit", "partition.dispatch", "process.worker"}
     for site in wired:
         assert "not wired" not in tfi.SITES[site]
     for site in set(tfi.SITES) - wired:

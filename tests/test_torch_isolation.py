@@ -11,8 +11,11 @@ spread inclusion policies) through the per-pod route; another drives the
 full store (columnar rows, the mutation detector, bounded history, watch
 telemetry, an armed watch.deliver site); another runs the host commit
 (columnar cache rows, the g++ engines, pipelined binds under armed bind
-faults) and solver="native"; a static pass over every module of kubernetes_tpu_torch and
-chip_smoke.py finds no such import; and the entry points default to the
+faults) and solver="native"; another drives the partitioned scheduler and
+the multi-process one (spawned workers over shared columns), and a fresh
+interpreter imports what a worker imports without torch; a static pass
+over every module of kubernetes_tpu_torch and chip_smoke.py finds no such
+import; and the entry points default to the
 card, raising where none is present (decided inside each test).
 """
 
@@ -438,6 +441,80 @@ def test_observability_imports_no_jax_and_no_jax_package():
     assert got["valid"] is True and got["slo"] is True
     assert got["dump"] == ["n0", "n1", "n2", "n3"]
     assert got["modules"] == []
+
+
+_PARTITION = r"""
+import json, os, sys
+from kubernetes_tpu_torch.scheduler.mpsched import MPScheduler
+from kubernetes_tpu_torch.scheduler.partition import PartitionedScheduler
+from kubernetes_tpu_torch.store import APIStore, shm
+from kubernetes_tpu_torch.store.lockgraph import WITNESS
+from kubernetes_tpu_torch.testing import MakeNode, MakePod, pod_conservation_report
+
+out = {}
+for name in ("partition", "mp"):
+    store = APIStore(lock_order_check=True)
+    for i in range(8):
+        store.create("nodes", MakeNode(f"n{i}").labels(
+            {"kubernetes.io/hostname": f"n{i}", "topology.kubernetes.io/zone": f"z{i % 2}"})
+            .capacity({"cpu": "8", "memory": "16Gi"}).obj())
+    if name == "partition":
+        sched = PartitionedScheduler(store, lambda: None, partitions=2, device="cpu",
+                                     solver="fast")
+    else:
+        sched = MPScheduler(store, processes=2, device="cpu", solver="fast")
+    sched.sync()
+    pods = [MakePod(f"p{i}").req({"cpu": "500m"}).obj() for i in range(40)]
+    pods.append(MakePod("s0").labels({"app": "s"}).req({"cpu": "100m"}).topology_spread(
+        1, "topology.kubernetes.io/zone", "DoNotSchedule", {"app": "s"}).obj())
+    keys = [p.key for p in pods]
+    store.create_many("pods", pods)
+    sched.run_until_idle()
+    sched.flush_binds()
+    rep = pod_conservation_report(store, sched, keys)["counts"]
+    st = sched.sched_stats()
+    out[name] = {"bound": rep["bound"], "lost": rep["lost"], "double": rep["double_bound"],
+                 "mode": getattr(sched, "mode", None),
+                 "residual": (st["residual"]["scheduled"] if name == "partition"
+                              else st["processes"]["residual"]["scheduled"])}
+    sched.stop()
+mine = f"{shm.NAME_PREFIX}-{os.getpid()}-"  # this process's arenas only
+print(json.dumps({"out": out, "leaked": [s for s in shm.leaked_segments() if s.startswith(mine)],
+                  "witness_clean": WITNESS.diff()["clean"],
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_partitioned_and_multiprocess_import_no_jax_and_no_jax_package():
+    """A PartitionedScheduler (two shards and the residual pass) and an
+    MPScheduler (two spawned worker processes over shared columns and its
+    residual pipeline) on the CPU: every pod bound once, no segment left,
+    the port's lock witness clean, and neither jax nor the JAX package
+    loaded."""
+    out = subprocess.run([sys.executable, "-c", _PARTITION], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["out"]["partition"] == {"bound": 41, "lost": 0, "double": 0, "mode": None,
+                                       "residual": 1}
+    assert got["out"]["mp"] == {"bound": 41, "lost": 0, "double": 0, "mode": "mp",
+                                "residual": 1}
+    assert got["leaked"] == [] and got["witness_clean"] is True
+    assert got["modules"] == []
+
+
+def test_worker_modules_import_no_torch():
+    """What a spawned worker process imports (scheduler/mpworker.py and
+    store/shm.py, through the package inits and the store) loads neither
+    torch nor jax nor the JAX package: a worker holds no CUDA context."""
+    code = ("import json, sys\n"
+            "import kubernetes_tpu_torch.scheduler.mpworker\n"
+            "import kubernetes_tpu_torch.store.shm\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'kubernetes_tpu'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _imports(path: Path):
