@@ -126,7 +126,8 @@ Phases, each printing one JSON line:
              priority than its preemptor and on the node it was narrated on,
              the Preempted events, victims and nominations consistent, the
              kernels launched, and the map, the victims and the events equal
-             to a CPU rerun; reported: seconds to bound, pods/s,
+             to a CPU rerun (each run in a spawned worker beside the card
+             runs); reported: seconds to bound, pods/s,
              preemption_count, victims and the solve stage
   main_path_fallback
              the fallback classes on the batch path (after scheduler_perf's
@@ -221,8 +222,9 @@ Phases, each printing one JSON line:
              batch; the kernel phases and transport_direct keep the full
              sets): every pod bound, no
              over-commit, ssd pods on ssd nodes, the transport path with no
-             solver failure, kernels J and E/F launched; a CPU rerun places
-             the auction identically and the sinkhorn the same count; the
+             solver failure, kernels J and E/F launched; a CPU rerun (in a
+             spawned worker beside the card runs) places the auction
+             identically and the sinkhorn the same count; the
              initial-state utility beside fast and exact on the same card;
              the solve stage per batch split into the kernels' device time
              (CUDA events around each E/F and J call) and the rest
@@ -293,7 +295,33 @@ Phases, each printing one JSON line:
              second round: a restart, conservation. Reported: the cores
              and concurrent_drive (whether the pipelines overlapped) and
              overlap_cpu_s (owner and worker CPU seconds beyond the wall)
-  timing     each phase's wall seconds
+  main_path_controllers
+             the workload control loop (controllers/) through the batch
+             scheduler, the structure of the JAX rung ControlPlane_churn
+             (bench.py:2382) on scheduler_perf's 5,000 nodes (10 zones):
+             BatchScheduler(solver="auto", batch_size=4096, device="cuda")
+             with the Deployment, ReplicaSet, TaintEviction, DaemonSet,
+             Disruption and garbage-collector controllers, driven round by
+             round on a FakeClock (reconcile_once on each and the evictor's
+             tick, run_until_idle, then testing.run_bound_pods, the Running
+             stand-in until the node agent is ported). Setup (untimed): a
+             DaemonSet of 100m / 128Mi pods on every node, 10 Deployments of
+             100 SchedulingBasic pods (RollingUpdate, maxSurge and
+             maxUnavailable 25%) with a PDB each (maxUnavailable 10%). Timed
+             steps: the rolling update (v1 -> v2 on all ten), the drain (a
+             NoExecute taint on 50 nodes) and the cascade (one Deployment
+             deleted, its ReplicaSets and pods gone). Gates: no node
+             over-committed, every pod (by uid) bound to one node, each live
+             Deployment at its replicas under one current ReplicaSet, no
+             Deployment pod on a drained node, each PDB's disruptions_allowed
+             equal to a recount, no assumed pod, the DaemonSet's status equal
+             to its pods, kernels B and C launched, and a rerun with
+             device="cpu" giving the same map, rounds and event counts per
+             kind. Printed: each step's seconds and pods/s, the host seconds
+             by part of a round, the stage table, the reconcile rollup, the
+             watch propagation p50 / p99, the evict->replace chains the pod
+             tracer linked and CONTROL_PLANE_SLO (printed, not gated)
+  timing     each phase's wall seconds and main's (main_s)
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
@@ -2339,34 +2367,78 @@ def check_preempt_run(name, r, device, solver):
         check(r["launches"][solver_kernel] > 0, f"{name}: {solver_kernel} never launched")
 
 
+RERUN_FREE_CORES = 2  # cores a rerun worker never runs on: the card run's own
+
+
+def rerun_worker_init(pool_size):
+    """Initializer of a CPU-rerun worker: keep off the first RERUN_FREE_CORES
+    cores of this process's set and split the rest between the pool's
+    workers' torch threads, so the card run beside the pool always has
+    cores of its own (caches and memory bandwidth stay shared)."""
+    import os
+
+    import torch
+
+    cpus = sorted(os.sched_getaffinity(0))
+    mine = cpus[RERUN_FREE_CORES:] or cpus
+    os.sched_setaffinity(0, mine)
+    torch.set_num_threads(max(1, len(mine) // pool_size))
+
+
+def rerun_pool(n):
+    """A spawned pool of n CPU-rerun workers (rerun_worker_init)."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(n, initializer=rerun_worker_init,
+                                                     initargs=(n,))
+
+
+def preempt_cpu_rerun(spec, solver, async_prep, batch):
+    """One main_path_preempt run with device="cpu" (the plain versions), in
+    a worker process: its placement, victims, events and seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    c = drive_preempt(lambda: preempt_case(*spec), torch.device("cpu"), solver, async_prep,
+                      batch)
+    return {"placement": c["placement"], "victims": c["victims"], "events": c["events"],
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_main_path_preempt(device, sizes, card):
     """PreemptionBasic (auto and exact, async victim preparation off and on),
     PreemptionBasic at 5,000 nodes (auto, async off and on, batches of
     sizes["batch"]) and the constrained case (exact): every high pod bound,
     the gates of check_preempt_run, and the map, the victims and the events
-    equal to a CPU rerun."""
-    import torch
-
+    equal to a CPU rerun, each run in a spawned worker from the phase's
+    beginning (host work on other cores, rerun_pool, off the phase's wall
+    time)."""
     n, n_big = sizes["preempt_nodes"], sizes["nodes"]
-    cases = [(f"PreemptionBasic/{solver}/{'async' if a else 'sync'}",
-              lambda: preempt_case(n, n), solver, a, sizes["batch"])
+    # (name, preempt_case arguments, solver, async preparation, batch size)
+    cases = [(f"PreemptionBasic/{solver}/{'async' if a else 'sync'}", (n, n), solver, a,
+              sizes["batch"])
              for solver in ("auto", "exact") for a in (False, True)]
     # at the other main paths' batch size: the preemptors span two batches,
     # and the second pumps whatever victim deletions have landed by then
     # (all of them in sync mode, those the worker has finished in async)
-    cases += [(f"PreemptionBasic_{n_big}/auto/{'async' if a else 'sync'}",
-               lambda: preempt_case(n_big, n_big), "auto", a, sizes["batch"])
+    cases += [(f"PreemptionBasic_{n_big}/auto/{'async' if a else 'sync'}", (n_big, n_big),
+               "auto", a, sizes["batch"])
               for a in (False, True)]
-    cases.append(("PreemptionConstrained/exact/async",
-                  lambda: preempt_case(n, sizes["preempt_constrained"], zones=10),
+    cases.append(("PreemptionConstrained/exact/async", (n, sizes["preempt_constrained"], 10),
                   "exact", True, sizes["batch"]))
+    with rerun_pool(2) as pool:
+        reruns = {name: pool.apply_async(preempt_cpu_rerun, (spec, solver, async_prep, batch))
+                  for name, spec, solver, async_prep, batch in cases}
+        return preempt_runs(device, card, cases, reruns)
+
+
+def preempt_runs(device, card, cases, reruns):
     out = {}
-    for name, case, solver, async_prep, batch in cases:
-        r = drive_preempt(case, device, solver, async_prep, batch)
+    for name, spec, solver, async_prep, batch in cases:
+        r = drive_preempt(lambda: preempt_case(*spec), device, solver, async_prep, batch)
         check_preempt_run(name, r, device, solver)
-        t0 = time.perf_counter()
-        c = drive_preempt(case, torch.device("cpu"), solver, async_prep, batch)
-        cpu_s = time.perf_counter() - t0
+        c = reruns[name].get(timeout=900)
+        cpu_s = c["seconds"]
         check(c["placement"] == r["placement"],
               f"{name}: the CPU rerun placed differently: " + str(sorted(
                   k for k in r["placement"] if r["placement"][k] != c["placement"].get(k))[:5]))
@@ -2890,17 +2962,19 @@ def transport_workloads(sizes):
     pods and 50,000 pods of 500m/1Gi, one group a batch. TransportMixed: the
     reference's heterogeneous node-selector test (tests/test_transport.py:119)
     at 5,000 nodes of its 8 cpu / 16Gi / 110 pods: 10,000 pods in four
-    shapes, every fourth pod with nodeSelector disk=ssd (8 groups a batch)."""
+    shapes, every fourth pod with nodeSelector disk=ssd (8 groups a batch).
+    Each function takes an optional pod count k: the first k pods of the
+    full set (a pod depends only on its index)."""
     from kubernetes_tpu_torch.testing import MakePod
 
-    def t50k():
+    def t50k(k=None):
         return (transport_nodes(sizes["nodes"]),
                 [MakePod(f"tr-{i}").req({"cpu": "500m", "memory": "1Gi"}).obj()
-                 for i in range(sizes["transport_pods"])])
+                 for i in range(sizes["transport_pods"] if k is None else k)])
 
-    def mixed():
+    def mixed(k=None):
         pods = []
-        for i in range(sizes["mixed_transport_pods"]):
+        for i in range(sizes["mixed_transport_pods"] if k is None else k):
             cpu, mem = SHAPES[(i // 4) % 4]
             b = MakePod(f"tm-{i}").req({"cpu": cpu, "memory": mem})
             if i % 4 == 0:
@@ -3367,9 +3441,33 @@ def solve_split(sched, kernel_ms):
     return out
 
 
-def phase_main_path_transport(device, sizes, card):
+def transport_cpu_rerun(name, sizes, solver):
+    """One transport main-path run with device="cpu" (the plain versions),
+    in a worker process: its {pod: node} map, the count bound and its
+    seconds (the store and scheduler stay in the worker)."""
     import torch
 
+    nodes, pods = transport_workloads(sizes)[name](sizes["transport_path_pods"][name])
+    t0 = time.perf_counter()
+    _, _, got, _, _, _ = drive_main_path(name, nodes, pods, torch.device("cpu"),
+                                         sizes["batch"], solver=solver)
+    placed = [p for p in got if p.spec.node_name]
+    check_no_overcommit(placed, nodes)
+    return {"map": {p.metadata.name: p.spec.node_name for p in got}, "placed": len(placed),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_main_path_transport(device, sizes, card):
+    """Each run on the card, its CPU rerun in a spawned worker started at
+    the phase's beginning (the reruns are host work on other cores,
+    rerun_pool, so they no longer add to the phase's wall time)."""
+    with rerun_pool(2) as pool:
+        reruns = {(name, solver): pool.apply_async(transport_cpu_rerun, (name, sizes, solver))
+                  for name in transport_workloads(sizes) for solver in ("auction", "sinkhorn")}
+        return transport_runs(device, sizes, card, reruns)
+
+
+def transport_runs(device, sizes, card, reruns):
     from kubernetes_tpu_torch.ops import kernels
 
     out = {}
@@ -3377,8 +3475,7 @@ def phase_main_path_transport(device, sizes, card):
         def build(full=full, k=sizes["transport_path_pods"][name]):
             # the main path's depth cut; the kernels and the one-call solve
             # keep the full pod sets
-            nodes, pods = full()
-            return nodes, pods[:k]
+            return full(k)
 
         nodes, pods = build()
         quality = {}
@@ -3403,22 +3500,15 @@ def phase_main_path_transport(device, sizes, card):
                 kernel = "auction_phase" if solver == "auction" else "sinkhorn"
                 check(launches[kernel] > 0, f"{name} {solver}: {kernel} never launched")
             card_map = {p.metadata.name: p.spec.node_name for p in got}
-            t0 = time.perf_counter()
-            nodes_c, pods_c = build()
-            _, sched_c, got_c, _, _, _ = drive_main_path(name, nodes_c, pods_c,
-                                                         torch.device("cpu"), sizes["batch"],
-                                                         solver=solver)
-            cpu_s = time.perf_counter() - t0
-            placed_c = [p for p in got_c if p.spec.node_name]
-            check_no_overcommit(placed_c, nodes_c)
-            cpu_map = {p.metadata.name: p.spec.node_name for p in got_c}
+            rerun = reruns[(name, solver)].get(timeout=900)
+            cpu_s, cpu_map = rerun["seconds"], rerun["map"]
             differ = [k for k in card_map if card_map[k] != cpu_map.get(k)]
             if solver == "auction":
                 check(not differ, f"{name} auction: {len(differ)} placements differ from the CPU "
                                   f"run, e.g. {[(k, card_map[k], cpu_map[k]) for k in differ[:3]]}")
             else:
-                check(len(placed_c) == len(placed), f"{name} sinkhorn: {len(placed)} bound on "
-                                                    f"the card, {len(placed_c)} on the CPU")
+                check(rerun["placed"] == len(placed), f"{name} sinkhorn: {len(placed)} bound on "
+                                                      f"the card, {rerun['placed']} on the CPU")
             quality[solver] = initial_utility(nodes, pods, card_map, device)
             line = {"phase": "main_path_transport", "workload": name, "solver": solver,
                     "nodes": len(nodes), "pods": len(pods), "bound": len(placed),
@@ -4294,7 +4384,433 @@ def mp_leg(device, nodes, sizes, card, spread):
     return line
 
 
+# ---------------------------------------------------------------------------
+# main_path_controllers: the workload control loop on the card
+# ---------------------------------------------------------------------------
+
+
+def ctl_deployment(name, replicas, image="v1"):
+    """A Deployment of SchedulingBasic's pod (500m / 1Gi) with Kubernetes'
+    default RollingUpdate budget, maxSurge and maxUnavailable 25% (the
+    workload kinds hold absolute counts, so 25% of the replicas, rounded up
+    for the surge and down for the unavailable, as the reference's
+    intstr scaling does). Owner references match by uid, and the store
+    assigns none, so the manifest carries one."""
+    from kubernetes_tpu_torch.api.types import new_uid
+    from kubernetes_tpu_torch.api.workloads import Deployment
+
+    return Deployment.from_dict({
+        "metadata": {"name": name, "uid": new_uid()},
+        "spec": {"replicas": replicas, "selector": {"matchLabels": {"app": name}},
+                 "strategy": {"type": "RollingUpdate",
+                              "rollingUpdate": {"maxSurge": -(-replicas // 4),
+                                                "maxUnavailable": replicas // 4}},
+                 "template": {"metadata": {"labels": {"app": name}},
+                              "spec": {"containers": [{
+                                  "name": "c", "image": image,
+                                  "resources": {"requests": {"cpu": "500m",
+                                                             "memory": "1Gi"}}}]}}}})
+
+
+def ctl_daemonset():
+    from kubernetes_tpu_torch.api.types import new_uid
+    from kubernetes_tpu_torch.api.workloads import DaemonSet
+
+    return DaemonSet.from_dict({
+        "metadata": {"name": "node-agent", "uid": new_uid()},
+        "spec": {"selector": {"matchLabels": {"app": "node-agent"}},
+                 "template": {"metadata": {"labels": {"app": "node-agent"}},
+                              "spec": {"containers": [{
+                                  "name": "agent", "image": "agent:1",
+                                  "resources": {"requests": {"cpu": "100m",
+                                                             "memory": "128Mi"}}}]}}}})
+
+
+class BindLedger:
+    """Every pod's binds, read from a pods watch drained each round: a pod
+    (by uid) seen on a node once, and never on a second one."""
+
+    def __init__(self, store):
+        self.watch = store.watch("pods", maxsize=0)
+        self.node_of = {}
+        self.rebinds = []
+
+    def drain(self):
+        for ev in self.watch.drain():
+            node = ev.obj.spec.node_name
+            if not node:
+                continue
+            uid = ev.obj.metadata.uid
+            was = self.node_of.setdefault(uid, node)
+            if was != node:
+                self.rebinds.append((ev.obj.key, was, node))
+
+
+PodRow = collections.namedtuple(
+    "PodRow", "key uid node phase app image hash live cpu mem labels")
+
+
+def ctl_census(store):
+    """Every stored pod as a PodRow, read through list()'s predicate, which
+    sees the stored objects and returns False: nothing is copied (a LIST
+    deep-copies each pod it returns, which the controllers pay and this
+    harness need not)."""
+    from kubernetes_tpu_torch.api import compute_pod_resource_request
+
+    rows = []
+
+    def take(p):
+        r = compute_pod_resource_request(p)
+        labels = p.metadata.labels
+        rows.append(PodRow(p.key, p.metadata.uid, p.spec.node_name, p.status.phase,
+                           labels.get("app"), p.spec.containers[0].image,
+                           labels.get("pod-template-hash"),
+                           not p.is_terminal() and p.metadata.deletion_timestamp is None,
+                           r.milli_cpu, r.memory, dict(labels)))
+        return False
+
+    store.list("pods", take)
+    return rows
+
+
+def ctl_run(device, sizes):
+    """One run of the control loop on a fresh store: scheduler_perf's
+    5,000-node cluster, BatchScheduler(solver="auto", batch_size=4096) on
+    `device`, the Deployment, ReplicaSet, TaintEviction, DaemonSet,
+    Disruption and garbage-collector controllers on a FakeClock stepped a
+    second a round, started (sync_all, one empty reconcile) before any
+    workload exists, as a controller manager starts with its cluster. A
+    round: reconcile_once on every controller and the taint evictor's
+    tick(), run_until_idle, then the Running stand-in
+    (testing.run_bound_pods, until the node agent is ported); every
+    controller pumps its watch after each of these stages. Steps: setup
+    (untimed), the rolling update, the drain, the cascade. Returns what the
+    gates and the comparison read."""
+    from kubernetes_tpu_torch import controllers as ctl
+    from kubernetes_tpu_torch.api import Resource
+    from kubernetes_tpu_torch.api.labels import Selector
+    from kubernetes_tpu_torch.api.policy import PodDisruptionBudget
+    from kubernetes_tpu_torch.api.types import ObjectMeta, Taint
+    from kubernetes_tpu_torch.controllers.deployment import template_hash
+    from kubernetes_tpu_torch.obs.reconcile import reconcile_rollup
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.scheduler.slo import CONTROL_PLANE_SLO, evaluate_slo
+    from kubernetes_tpu_torch.store import APIStore
+    from kubernetes_tpu_torch.testing import run_bound_pods
+    from kubernetes_tpu_torch.utils import FakeClock
+
+    n_nodes, n_dep, replicas = sizes["nodes"], sizes["ctl_deployments"], sizes["ctl_replicas"]
+    nodes = make_nodes(n_nodes, zones=10)
+    cap = {n.metadata.name: Resource.from_resource_list(n.status.allocatable) for n in nodes}
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    clock = FakeClock(0.0)
+    # the pod tracer samples every pod the run admits (the DaemonSet's, two
+    # templates' worth of replicas and the replacements): a drain victim
+    # links to its replacement only if its own span exists
+    sample_k = n_nodes + 3 * n_dep * replicas
+    sched = BatchScheduler(store, device=device.type, solver="auto", batch_size=sizes["batch"],
+                           clock=clock, trace_sample_k=sample_k)
+    sched.sync()
+    controllers = [ctl.DeploymentController(store, clock=clock),
+                   ctl.ReplicaSetController(store, clock=clock),
+                   ctl.TaintEvictionController(store, clock=clock),
+                   ctl.DaemonSetController(store, clock=clock),
+                   ctl.DisruptionController(store, clock=clock),
+                   ctl.GarbageCollector(store, clock=clock)]
+    evictor = controllers[2]
+    for c in controllers:
+        c.sync_all()
+        c.reconcile_once()
+    ledger = BindLedger(store)
+    kinds = store.watch(maxsize=0)
+    events = collections.Counter()
+    host = {"reconcile": 0.0, "schedule": 0.0, "running": 0.0, "census": 0.0}
+    per_ctl = collections.Counter()
+    deps = [f"web-{d}" for d in range(n_dep)]
+
+    def pump_all():
+        # each controller drains its watch after every stage of a round, as
+        # an informer drains continuously: a watcher left for a whole round
+        # would overflow its 10,000-event buffer at this width and relist
+        # (5,000 node keys into the taint evictor, each a scan of the pods)
+        for c in controllers:
+            c.pump()
+
+    def drive(name, max_rounds, done):
+        for r in range(1, max_rounds + 1):
+            t0 = time.perf_counter()
+            for c in controllers:
+                tc = time.perf_counter()
+                c.reconcile_once()
+                per_ctl[type(c).__name__] += time.perf_counter() - tc
+            tc = time.perf_counter()
+            evictor.tick()
+            per_ctl["TaintEvictionController.tick"] += time.perf_counter() - tc
+            t1 = time.perf_counter()
+            sched.run_until_idle()
+            t2 = time.perf_counter()
+            pump_all()
+            t2b = time.perf_counter()
+            run_bound_pods(store)
+            t3 = time.perf_counter()
+            pump_all()
+            t3b = time.perf_counter()
+            ledger.drain()
+            for ev in kinds.drain():
+                events[ev.kind] += 1
+            clock.step(1.0)
+            rows = ctl_census(store)
+            ok = done(rows)
+            host["reconcile"] += (t1 - t0) + (t2b - t2) + (t3b - t3)
+            host["schedule"] += t2 - t1
+            host["running"] += t3 - t2b
+            host["census"] += time.perf_counter() - t3b
+            if ok:
+                return r, rows
+        raise PhaseFailed(f"main_path_controllers: {name} did not converge in "
+                          f"{max_rounds} rounds")
+
+    def live_of(rows, dep, want_hash=None):
+        return [r for r in rows if r.app == dep and r.live
+                and (want_hash is None or r.hash == want_hash)]
+
+    def settled(rows, live_deps, want_image):
+        by_app = collections.Counter()
+        for r in rows:
+            if not (r.node and r.phase == "Running"):
+                return False
+            if r.app in live_deps:
+                if r.image != want_image:
+                    return False
+                by_app[r.app] += 1
+        if any(by_app[d] != replicas for d in live_deps):
+            return False
+        rses, _ = store.list("replicasets")
+        return all(rs.spec.replicas == (replicas if rs.spec.template.spec.containers[0].image
+                                        == want_image else 0)
+                   for rs in rses if rs.metadata.labels.get("app") in live_deps)
+
+    kernels.reset_launch_counts()
+    # setup (untimed): the DaemonSet, the Deployments and their PDBs
+    store.create("daemonsets", ctl_daemonset())
+    for d in deps:
+        store.create("deployments", ctl_deployment(d, replicas))
+        store.create("poddisruptionbudgets", PodDisruptionBudget(
+            metadata=ObjectMeta(name=d, namespace="default"),
+            selector=Selector.from_match_labels({"app": d}), max_unavailable="10%"))
+    t0 = time.perf_counter()
+    rounds = {"setup": drive("setup", 40, lambda rows: settled(rows, deps, "v1"))[0]}
+    steps = {"setup": {"seconds": time.perf_counter() - t0,
+                       "pods": n_nodes + n_dep * replicas}}
+    store.clear_watch_propagation()
+    for c in controllers:
+        c.recorder.clear()
+
+    def image(v):
+        def mutate(dep):
+            dep.spec.template.spec.containers[0].image = v
+            return dep
+        return mutate
+
+    # (1) the rolling update: v1 -> v2 on every Deployment
+    t0 = time.perf_counter()
+    for d in deps:
+        store.guaranteed_update("deployments", f"default/{d}", image("v2"))
+    rounds["update"], rows = drive("rolling update", 80,
+                                   lambda rows: settled(rows, deps, "v2"))
+    steps["update"] = {"seconds": time.perf_counter() - t0, "pods": n_dep * replicas}
+
+    # (2) the drain: a NoExecute taint on 1% of the nodes, spread evenly
+    drained = [f"node-{i}" for i in range(0, n_nodes, n_nodes // sizes["ctl_drain"])]
+    drained = drained[:sizes["ctl_drain"]]
+    drained_set = set(drained)
+    victim_keys = {r.key for r in rows if r.node in drained_set and r.app in deps}
+    victims = len(victim_keys)
+
+    def taint(node):
+        node.spec.taints = list(node.spec.taints) + [Taint(key="drain", effect="NoExecute")]
+        return node
+
+    t0 = time.perf_counter()
+    for name in drained:
+        store.guaranteed_update("nodes", name, taint)
+
+    def drained_done(rows):
+        return (not any(r.node in drained_set for r in rows)
+                and settled(rows, deps, "v2"))
+
+    rounds["drain"], rows = drive("drain", 40, drained_done)
+    steps["drain"] = {"seconds": time.perf_counter() - t0, "pods": victims}
+
+    # (3) the cascade: delete the last Deployment; the clock also steps past
+    # the garbage collector's sweep interval each round
+    gone = deps[-1]
+    live = deps[:-1]
+    gone_pods = len(live_of(rows, gone))
+    t0 = time.perf_counter()
+    store.delete("deployments", f"default/{gone}")
+
+    def cascaded(rows):
+        clock.step(ctl.GarbageCollector.SWEEP_INTERVAL)
+        rses, _ = store.list("replicasets")
+        return (not any(r.app == gone for r in rows)
+                and not any(rs.metadata.labels.get("app") == gone for rs in rses)
+                and settled(rows, live, "v2"))
+
+    rounds["cascade"], rows = drive("cascade", 20, cascaded)
+    steps["cascade"] = {"seconds": time.perf_counter() - t0, "pods": gone_pods}
+    sync(device)
+    launches = dict(kernels.LAUNCHES)
+    sched.flush_binds()
+
+    # gates
+    rows = ctl_census(store)
+    used = {}
+    for r in rows:
+        if r.node:
+            u = used.setdefault(r.node, [0, 0, 0])
+            u[0] += r.cpu
+            u[1] += r.mem
+            u[2] += 1
+    for node, (cpu, mem, cnt) in used.items():
+        c = cap[node]
+        check(cpu <= c.milli_cpu and mem <= c.memory and cnt <= c.allowed_pod_number,
+              f"main_path_controllers: node {node} over-committed: cpu {cpu}m mem {mem} "
+              f"pods {cnt}")
+    check(not ledger.rebinds, f"main_path_controllers: pods bound twice {ledger.rebinds[:3]}")
+    check(not any(r.node in drained_set and r.app in deps for r in rows),
+          "main_path_controllers: a Deployment pod on a drained node")
+    rses, _ = store.list("replicasets")
+    for d in live:
+        dep = store.get("deployments", f"default/{d}")
+        h = template_hash(dep)
+        cur = [rs for rs in rses if rs.metadata.labels.get("app") == d and rs.spec.replicas]
+        check(len(cur) == 1 and cur[0].metadata.labels.get("pod-template-hash") == h
+              and cur[0].spec.replicas == replicas,
+              f"main_path_controllers: {d} runs "
+              f"{[(r.metadata.name, r.spec.replicas) for r in cur]}")
+        check(len(live_of(rows, d, h)) == replicas == len(live_of(rows, d)),
+              f"main_path_controllers: {d} has {len(live_of(rows, d))} live pods")
+    pdbs = {}
+    for b in store.list("poddisruptionbudgets")[0]:
+        # the recount: the pods the PDB's selector picks (live ones), healthy
+        # if bound; maxUnavailable is the manifest's 10%, scaled as intstr
+        # scales a percentage (rounded up); allowed = healthy - desired
+        sel = [r for r in rows if r.app == b.metadata.name and r.live]
+        healthy = sum(1 for r in sel if r.node)
+        unavailable = -(-10 * len(sel) // 100)
+        want = max(0, healthy - (len(sel) - unavailable))
+        check(b.disruptions_allowed == want,
+              f"main_path_controllers: PDB {b.metadata.name} allows {b.disruptions_allowed}, "
+              f"a recount {want}")
+        pdbs[b.metadata.name] = {"recount_healthy": healthy, "recount_allowed": want,
+                                 "disruptions_allowed": b.disruptions_allowed}
+    check(sched.cache.assumed_count() == 0, "main_path_controllers: assumed pods left")
+    ds = store.get("daemonsets", "default/node-agent")
+    agents = [r for r in rows if r.app == "node-agent" and r.live]
+    check(ds.status.current_number_scheduled == len(agents) == ds.status.desired_number_scheduled
+          == ds.status.number_ready == n_nodes - len(drained),
+          f"main_path_controllers: DaemonSet status {ds.status} against {len(agents)} pods")
+    tel = store.watch_telemetry()
+    prop = tel["propagation"]
+    roll = reconcile_rollup({type(c).__name__: c.reconcile_stats() for c in controllers})
+    snap = sched.podtrace.snapshot()
+    chains = [(sp["replaces"], sp["pod"], sp["complete"]) for sp in snap["spans"]
+              if sp.get("replaces")]
+    # only the drain replaces pods under the same owner; a victim's span is
+    # linkable while it is among the tracer's last SPAN_RING bound spans
+    check(chains and all(c[2] for c in chains) and all(c[0] in victim_keys for c in chains),
+          f"main_path_controllers: evict->replace chains {chains[:5]} (victims "
+          f"{sorted(victim_keys)[:5]})")
+    slo = evaluate_slo({"watch": {"propagation": prop}, "reconcile": roll}, CONTROL_PLANE_SLO)
+    table = stage_table(sched)
+    sched.stop()
+    for c in controllers:
+        c.stop()
+    ledger.watch.stop()
+    kinds.stop()
+    return {
+        "map": {r.key: r.node for r in rows}, "rounds": rounds, "steps": steps,
+        "launches": launches, "events": dict(events), "pdbs": pdbs, "host_s": host,
+        "controller_s": dict(per_ctl),
+        "ds": {"desired": ds.status.desired_number_scheduled,
+               "current": ds.status.current_number_scheduled,
+               "ready": ds.status.number_ready},
+        "stage_table": table, "reconcile": roll,
+        "controllers": {type(c).__name__: {k: c.reconcile_stats()[k] for k in
+                                           ("loops", "keys", "errors", "events",
+                                            "reconcile_p50_ms", "reconcile_p99_ms")}
+                        for c in controllers},
+        "watch": {"count": prop["count"], "p50_s": prop["p50_s"], "p99_s": prop["p99_s"]},
+        "chains": chains, "slo": slo, "drained": len(drained), "victims": victims,
+        "trace_sample_k": sample_k}
+
+
+def ctl_run_cpu(sizes):
+    """ctl_run with device="cpu" (the plain versions), in a worker process:
+    what the comparison reads, without the stage table, its map's pod names
+    normalized (they carry the process's uid tail)."""
+    import torch
+
+    run = ctl_run(torch.device("cpu"), sizes)
+    run.pop("stage_table")
+    run["map"] = ctl_normalized_map(run["map"])
+    return run
+
+
+def ctl_normalized_map(pod_map):
+    """{pod key: node} with the uid tail a ReplicaSet's pod names carry
+    (`{rs}-{uid[-5:]}-{i}`, a per-process session) masked."""
+    from kubernetes_tpu_torch.api.types import _uid_session
+    from kubernetes_tpu_torch.testing import normalize_uids
+
+    return json.loads(normalize_uids(json.dumps(pod_map), _uid_session))
+
+
+def phase_main_path_controllers(device, sizes, card):
+    """The workload control loop through the batch scheduler on the card,
+    the structure of the JAX rung ControlPlane_churn (bench.py:2382)
+    on scheduler_perf's 5,000-node cluster; the same run with device="cpu"
+    (the plain versions) runs beside it in a spawned process (rerun_pool:
+    host work on other cores, so the rerun no longer doubles the phase),
+    and its map, rounds and event counts must be equal."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        with rerun_pool(1) as pool:
+            rerun = pool.apply_async(ctl_run_cpu, (sizes,))
+            run = ctl_run(device, sizes)
+            # (a rehearsal with device="cpu" runs the plain versions: no launch)
+            check(device.type != "cuda"
+                  or (run["launches"]["row_scatter"] > 0 and run["launches"]["waterfill"] > 0),
+                  f"main_path_controllers: kernels B and C not launched {run['launches']}")
+            cpu = rerun.get(timeout=900)
+    finally:
+        gc.unfreeze()
+        gc.collect()
+    check(cpu["map"] == ctl_normalized_map(run["map"]),
+          "main_path_controllers: the CPU rerun's map differs")
+    check(cpu["rounds"] == run["rounds"] and cpu["events"] == run["events"],
+          f"main_path_controllers: the CPU rerun differs: rounds {cpu['rounds']} / "
+          f"{run['rounds']}, events {cpu['events']} / {run['events']}")
+    line = {k: run[k] for k in ("rounds", "launches", "events", "pdbs", "ds", "drained",
+                                "victims", "trace_sample_k", "host_s", "controller_s", "controllers",
+                                "reconcile", "watch", "slo")}
+    line["steps"] = {k: {**v, "pods_per_s": v["pods"] / v["seconds"] if v["seconds"] else None}
+                     for k, v in run["steps"].items()}
+    line["cpu_steps_s"] = {k: v["seconds"] for k, v in cpu["steps"].items()}
+    line["evict_replace_chains"] = len(run["chains"])
+    line["chains_complete"] = sum(1 for c in run["chains"] if c[2])
+    emit({"phase": "main_path_controllers", "card": card, "nodes": sizes["nodes"],
+          "deployments": sizes["ctl_deployments"], "replicas": sizes["ctl_replicas"], **line})
+    emit({"phase": "main_path_controllers_stage_table", "stage_table": run["stage_table"]})
+    return {"launches": run["launches"], "seconds": time.perf_counter() - t_phase}
+
 def main(argv=None) -> int:
+    t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--small", action="store_true", help="reduced sizes (rehearsal)")
@@ -4325,6 +4841,7 @@ def main(argv=None) -> int:
               "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
               "preempt_nodes": 100, "preempt_constrained": 20,
               "part_nodes": 100, "part_pods": 2000, "part_spread": 100, "part_wave2": 200,
+              "ctl_deployments": 4, "ctl_replicas": 100, "ctl_drain": 5,
               "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
                            "dra_two": 2, "spread": 4}}
              if args.small else
@@ -4337,6 +4854,7 @@ def main(argv=None) -> int:
               "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
               "preempt_nodes": 500, "preempt_constrained": 30,
               "part_nodes": 1000, "part_pods": 20000, "part_spread": 1000, "part_wave2": 2000,
+              "ctl_deployments": 10, "ctl_replicas": 100, "ctl_drain": 50,
               "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
                            "dra_two": 16, "spread": 16}})
     seconds = {}  # each phase's wall seconds, printed before the kernels line
@@ -4381,6 +4899,8 @@ def main(argv=None) -> int:
                                                        sizes, args.seed, inputs)
         partition = timed("main_path_partition", phase_main_path_partition, device, sizes,
                           card)
+        controllers = timed("main_path_controllers", phase_main_path_controllers, device,
+                            sizes, card)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4424,7 +4944,8 @@ def main(argv=None) -> int:
          "batch_library_ms": {k: v["library_ms"] for k, v in line_b["batch"].items()},
          "preempt_path_launches": preempt_sum["row_scatter"],
          "fallback_path_launches": fallback["launches"]["row_scatter"],
-         "partition_path_launches": partition_sum["row_scatter"]},
+         "partition_path_launches": partition_sum["row_scatter"],
+         "controllers_path_launches": controllers["launches"]["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -4439,7 +4960,8 @@ def main(argv=None) -> int:
                                   for k, ln in fast.items()},
          "preempt_path_launches": preempt_sum["waterfill"],
          "fallback_path_launches": fallback["launches"]["waterfill"],
-         "partition_path_launches": partition_sum["waterfill"]},
+         "partition_path_launches": partition_sum["waterfill"],
+         "controllers_path_launches": controllers["launches"]["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),
@@ -4523,7 +5045,10 @@ def main(argv=None) -> int:
          "runs_ms": line_i_runs["ms"], "runs_device_ms": line_i_runs["device_ms"],
          "runs_rebuilds": line_i_runs["rebuilds"]},
     ]
-    emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 3)})
+    # main_s: main's own wall clock (the phases plus what runs between them);
+    # the process's wall clock beyond it is interpreter start and teardown
+    emit({"phase": "timing", "seconds": seconds, "total_s": round(sum(seconds.values()), 3),
+          "main_s": round(time.perf_counter() - t_main, 3)})
     emit({"phase": "kernels", "card": info["nvidia_smi"], "kernels": kernels})
     for ln in info["nvidia_smi"]:
         print(ln)

@@ -1,4 +1,6 @@
-"""L0 — typed API object model (the subset the batch scheduler reads)."""
+"""L0 — typed API object model (the kinds the scheduler and the workload
+controllers read; the workload kinds are in api/workloads.py and their wire
+forms in api/serialize.py)."""
 
 from .dra import (  # noqa: F401
     AllocationResult,
@@ -34,11 +36,13 @@ from .storage import (  # noqa: F401
 )
 from .types import (  # noqa: F401
     Affinity,
+    Binding,
     Container,
     ContainerImage,
     ContainerPort,
     Namespace,
     Node,
+    NodeCondition,
     NodeSpec,
     NodeStatus,
     ObjectMeta,

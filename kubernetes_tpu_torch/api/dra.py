@@ -8,7 +8,7 @@ types feed). The counterpart of `kubernetes_tpu/api/dra.py`: devices are
 selected by declarative attribute requirements (key op value) where the
 reference evaluates CEL, the same decision surface over a bounded
 vocabulary. ResourceClaimTemplate comes with the claim controller (ROADMAP.md
-queue 1 item 7f).
+queue 1 item 7j).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ from __future__ import annotations
 import hashlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 from ..utils import Clock
 from .types import ObjectMeta, new_uid
@@ -41,6 +41,42 @@ class Event:
     @property
     def key(self) -> str:
         return f"{self.metadata.namespace}/{self.metadata.name}"
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "Event":
+        inv = d.get("involvedObject") or {}
+        return Event(
+            metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+            involved_kind=inv.get("kind", ""),
+            involved_name=inv.get("name", ""),
+            involved_namespace=inv.get("namespace", ""),
+            reason=d.get("reason", ""),
+            message=d.get("message", ""),
+            type=d.get("type", NORMAL),
+            count=int(d.get("count", 1) or 1),
+            source=(d.get("source") or {}).get("component", "")
+            if isinstance(d.get("source"), Mapping) else d.get("source", ""),
+            first_timestamp=float(d.get("firstTimestamp", 0.0) or 0.0),
+            last_timestamp=float(d.get("lastTimestamp", 0.0) or 0.0),
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "kind": self.kind, "apiVersion": "v1",
+            "metadata": self.metadata.to_dict(),
+            "involvedObject": {"kind": self.involved_kind,
+                               "name": self.involved_name,
+                               "namespace": self.involved_namespace},
+            "reason": self.reason,
+            "message": self.message,
+            "type": self.type,
+            "count": self.count,
+            **({"source": {"component": self.source}} if self.source else {}),
+            **({"firstTimestamp": self.first_timestamp}
+               if self.first_timestamp else {}),
+            **({"lastTimestamp": self.last_timestamp}
+               if self.last_timestamp else {}),
+        }
 
 
 class EventRecorder:

@@ -16,14 +16,13 @@ PodGroup: minMember plus a pod label naming the group):
     LABEL_TPU_SLICE_INDEX; the gang packing score and the rank alignment
     read them.
 
-The scheduler's gang directory (scheduler/gang.py) is the consumer. Wire
-serialization (to_dict) comes with the server, ROADMAP.md queue 1 item 7.
+The scheduler's gang directory (scheduler/gang.py) is the consumer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Mapping
+from typing import Any, Dict, Mapping
 
 from .types import POD_GROUP_RANK_LABEL, ObjectMeta  # noqa: F401 (re-export)
 
@@ -82,6 +81,18 @@ class PodGroup:
             spec=PodGroupSpec.from_dict(d.get("spec") or {}),
             status=PodGroupStatus.from_dict(d.get("status") or {}),
         )
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "apiVersion": "scheduling.x-k8s.io/v1alpha1",
+            "kind": "PodGroup",
+            "metadata": self.metadata.to_dict(),
+            "spec": {"minMember": self.spec.min_member},
+        }
+        if self.status.phase != "Pending" or self.status.scheduled:
+            out["status"] = {"phase": self.status.phase,
+                             "scheduled": self.status.scheduled}
+        return out
 
 
 def pod_gang_rank(pod) -> int:

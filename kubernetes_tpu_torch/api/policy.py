@@ -3,15 +3,15 @@
 The counterpart of the PodDisruptionBudget of `kubernetes_tpu/api/policy.py`
 (reference: staging/src/k8s.io/api/policy/v1/types.go): the selector and
 `disruptions_allowed` that preemption reads (scheduler/gangpreempt.py
-pdb_blocked_mask). The disruption controller that maintains the status, and
-the quota, limit-range and autoscaler types, come with the controllers,
-ROADMAP.md queue 1 item 7.
+pdb_blocked_mask) and that the disruption controller maintains
+(controllers/disruption.py). The quota, limit-range, priority-class,
+service-account and autoscaler types come with ROADMAP.md queue 1 item 7j.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 from .labels import Selector
 from .types import ObjectMeta
@@ -43,3 +43,13 @@ class PodDisruptionBudget:
             max_unavailable=sp.get("maxUnavailable"),
             disruptions_allowed=int((d.get("status") or {}).get("disruptionsAllowed", 0) or 0),
         )
+
+    def to_dict(self) -> Dict[str, Any]:
+        sp: Dict[str, Any] = {}
+        if self.min_available is not None:
+            sp["minAvailable"] = self.min_available
+        if self.max_unavailable is not None:
+            sp["maxUnavailable"] = self.max_unavailable
+        return {"apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+                "metadata": self.metadata.to_dict(), "spec": sp,
+                "status": {"disruptionsAllowed": self.disruptions_allowed}}

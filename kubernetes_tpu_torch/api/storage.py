@@ -6,7 +6,7 @@ PersistentVolumeClaim), staging/src/k8s.io/api/storage/v1/types.go
 (StorageClass, CSINode). The counterpart of `kubernetes_tpu/api/storage.py`:
 the fields the scheduler's volume plugins read and write, with the same
 names, defaults and wire shapes. VolumeAttachment comes with the volume
-controllers (ROADMAP.md queue 1 item 7f).
+controllers (ROADMAP.md queue 1 item 7j).
 """
 
 from __future__ import annotations

@@ -20,9 +20,6 @@
 //     field (including the lazy slot layout), same placements. The Python
 //     loops stay in the tree as the oracle (native_commit=False /
 //     STORE_NATIVE_COMMIT=0 / HOSTSCHED_NATIVE_COMMIT=0 select them).
-//   - The port's ObjectMeta has no owner_references or finalizers, so the
-//     structural clone copies labels, annotations and status.conditions
-//     only, exactly as pod_structural_clone does.
 //   - Every entry point manipulates Python objects and therefore MUST be
 //     called with the GIL HELD: the loader uses ctypes.PyDLL, which does not
 //     release the GIL around calls. The GIL-RELEASING kernels (ctypes CDLL:
@@ -44,6 +41,8 @@ PyObject* s_node_name;
 PyObject* s_resource_version;
 PyObject* s_labels;
 PyObject* s_annotations;
+PyObject* s_owner_references;
+PyObject* s_finalizers;
 PyObject* s_conditions;
 PyObject* s_type;
 PyObject* s_kind;
@@ -170,7 +169,8 @@ PyObject* bind_clone(PyObject* pod) {
 PyObject* list_copy(PyObject* seq) { return PySequence_List(seq); }
 
 // store.store.pod_structural_clone, exactly: private metadata (with own
-// labels/annotations), private spec, private status (own conditions list).
+// labels/annotations/owner_references/finalizers), private spec, private
+// status (own conditions list).
 PyObject* structural_clone(PyObject* pod) {
   PyObject* neu = shallow_copy(pod);
   if (neu == nullptr) return nullptr;
@@ -189,6 +189,19 @@ PyObject* structural_clone(PyObject* pod) {
       goto fail;
     if ((cp = PyDict_Copy(cur)) == nullptr) goto fail;
     if (PyDict_SetItem(md, s_annotations, cp) < 0) { Py_DECREF(cp); goto fail; }
+    Py_DECREF(cp);
+    if ((cur = PyDict_GetItemWithError(md, s_owner_references)) == nullptr)
+      goto fail;
+    if ((cp = list_copy(cur)) == nullptr) goto fail;
+    if (PyDict_SetItem(md, s_owner_references, cp) < 0) {
+      Py_DECREF(cp);
+      goto fail;
+    }
+    Py_DECREF(cp);
+    if ((cur = PyDict_GetItemWithError(md, s_finalizers)) == nullptr)
+      goto fail;
+    if ((cp = list_copy(cur)) == nullptr) goto fail;
+    if (PyDict_SetItem(md, s_finalizers, cp) < 0) { Py_DECREF(cp); goto fail; }
     Py_DECREF(cp);
   }
   if (privatize_member(nd, s_spec) == nullptr) goto fail;
@@ -334,6 +347,8 @@ PyObject* hc_init(PyObject* event_type, PyObject* podinfo_type,
     INTERN(s_resource_version, "resource_version");
     INTERN(s_labels, "labels");
     INTERN(s_annotations, "annotations");
+    INTERN(s_owner_references, "owner_references");
+    INTERN(s_finalizers, "finalizers");
     INTERN(s_conditions, "conditions");
     INTERN(s_type, "type");
     INTERN(s_kind, "kind");

@@ -9,7 +9,7 @@ the rest of the control plane inherits the same machinery:
   obs.recorder   — StageClock + RingRecorder (the generic bounded ring with
                    per-stage totals/histograms and the p50/p99 stage table).
   obs.reconcile  — ReconcileRecorder: per-loop reconcile spans for the
-                   controllers (ROADMAP.md queue 1 item 7f), plus the
+                   controllers (controllers/base.py), plus the
                    live-controller registry.
   obs.timeseries — TimeSeriesRecorder: fixed-interval windows over the batch
                    pipeline (per-stage p50/p99, pods/s, probe columns) plus

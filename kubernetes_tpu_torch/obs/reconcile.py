@@ -3,9 +3,9 @@
 The counterpart of `kubernetes_tpu/obs/reconcile.py`. The flight recorder
 measures the scheduler half of "watch, reconcile, write status"; an
 unmeasured controller or a backlogged watcher under priority-mixed churn
-silently eats the SLO. This module gives the controllers (their base class
-comes with ROADMAP.md queue 1 item 7f) the same machinery the scheduler
-has, built on the SAME RingRecorder base (obs/recorder.py):
+silently eats the SLO. This module gives the controllers (controllers/base.py)
+the same machinery the scheduler has, built on the SAME RingRecorder base
+(obs/recorder.py):
 
   ReconcileRecorder       — bounded ring of per-LOOP records (one record per
                             non-empty process() drain, one histogram

@@ -47,9 +47,9 @@ flow arrows (obs/tracebuf.py), and `ktl sched trace` / GET
 post-bound edges (watch_delivered, kubelet_observed, running) are stamped
 by the node agent through note_pod_event (item 7h).
 
-The evict->replace link reads each pod's owner references, which the
-port's ObjectMeta gains with its serialization (item 7f); until then
-`getattr(meta, "owner_references", ())` finds none and no link is made.
+The evict->replace link reads each pod's owner references: a ReplicaSet's
+replacement (controllers/replicaset.py) links back to the evicted pod it
+replaces.
 """
 
 from __future__ import annotations
@@ -603,8 +603,7 @@ class PodTracer:
         self._flush_ops(inline=True)
         meta = getattr(pod, "metadata", None)
         owner_uid = None
-        # owner references arrive with ROADMAP.md queue 1 item 7f
-        for ref in getattr(meta, "owner_references", ()):
+        for ref in (meta.owner_references if meta is not None else ()):
             owner_uid = _owner_link_key(ref)
             if owner_uid:
                 break
@@ -646,8 +645,7 @@ class PodTracer:
             meta = getattr(qp.pod, "metadata", None)
             if meta is None:
                 continue
-            # owner references arrive with ROADMAP.md queue 1 item 7f
-            for ref in getattr(meta, "owner_references", ()):
+            for ref in meta.owner_references:
                 link = _owner_link_key(ref)
                 if link in self._evicted_sampled:
                     self._adopt_replacement(qp, link)

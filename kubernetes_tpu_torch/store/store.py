@@ -100,15 +100,13 @@ shard as before, and shm_close() unlinks the arena (its caller owns that).
 The ordered locks record every (held -> acquired) edge into the lock-graph
 witness (store/lockgraph.py).
 
-Not in this slice: the API serializer the mutation detector fingerprints
-through (ROADMAP.md queue 1 item 7f: until then it walks the objects'
-fields, or their own `to_dict`).
+The mutation detector fingerprints each emitted object through the API
+serializer (api/serialize.py to_dict), as the JAX store does.
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 import itertools
 import json
 import queue
@@ -329,8 +327,8 @@ class MutationDetector:
     reference: client-go tools/cache/mutation_detector.go — enabled by env
     (KUBE_CACHE_MUTATION_DETECTOR); here: APIStore(mutation_detector=True) or
     env CACHE_MUTATION_DETECTOR=true, then call store.check_mutations() (the
-    tests do this at teardown). The fingerprint is the object's fields as
-    plain data (_plain_fields)."""
+    tests do this at teardown). The fingerprint is the object's wire form
+    (api/serialize.py to_dict) as sorted-key JSON."""
 
     LIMIT = 5_000
 
@@ -339,8 +337,10 @@ class MutationDetector:
 
     @staticmethod
     def _fingerprint(obj) -> str:
+        from ..api.serialize import to_dict
+
         try:
-            return json.dumps(_plain_fields(obj), sort_keys=True, default=repr)
+            return json.dumps(to_dict(obj), sort_keys=True, default=repr)
         except Exception:
             return repr(obj)
 
@@ -359,37 +359,10 @@ class MutationDetector:
                     f"was: {fp}\nnow: {now}")
 
 
-def _plain_fields(obj):
-    """An object as plain data for the mutation detector's fingerprint: a
-    type's own `to_dict` where it has one, else its dataclass fields (or
-    public attributes) walked recursively. Memo slots in a pod's __dict__
-    (`_class_sig`, `_req_sig`, ...) are not fields, so they never count as a
-    mutation."""
-    if obj is None or isinstance(obj, (str, int, float, bool)):
-        return obj
-    if isinstance(obj, dict):
-        return {str(k): _plain_fields(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [_plain_fields(v) for v in obj]
-    if isinstance(obj, (set, frozenset)):
-        return sorted(repr(v) for v in obj)
-    to_dict = getattr(obj, "to_dict", None)
-    if callable(to_dict):
-        return _plain_fields(to_dict())
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _plain_fields(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
-    d = getattr(obj, "__dict__", None)
-    if d is not None:
-        return {k: _plain_fields(v) for k, v in d.items()
-                if not k.startswith("_")}
-    return repr(obj)
-
-
 def pod_structural_clone(pod):
     """Fast pod clone for the bind/status hot paths: fresh Pod, ObjectMeta
-    (with own labels/annotations containers), PodSpec, and PodStatus (own
-    conditions list) — ~20x cheaper than deepcopy.
+    (with own labels/annotations/owner_references/finalizers containers),
+    PodSpec, and PodStatus (own conditions list) — ~20x cheaper than deepcopy.
 
     The deep members that stay SHARED (containers, tolerations, affinity,
     topology-spread constraints, volumes, node_selector) are treated as
@@ -399,6 +372,8 @@ def pod_structural_clone(pod):
     meta = _shallow(pod.metadata)
     meta.labels = dict(meta.labels)
     meta.annotations = dict(meta.annotations)
+    meta.owner_references = list(meta.owner_references)
+    meta.finalizers = list(meta.finalizers)
     spec = _shallow(pod.spec)
     status = _shallow(pod.status)
     status.conditions = list(status.conditions)
@@ -439,7 +414,7 @@ def pod_bind_clone(pod):
     """Minimal clone for the bind hot path: fresh Pod/ObjectMeta/PodSpec
     shells only. A bind mutates exactly spec.node_name and
     metadata.resource_version, so status and every metadata container
-    (labels, annotations) stay SHARED with the
+    (labels, annotations, owner_references, finalizers) stay SHARED with the
     source — the same read-only contract pod_structural_clone already applies
     to containers/tolerations/affinity, extended to the remaining members.
     Any later write that does touch those goes through pod_structural_clone

@@ -9,12 +9,16 @@ requests), seeded greedy-scan problems for kernel A's, seeded mirror churn
 for kernel B's, a seeded fallback-class workload (volumes, DRA, spread
 inclusion policies beside plain pods: fallback_workload), and test-only numpy models of kernel C's selection over
 sorted key rows, kernel G's victim-parallel curve, kernel I's tournament
-tree and kernel J's tiled maxima. The same API as
+tree and kernel J's tiled maxima, the node-agent stand-ins the controller
+tests and the smoke drive (run_bound_pods, renew_node_leases) and a
+store dump with its uids normalized (normalized_dump). The same API as
 `kubernetes_tpu/testing.py`, so one workload generator can create the same
 objects for both packages."""
 
 from __future__ import annotations
 
+import json
+import re
 from types import SimpleNamespace
 from typing import Dict, List, Optional
 
@@ -507,6 +511,130 @@ def assert_pod_conservation(store, scheduler, keys):
     assert not rep["double_bound"], (f"{len(rep['double_bound'])} pod(s) DOUBLE-BOUND: "
                                      f"{rep['double_bound'][:10]}")
     return rep
+
+
+def run_bound_pods(store) -> int:
+    """Stand-in for the node agents (ROADMAP.md queue 1 item 7h replaces it):
+    write status.phase = "Running" to every bound pod still Pending, in key
+    order, through guaranteed_update (tests/test_infra_controllers.py
+    set_phase's write). Works on either package's store. Returns the count
+    moved."""
+    pods, _ = store.list("pods", lambda p: bool(p.spec.node_name)
+                         and p.status.phase == "Pending")
+
+    def running(obj):
+        obj.status.phase = "Running"
+        return obj
+
+    moved = 0
+    for key in sorted(p.key for p in pods):
+        try:
+            store.guaranteed_update("pods", key, running)
+            moved += 1
+        except Exception as e:  # deleted meanwhile (an eviction's race)
+            if type(e).__name__ != "NotFoundError":
+                raise
+    return moved
+
+
+def renew_node_leases(store, lease_cls, names, now: float) -> None:
+    """Stand-in for the node agents' heartbeat (item 7h replaces it): create
+    or renew the coordination Lease `kube-node-lease/<node>` the node
+    lifecycle controller reads, at `now`. `lease_cls` is the Lease type of
+    the store's package."""
+    for name in names:
+        key = f"kube-node-lease/{name}"
+
+        def renew(lease):
+            lease.renew_time = now
+            return lease
+
+        try:
+            store.guaranteed_update("leases", key, renew)
+        except Exception as e:
+            if type(e).__name__ != "NotFoundError":
+                raise
+            lease = lease_cls(holder_identity=name, acquire_time=now, renew_time=now)
+            meta = lease.metadata
+            meta.name, meta.namespace = name, "kube-node-lease"
+            store.create("leases", lease)
+
+
+_UID = re.compile(r"uid-(\d+)-([0-9a-f]{8})")
+
+
+def _event_key(wire) -> str:
+    inv = wire.get("involvedObject") or {}
+    return "|".join((inv.get("kind", ""), inv.get("namespace", ""), inv.get("name", ""),
+                     wire.get("reason", ""), wire.get("message", ""),
+                     (wire.get("source") or {}).get("component", "")))
+
+
+def normalized_dump(store, to_dict, uid_session: str) -> Dict:
+    """Every object of the store as its wire form (`to_dict` of the store's
+    package), keyed {kind: {key: wire}}, with the process-specific parts
+    normalized so two packages' stores compare exactly: each uid of this
+    process becomes U<rank> by its counter (equal when both packages mint in
+    the same order), the uid tail that controller-made names carry
+    (`{owner}-{uid[-5:]}-{i}`) becomes S, and an Event is keyed by what it
+    aggregates (its name hashes the involved name) with its name dropped.
+    Resource versions, statuses and labels are kept as they are."""
+    out: Dict[str, Dict] = {}
+    for kind in sorted(store.kinds()):
+        objs, _ = store.list(kind)
+        rows = {}
+        for obj in objs:
+            wire = to_dict(obj)
+            if kind == "events":
+                wire["metadata"].pop("name", None)
+                rows[_event_key(wire)] = wire
+            else:
+                rows[store.object_key(obj)] = wire
+        if rows:
+            out[kind] = rows
+    text = json.dumps(out, sort_keys=True)
+    return json.loads(normalize_uids(text, uid_session))
+
+
+def normalize_uids(text: str, uid_session: str) -> str:
+    """normalized_dump's uid rewrite on any text."""
+    counters = sorted({int(m.group(1)) for m in _UID.finditer(text)
+                       if m.group(2) == uid_session})
+    rank = {c: i for i, c in enumerate(counters)}
+
+    def sub(m):
+        if m.group(2) != uid_session:
+            return m.group(0)
+        return f"U{rank[int(m.group(1))]}"
+
+    text = _UID.sub(sub, text)
+    return text.replace(f"-{uid_session[-5:]}-", "-S-")
+
+
+def history_lines(store, uid_session: str) -> List[str]:
+    """The store's event sequence as "rv TYPE kind key" lines, normalized as
+    normalized_dump normalizes (an Event object by what it aggregates)."""
+    lines = []
+    for ev in store.history_events(0):
+        obj = ev.obj
+        if ev.kind == "events":
+            key = "|".join((obj.involved_kind, obj.involved_namespace, obj.involved_name,
+                            obj.reason, obj.message, obj.source))
+        else:
+            key = store.object_key(obj)
+        lines.append(f"{ev.resource_version} {ev.type} {ev.kind} {key}")
+    return normalize_uids("\n".join(lines), uid_session).split("\n")
+
+
+def reconcile_counts(controllers) -> Dict[str, Dict[str, int]]:
+    """Each controller's reconcile counters (loops, keys, errors, requeues,
+    watch events ingested), the timing-free part of its recorder."""
+    out = {}
+    for c in controllers:
+        snap = c.recorder.snapshot()
+        out[type(c).__name__] = {k: snap[k] for k in
+                                 ("loops", "keys", "errors", "requeues", "events")}
+    return out
 
 
 def mutation_detector_guard(monkeypatch):

@@ -22,11 +22,12 @@ from kubernetes_tpu.scheduler import Framework
 from kubernetes_tpu.scheduler.batch import BatchScheduler as JBatch
 from kubernetes_tpu.scheduler.plugins import default_plugins
 from kubernetes_tpu.store import APIStore as JStore
+from kubernetes_tpu_torch.api.serialize import to_dict
 from kubernetes_tpu_torch.scheduler.batch import BatchScheduler as TBatch
 from kubernetes_tpu_torch.store import (APIStore, CoalescedEvent, LazyBindBatch,
                                         LockOrderViolation, ResourceVersionTooOldError)
 from kubernetes_tpu_torch.store import columnar as columnar_mod
-from kubernetes_tpu_torch.store.store import _plain_fields, pod_structural_clone
+from kubernetes_tpu_torch.store.store import pod_structural_clone
 from kubernetes_tpu_torch.testing import (MakeNode, MakePod, assert_pod_conservation,
                                           mutation_detector_guard, pod_conservation_report)
 
@@ -37,7 +38,7 @@ def _force_mutation_detector(monkeypatch):
 
 
 def _dump(obj):
-    return json.dumps(_plain_fields(obj), sort_keys=True, default=repr)
+    return json.dumps(to_dict(obj), sort_keys=True, default=repr)
 
 
 def _pods(n, prefix="p", m=None):

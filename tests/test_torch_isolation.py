@@ -13,7 +13,8 @@ telemetry, an armed watch.deliver site); another runs the host commit
 (columnar cache rows, the g++ engines, pipelined binds under armed bind
 faults) and solver="native"; another drives the partitioned scheduler and
 the multi-process one (spawned workers over shared columns), and a fresh
-interpreter imports what a worker imports without torch; a static pass
+interpreter imports what a worker imports without torch; another drives a
+Deployment and a DaemonSet through the workload controllers; a static pass
 over every module of kubernetes_tpu_torch and chip_smoke.py finds no such
 import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -500,6 +501,68 @@ def test_partitioned_and_multiprocess_import_no_jax_and_no_jax_package():
     assert got["out"]["mp"] == {"bound": 41, "lost": 0, "double": 0, "mode": "mp",
                                 "residual": 1}
     assert got["leaked"] == [] and got["witness_clean"] is True
+    assert got["modules"] == []
+
+
+_CONTROLLERS = r"""
+import json, sys
+import kubernetes_tpu_torch.api.serialize as serialize
+import kubernetes_tpu_torch.api.workloads as workloads
+import kubernetes_tpu_torch.controllers as controllers
+from kubernetes_tpu_torch.controllers.revision import template_fingerprint
+from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, run_bound_pods
+from kubernetes_tpu_torch.utils.cron import CronSchedule
+
+store = APIStore()
+for i in range(4):
+    store.create("nodes", MakeNode(f"n{i}").capacity({"cpu": "8", "memory": "16Gi",
+                                                       "pods": "110"}).obj())
+sched = BatchScheduler(store, device="cpu", solver="auto")
+sched.sync()
+ctls = [controllers.DeploymentController(store), controllers.ReplicaSetController(store),
+        controllers.DaemonSetController(store), controllers.GarbageCollector(store)]
+for c in ctls:
+    c.sync_all()
+tpl = {"metadata": {"labels": {"app": "web"}},
+       "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "500m"}}}]}}
+store.create("deployments", serialize.from_dict("deployments", {
+    "metadata": {"name": "web"},
+    "spec": {"replicas": 6, "selector": {"matchLabels": {"app": "web"}}, "template": tpl}}))
+store.create("daemonsets", workloads.DaemonSet.from_dict({
+    "metadata": {"name": "agent"},
+    "spec": {"selector": {"matchLabels": {"app": "agent"}},
+             "template": {"metadata": {"labels": {"app": "agent"}},
+                          "spec": {"containers": [{"name": "a"}]}}}}))
+for _ in range(6):
+    for c in ctls:
+        c.reconcile_once()
+    sched.run_until_idle()
+    run_bound_pods(store)
+pods, _ = store.list("pods")
+dep = store.get("deployments", "default/web")
+print(json.dumps({
+    "pods": len(pods), "running": sum(p.status.phase == "Running" for p in pods),
+    "ready": dep.status.ready_replicas,
+    "kind": serialize.to_dict(dep)["kind"],
+    "hash": len(template_fingerprint(dep.spec.template)),
+    "cron": CronSchedule("*/5 * * * *").next_after(0.0) > 0,
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_controllers_import_no_jax_and_no_jax_package():
+    """The workload control loop (the controllers, the workload kinds, the
+    serializer and the cron parser) drives a Deployment and a DaemonSet
+    through a BatchScheduler on the CPU to Running pods, and neither jax nor
+    the JAX package is loaded."""
+    out = subprocess.run([sys.executable, "-c", _CONTROLLERS], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["pods"] == got["running"] == 10 and got["ready"] == 6
+    assert got["kind"] == "Deployment" and got["hash"] == 10 and got["cron"] is True
     assert got["modules"] == []
 
 

@@ -28,13 +28,13 @@ import kubernetes_tpu_torch.testing as tt
 from kubernetes_tpu.scheduler.cache import Cache as JCache
 from kubernetes_tpu.snapshot import tensorizer as jtz
 from kubernetes_tpu_torch.api import compute_pod_resource_request
+from kubernetes_tpu_torch.api.serialize import to_dict
 from kubernetes_tpu_torch.native import hostcommit, hostsched
 from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
 from kubernetes_tpu_torch.scheduler.cache import Cache
 from kubernetes_tpu_torch.snapshot import tensorizer as tz
 from kubernetes_tpu_torch.store import APIStore, CoalescedEvent
-from kubernetes_tpu_torch.store.store import (MODIFIED, _plain_fields, pod_bind_clone,
-                                              pod_structural_clone)
+from kubernetes_tpu_torch.store.store import MODIFIED, pod_bind_clone, pod_structural_clone
 from kubernetes_tpu_torch.testing import (MakeNode, MakePod, assert_pod_conservation,
                                           mutation_detector_guard)
 
@@ -52,7 +52,7 @@ def _always_disarm():
 
 
 def _dump(obj):
-    return json.dumps(_plain_fields(obj), sort_keys=True, default=repr)
+    return json.dumps(to_dict(obj), sort_keys=True, default=repr)
 
 
 def _pods(n, prefix="p", m=MakePod):
@@ -194,26 +194,66 @@ def test_bind_commit_raced_row_keeps_prev_alive():
                                           "pod default/r-0 is already bound to node-1")]
 
 
+def _owned(pods):
+    """Give pods owner references and finalizers, as a ReplicaSet's pods
+    carry them."""
+    for i, p in enumerate(pods):
+        p.metadata.owner_references = [{"kind": "ReplicaSet", "name": f"rs-{i % 3}",
+                                        "uid": f"uid-rs-{i % 3}", "controller": True}]
+        p.metadata.finalizers = ["example.com/guard"] if i % 2 else []
+    return pods
+
+
 def test_structural_clone_copies_exactly_what_the_port_clones():
     """The engine's DELETED clone is the port's pod_structural_clone: private
-    metadata, labels, annotations, spec, status and conditions, everything
-    else shared (the port's ObjectMeta has no owner references or
-    finalizers)."""
+    metadata, labels, annotations, owner references, finalizers, spec,
+    status and conditions, everything else shared."""
     store, per_obj, _c = _store(True, lazy=False)
-    store.create_many("pods", _pods(1, "s"), consume=True)
+    store.create_many("pods", _owned(_pods(2, "s")), consume=True)
     per_obj.drain()
-    old = store._objects["pods"]["default/s-0"]
-    store.delete_pods(["default/s-0"])
+    old = store._objects["pods"]["default/s-1"]
+    store.delete_pods(["default/s-1"])
     ev = per_obj.drain()[0]
     ref, obj = pod_structural_clone(old), ev.obj
     assert obj is not old and obj.metadata is not old.metadata
     assert obj.metadata.labels is not old.metadata.labels
     assert obj.metadata.annotations is not old.metadata.annotations
+    assert obj.metadata.owner_references is not old.metadata.owner_references
+    assert obj.metadata.finalizers is not old.metadata.finalizers
+    assert obj.metadata.owner_references == old.metadata.owner_references != []
+    assert obj.metadata.finalizers == old.metadata.finalizers == ["example.com/guard"]
+    assert ref.metadata.owner_references is not old.metadata.owner_references
     assert obj.spec is not old.spec and obj.status is not old.status
     assert obj.status.conditions is not old.status.conditions
     assert obj.spec.containers is old.spec.containers
     assert sorted(vars(obj.metadata)) == sorted(vars(ref.metadata))
     assert sorted(vars(obj)) == sorted(vars(ref))
+
+
+@pytest.mark.parametrize("mode", ["lazy", "eager", "share"])
+def test_owned_pods_bind_and_delete_match_the_python_loop(mode):
+    """Pods with owner references and finalizers through bind_many and
+    delete_pods: the engine and the Python loops give equal rows, RVs and
+    event streams, and the DELETED objects carry the references."""
+    results = {}
+    for native in (True, False):
+        store, per_obj, coal = _store(native, lazy=(mode == "lazy") if mode != "share" else None,
+                                      deep_copy=(mode != "share"),
+                                      detector=(False if mode == "share" else None))
+        store.create_many("pods", _owned(_pods(24, "o")), consume=True)
+        per_obj.drain(), coal.drain()
+        bound, errors = store.bind_many([("default", f"o-{i}", f"node-{i % 5}")
+                                         for i in range(24)], origin="t")
+        n, derr = store.delete_pods([f"default/o-{i}" for i in range(0, 24, 3)], origin="t")
+        stream = _stream_sig(per_obj)
+        deleted = [e for e in stream if e[2] == "DELETED"]
+        assert len(deleted) == n == 8
+        assert all('"ownerReferences"' in e[7] for e in deleted)
+        results[native] = (store.rv, bound, errors, derr, _rows(store), stream,
+                           _stream_sig(coal))
+        if mode != "share":
+            store.check_mutations()
+    assert results[True] == results[False]
 
 
 def test_delete_pods_equals_per_pod_delete():

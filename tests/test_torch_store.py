@@ -15,9 +15,11 @@ lock-order check, is_bind_conflict and the mutation detector's verdicts.
 import numpy as np
 import pytest
 
+import kubernetes_tpu.api.types as jtypes
 import kubernetes_tpu.chaos.faultinject as jfi
 import kubernetes_tpu.store as jstore_mod
 import kubernetes_tpu.testing as jt
+import kubernetes_tpu_torch.api.types as ttypes
 import kubernetes_tpu_torch.chaos.faultinject as tfi
 import kubernetes_tpu_torch.store as tstore_mod
 import kubernetes_tpu_torch.testing as tt
@@ -382,7 +384,10 @@ MUTATIONS = {
 @pytest.mark.parametrize("columnar", [True, False], ids=["columnar", "dict"])
 @pytest.mark.parametrize("mutation", sorted(MUTATIONS))
 def test_mutation_detector_verdicts_match_jax(mutation, columnar):
-    verdicts = {}
+    """Both detectors fingerprint through their package's serializer
+    (api/serialize.py to_dict), so the verdicts and the error texts agree
+    (uids normalized: each package mints its own)."""
+    verdicts, texts = {}, {}
     for pkg in PKGS:
         mod, testing, _ = PKGS[pkg]
         store = make_store(pkg, mutation_detector=True, columnar=columnar)
@@ -391,9 +396,15 @@ def test_mutation_detector_verdicts_match_jax(mutation, columnar):
         store.bind_many([("default", "q1", "n0")], origin="me")
         evs = per.drain()
         MUTATIONS[mutation](evs[-1].obj)  # the bind's MODIFIED event
+        texts[pkg] = None
         try:
             store.check_mutations()
             verdicts[pkg] = False
-        except mod.MutationDetectedError:
+        except mod.MutationDetectedError as e:
             verdicts[pkg] = True
+            session = (jtypes if pkg == "jax" else ttypes)._uid_session
+            texts[pkg] = tt.normalize_uids(str(e), session)
     assert verdicts["port"] == verdicts["jax"] == (mutation not in ("none", "memo"))
+    assert texts["port"] == texts["jax"]
+    if verdicts["port"]:
+        assert "was mutated after emission" in texts["port"]
