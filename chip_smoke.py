@@ -321,6 +321,36 @@ Phases, each printing one JSON line:
              by part of a round, the stage table, the reconcile rollup, the
              watch propagation p50 / p99, the evict->replace chains the pod
              tracer linked and CONTROL_PLANE_SLO (printed, not gated)
+  main_path_services
+             services, tenants and volumes through the batch scheduler on
+             the same 5,000 nodes, with the CSINodes, DeviceClass and
+             ResourceSlices of testing.fallback_workload: the Namespace,
+             ServiceAccount, ResourceQuota, EndpointSlice,
+             HorizontalPodAutoscaler, Deployment, ReplicaSet, StatefulSet,
+             garbage-collector, PV binder, attach/detach and resource-claim
+             controllers, driven round by round on a FakeClock
+             (reconcile_once on each, the autoscaler's resync with a
+             metrics stand-in, run_until_idle, the Running stand-in).
+             Setup (untimed): 10 namespaces with a quota, a Service `api`
+             and a Deployment `api` of 100 SchedulingBasic pods behind an
+             autoscaler (min 100, max 400, 50% CPU). Timed steps: scale out
+             (demand 125% of the requests: 250 pods a namespace), scale in
+             (demand 20%, the clock past the 300-s downscale window: back to
+             100), volumes and claims in team-0 (a StatefulSet of 16 with a
+             10Gi claim template on an Immediate class and 16 static PVs, a
+             Deployment of 16 whose template names a ResourceClaimTemplate:
+             the per-pod fallback route) and the teardown of team-9. Gates:
+             no node over-committed, every pod bound once, no assumed pod,
+             each autoscaler and Deployment at 100, 250, 100, each Service's
+             slices and each quota's used equal to the smoke's own recount,
+             every claim bound to a distinct PV with its attachment, every
+             generated device claim allocated and recorded, team-9 empty
+             and gone, kernels B and C launched, and a rerun with
+             device="cpu" giving the same map, rounds, autoscaler history
+             and event counts per kind. Printed: each step's seconds and
+             pods/s, the fallback pods' seconds, the stage table, the
+             reconcile rollup, the watch propagation p50 / p99 and the
+             slice and quota writes a step
   timing     each phase's wall seconds and main's (main_s)
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
@@ -4389,27 +4419,29 @@ def mp_leg(device, nodes, sizes, card, spread):
 # ---------------------------------------------------------------------------
 
 
-def ctl_deployment(name, replicas, image="v1"):
-    """A Deployment of SchedulingBasic's pod (500m / 1Gi) with Kubernetes'
-    default RollingUpdate budget, maxSurge and maxUnavailable 25% (the
-    workload kinds hold absolute counts, so 25% of the replicas, rounded up
-    for the surge and down for the unavailable, as the reference's
-    intstr scaling does). Owner references match by uid, and the store
-    assigns none, so the manifest carries one."""
+def ctl_deployment(name, replicas, image="v1", ns="default", claim_template=""):
+    """A Deployment of SchedulingBasic's pod (500m / 1Gi) in `ns`, labelled
+    app=<name>, with Kubernetes' default RollingUpdate budget, maxSurge and
+    maxUnavailable 25% (the workload kinds hold absolute counts, so 25% of
+    the replicas, rounded up for the surge and down for the unavailable, as
+    the reference's intstr scaling does). Owner references match by uid,
+    and the store assigns none, so the manifest carries one. With
+    claim_template, its pods name that ResourceClaimTemplate as claim
+    `gpu`."""
     from kubernetes_tpu_torch.api.types import new_uid
     from kubernetes_tpu_torch.api.workloads import Deployment
 
+    spec = {"containers": [{"name": "c", "image": image,
+                            "resources": {"requests": {"cpu": "500m", "memory": "1Gi"}}}]}
+    if claim_template:
+        spec["resourceClaims"] = [{"name": "gpu", "resourceClaimTemplateName": claim_template}]
     return Deployment.from_dict({
-        "metadata": {"name": name, "uid": new_uid()},
+        "metadata": {"name": name, "namespace": ns, "uid": new_uid()},
         "spec": {"replicas": replicas, "selector": {"matchLabels": {"app": name}},
                  "strategy": {"type": "RollingUpdate",
                               "rollingUpdate": {"maxSurge": -(-replicas // 4),
                                                 "maxUnavailable": replicas // 4}},
-                 "template": {"metadata": {"labels": {"app": name}},
-                              "spec": {"containers": [{
-                                  "name": "c", "image": image,
-                                  "resources": {"requests": {"cpu": "500m",
-                                                             "memory": "1Gi"}}}]}}}})
+                 "template": {"metadata": {"labels": {"app": name}}, "spec": spec}}})
 
 
 def ctl_daemonset():
@@ -4471,6 +4503,22 @@ def ctl_census(store):
 
     store.list("pods", take)
     return rows
+
+
+def check_census_overcommit(phase, rows, cap):
+    """No node over its allocatable cpu, memory or pod count, summed over
+    the census rows bound to it."""
+    used = {}
+    for r in rows:
+        if r.node:
+            u = used.setdefault(r.node, [0, 0, 0])
+            u[0] += r.cpu
+            u[1] += r.mem
+            u[2] += 1
+    for node, (cpu, mem, cnt) in used.items():
+        c = cap[node]
+        check(cpu <= c.milli_cpu and mem <= c.memory and cnt <= c.allowed_pod_number,
+              f"{phase}: node {node} over-committed: cpu {cpu}m mem {mem} pods {cnt}")
 
 
 def ctl_run(device, sizes):
@@ -4667,18 +4715,7 @@ def ctl_run(device, sizes):
 
     # gates
     rows = ctl_census(store)
-    used = {}
-    for r in rows:
-        if r.node:
-            u = used.setdefault(r.node, [0, 0, 0])
-            u[0] += r.cpu
-            u[1] += r.mem
-            u[2] += 1
-    for node, (cpu, mem, cnt) in used.items():
-        c = cap[node]
-        check(cpu <= c.milli_cpu and mem <= c.memory and cnt <= c.allowed_pod_number,
-              f"main_path_controllers: node {node} over-committed: cpu {cpu}m mem {mem} "
-              f"pods {cnt}")
+    check_census_overcommit("main_path_controllers", rows, cap)
     check(not ledger.rebinds, f"main_path_controllers: pods bound twice {ledger.rebinds[:3]}")
     check(not any(r.node in drained_set and r.app in deps for r in rows),
           "main_path_controllers: a Deployment pod on a drained node")
@@ -4809,6 +4846,473 @@ def phase_main_path_controllers(device, sizes, card):
     emit({"phase": "main_path_controllers_stage_table", "stage_table": run["stage_table"]})
     return {"launches": run["launches"], "seconds": time.perf_counter() - t_phase}
 
+
+# ---------------------------------------------------------------------------
+# main_path_services: services, tenants and volumes on the card
+# ---------------------------------------------------------------------------
+
+SVC_CLASS = "fast-immediate"  # the StatefulSet's Immediate-binding class
+SVC_SLICE = 100  # kube-controller-manager's --max-endpoints-per-slice default
+
+
+def svc_statefulset(ns, replicas):
+    """StatefulSet `db` (Parallel pod management) of SchedulingBasic's pod
+    with one 10Gi claim template `data` on SVC_CLASS."""
+    from kubernetes_tpu_torch.api.types import new_uid
+    from kubernetes_tpu_torch.api.workloads import StatefulSet
+
+    return StatefulSet.from_dict({
+        "metadata": {"name": "db", "namespace": ns, "uid": new_uid()},
+        "spec": {"replicas": replicas, "serviceName": "db",
+                 "podManagementPolicy": "Parallel",
+                 "selector": {"matchLabels": {"app": "db"}},
+                 "template": {"metadata": {"labels": {"app": "db"}},
+                              "spec": {"containers": [{
+                                  "name": "c", "image": "db:1",
+                                  "resources": {"requests": {"cpu": "500m",
+                                                             "memory": "1Gi"}}}]}},
+                 "volumeClaimTemplates": [{
+                     "metadata": {"name": "data"},
+                     "spec": {"accessModes": ["ReadWriteOnce"], "storageClassName": SVC_CLASS,
+                              "resources": {"requests": {"storage": "10Gi"}}}}]}})
+
+
+def svc_sha1_ip(uid):
+    """The endpoint address the smoke expects for a pod uid: 10.a.b.c from
+    the first three bytes of its SHA-1 (c at least 1)."""
+    import hashlib
+
+    h = hashlib.sha1(uid.encode()).digest()
+    return f"10.{h[0]}.{h[1]}.{max(h[2], 1)}"
+
+
+def svc_slices_recount(store, ns, rows):
+    """The smoke's recount of Service `api`'s slices in `ns` against the
+    store's: the non-terminal bound app=api pods sorted by name, chunked by
+    SVC_SLICE, ready = Running, each address the SHA-1 of the pod's uid.
+    Returns None when they agree, else what differs."""
+    want = sorted((r for r in rows if r.key.startswith(ns + "/") and r.app == "api"
+                   and r.phase not in ("Succeeded", "Failed") and r.node),
+                  key=lambda r: r.key.split("/", 1)[1])
+    chunks = [want[i:i + SVC_SLICE] for i in range(0, len(want), SVC_SLICE)] or [[]]
+    slices, _ = store.list("endpointslices", lambda s: s.metadata.namespace == ns and
+                           s.metadata.labels.get("kubernetes.io/service-name") == "api")
+    got = {s.metadata.name: s for s in slices}
+    if sorted(got) != sorted(f"api-{i}" for i in range(len(chunks))):
+        return f"slices {sorted(got)} for {len(want)} pods"
+    for i, chunk in enumerate(chunks):
+        eps = got[f"api-{i}"].endpoints
+        mine = [(r.key, r.node, r.phase == "Running", [svc_sha1_ip(r.uid)]) for r in chunk]
+        theirs = [(e.target_ref, e.node_name, e.ready, list(e.addresses)) for e in eps]
+        if mine != theirs:
+            return f"api-{i}: {len(theirs)} endpoints against {len(mine)} recounted"
+    return None
+
+
+def svc_quota_recount(store, ns, rows):
+    """The smoke's recount of `ns`'s quota: requests of its non-terminal
+    pods (cpu in millis, memory in bytes), their count and its Services.
+    Returns None when status.used agrees, else both."""
+    mine = [r for r in rows if r.key.startswith(ns + "/")
+            and r.phase not in ("Succeeded", "Failed")]
+    services = len(store.list("services", lambda s: s.metadata.namespace == ns)[0])
+    want = {"requests.cpu": f"{sum(r.cpu for r in mine)}m",
+            "requests.memory": str(sum(r.mem for r in mine)),
+            "pods": str(len(mine)), "count/services": str(services)}
+    used = store.get("resourcequotas", f"{ns}/quota").used
+    return None if used == want else f"used {used}, recount {want}"
+
+
+def svc_run(device, sizes):
+    """One run of the service and tenant controllers on a fresh store:
+    scheduler_perf's 5,000-node cluster with the node-side objects of
+    testing.fallback_workload, BatchScheduler(solver="auto",
+    batch_size=4096) on `device` with DynamicResourceAllocation on, and the
+    twelve controllers on a FakeClock stepped a second a round, started
+    before any workload exists. A round: the metrics stand-in counts each
+    namespace's Running pods, reconcile_once on every controller, the
+    autoscaler's resync(), run_until_idle, the Running stand-in
+    (testing.run_bound_pods); every controller pumps its watch after each
+    stage. Steps: setup (untimed), scale out, scale in, volumes and claims,
+    teardown. Returns what the gates and the comparison read."""
+    from kubernetes_tpu_torch import controllers as ctl
+    from kubernetes_tpu_torch.api import Resource
+    from kubernetes_tpu_torch.api.dra import DeviceRequest, ResourceClaimTemplate
+    from kubernetes_tpu_torch.api.networking import Service
+    from kubernetes_tpu_torch.api.policy import HorizontalPodAutoscaler, ResourceQuota
+    from kubernetes_tpu_torch.api.storage import PersistentVolume, StorageClass
+    from kubernetes_tpu_torch.api.types import Namespace, ObjectMeta, new_uid
+    from kubernetes_tpu_torch.obs.reconcile import reconcile_rollup
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler.batch import BatchScheduler
+    from kubernetes_tpu_torch.store import APIStore, NotFoundError
+    from kubernetes_tpu_torch.testing import (FALLBACK_DEVICE_CLASS, FALLBACK_DRIVER,
+                                              fallback_workload, run_bound_pods)
+    from kubernetes_tpu_torch.utils import FakeClock
+    from kubernetes_tpu_torch.utils.featuregate import feature_gates
+
+    n_nodes, n_ns, base = sizes["nodes"], sizes["svc_namespaces"], sizes["svc_replicas"]
+    peak, top = base * 5 // 2, base * 4
+    n_db, n_infer = sizes["svc_volume_pods"], sizes["svc_claim_pods"]
+    teams = [f"team-{i}" for i in range(n_ns)]
+    nodes = make_nodes(n_nodes, zones=10)
+    cap = {n.metadata.name: Resource.from_resource_list(n.status.allocatable) for n in nodes}
+    side = fallback_workload(0, n_nodes, 0, zones=10, slice_every=10, devices_per_slice=8,
+                             csi_limit=3, prebound=0, provision=0, static=0, dra_one=1,
+                             dra_two=0, spread=0)
+    feature_gates.set("DynamicResourceAllocation", True)
+    try:
+        store = APIStore()
+        store.create_many("nodes", nodes)
+        for kind in ("csinodes", "deviceclasses", "resourceslices"):
+            store.create_many(kind, side[kind])
+        store.create("storageclasses", StorageClass(metadata=ObjectMeta(name=SVC_CLASS),
+                                                    provisioner=FALLBACK_DRIVER))
+        pvs = []
+        for i in range(n_db):
+            pv = PersistentVolume(metadata=ObjectMeta(name=f"pv-db-{i}"))
+            pv.spec.capacity = 10 * 2**30
+            pv.spec.access_modes = ["ReadWriteOnce"]
+            pv.spec.storage_class_name = SVC_CLASS
+            pv.spec.csi_driver = FALLBACK_DRIVER
+            pv.spec.volume_handle = f"handle-db-{i}"
+            pvs.append(pv)
+        store.create_many("persistentvolumes", pvs)
+        clock = FakeClock(0.0)
+        sched = BatchScheduler(store, device=device.type, solver="auto",
+                               batch_size=sizes["batch"], clock=clock)
+        sched.sync()
+        demand = {}  # namespace -> millicores the stand-in spreads over its Running pods
+        running = collections.Counter()
+
+        def usage(pod):
+            # the metrics stand-in: a Pending pod reports nothing
+            ns = pod.metadata.namespace
+            if pod.status.phase != "Running" or ns not in demand or not running[ns]:
+                return None
+            return demand[ns] // running[ns]
+
+        hpa = ctl.HorizontalPodAutoscalerController(store, clock=clock, usage_fn=usage)
+        nsc = ctl.NamespaceController(store, clock=clock)
+        controllers = [nsc, ctl.ServiceAccountController(store, clock=clock),
+                       ctl.DeploymentController(store, clock=clock),
+                       ctl.ReplicaSetController(store, clock=clock),
+                       ctl.StatefulSetController(store, clock=clock),
+                       ctl.PersistentVolumeBinder(store, clock=clock),
+                       ctl.ResourceClaimController(store, clock=clock),
+                       ctl.GarbageCollector(store, clock=clock),
+                       ctl.ResourceQuotaController(store, clock=clock),
+                       ctl.EndpointSliceController(store, clock=clock),
+                       hpa, ctl.AttachDetachController(store, clock=clock)]
+        for c in controllers:
+            c.sync_all()
+            c.reconcile_once()
+        ledger = BindLedger(store)
+        kinds = store.watch(maxsize=0)
+        events = collections.Counter()
+        step_events = collections.Counter()
+        per_ctl = collections.Counter()
+        history = []
+        last_hpa = {}
+
+        def count_running(p):
+            if p.status.phase == "Running":
+                running[p.metadata.namespace] += 1
+            return False
+
+        def pump_all():
+            for c in controllers:
+                c.pump()
+
+        def drive(name, max_rounds, done):
+            for r in range(1, max_rounds + 1):
+                running.clear()
+                store.list("pods", count_running)
+                for c in controllers:
+                    tc = time.perf_counter()
+                    c.reconcile_once()
+                    per_ctl[type(c).__name__] += time.perf_counter() - tc
+                tc = time.perf_counter()
+                hpa.resync()
+                per_ctl["HorizontalPodAutoscalerController.resync"] += time.perf_counter() - tc
+                sched.run_until_idle()
+                pump_all()
+                run_bound_pods(store)
+                pump_all()
+                ledger.drain()
+                for ev in kinds.drain():
+                    events[ev.kind] += 1
+                    step_events[ev.kind] += 1
+                for h in store.list("horizontalpodautoscalers")[0]:
+                    now = (h.current_replicas, h.desired_replicas)
+                    if last_hpa.get(h.key) != now:
+                        last_hpa[h.key] = now
+                        history.append((name, r, h.key, *now))
+                clock.step(1.0)
+                rows = ctl_census(store)
+                if done(rows):
+                    return r, rows
+            raise PhaseFailed(f"main_path_services: {name} did not converge in "
+                              f"{max_rounds} rounds")
+
+        def api_settled(rows, want):
+            per = collections.Counter(r.key.split("/", 1)[0] for r in rows
+                                      if r.app == "api" and r.live)
+            return all(per[ns] == want for ns in teams) and all(
+                r.node and r.phase == "Running" for r in rows if r.live)
+
+        def services_current(rows, want):
+            return (api_settled(rows, want)
+                    and all(svc_slices_recount(store, ns, rows) is None for ns in teams)
+                    and all(svc_quota_recount(store, ns, rows) is None for ns in teams))
+
+        def scale_check(step, want):
+            for ns in teams:
+                h = store.get("horizontalpodautoscalers", f"{ns}/api")
+                d = store.get("deployments", f"{ns}/api")
+                check(h.desired_replicas == want == d.spec.replicas,
+                      f"main_path_services: {step}: {ns} autoscaler desires "
+                      f"{h.desired_replicas}, Deployment at {d.spec.replicas}, want {want}")
+
+        steps, rounds, writes = {}, {}, {}
+
+        def close(name, t0, pods):
+            steps[name] = {"seconds": time.perf_counter() - t0, "pods": pods}
+            writes[name] = {k: step_events[k] for k in ("endpointslices", "resourcequotas")}
+            step_events.clear()
+
+        kernels.reset_launch_counts()
+        # setup (untimed): the namespaces, their quotas, Services, Deployments
+        # and autoscalers; the stand-in reports no usage yet
+        t0 = time.perf_counter()
+        store.create_many("namespaces", [Namespace(metadata=ObjectMeta(name=ns, uid=new_uid()))
+                                         for ns in teams])
+        for ns in teams:
+            store.create("resourcequotas", ResourceQuota(
+                metadata=ObjectMeta(name="quota", namespace=ns, uid=new_uid()),
+                hard={"requests.cpu": str(top), "requests.memory": f"{2 * top}Gi",
+                      "pods": str(2 * top), "count/services": "5"}))
+            store.create("services", Service.from_dict({
+                "metadata": {"name": "api", "namespace": ns, "uid": new_uid()},
+                "spec": {"selector": {"app": "api"},
+                         "ports": [{"name": "http", "port": 80, "targetPort": 8080}]}}))
+            store.create("deployments", ctl_deployment("api", base, ns=ns))
+            store.create("horizontalpodautoscalers", HorizontalPodAutoscaler(
+                metadata=ObjectMeta(name="api", namespace=ns, uid=new_uid()),
+                target_kind="Deployment", target_name="api", min_replicas=base,
+                max_replicas=top, target_cpu_utilization=50))
+
+        def setup_done(rows):
+            accounts = {sa.metadata.namespace for sa in store.list("serviceaccounts")[0]}
+            return services_current(rows, base) and all(ns in accounts for ns in teams)
+
+        rounds["setup"], rows = drive("setup", 40, setup_done)
+        close("setup", t0, n_ns * base)
+        scale_check("setup", base)
+        store.clear_watch_propagation()
+        for c in controllers:
+            c.recorder.clear()
+
+        # (1) scale out: demand 125% of the pods' requests
+        for ns in teams:
+            demand[ns] = base * 625
+        t0 = time.perf_counter()
+        rounds["scale_out"], rows = drive("scale out", 40,
+                                          lambda rows: services_current(rows, peak))
+        close("scale_out", t0, n_ns * (peak - base))
+        scale_check("scale out", peak)
+
+        # (2) scale in: demand 20% of the scaled-out requests, the clock past
+        # the downscale stabilization window
+        for ns in teams:
+            demand[ns] = peak * 100
+        clock.step(hpa.downscale_stabilization + 1.0)
+        t0 = time.perf_counter()
+        rounds["scale_in"], rows = drive("scale in", 40,
+                                         lambda rows: services_current(rows, base))
+        close("scale_in", t0, n_ns * (peak - base))
+        scale_check("scale in", base)
+
+        # (3) volumes and claims in team-0: a StatefulSet whose claims the
+        # binder binds to the static PVs, and a Deployment whose pods' device
+        # claims the claim controller generates from a template
+        team0 = teams[0]
+        fb0, fbs0 = sched.fallback_pods, sched.stage_seconds["fallback"]
+        t0 = time.perf_counter()
+        tmpl = ResourceClaimTemplate(requests=[DeviceRequest(
+            name="gpu", device_class_name=FALLBACK_DEVICE_CLASS, count=1)])
+        tmpl.metadata.name, tmpl.metadata.namespace = "gpu-one", team0
+        store.create("resourceclaimtemplates", tmpl)
+        store.create("statefulsets", svc_statefulset(team0, n_db))
+        store.create("deployments", ctl_deployment("infer", n_infer, ns=team0,
+                                                   claim_template="gpu-one"))
+
+        def volumes_state():
+            pods = store.list("pods", lambda p: p.metadata.namespace == team0
+                              and p.metadata.labels.get("app") in ("db", "infer"))[0]
+            claims = {c.metadata.name: c for c in store.list(
+                "persistentvolumeclaims", lambda c: c.metadata.namespace == team0)[0]}
+            vas = {(va.pv_name, va.node_name) for va in store.list("volumeattachments")[0]}
+            return pods, claims, vas
+
+        def volumes_problem():
+            pods, claims, vas = volumes_state()
+            db = [p for p in pods if p.metadata.labels["app"] == "db"]
+            infer = [p for p in pods if p.metadata.labels["app"] == "infer"]
+            if len(db) != n_db or len(infer) != n_infer:
+                return f"{len(db)} db and {len(infer)} infer pods"
+            if any(p.status.phase != "Running" or not p.spec.node_name for p in pods):
+                return "a db or infer pod not Running"
+            bound = [c.spec.volume_name for c in claims.values() if c.phase == "Bound"]
+            if len(claims) != n_db or len(bound) != n_db or len(set(bound)) != n_db:
+                return f"claims {len(claims)}, bound {len(bound)} to {len(set(bound))} PVs"
+            want = {(claims[f"data-{p.metadata.name}"].spec.volume_name, p.spec.node_name)
+                    for p in db}
+            if vas != want:
+                return f"attachments {len(vas)} against {len(want)} (PV, node) pairs"
+            for p in infer:
+                name = f"{p.metadata.name}-gpu"
+                if p.status.resource_claim_statuses != {"gpu": name}:
+                    return f"{p.metadata.name} records {p.status.resource_claim_statuses}"
+                try:
+                    claim = store.get("resourceclaims", f"{team0}/{name}")
+                except NotFoundError:
+                    return f"claim {name} missing"
+                if claim.allocation is None or claim.allocation.node_name != p.spec.node_name:
+                    return f"claim {name} not allocated on {p.spec.node_name}"
+            return None
+
+        rounds["volumes"], rows = drive(
+            "volumes and claims", 40,
+            lambda rows: volumes_problem() is None and services_current(rows, base))
+        close("volumes", t0, n_db + n_infer)
+        scale_check("volumes and claims", base)
+        fallback = {"pods": sched.fallback_pods - fb0,
+                    "seconds": sched.stage_seconds["fallback"] - fbs0}
+        check(fallback["pods"] >= n_db + n_infer,
+              f"main_path_services: {fallback['pods']} pods took the fallback route")
+
+        # (4) teardown: team-9 terminating until nothing of it is left
+        gone = teams[-1]
+        doomed = sum(1 for r in rows if r.key.startswith(gone + "/"))
+        t0 = time.perf_counter()
+        nsc.mark_terminating(gone)
+        left = collections.Counter()
+
+        def count_left(kind):
+            def take(o):
+                if getattr(o.metadata, "namespace", "") == gone:
+                    left[kind] += 1
+                return False
+            return take
+
+        def emptied(rows):
+            left.clear()
+            for kind in store.kinds():
+                store.list(kind, count_left(kind))
+            try:
+                store.get("namespaces", gone)
+                return False
+            except NotFoundError:
+                return not left and services_current(rows, base)
+
+        teams.remove(gone)  # the recount gates cover the namespaces that stay
+        rounds["teardown"], rows = drive("teardown", 20, emptied)
+        close("teardown", t0, doomed)
+        scale_check("teardown", base)
+        sync(device)
+        launches = dict(kernels.LAUNCHES)
+        sched.flush_binds()
+    finally:
+        feature_gates.set("DynamicResourceAllocation", False)
+
+    # gates
+    rows = ctl_census(store)
+    check_census_overcommit("main_path_services", rows, cap)
+    check(not ledger.rebinds, f"main_path_services: pods bound twice {ledger.rebinds[:3]}")
+    check(sched.cache.assumed_count() == 0, "main_path_services: assumed pods left")
+    problem = volumes_problem()
+    check(problem is None, f"main_path_services: volumes and claims: {problem}")
+    for ns in teams:
+        for what in (svc_slices_recount(store, ns, rows), svc_quota_recount(store, ns, rows)):
+            check(what is None, f"main_path_services: {ns}: {what}")
+    check(not left, f"main_path_services: objects left in {gone}: {dict(left)}")
+    tel = store.watch_telemetry()
+    prop = tel["propagation"]
+    roll = reconcile_rollup({type(c).__name__: c.reconcile_stats() for c in controllers})
+    table = stage_table(sched)
+    sched.stop()
+    for c in controllers:
+        c.stop()
+    ledger.watch.stop()
+    kinds.stop()
+    return {
+        "map": {r.key: r.node for r in rows}, "rounds": rounds, "steps": steps,
+        "launches": launches, "events": dict(events), "hpa_history": history,
+        "writes": writes, "fallback": fallback, "controller_s": dict(per_ctl),
+        "stage_table": table, "reconcile": roll,
+        "controllers": {type(c).__name__: {k: c.reconcile_stats()[k] for k in
+                                           ("loops", "keys", "errors", "events",
+                                            "reconcile_p50_ms", "reconcile_p99_ms")}
+                        for c in controllers},
+        "watch": {"count": prop["count"], "p50_s": prop["p50_s"], "p99_s": prop["p99_s"]}}
+
+
+def svc_run_cpu(sizes):
+    """svc_run with device="cpu" (the plain versions), in a worker process:
+    what the comparison reads, its map's pod names normalized."""
+    import torch
+
+    run = svc_run(torch.device("cpu"), sizes)
+    run.pop("stage_table")
+    run["map"] = ctl_normalized_map(run["map"])
+    return run
+
+
+def phase_main_path_services(device, sizes, card):
+    """The service and tenant controllers, volumes and claims through the
+    batch scheduler on the card, after upstream's own controller semantics
+    (horizontal.go's ceil(current x utilization / target) with a 10%
+    tolerance and a 300-s downscale window, at most 100 endpoints a slice,
+    quota usage recalculation, namespace deletion) on scheduler_perf's
+    5,000-node cluster; the same run with device="cpu" runs beside it in a
+    spawned process (rerun_pool), and its map, rounds, autoscaler history
+    and event counts must be equal."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        with rerun_pool(1) as pool:
+            rerun = pool.apply_async(svc_run_cpu, (sizes,))
+            run = svc_run(device, sizes)
+            check(device.type != "cuda"
+                  or (run["launches"]["row_scatter"] > 0 and run["launches"]["waterfill"] > 0),
+                  f"main_path_services: kernels B and C not launched {run['launches']}")
+            cpu = rerun.get(timeout=900)
+    finally:
+        gc.unfreeze()
+        gc.collect()
+    check(cpu["map"] == ctl_normalized_map(run["map"]),
+          "main_path_services: the CPU rerun's map differs")
+    hist = json.loads(json.dumps(run["hpa_history"]))
+    check(cpu["rounds"] == run["rounds"] and cpu["events"] == run["events"]
+          and json.loads(json.dumps(cpu["hpa_history"])) == hist,
+          f"main_path_services: the CPU rerun differs: rounds {cpu['rounds']} / "
+          f"{run['rounds']}, events {cpu['events']} / {run['events']}")
+    line = {k: run[k] for k in ("rounds", "launches", "events", "writes", "fallback",
+                                "controller_s", "controllers", "reconcile", "watch")}
+    line["steps"] = {k: {**v, "pods_per_s": v["pods"] / v["seconds"] if v["seconds"] else None}
+                     for k, v in run["steps"].items()}
+    line["cpu_steps_s"] = {k: v["seconds"] for k, v in cpu["steps"].items()}
+    line["hpa_history"] = len(hist)
+    emit({"phase": "main_path_services", "card": card, "nodes": sizes["nodes"],
+          "namespaces": sizes["svc_namespaces"], "replicas": sizes["svc_replicas"],
+          "volume_pods": sizes["svc_volume_pods"], "claim_pods": sizes["svc_claim_pods"],
+          **line})
+    emit({"phase": "main_path_services_stage_table", "stage_table": run["stage_table"]})
+    return {"launches": run["launches"], "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4842,6 +5346,8 @@ def main(argv=None) -> int:
               "preempt_nodes": 100, "preempt_constrained": 20,
               "part_nodes": 100, "part_pods": 2000, "part_spread": 100, "part_wave2": 200,
               "ctl_deployments": 4, "ctl_replicas": 100, "ctl_drain": 5,
+              "svc_namespaces": 4, "svc_replicas": 20, "svc_volume_pods": 4,
+              "svc_claim_pods": 4,
               "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
                            "dra_two": 2, "spread": 4}}
              if args.small else
@@ -4855,6 +5361,8 @@ def main(argv=None) -> int:
               "preempt_nodes": 500, "preempt_constrained": 30,
               "part_nodes": 1000, "part_pods": 20000, "part_spread": 1000, "part_wave2": 2000,
               "ctl_deployments": 10, "ctl_replicas": 100, "ctl_drain": 50,
+              "svc_namespaces": 10, "svc_replicas": 100, "svc_volume_pods": 16,
+              "svc_claim_pods": 16,
               "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
                            "dra_two": 16, "spread": 16}})
     seconds = {}  # each phase's wall seconds, printed before the kernels line
@@ -4901,6 +5409,7 @@ def main(argv=None) -> int:
                           card)
         controllers = timed("main_path_controllers", phase_main_path_controllers, device,
                             sizes, card)
+        services = timed("main_path_services", phase_main_path_services, device, sizes, card)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4945,7 +5454,8 @@ def main(argv=None) -> int:
          "preempt_path_launches": preempt_sum["row_scatter"],
          "fallback_path_launches": fallback["launches"]["row_scatter"],
          "partition_path_launches": partition_sum["row_scatter"],
-         "controllers_path_launches": controllers["launches"]["row_scatter"]},
+         "controllers_path_launches": controllers["launches"]["row_scatter"],
+         "services_path_launches": services["launches"]["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -4961,7 +5471,8 @@ def main(argv=None) -> int:
          "preempt_path_launches": preempt_sum["waterfill"],
          "fallback_path_launches": fallback["launches"]["waterfill"],
          "partition_path_launches": partition_sum["waterfill"],
-         "controllers_path_launches": controllers["launches"]["waterfill"]},
+         "controllers_path_launches": controllers["launches"]["waterfill"],
+         "services_path_launches": services["launches"]["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),

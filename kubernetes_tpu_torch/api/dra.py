@@ -7,8 +7,8 @@ staging/src/k8s.io/dynamic-resource-allocation/structured (the allocator these
 types feed). The counterpart of `kubernetes_tpu/api/dra.py`: devices are
 selected by declarative attribute requirements (key op value) where the
 reference evaluates CEL, the same decision surface over a bounded
-vocabulary. ResourceClaimTemplate comes with the claim controller (ROADMAP.md
-queue 1 item 7j).
+vocabulary. ResourceClaimTemplate is what the claim controller stamps into
+generated claims (controllers/resourceclaim.py).
 """
 
 from __future__ import annotations
@@ -246,3 +246,44 @@ class ResourceClaim:
             out["status"] = status
         return out
 
+
+@dataclass
+class ResourceClaimTemplate:
+    """resource/v1beta1 ResourceClaimTemplate: spec stamped into generated
+    ResourceClaims by the resourceclaim controller (reference:
+    pkg/controller/resourceclaim/controller.go — pods reference templates
+    via PodSpec.resourceClaims[].resourceClaimTemplateName)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    requests: List[DeviceRequest] = field(default_factory=list)
+
+    kind = "ResourceClaimTemplate"
+
+    @property
+    def key(self) -> str:
+        return f"{self.metadata.namespace}/{self.metadata.name}"
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "ResourceClaimTemplate":
+        spec = d.get("spec") or {}
+        devices = (spec.get("spec") or spec).get("devices") or {}
+        return ResourceClaimTemplate(
+            metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+            requests=[DeviceRequest.from_dict(r)
+                      for r in devices.get("requests") or []],
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "kind": self.kind,
+            "apiVersion": "resource.k8s.io/v1beta1",
+            "metadata": self.metadata.to_dict(),
+            "spec": {"spec": {"devices": {"requests": [
+                {"name": r.name, "deviceClassName": r.device_class_name,
+                 "count": r.count,
+                 **({"selectors": [{"key": s.key, "op": s.op,
+                                    "value": s.value}
+                                   for s in r.selectors]}
+                    if r.selectors else {})}
+                for r in self.requests]}}},
+        }

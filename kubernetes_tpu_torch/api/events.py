@@ -1,11 +1,12 @@
-"""core/v1 Event and the EventRecorder.
+"""core/v1 Event, the EventRecorder and the PodLog channel.
 
 The counterpart of `kubernetes_tpu/api/events.py` (Event, EventRecorder,
-events_for; reference: staging/src/k8s.io/api/core/v1/types.go Event,
-client-go tools/record). Components narrate what they did to an object
+events_for, PodLog, append_pod_log; reference:
+staging/src/k8s.io/api/core/v1/types.go Event, client-go tools/record). Components narrate what they did to an object
 ("FailedScheduling", "GangPreempting", "Preempted"), and repeated identical
 events fold into one object with a bumped `count` instead of flooding the
-store. Pod logs come with the node agent, ROADMAP.md queue 1 item 7.
+store. PodLog and append_pod_log are the node agents' log channel through
+the store.
 """
 
 from __future__ import annotations
@@ -149,3 +150,77 @@ def events_for(store, kind: str, namespace: str, name: str):
         lambda e: (e.involved_kind == kind and e.involved_name == name
                    and e.involved_namespace == namespace))
     return sorted(evs, key=lambda e: e.last_timestamp)
+
+
+# ---- pod logs -----------------------------------------------------------------
+
+
+@dataclass
+class PodLog:
+    """The kubelet->apiserver log channel for one pod.
+
+    The reference serves `kubectl logs` by proxying the apiserver to the
+    kubelet, which reads per-container log files written by the CRI runtime
+    (pkg/kubelet/kuberuntime/kuberuntime_logs.go; registry/core/pod/rest/
+    log.go). This build's transport is the store: node agents append lines
+    here (in-process kubelets directly, HTTP-joined nodes via PATCH) and the
+    server renders GET /api/v1/namespaces/{ns}/pods/{name}/log from it.
+    Named after the pod; bounded to MAX_LINES (oldest dropped), the log-file
+    rotation analog."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    entries: list = field(default_factory=list)  # "ts container msg" strings
+
+    kind = "PodLog"
+    MAX_LINES = 1000
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "PodLog":
+        return PodLog(
+            metadata=ObjectMeta.from_dict(d.get("metadata") or {}),
+            entries=list(d.get("entries") or []),
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"apiVersion": "v1", "kind": "PodLog",
+                "metadata": self.metadata.to_dict(),
+                "entries": list(self.entries)}
+
+
+def append_pod_log(store, namespace: str, name: str, container: str,
+                   message: str, now: float, pod_uid: str = "") -> None:
+    """Best-effort append of one log line (store transport; see PodLog).
+    With pod_uid, the created channel carries an ownerReference to its pod so
+    the garbage collector reaps it after pod deletion."""
+    from ..store import NotFoundError
+
+    line = f"{now:.3f} [{container}] {message}"
+    key = f"{namespace}/{name}"
+    try:
+        def bump(obj):
+            refs = obj.metadata.owner_references
+            if pod_uid and refs and refs[0].get("uid") not in ("", pod_uid):
+                # same-name pod was recreated: this is a NEW log stream (the
+                # log-file-per-pod-UID analog) — reset content and re-own, or
+                # the GC would reap the live pod's lines as an orphan
+                obj.metadata.owner_references = [
+                    {"kind": "Pod", "name": name, "uid": pod_uid}]
+                obj.entries = [line]
+                return obj
+            obj.entries.append(line)
+            if len(obj.entries) > PodLog.MAX_LINES:
+                del obj.entries[:len(obj.entries) - PodLog.MAX_LINES]
+            return obj
+
+        store.guaranteed_update("podlogs", key, bump)
+    except NotFoundError:
+        meta = ObjectMeta(name=name, namespace=namespace)
+        if pod_uid:
+            meta.owner_references = [{"kind": "Pod", "name": name,
+                                      "uid": pod_uid}]
+        try:
+            store.create("podlogs", PodLog(metadata=meta, entries=[line]))
+        except Exception:
+            pass  # lost race with another writer: next append lands
+    except Exception:
+        pass  # logging must never break pod lifecycle

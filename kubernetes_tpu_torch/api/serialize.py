@@ -1,31 +1,59 @@
-"""Object <-> k8s-style camelCase dict serialization for the ported API kinds.
+"""Object <-> k8s-style camelCase dict serialization for every API type.
 
-The counterpart of `kubernetes_tpu/api/serialize.py` for the kinds the port
-has: pods, nodes, namespaces, the workload kinds (ReplicaSet, Deployment,
-StatefulSet, DaemonSet, Job, CronJob), leases, PodDisruptionBudgets, events,
-pod groups, and the storage (PersistentVolume, PersistentVolumeClaim,
-StorageClass, CSINode) and DRA (ResourceClaim, ResourceSlice, DeviceClass)
-kinds. The wire format matches kubernetes manifests (reference: the JSON
-forms of staging/src/k8s.io/api types) byte for byte with the JAX package's
+The counterpart of `kubernetes_tpu/api/serialize.py`, with the same four
+tables (RESOURCE_TO_TYPE, KIND_TO_RESOURCE, CLUSTER_SCOPED, GROUP_PREFIX).
+The wire format matches kubernetes manifests (reference: the JSON forms of
+staging/src/k8s.io/api types) byte for byte with the JAX package's
 (`json.dumps(..., sort_keys=True)`), so standard YAML round-trips and
 template fingerprints (controllers/revision.py) agree.
-
-The other kinds of the JAX tables (services, quotas, certificates, CRDs,
-admission and flow-control objects, ...) come with ROADMAP.md queue 1 item
-7j: `from_dict` and `resource_type` raise for them, naming the item.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from .dra import DeviceClass, ResourceClaim, ResourceSlice
-from .events import Event as CoreEvent
 from .labels import NodeSelector, Selector
-from .podgroup import PodGroup
-from .policy import PodDisruptionBudget
-from .storage import CSINode, PersistentVolume, PersistentVolumeClaim, StorageClass
 from .types import Affinity, Namespace, Node, Pod, PodAffinityTerm
+from .networking import (
+    EndpointSlice,
+    Ingress,
+    IngressClass,
+    NetworkPolicy,
+    Service,
+)
+from .policy import (
+    HorizontalPodAutoscaler,
+    LimitRange,
+    PodDisruptionBudget,
+    PriorityClass,
+    ResourceQuota,
+    ServiceAccount,
+)
+from .admissionregistration import (
+    MutatingWebhookConfiguration,
+    ValidatingAdmissionPolicy,
+    ValidatingAdmissionPolicyBinding,
+    ValidatingWebhookConfiguration,
+)
+from .apiservice import APIService
+from .certificates import CertificateSigningRequest
+from .config import ConfigMap, Secret
+from .crd import CustomResourceDefinition
+from .flowcontrolapi import (
+    FlowSchemaConfiguration,
+    PriorityLevelConfiguration,
+)
+from .dra import DeviceClass, ResourceClaim, ResourceClaimTemplate, ResourceSlice
+from .events import Event as CoreEvent, PodLog
+from .execapi import PodExec, PodPortForward
+from .storage import (
+    CSINode,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    StorageClass,
+    VolumeAttachment,
+)
+from .podgroup import PodGroup
 from .workloads import (
     CronJob,
     DaemonSet,
@@ -51,11 +79,37 @@ KIND_TO_RESOURCE = {
     "PersistentVolumeClaim": "persistentvolumeclaims",
     "StorageClass": "storageclasses",
     "CSINode": "csinodes",
+    "Service": "services",
+    "EndpointSlice": "endpointslices",
+    "ResourceQuota": "resourcequotas",
+    "LimitRange": "limitranges",
+    "HorizontalPodAutoscaler": "horizontalpodautoscalers",
     "PodDisruptionBudget": "poddisruptionbudgets",
+    "PriorityClass": "priorityclasses",
+    "ServiceAccount": "serviceaccounts",
     "Event": "events",
     "ResourceClaim": "resourceclaims",
     "ResourceSlice": "resourceslices",
     "DeviceClass": "deviceclasses",
+    "CustomResourceDefinition": "customresourcedefinitions",
+    "CertificateSigningRequest": "certificatesigningrequests",
+    "APIService": "apiservices",
+    "VolumeAttachment": "volumeattachments",
+    "ResourceClaimTemplate": "resourceclaimtemplates",
+    "PodLog": "podlogs",
+    "PodExec": "podexecs",
+    "PodPortForward": "podportforwards",
+    "ConfigMap": "configmaps",
+    "Secret": "secrets",
+    "Ingress": "ingresses",
+    "IngressClass": "ingressclasses",
+    "NetworkPolicy": "networkpolicies",
+    "PriorityLevelConfiguration": "prioritylevelconfigurations",
+    "FlowSchema": "flowschemas",
+    "ValidatingAdmissionPolicy": "validatingadmissionpolicies",
+    "ValidatingAdmissionPolicyBinding": "validatingadmissionpolicybindings",
+    "MutatingWebhookConfiguration": "mutatingwebhookconfigurations",
+    "ValidatingWebhookConfiguration": "validatingwebhookconfigurations",
     "PodGroup": "podgroups",
 }
 RESOURCE_TO_TYPE = {
@@ -73,15 +127,49 @@ RESOURCE_TO_TYPE = {
     "persistentvolumeclaims": PersistentVolumeClaim,
     "storageclasses": StorageClass,
     "csinodes": CSINode,
+    "services": Service,
+    "endpointslices": EndpointSlice,
+    "resourcequotas": ResourceQuota,
+    "limitranges": LimitRange,
+    "horizontalpodautoscalers": HorizontalPodAutoscaler,
     "poddisruptionbudgets": PodDisruptionBudget,
+    "priorityclasses": PriorityClass,
+    "serviceaccounts": ServiceAccount,
     "events": CoreEvent,
     "resourceclaims": ResourceClaim,
     "resourceslices": ResourceSlice,
     "deviceclasses": DeviceClass,
+    "customresourcedefinitions": CustomResourceDefinition,
+    "certificatesigningrequests": CertificateSigningRequest,
+    "apiservices": APIService,
+    "volumeattachments": VolumeAttachment,
+    "resourceclaimtemplates": ResourceClaimTemplate,
+    "podlogs": PodLog,
+    "podexecs": PodExec,
+    "podportforwards": PodPortForward,
+    "configmaps": ConfigMap,
+    "secrets": Secret,
+    "ingresses": Ingress,
+    "ingressclasses": IngressClass,
+    "networkpolicies": NetworkPolicy,
+    "prioritylevelconfigurations": PriorityLevelConfiguration,
+    "flowschemas": FlowSchemaConfiguration,
+    "validatingadmissionpolicies": ValidatingAdmissionPolicy,
+    "validatingadmissionpolicybindings": ValidatingAdmissionPolicyBinding,
+    "mutatingwebhookconfigurations": MutatingWebhookConfiguration,
+    "validatingwebhookconfigurations": ValidatingWebhookConfiguration,
     "podgroups": PodGroup,
 }
 CLUSTER_SCOPED = {"nodes", "namespaces", "persistentvolumes", "storageclasses",
-                  "csinodes", "resourceslices", "deviceclasses"}
+                  "volumeattachments", "apiservices",
+                  "csinodes", "resourceslices", "deviceclasses",
+                  "priorityclasses", "customresourcedefinitions",
+                  "certificatesigningrequests", "ingressclasses",
+                  "prioritylevelconfigurations", "flowschemas",
+                  "validatingadmissionpolicies",
+                  "validatingadmissionpolicybindings",
+                  "mutatingwebhookconfigurations",
+                  "validatingwebhookconfigurations"}
 GROUP_PREFIX = {
     "pods": "/api/v1",
     "nodes": "/api/v1",
@@ -97,43 +185,46 @@ GROUP_PREFIX = {
     "persistentvolumeclaims": "/api/v1",
     "storageclasses": "/apis/storage.k8s.io/v1",
     "csinodes": "/apis/storage.k8s.io/v1",
+    "volumeattachments": "/apis/storage.k8s.io/v1",
+    "apiservices": "/apis/apiregistration.k8s.io/v1",
+    "services": "/api/v1",
+    "endpointslices": "/apis/discovery.k8s.io/v1",
+    "resourcequotas": "/api/v1",
+    "limitranges": "/api/v1",
+    "horizontalpodautoscalers": "/apis/autoscaling/v2",
     "poddisruptionbudgets": "/apis/policy/v1",
+    "priorityclasses": "/apis/scheduling.k8s.io/v1",
+    "serviceaccounts": "/api/v1",
     "events": "/api/v1",
     "resourceclaims": "/apis/resource.k8s.io/v1beta1",
+    "resourceclaimtemplates": "/apis/resource.k8s.io/v1beta1",
     "resourceslices": "/apis/resource.k8s.io/v1beta1",
     "deviceclasses": "/apis/resource.k8s.io/v1beta1",
+    "customresourcedefinitions": "/apis/apiextensions.k8s.io/v1",
+    "certificatesigningrequests": "/apis/certificates.k8s.io/v1",
+    "podlogs": "/api/v1",
+    "podexecs": "/api/v1",
+    "podportforwards": "/api/v1",
+    "configmaps": "/api/v1",
+    "secrets": "/api/v1",
+    "ingresses": "/apis/networking.k8s.io/v1",
+    "ingressclasses": "/apis/networking.k8s.io/v1",
+    "networkpolicies": "/apis/networking.k8s.io/v1",
+    "prioritylevelconfigurations": "/apis/flowcontrol.apiserver.k8s.io/v1",
+    "flowschemas": "/apis/flowcontrol.apiserver.k8s.io/v1",
+    "validatingadmissionpolicies": "/apis/admissionregistration.k8s.io/v1",
+    "validatingadmissionpolicybindings":
+        "/apis/admissionregistration.k8s.io/v1",
+    "mutatingwebhookconfigurations": "/apis/admissionregistration.k8s.io/v1",
+    "validatingwebhookconfigurations":
+        "/apis/admissionregistration.k8s.io/v1",
     "podgroups": "/apis/scheduling.x-k8s.io/v1alpha1",
 }
 
-# the JAX tables' other resources, which come with ROADMAP.md queue 1 item 7j
-NOT_PORTED = frozenset({
-    "services", "endpointslices", "resourcequotas", "limitranges",
-    "horizontalpodautoscalers", "priorityclasses", "serviceaccounts",
-    "customresourcedefinitions", "certificatesigningrequests", "apiservices",
-    "volumeattachments", "resourceclaimtemplates", "podlogs", "podexecs",
-    "podportforwards", "configmaps", "secrets", "ingresses", "ingressclasses",
-    "networkpolicies", "prioritylevelconfigurations", "flowschemas",
-    "validatingadmissionpolicies", "validatingadmissionpolicybindings",
-    "mutatingwebhookconfigurations", "validatingwebhookconfigurations",
-})
-
-
-class NotPortedError(NotImplementedError):
-    """A resource of the JAX package's tables that the port does not have
-    yet."""
-
 
 def resource_type(resource: str):
-    """The object type of a resource name; raises NotPortedError for a kind
-    that comes with item 7j, KeyError for an unknown one."""
-    t = RESOURCE_TO_TYPE.get(resource)
-    if t is not None:
-        return t
-    if resource in NOT_PORTED:
-        raise NotPortedError(
-            f"resource {resource!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 7j)")
-    raise KeyError(resource)
+    """The object type of a resource name; KeyError for an unknown one."""
+    return RESOURCE_TO_TYPE[resource]
 
 
 def from_dict(resource: str, d: Dict) -> Any:

@@ -1,12 +1,12 @@
 """Storage API types: PersistentVolume, PersistentVolumeClaim, StorageClass,
-CSINode.
+CSINode, VolumeAttachment.
 
 reference: staging/src/k8s.io/api/core/v1/types.go (PersistentVolume,
 PersistentVolumeClaim), staging/src/k8s.io/api/storage/v1/types.go
 (StorageClass, CSINode). The counterpart of `kubernetes_tpu/api/storage.py`:
 the fields the scheduler's volume plugins read and write, with the same
-names, defaults and wire shapes. VolumeAttachment comes with the volume
-controllers (ROADMAP.md queue 1 item 7j).
+names, defaults and wire shapes, and the VolumeAttachment the attach/detach
+controller writes (controllers/volume.py).
 """
 
 from __future__ import annotations
@@ -265,3 +265,45 @@ class CSINode:
                     for name, count in sorted(self.drivers.items())
                 ]}}
 
+
+@dataclass
+class VolumeAttachment:
+    """storage.k8s.io/v1 VolumeAttachment: the attach/detach controller's
+    record that a PV is attached to a node (reference:
+    pkg/controller/volume/attachdetach/attach_detach_controller.go; the
+    external CSI attacher flips status.attached — here the controller is
+    the attach backend for the fake runtime and attaches synchronously)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    attacher: str = ""
+    node_name: str = ""
+    pv_name: str = ""  # spec.source.persistentVolumeName
+    attached: bool = False
+
+    kind = "VolumeAttachment"
+
+    def __post_init__(self):
+        self.metadata.namespace = ""  # cluster-scoped
+
+    @staticmethod
+    def from_dict(d: Mapping) -> "VolumeAttachment":
+        meta = ObjectMeta.from_dict(d.get("metadata") or {})
+        meta.namespace = ""
+        spec = d.get("spec") or {}
+        return VolumeAttachment(
+            metadata=meta,
+            attacher=spec.get("attacher", ""),
+            node_name=spec.get("nodeName", ""),
+            pv_name=(spec.get("source") or {}).get("persistentVolumeName", ""),
+            attached=bool((d.get("status") or {}).get("attached", False)),
+        )
+
+    def to_dict(self) -> Dict[str, Any]:
+        meta = self.metadata.to_dict()
+        meta.pop("namespace", None)
+        return {"apiVersion": "storage.k8s.io/v1", "kind": self.kind,
+                "metadata": meta,
+                "spec": {"attacher": self.attacher,
+                         "nodeName": self.node_name,
+                         "source": {"persistentVolumeName": self.pv_name}},
+                "status": {"attached": self.attached}}

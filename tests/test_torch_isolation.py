@@ -14,7 +14,10 @@ telemetry, an armed watch.deliver site); another runs the host commit
 faults) and solver="native"; another drives the partitioned scheduler and
 the multi-process one (spawned workers over shared columns), and a fresh
 interpreter imports what a worker imports without torch; another drives a
-Deployment and a DaemonSet through the workload controllers; a static pass
+Deployment and a DaemonSet through the workload controllers; another
+imports every controller and the service, CRD, certificate, flow-control
+and serializer modules and drives a namespace's service account, quota and
+endpoint slice; a static pass
 over every module of kubernetes_tpu_torch and chip_smoke.py finds no such
 import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -565,6 +568,62 @@ def test_controllers_import_no_jax_and_no_jax_package():
     assert got["kind"] == "Deployment" and got["hash"] == 10 and got["cron"] is True
     assert got["modules"] == []
 
+
+_SERVICES = r"""
+import json, sys
+from kubernetes_tpu_torch import controllers
+from kubernetes_tpu_torch.api import certificates, crd, flowcontrolapi, networking, serialize
+from kubernetes_tpu_torch.api.policy import ResourceQuota
+from kubernetes_tpu_torch.api.types import Namespace, ObjectMeta
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakePod
+from kubernetes_tpu_torch.utils import FakeClock
+
+store = APIStore()
+clock = FakeClock(0.0)
+ctls = [controllers.ServiceAccountController(store, clock=clock),
+        controllers.ResourceQuotaController(store, clock=clock),
+        controllers.EndpointSliceController(store, clock=clock)]
+for c in ctls:
+    c.sync_all()
+store.create("namespaces", Namespace(metadata=ObjectMeta(name="team-a")))
+store.create("resourcequotas", ResourceQuota.from_dict({
+    "metadata": {"name": "q", "namespace": "team-a"}, "spec": {"hard": {"pods": "5"}}}))
+store.create("services", networking.Service.from_dict({
+    "metadata": {"name": "web", "namespace": "team-a"},
+    "spec": {"selector": {"app": "web"}, "ports": [{"port": 80}]}}))
+for i in range(3):
+    store.create("pods", MakePod(f"w{i}", namespace="team-a").labels({"app": "web"})
+                 .node("n1").obj())
+for c in ctls:
+    c.run_until_stable()
+print(json.dumps({
+    "exports": sorted(n for n in dir(controllers) if n.endswith(("Controller", "Binder",
+                                                                 "Collector"))),
+    "sa": store.get("serviceaccounts", "team-a/default").metadata.name,
+    "used": store.get("resourcequotas", "team-a/q").used,
+    "endpoints": len(store.get("endpointslices", "team-a/web-0").endpoints),
+    "kinds": len(serialize.RESOURCE_TO_TYPE),
+    "csr": certificates.CertificateSigningRequest.kind, "crd": crd.DynamicRegistry.RESOURCE,
+    "flow": flowcontrolapi.FlowSchemaConfiguration.kind,
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_services_and_every_controller_import_no_jax_and_no_jax_package():
+    """Every controller of the package and the service, CRD, certificate,
+    flow-control and serializer modules, driving a namespace's default
+    service account, quota usage and endpoint slice: neither jax nor the
+    JAX package is loaded."""
+    out = subprocess.run([sys.executable, "-c", _SERVICES], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["exports"]) == 26 and "APIServiceAvailabilityController" in got["exports"]
+    assert got["sa"] == "default" and got["used"] == {"pods": "3"} and got["endpoints"] == 3
+    assert got["kinds"] == 46 and got["csr"] == "CertificateSigningRequest"
+    assert got["crd"] == "customresourcedefinitions" and got["flow"] == "FlowSchema"
+    assert got["modules"] == []
 
 def test_worker_modules_import_no_torch():
     """What a spawned worker process imports (scheduler/mpworker.py and

@@ -6,8 +6,9 @@ for byte as `json.dumps(..., sort_keys=True)`, and `from_dict(to_dict(x))`
 must be a fixed point (test_api.py and test_fuzz_roundtrip.py's property).
 The template fingerprint behind the pod-template-hash and the
 controller-revision-hash must equal JAX's over seeded templates, including
-an annotation-only change. A kind of the JAX tables the port does not have
-yet raises and names ROADMAP item 7j.
+an annotation-only change. The kinds beyond these (services, quotas,
+certificates, CRDs, admission and flow-control objects, ...) are held
+against JAX in tests/test_torch_api_kinds.py, whose builders extend these.
 """
 
 import json
@@ -446,7 +447,9 @@ def _wire(ser, obj):
 
 
 def test_every_ported_resource_has_a_builder():
-    assert set(BUILDERS) == set(tser.RESOURCE_TO_TYPE)
+    from test_torch_api_kinds import BUILDERS as ALL_BUILDERS
+
+    assert set(BUILDERS) < set(ALL_BUILDERS) == set(tser.RESOURCE_TO_TYPE)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -464,24 +467,13 @@ def test_to_dict_matches_jax_and_round_trips(resource, seed):
 
 def test_tables_match_jax_for_the_ported_kinds():
     ported = set(tser.RESOURCE_TO_TYPE)
-    assert ported | tser.NOT_PORTED == set(jser.RESOURCE_TO_TYPE)
-    assert not ported & tser.NOT_PORTED
-    assert tser.KIND_TO_RESOURCE == {k: r for k, r in jser.KIND_TO_RESOURCE.items()
-                                     if r in ported}
-    assert tser.GROUP_PREFIX == {r: p for r, p in jser.GROUP_PREFIX.items() if r in ported}
-    assert tser.CLUSTER_SCOPED == jser.CLUSTER_SCOPED & ported
+    assert ported == set(jser.RESOURCE_TO_TYPE)
+    assert tser.KIND_TO_RESOURCE == jser.KIND_TO_RESOURCE
+    assert tser.GROUP_PREFIX == jser.GROUP_PREFIX
+    assert tser.CLUSTER_SCOPED == jser.CLUSTER_SCOPED
     for resource, t in tser.RESOURCE_TO_TYPE.items():
         assert t.__name__ == jser.RESOURCE_TO_TYPE[resource].__name__
         assert tser.KIND_TO_RESOURCE[t.kind] == resource
-
-
-@pytest.mark.parametrize("resource", sorted(jser.RESOURCE_TO_TYPE.keys()
-                                            - tser.RESOURCE_TO_TYPE.keys()))
-def test_unported_kind_raises_naming_item_7j(resource):
-    with pytest.raises(tser.NotPortedError, match="item 7j"):
-        tser.from_dict(resource, {"metadata": {"name": "x"}})
-    with pytest.raises(NotImplementedError, match="item 7j"):
-        tser.resource_type(resource)
 
 
 def test_unknown_resource_and_object_raise_as_in_jax():
