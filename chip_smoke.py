@@ -351,13 +351,50 @@ Phases, each printing one JSON line:
              pods/s, the fallback pods' seconds, the stage table, the
              reconcile rollup, the watch propagation p50 / p99 and the
              slice and quota writes a step
+  main_path_server
+             the port's normal entry point: APIServer(flowcontrol="default",
+             audit="default") with the default admission chain over the
+             5,000 nodes (written in process with their heartbeat Leases,
+             the node agents' stand-in), two ControlPlane replicas
+             (DEFAULT_CONTROLLERS, BatchScheduler(solver="auto") on the
+             card; lease 2.0 / 1.5 / 0.1 s so the failover fits the phase),
+             and all traffic over HTTP through a RESTClient while an
+             Informer on pods watches: 10 Deployments of 50 SchedulingBasic
+             pods (with the 300-s not-ready / unreachable tolerations that
+             admission gives pods created through the API) created, then
+             merge-PATCHed to 200 (a depth cut from 100 -> 400: at that
+             depth the host saturated, the heartbeat stand-in fell behind
+             and evictions churned pods; PERF.md section 6); the earlier
+             phases' heap frozen; once the first five's
+             new pods are bound the leader stops, the standby takes the
+             lease and binds the rest; the /debug routes, /metrics and
+             /configz read; the Deployments deleted. Gates: every pod bound
+             once across the failover (an unbounded pods watch) and no node
+             over-committed, the Informer's cache equal to the store's pods
+             (name, node, RV) at each step's end, every request 2xx, the
+             standby leading within 3 x the lease duration, /metrics'
+             submit->bound count at least the new leader's binds,
+             /debug/schedstats listing the new leader's pipeline, kernels B
+             and C launched, no pod after the delete, and a rerun with
+             device="cpu" beside it reaching the same end state (pods per
+             Deployment, pods bound, bind transitions, status.replicas, the
+             empty pod list; placement maps are not compared: a background
+             loop's batch boundaries follow the clock). Printed: each step's
+             seconds and pods/s, the failover seconds (to the standby
+             leading, to its first bind), client-side p50 / p99 by verb,
+             APF dispatches and rejections, the audit records, the watch
+             events, the Informer's RV lag at each step's end and the new
+             leader's stage table
   timing     each phase's wall seconds and main's (main_s)
   kernels    one line per kernel: launches on its main path, error against
              the plain version, times (CUDA events) and the bound
 Then the nvidia-smi line, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. A failed phase exits non-zero before the
-last line. Without a CUDA device, or without the package beside it, the
-script exits non-zero and prints no result.
+last line. The CPU reruns of main_path_fast, _gang_preempt, _preempt,
+_fallback, _transport, _controllers, _services and _server run in spawned
+worker processes beside the card runs (rerun_pool). Without a CUDA
+device, or without the package beside it, the script exits non-zero and
+prints no result.
 
 Sizes are scheduler_perf's SchedulingBasic 5000Nodes_10000Pods and the
 TopologySpreading shape (test/integration/scheduler_perf/misc/
@@ -375,9 +412,11 @@ import argparse
 import collections
 import gc
 import json
+import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1848,9 +1887,45 @@ def check_fast_constraints(name, placed, n_zones_aff=50):
     return {}
 
 
-def phase_main_path_fast(device, sizes, card):
+def fast_cpu_rerun(name, sizes):
+    """One main_path_fast workload with device="cpu" (the plain versions),
+    in a rerun_pool worker: its map, repair totals and seconds."""
     import torch
 
+    t0 = time.perf_counter()
+    nodes, seeds, pods = fast_workloads(sizes)[name]()
+    _, sched, got, _, _, _ = drive_main_path(name, nodes, pods, torch.device("cpu"),
+                                             sizes["batch"], solver="fast", bound=seeds)
+    return {"map": {p.metadata.name: p.spec.node_name for p in got},
+            "repair_totals": sched.repair_totals, "seconds": time.perf_counter() - t0}
+
+
+def phase_main_path_fast(device, sizes, card):
+    """The fast mode on the four workloads; each workload's CPU rerun runs
+    beside the card runs in a rerun_pool worker and is compared once the
+    card runs are done."""
+    with rerun_pool(2) as pool:
+        reruns = {name: pool.apply_async(fast_cpu_rerun, (name, sizes))
+                  for name in fast_workloads(sizes)}
+        out = fast_card_runs(device, sizes, card)
+        for name, line in out.items():
+            c = reruns[name].get(timeout=900)
+            card_map = line.pop("_map")
+            differ = [k for k in card_map if card_map[k] != c["map"].get(k)]
+            check(not differ, f"{name}: {len(differ)} placements differ from the CPU run, "
+                              f"e.g. {[(k, card_map[k], c['map'].get(k)) for k in differ[:3]]}")
+            check(c["repair_totals"] == line["repair_totals"],
+                  f"{name}: repair totals differ from the CPU run")
+            line["cpu_rerun_s"] = c["seconds"]
+            line["cpu_map_equal"] = True
+    for line in out.values():
+        emit(line)
+    return out
+
+
+def fast_card_runs(device, sizes, card):
+    """main_path_fast's card runs: each workload in the fast mode (and the
+    exact and auto partners); the lines, each with its map under "_map"."""
     batch = sizes["batch"]
     out = {}
     for name, build in fast_workloads(sizes).items():
@@ -1877,18 +1952,6 @@ def phase_main_path_fast(device, sizes, card):
                 check(launches["repair_check"] > 0, f"{name}: kernel D never launched")
         counts = dict(RUN_COUNTS)
         card_map = {p.metadata.name: p.spec.node_name for p in got}
-        # the same workload with the port on the CPU: the plain versions
-        t0 = time.perf_counter()
-        nodes_c, seeds_c, pods_c = build()
-        _, sched_c, got_c, _, _, _ = drive_main_path(name, nodes_c, pods_c, torch.device("cpu"),
-                                                     batch, solver="fast", bound=seeds_c)
-        cpu_s = time.perf_counter() - t0
-        cpu_map = {p.metadata.name: p.spec.node_name for p in got_c}
-        differ = [k for k in card_map if card_map[k] != cpu_map.get(k)]
-        check(not differ, f"{name}: {len(differ)} placements differ from the CPU run, "
-                          f"e.g. {[(k, card_map[k], cpu_map.get(k)) for k in differ[:3]]}")
-        check(sched_c.repair_totals == sched.repair_totals,
-              f"{name}: repair totals differ from the CPU run")
         line = {"phase": "main_path_fast", "workload": name, "solver": "fast",
                 "nodes": len(nodes), "pods": len(pods), "bound": len(placed) - len(seeds),
                 "batches": sched.batches_solved, "launches": launches,
@@ -1900,7 +1963,7 @@ def phase_main_path_fast(device, sizes, card):
                 "waterfill_host_syncs": counts["host_syncs"]["waterfill"],
                 "waterfill_host_syncs_per_batch":
                     counts["host_syncs"]["waterfill"] / max(sched.batches_solved, 1),
-                "cpu_rerun_s": cpu_s, "cpu_map_equal": True, "card": card}
+                "card": card, "_map": card_map}
         line.update(check_fast_constraints(name, placed))
         if name in ("SchedulingBasic", "TopologySpreading"):
             # the exact mode on the same shape right after, on the same card:
@@ -1912,7 +1975,6 @@ def phase_main_path_fast(device, sizes, card):
             line["exact_adjacent"] = {"pods_per_s": len(pods_x) / sched_s_x,
                                       "schedule_s": sched_s_x,
                                       "stage_seconds": sched_x.stage_seconds}
-        emit(line)
         out[name] = line
         if name == "SchedulingBasic":
             # the daemon's mode: auto routes as fast does
@@ -2132,67 +2194,102 @@ def phase_main_path_gang(device, sizes, card):
     return out
 
 
-def phase_main_path_gang_preempt(device, sizes, card):
-    import numpy as np
+def gang_preempt_settle(sched, until, deadline_s):
+    """Drive cycles (eviction, parking, release and the re-solve take
+    several) until `until()` or the wall deadline."""
+    deadline = time.perf_counter() + deadline_s
+    while time.perf_counter() < deadline and not until():
+        sched.run_until_idle()
+        sched.queue.flush_backoff_completed()
+        sched.pump_events()
+        time.sleep(0.02)
+
+
+def gang_preempt_run(name, dev, sizes):
+    """One main_path_gang_preempt workload on dev: the gang that preempts,
+    then the uncoverable gang."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    nodes, bound, n_gang, n_big = preempt_workloads(sizes)()[name]
+    pg, members = gang_pods("gp", n_gang, "3", prio=100)
+    store, sched, _, sched_s, w = drive_gang(nodes, bound, [(pg, members)], dev,
+                                             sizes["batch"], watch=True,
+                                             backoff=(0.05, 0.2))
+
+    def gang_bound():
+        return sum(1 for p in store.list("pods")[0]
+                   if p.metadata.name.startswith("gp-") and p.spec.node_name)
+
+    t0 = time.perf_counter()
+    gang_preempt_settle(sched, lambda: gang_bound() >= n_gang, 120.0)
+    sync(dev)
+    seconds = sched_s + time.perf_counter() - t0
+    deleted = sorted(ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED")
+    gang_map = {p.metadata.name: p.spec.node_name for p in store.list("pods")[0]
+                if p.metadata.name.startswith("gp-")}
+    stats = sched.gangpreempt.stats()
+    # the uncoverable gang: vetoed on every retry, zero further evictions
+    pg2, big = gang_pods("gbig", n_big, "3", prio=100)
+    store.create("podgroups", pg2)
+    store.create_many("pods", big)
+    gang_preempt_settle(sched, lambda: False, 1.0)
+    sync(dev)
+    launches = dict(kernels.LAUNCHES)
+    deleted_after = [ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED"]
+    vetoed = [e for e in store.list("events")[0] if e.reason == "GangPreemptionVetoed"
+              and e.involved_name.startswith("gbig-")]
+    big_bound = sum(1 for p in store.list("pods")[0]
+                    if p.metadata.name.startswith("gbig-") and p.spec.node_name)
+    w.stop()
+    return dict(nodes=nodes, bound=bound, n_gang=n_gang, store=store, sched=sched,
+                deleted=deleted, gang_map=gang_map, stats=stats, seconds=seconds,
+                launches=launches, deleted_after=deleted_after, vetoed=vetoed,
+                big_bound=big_bound, members=members + big)
+
+
+def gang_preempt_cpu_rerun(name, sizes):
+    """One main_path_gang_preempt workload with device="cpu" (the plain
+    versions), in a rerun_pool worker: what the comparison reads."""
     import torch
+
+    t0 = time.perf_counter()
+    c = gang_preempt_run(name, torch.device("cpu"), sizes)
+    c["sched"].stop()
+    return {"deleted": c["deleted"], "gang_map": c["gang_map"],
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_main_path_gang_preempt(device, sizes, card):
+    """GangPreemption and GangPreemption_5000 on the card; each workload's
+    CPU rerun runs beside the card runs in a rerun_pool worker and must
+    evict and place the same."""
+    names = ("GangPreemption", "GangPreemption_5000")
+    with rerun_pool(2) as pool:
+        reruns = {name: pool.apply_async(gang_preempt_cpu_rerun, (name, sizes))
+                  for name in names}
+        out = gang_preempt_card_runs(device, sizes, card, names)
+        for name, line in out.items():
+            c = reruns[name].get(timeout=900)
+            check(c["deleted"] == line.pop("_deleted")
+                  and c["gang_map"] == line.pop("_gang_map"),
+                  f"{name}: the CPU rerun evicted or placed differently")
+            line["cpu_rerun_s"] = c["seconds"]
+            line["cpu_equal"] = True
+    for line in out.values():
+        emit(line)
+    return out
+
+
+def gang_preempt_card_runs(device, sizes, card, names):
+    import numpy as np
 
     from kubernetes_tpu_torch.api import compute_pod_resource_request
     from kubernetes_tpu_torch.models.gangcover import cover_curve_host, victim_order
 
     out = {}
-    build = preempt_workloads(sizes)
 
-    def settle(sched, until, deadline_s):
-        """Drive cycles (eviction, parking, release and the re-solve take
-        several) until `until()` or the wall deadline."""
-        deadline = time.perf_counter() + deadline_s
-        while time.perf_counter() < deadline and not until():
-            sched.run_until_idle()
-            sched.queue.flush_backoff_completed()
-            sched.pump_events()
-            time.sleep(0.02)
-
-    def run(name, dev):
-        from kubernetes_tpu_torch.ops import kernels
-
-        nodes, bound, n_gang, n_big = build()[name]
-        pg, members = gang_pods("gp", n_gang, "3", prio=100)
-        store, sched, _, sched_s, w = drive_gang(nodes, bound, [(pg, members)], dev,
-                                                 sizes["batch"], watch=True,
-                                                 backoff=(0.05, 0.2))
-
-        def gang_bound():
-            return sum(1 for p in store.list("pods")[0]
-                       if p.metadata.name.startswith("gp-") and p.spec.node_name)
-
-        t0 = time.perf_counter()
-        settle(sched, lambda: gang_bound() >= n_gang, 120.0)
-        sync(dev)
-        seconds = sched_s + time.perf_counter() - t0
-        deleted = sorted(ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED")
-        gang_map = {p.metadata.name: p.spec.node_name for p in store.list("pods")[0]
-                    if p.metadata.name.startswith("gp-")}
-        stats = sched.gangpreempt.stats()
-        # the uncoverable gang: vetoed on every retry, zero further evictions
-        pg2, big = gang_pods("gbig", n_big, "3", prio=100)
-        store.create("podgroups", pg2)
-        store.create_many("pods", big)
-        settle(sched, lambda: False, 1.0)
-        sync(dev)
-        launches = dict(kernels.LAUNCHES)
-        deleted_after = [ev.obj.metadata.name for ev in w.drain() if ev.type == "DELETED"]
-        vetoed = [e for e in store.list("events")[0] if e.reason == "GangPreemptionVetoed"
-                  and e.involved_name.startswith("gbig-")]
-        big_bound = sum(1 for p in store.list("pods")[0]
-                        if p.metadata.name.startswith("gbig-") and p.spec.node_name)
-        w.stop()
-        return dict(nodes=nodes, bound=bound, n_gang=n_gang, store=store, sched=sched,
-                    deleted=deleted, gang_map=gang_map, stats=stats, seconds=seconds,
-                    launches=launches, deleted_after=deleted_after, vetoed=vetoed,
-                    big_bound=big_bound, members=members + big)
-
-    for name in ("GangPreemption", "GangPreemption_5000"):
-        r = run(name, device)
+    for name in names:
+        r = gang_preempt_run(name, device, sizes)
         nodes, n_gang, sched = r["nodes"], r["n_gang"], r["sched"]
         slice_of = {n.metadata.name: int(n.metadata.labels[SLICE]) for n in nodes}
         placed = {slice_of[v] for v in r["gang_map"].values() if v}
@@ -2243,11 +2340,6 @@ def phase_main_path_gang_preempt(device, sizes, card):
             check(0 < r["launches"]["cover_curve"] <= attempts,
                   f"{name}: kernel G launched {r['launches']['cover_curve']} times in "
                   f"{attempts} cover attempts")
-        t0 = time.perf_counter()
-        c = run(name, torch.device("cpu"))
-        cpu_s = time.perf_counter() - t0
-        check(c["deleted"] == r["deleted"] and c["gang_map"] == r["gang_map"],
-              f"{name}: the CPU rerun evicted or placed differently")
         line = {"phase": "main_path_gang_preempt", "workload": name, "nodes": len(nodes),
                 "fillers": len(r["bound"]), "gang": n_gang, "uncoverable_gang": len(
                     r["members"]) - n_gang, "slice": chosen, "cover_k": k,
@@ -2257,9 +2349,8 @@ def phase_main_path_gang_preempt(device, sizes, card):
                 "conservation": cons, "launches": r["launches"], "cover_attempts": attempts,
                 "cover_launches_per_attempt": r["launches"]["cover_curve"] / max(attempts, 1),
                 "seconds_to_bound": r["seconds"], "batches": sched.batches_solved,
-                "stage_seconds": sched.stage_seconds, "cpu_rerun_s": cpu_s,
-                "cpu_equal": True, "card": card}
-        emit(line)
+                "stage_seconds": sched.stage_seconds, "card": card,
+                "_deleted": r["deleted"], "_gang_map": r["gang_map"]}
         out[name] = line
         sched.stop()
     return out
@@ -2665,21 +2756,32 @@ def check_fallback_run(w, r):
     return counts, skew
 
 
+def fallback_cpu_rerun(sizes):
+    """main_path_fallback with device="cpu" (the plain versions), in a
+    rerun_pool worker: its map, PV/PVC/claim dump, events and seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    c = drive_fallback(fallback_case(sizes, 0), torch.device("cpu"), sizes["batch"])
+    return {"placement": c["placement"], "dump": c["dump"], "events": c["events"],
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_main_path_fallback(device, sizes, card):
     """main_path_fallback: the fallback classes (volumes, DRA, a non-default
     spread policy) beside SchedulingBasic on the batch path; their pods take
     the per-pod cycle after each batch's device commit. The gates of
     check_fallback_run, kernels B and C launched, and the map, the PV/PVC
-    writes, the claim allocations and the events equal to a CPU rerun."""
-    import torch
-
+    writes, the claim allocations and the events equal to a CPU rerun that
+    runs beside the card run in a rerun_pool worker."""
     w = fallback_case(sizes, 0)
     batch = sizes["batch"]
-    r = drive_fallback(w, device, batch, trace_all=True)
-    counts, skew = check_fallback_run(w, r)
-    t0 = time.perf_counter()
-    c = drive_fallback(fallback_case(sizes, 0), torch.device("cpu"), batch)
-    cpu_s = time.perf_counter() - t0
+    with rerun_pool(1) as pool:
+        rerun = pool.apply_async(fallback_cpu_rerun, (sizes,))
+        r = drive_fallback(w, device, batch, trace_all=True)
+        counts, skew = check_fallback_run(w, r)
+        c = rerun.get(timeout=900)
+    cpu_s = c["seconds"]
     check(c["placement"] == r["placement"], "fallback: the CPU rerun placed differently: " + str(
         sorted(k for k in r["placement"] if r["placement"][k] != c["placement"].get(k))[:5]))
     check(c["dump"] == r["dump"], "fallback: the CPU rerun wrote PVs, PVCs or claims differently")
@@ -5313,6 +5415,450 @@ def phase_main_path_services(device, sizes, card):
     return {"launches": run["launches"], "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# main_path_server: the API server and the leader-elected control plane
+# ---------------------------------------------------------------------------
+
+SRV_LEASE = {"lease_duration": 2.0, "renew_deadline": 1.5, "retry_period": 0.1}
+SRV_HEARTBEAT_S = 10.0  # the node agents' lease renewal interval (kubelet's default)
+
+
+def srv_deployment(name, replicas):
+    """A Deployment of SchedulingBasic pods (500m / 1Gi) as a client sends
+    it. The template carries the not-ready and unreachable tolerations
+    (NoExecute, 300 s) that the DefaultTolerationSeconds admission plugin
+    gives every pod created through the API: the ReplicaSet controller
+    creates its pods in process, past admission, and without them a node
+    whose heartbeat stand-in lags would have its pods evicted at once."""
+    tolerations = [{"key": key, "operator": "Exists", "effect": "NoExecute",
+                    "tolerationSeconds": 300}
+                   for key in ("node.kubernetes.io/not-ready", "node.kubernetes.io/unreachable")]
+    return {"apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"replicas": replicas, "selector": {"matchLabels": {"app": name}},
+                     "template": {"metadata": {"labels": {"app": name}},
+                                  "spec": {"tolerations": tolerations, "containers": [{
+                                      "name": "c", "image": "pause",
+                                      "resources": {"requests": {"cpu": "500m",
+                                                                 "memory": "1Gi"}}}]}}}}
+
+
+class SrvLedger:
+    """The store's pods as an unbounded pods watch sees them (the store's
+    history is bounded and the lease heartbeats fill it; a watch copies
+    nothing the gates poll): `live` maps each pod key to (node, RV), and
+    `binds` counts each pod's binds by uid (a ReplicaSet reuses the names
+    of pods it deleted): seen on a node after last seen on none counts
+    one, seen moving from one node to another counts one more."""
+
+    def __init__(self, store):
+        self.watch = store.watch("pods", maxsize=0)
+        self.binds = collections.Counter()
+        self.key_of = {}
+        self.node_of = {}
+        self.live = {}
+
+    def drain(self):
+        for ev in self.watch.drain():
+            obj = ev.obj
+            uid, key, node = obj.metadata.uid, obj.key, obj.spec.node_name
+            self.key_of[uid] = key
+            if ev.type == "DELETED":
+                self.live.pop(key, None)
+                continue
+            if node and self.node_of.get(uid, "") != node:
+                self.binds[uid] += 1
+            self.node_of[uid] = node
+            self.live[key] = (node, obj.metadata.resource_version)
+        return self
+
+
+def srv_metric_sum(text, name):
+    """The sum of a series' samples in a /metrics text (every label set)."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name) and (line[len(name)] in " {"):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def srv_wait(pred, timeout, step=0.02):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return bool(pred())
+
+
+def server_run(device, sizes):
+    """One run of the port's normal entry point on a fresh store:
+    scheduler_perf's 5,000 nodes written in process with their heartbeat
+    Leases (the node agents' stand-in, renewed every SRV_HEARTBEAT_S),
+    APIServer(flowcontrol="default", audit="default") with the default
+    admission chain, and two ControlPlane replicas (DEFAULT_CONTROLLERS,
+    BatchScheduler(solver="auto") on `device`) with the short lease timings
+    SRV_LEASE (2.0 / 1.5 / 0.1 s instead of 15 / 10 / 2, so the failover fits
+    the phase). All traffic goes over HTTP through a RESTClient while an
+    Informer on pods keeps its watch open. Steps: create the Deployments,
+    scale them (merge PATCH), stop the leader once half the new pods are
+    bound (the standby takes the lease and binds the rest), read the
+    /debug routes, /metrics and /configz, delete the Deployments. Returns
+    what the gates and the CPU comparison read."""
+    from kubernetes_tpu_torch.api.workloads import Lease
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.server import APIError, APIServer, Informer, RESTClient
+    from kubernetes_tpu_torch.server.controlplane import DEFAULT_CONTROLLERS, ControlPlane
+    from kubernetes_tpu_torch.store import APIStore
+    from kubernetes_tpu_torch.testing import renew_node_leases
+
+    n_dep, r0, r1 = sizes["srv_deployments"], sizes["srv_replicas"], sizes["srv_scaled"]
+    names = [f"web-{i}" for i in range(n_dep)]
+    nodes = make_nodes(sizes["nodes"])
+    node_names = [n.metadata.name for n in nodes]
+    store = APIStore()
+    store.create_many("nodes", nodes)
+    renew_node_leases(store, Lease, node_names, time.monotonic())
+    beat_stop = threading.Event()
+    beat_late = [0.0]
+
+    def heartbeat():
+        # each node renews every SRV_HEARTBEAT_S at its own phase, as
+        # independent agents do. A tick renews the nodes whose renewal came
+        # due since the last tick, under one hold of the leases' lock: a late
+        # tick catches up instead of pushing the rest of the cycle back, so
+        # a lease's age stays SRV_HEARTBEAT_S plus the stand-in's lateness
+        # (beat_late, printed), far from the 40-s grace period
+        n, t0, done = len(node_names), time.monotonic(), 0
+        while not beat_stop.wait(0.2):
+            now = time.monotonic()
+            due = int((now - t0) / SRV_HEARTBEAT_S * n)
+            if due <= done:
+                continue
+            beat_late[0] = max(beat_late[0], now - t0 - done * SRV_HEARTBEAT_S / n)
+            with store.transaction("leases"):
+                renew_node_leases(store, Lease, [node_names[j % n] for j in range(done, due)],
+                                  now)
+            done = due
+
+    beat = threading.Thread(target=heartbeat, daemon=True, name="srv-heartbeat")
+    beat.start()
+    ledger = SrvLedger(store)
+    node_watch = store.watch("nodes", maxsize=0)
+    srv = APIServer(store, flowcontrol="default", audit="default").start()
+    client = RESTClient(srv.url, timeout=60)
+    lat = collections.defaultdict(list)
+    codes = collections.Counter()
+
+    def call(verb, fn):
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            codes["2xx"] += 1
+            return out
+        except APIError as e:
+            codes[str(e.code)] += 1
+            raise PhaseFailed(f"main_path_server: {verb} answered {e.code}: {e}") from e
+        finally:
+            lat[verb].append(time.perf_counter() - t0)
+
+    # a pipeline settles its submit -> bound observations a bind chunk at a
+    # time, on its next cycle or on a sched_stats() read: read
+    # /debug/schedstats (every live pipeline's) before /metrics, here and at
+    # the end, so the difference counts this phase's pods only
+    client.request_text("/debug/schedstats")
+    metrics_before = client.request_text("/metrics")
+    kernels.reset_launch_counts()
+    watch_events = collections.Counter()
+    informer = Informer(client, "pods",
+                        on_event=lambda etype, obj: watch_events.update((etype,)))
+    cps = []
+    out = {"steps": {}}
+    try:
+        informer.start()
+        # the standby joins once the leader has started its components: the
+        # elector's own thread starts them (the JAX package's _became calls
+        # on_started_leading in line; client-go gives it a goroutine), so it
+        # renews nothing meanwhile, and at 5,000 nodes that takes longer
+        # than the short lease: a standby started beside it would take the
+        # lease mid-start and both would lead (ROADMAP.md queue 3)
+        cps = [ControlPlane(store, "cp-0", device=device, **SRV_LEASE).start()]
+        check(srv_wait(lambda: cps[0].is_leader
+                       and len(cps[0].controllers) == len(DEFAULT_CONTROLLERS), 120),
+              "main_path_server: cp-0 did not take the lease and start its components")
+        started = time.monotonic()
+        check(srv_wait(lambda: store.get("leases", "kube-system/kube-controlplane").renew_time
+                       > started, 30),
+              "main_path_server: cp-0 did not renew its lease after starting")
+        cps.append(ControlPlane(store, "cp-1", device=device, **SRV_LEASE).start())
+        time.sleep(3 * SRV_LEASE["retry_period"])
+        check(cps[0].is_leader and not cps[1].is_leader,
+              "main_path_server: the standby took the lease from a live leader")
+
+        def bound_seen():
+            return sum(1 for o in list(informer.cache.values()) if o.spec.node_name)
+
+        def cache_view():
+            return {k: (o.spec.node_name, o.metadata.resource_version)
+                    for k, o in list(informer.cache.items())}
+
+        def store_view():
+            return {p.key: (p.spec.node_name, p.metadata.resource_version)
+                    for p in store.list("pods")[0]}
+
+        def step_end(name, pods, t0, want):
+            # the waits poll what copies nothing (the Informer's cache and
+            # the ledger's watch); the store is listed once the two agree
+            ok = srv_wait(lambda: bound_seen() >= want, 300, 0.05)
+            seconds = time.perf_counter() - t0
+            check(ok, f"main_path_server: {name}: {bound_seen()}/{want} pods bound in the "
+                      f"Informer's cache")
+            top = max((rv for _node, rv in ledger.drain().live.values()), default=0)
+            seen = max((o.metadata.resource_version for o in list(informer.cache.values())),
+                       default=0)
+            srv_wait(lambda: cache_view() == ledger.drain().live, 60, 0.2)
+            check(cache_view() == store_view(),
+                  f"main_path_server: {name}: the Informer's cache differs from the store")
+            out["steps"][name] = {"pods": pods, "seconds": seconds,
+                                  "pods_per_s": pods / seconds if seconds else None,
+                                  "informer_rv_lag": top - seen}
+
+        # 1. create the Deployments
+        t0 = time.perf_counter()
+        for name in names:
+            call("POST", lambda: client.create("deployments", srv_deployment(name, r0)))
+        step_end("create", n_dep * r0, t0, n_dep * r0)
+        # 2. scale them all, a merge PATCH each; once half of the new pods
+        # are bound, stop the leader with the rest pending: it stops its
+        # components while it still holds the lease and releases it after,
+        # the standby takes the lease, its controllers create what is left
+        # and its scheduler binds the rest
+        t0 = time.perf_counter()
+        half = n_dep * r0 + n_dep * (r1 - r0) // 2
+        for name in names:
+            call("PATCH", lambda: client.patch("deployments", name, {"spec": {"replicas": r1}},
+                                               patch_type="application/merge-patch+json"))
+        check(srv_wait(lambda: bound_seen() >= half, 300, 0.01),
+              f"main_path_server: {bound_seen()}/{half} pods bound before the failover")
+        leader = next(cp for cp in cps if cp.is_leader)
+        standby = next(cp for cp in cps if cp is not leader)
+        # whether the old replica's components still ran when the standby
+        # began to lead, read in the standby's own election callback
+        overlap = []
+        on_lead = standby.elector.on_started_leading
+
+        def lead():
+            overlap.append(leader.scheduler is not None or bool(leader.controllers))
+            on_lead()
+
+        standby.elector.on_started_leading = lead
+        bound_at_stop = sum(1 for node, _rv in ledger.drain().live.values() if node)
+        t_stop = time.perf_counter()
+        stopper = threading.Thread(target=leader.stop, name="srv-leader-stop")
+        stopper.start()
+        led = srv_wait(lambda: standby.is_leader, 3 * SRV_LEASE["lease_duration"], 0.002)
+        to_lead = time.perf_counter() - t_stop
+        check(led, f"main_path_server: the standby was not leading within "
+                   f"{3 * SRV_LEASE['lease_duration']} s of the leader's stop")
+        check(overlap == [False], f"main_path_server: the standby began to lead while the "
+                                  f"old leader's components ran ({overlap})")
+        check(srv_wait(lambda: standby.scheduler is not None
+                       and len(standby.controllers) == len(DEFAULT_CONTROLLERS), 120),
+              "main_path_server: the standby did not start its components")
+        to_bind = None
+        if bound_at_stop < n_dep * r1:
+            srv_wait(lambda: standby.scheduler is not None
+                     and standby.scheduler.scheduled_count > 0, 300, 0.002)
+            to_bind = time.perf_counter() - t_stop
+        stopper.join(timeout=60)
+        check(not stopper.is_alive(), "main_path_server: the leader's stop() did not return")
+        step_end("scale", n_dep * (r1 - r0), t0, n_dep * r1)
+        sched = standby.scheduler
+        sched.flush_binds()
+        out["failover"] = {"to_leading_s": to_lead, "to_first_bind_s": to_bind,
+                           "bound_at_stop": bound_at_stop,
+                           "pending_at_stop": n_dep * r1 - bound_at_stop,
+                           "bound_by_standby": sched.scheduled_count,
+                           "leader": leader.identity, "standby": standby.identity}
+        # 3. the end state
+        pods = store.list("pods")[0]
+        out["per_deployment"] = {name: sum(1 for p in pods
+                                           if p.metadata.labels.get("app") == name
+                                           and p.spec.node_name) for name in names}
+        out["bound"] = sum(1 for p in pods if p.spec.node_name)
+        check(out["bound"] == len(pods) == n_dep * r1,
+              f"main_path_server: {out['bound']}/{len(pods)} pods bound, want {n_dep * r1}")
+        check_no_overcommit([p for p in pods if p.spec.node_name], nodes)
+        binds = ledger.drain().binds
+        twice = sorted(ledger.key_of[u] for u, v in binds.items() if v != 1)
+        check(not twice and len(binds) == n_dep * r1,
+              f"main_path_server: {len(binds)} pods bound for {n_dep * r1} wanted, "
+              f"{len(twice)} more than once: {twice[:5]}")
+        out["bind_transitions"] = sum(binds.values())
+        check(srv_wait(lambda: all(store.get("deployments", f"default/{n}").status.replicas == r1
+                                   for n in names), 60),
+              "main_path_server: a Deployment's status.replicas is not the scaled count")
+        out["status_replicas"] = {n: store.get("deployments", f"default/{n}").status.replicas
+                                  for n in names}
+        # 4. the read-only surfaces
+        reads = {}
+        for path in ("/debug/schedstats", "/debug/timeseries", "/debug/critpath",
+                     "/debug/controlstats", "/configz"):
+            reads[path] = json.loads(call("GET", lambda: client.request_text(path)))
+        metrics_after = call("GET", lambda: client.request_text("/metrics"))
+        schedstats = reads["/debug/schedstats"]
+        check(sched._bind_origin in schedstats,
+              f"main_path_server: /debug/schedstats lists {sorted(schedstats)}, not the new "
+              f"leader's pipeline {sched._bind_origin}")
+        # the batch path's per-pod series is submit -> bound (the serial
+        # path's scheduler_schedule_attempts_total counts per-pod cycles
+        # only); the stopped leader settled its last chunks in its stop()
+        e2e = (srv_metric_sum(metrics_after, "scheduler_pod_submit_to_bound_seconds_count")
+               - srv_metric_sum(metrics_before, "scheduler_pod_submit_to_bound_seconds_count"))
+        check(e2e >= out["bound"],
+              f"main_path_server: /metrics counts {e2e} pods submitted -> bound, "
+              f"{out['bound']} were bound")
+        out["metrics"] = {"submit_to_bound_count": e2e,
+                          "new_leader_scheduled": sched.scheduled_count,
+                          "batch_solves": srv_metric_sum(
+                              metrics_after, "scheduler_batch_solve_duration_seconds_count")
+                          - srv_metric_sum(metrics_before,
+                                           "scheduler_batch_solve_duration_seconds_count")}
+        out["debug"] = {path: sorted(body)[:12] if isinstance(body, dict) else type(body).__name__
+                        for path, body in reads.items()}
+        mine = schedstats[sched._bind_origin]
+        out["schedstats_stages"] = mine.get("stages")
+        out["stage_table"] = stage_table(sched)
+        # 5. delete the Deployments; the garbage collector takes their pods
+        t0 = time.perf_counter()
+        for name in names:
+            call("DELETE", lambda: client.delete("deployments", name))
+        gone = srv_wait(lambda: not informer.cache and not ledger.drain().live, 300, 0.05)
+        seconds = time.perf_counter() - t0
+        gone = gone and not store.list("pods")[0]
+        check(gone, f"main_path_server: {len(informer.cache)} pods left in the Informer's cache "
+                    f"after the delete")
+        out["steps"]["delete"] = {"pods": n_dep * r1, "seconds": seconds,
+                                  "pods_per_s": n_dep * r1 / seconds if seconds else None}
+        out["pods_after_delete"] = len(store.list("pods")[0])
+        out["launches"] = dict(kernels.LAUNCHES)
+        fc = srv._httpd.flowcontrol
+        out["apf"] = fc.stats() if hasattr(fc, "stats") else None
+        out["audit_records"] = len(srv._httpd.audit.events())
+    finally:
+        informer.stop()
+        for cp in cps:
+            cp.stop()
+        srv.stop()
+        beat_stop.set()
+        beat.join(timeout=30)
+        ledger.watch.stop()
+        node_watch.stop()
+    # the node lifecycle controller's writes: a node marked not ready (its
+    # heartbeat older than the grace period) and cleared again
+    out["node_not_ready_writes"] = sum(
+        1 for ev in node_watch.drain()
+        if any(tn.key == "node.kubernetes.io/not-ready" for tn in ev.obj.spec.taints))
+    out["heartbeat_late_s"] = beat_late[0]
+    out["watch_events"] = dict(watch_events)
+    out["requests"] = {"count": sum(len(v) for v in lat.values()), "codes": dict(codes),
+                       "latency_ms": {verb: {"n": len(v),
+                                             "p50": float(np.percentile(v, 50)) * 1e3,
+                                             "p99": float(np.percentile(v, 99)) * 1e3}
+                                      for verb, v in sorted(lat.items())}}
+    return out
+
+
+def server_cpu_rerun(sizes):
+    """server_run with device="cpu" (the plain versions), in a rerun_pool
+    worker: the end state the comparison reads."""
+    import torch
+
+    run = server_run(torch.device("cpu"), sizes)
+    return {k: run[k] for k in ("per_deployment", "bound", "bind_transitions",
+                                "status_replicas", "pods_after_delete", "steps")}
+
+
+def phase_main_path_server(device, sizes, card):
+    """The port's normal entry point on the card: the API server and two
+    leader-elected control-plane replicas driving the batch scheduler's
+    background loop, with all traffic over HTTP (server_run). The same run
+    with device="cpu" runs beside it in a spawned process (rerun_pool) and
+    must reach the same end state: pods per Deployment, pods bound, bind
+    transitions, the Deployments' status.replicas and no pod after the
+    delete. Placement maps are not compared: with a background loop the
+    batch boundaries follow the clock, in the JAX package as in the port."""
+    t_phase = time.perf_counter()
+    # freeze the earlier phases' heap: a full collection over it holds the
+    # interpreter lock for a second or more, and every thread here waits
+    gc.collect()
+    gc.freeze()
+    try:
+        with rerun_pool(1) as pool:
+            rerun = pool.apply_async(server_cpu_rerun, (sizes,))
+            run = server_run(device, sizes)
+            cpu = rerun.get(timeout=900)
+    finally:
+        gc.unfreeze()
+        gc.collect()
+    check(device.type != "cuda"
+          or (run["launches"]["row_scatter"] > 0 and run["launches"]["waterfill"] > 0),
+          f"main_path_server: kernels B and C not launched {run['launches']}")
+    check(run["pods_after_delete"] == 0, "main_path_server: pods left after the delete")
+    check(run["failover"]["pending_at_stop"] > 0,
+          "main_path_server: every pod was bound before the leader's stop")
+    for k in ("per_deployment", "bound", "bind_transitions", "status_replicas",
+              "pods_after_delete"):
+        check(cpu[k] == run[k], f"main_path_server: the CPU rerun's {k} differs: "
+                                f"{cpu[k]} / {run[k]}")
+    line = {k: run[k] for k in ("steps", "failover", "requests", "apf", "audit_records",
+                                "watch_events", "launches", "bound", "bind_transitions",
+                                "metrics", "debug", "heartbeat_late_s",
+                                "node_not_ready_writes")}
+    line["cpu_steps_s"] = {k: v["seconds"] for k, v in cpu["steps"].items()}
+    emit({"phase": "main_path_server", "card": card, "nodes": sizes["nodes"],
+          "deployments": sizes["srv_deployments"], "replicas": sizes["srv_replicas"],
+          "scaled": sizes["srv_scaled"], "lease": SRV_LEASE, **line})
+    emit({"phase": "main_path_server_stage_table", "stage_table": run["stage_table"],
+          "schedstats_stages": run["schedstats_stages"]})
+    return {"launches": run["launches"], "seconds": time.perf_counter() - t_phase}
+
+
+def smoke_sizes(small=False):
+    """The phases' sizes: scheduler_perf's (the default), or the reduced
+    rehearsal sizes of --small."""
+    return ({"small": True, "nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
+              "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500,
+              "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
+              "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
+              "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
+              "transport_path_pods": {"Transport_50k": 5000, "TransportMixed": 1000},
+              "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
+              "preempt_nodes": 100, "preempt_constrained": 20,
+              "part_nodes": 100, "part_pods": 2000, "part_spread": 100, "part_wave2": 200,
+              "ctl_deployments": 4, "ctl_replicas": 100, "ctl_drain": 5,
+              "svc_namespaces": 4, "svc_replicas": 20, "svc_volume_pods": 4,
+              "svc_claim_pods": 4, "srv_deployments": 10, "srv_replicas": 25, "srv_scaled": 100,
+              "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
+                           "dra_two": 2, "spread": 4}}
+             if small else
+             {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 4096,
+              "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
+              "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
+              "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
+              "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
+              "transport_path_pods": {"Transport_50k": 12288, "TransportMixed": 5000},
+              "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
+              "preempt_nodes": 500, "preempt_constrained": 30,
+              "part_nodes": 1000, "part_pods": 20000, "part_spread": 1000, "part_wave2": 2000,
+              "ctl_deployments": 10, "ctl_replicas": 100, "ctl_drain": 50,
+              "svc_namespaces": 10, "svc_replicas": 100, "svc_volume_pods": 16,
+              "svc_claim_pods": 16, "srv_deployments": 10, "srv_replicas": 100,
+              "srv_scaled": 400,
+              "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
+                           "dra_two": 16, "spread": 16}})
+
+
 def main(argv=None) -> int:
     t_main = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5336,35 +5882,7 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    sizes = ({"small": True, "nodes": 500, "basic": 1000, "spread": 500, "mixed": 300, "plain": 1000,
-              "batch": 400, "group_big": 5000, "anti_groups": 10, "affinity": 500,
-              "gang_members": 25, "preempt_members": 40, "slice_nodes": 250,
-              "cover_victims": 1000, "budget_nodes": 1400, "align_p_max": 4096,
-              "transport_pods": 5000, "mixed_transport_pods": 1000, "direct_pods": 10000,
-              "transport_path_pods": {"Transport_50k": 5000, "TransportMixed": 1000},
-              "direct_nodes": 1000, "defrag_wide_v": 64, "scan_global_nodes": 70000,
-              "preempt_nodes": 100, "preempt_constrained": 20,
-              "part_nodes": 100, "part_pods": 2000, "part_spread": 100, "part_wave2": 200,
-              "ctl_deployments": 4, "ctl_replicas": 100, "ctl_drain": 5,
-              "svc_namespaces": 4, "svc_replicas": 20, "svc_volume_pods": 4,
-              "svc_claim_pods": 4,
-              "fallback": {"prebound": 8, "provision": 4, "static": 2, "dra_one": 4,
-                           "dra_two": 2, "spread": 4}}
-             if args.small else
-             {"small": False, "nodes": 5000, "basic": 10000, "spread": 5000, "mixed": 2000, "plain": 4096,
-              "batch": 4096, "group_big": 10000, "anti_groups": 50, "affinity": 5000,
-              "gang_members": 256, "preempt_members": 400, "slice_nodes": 250,
-              "cover_victims": 1000, "budget_nodes": 4000, "align_p_max": 4096,
-              "transport_pods": 50000, "mixed_transport_pods": 10000, "direct_pods": 100000,
-              "transport_path_pods": {"Transport_50k": 12288, "TransportMixed": 5000},
-              "direct_nodes": 10000, "defrag_wide_v": 256, "scan_global_nodes": 70000,
-              "preempt_nodes": 500, "preempt_constrained": 30,
-              "part_nodes": 1000, "part_pods": 20000, "part_spread": 1000, "part_wave2": 2000,
-              "ctl_deployments": 10, "ctl_replicas": 100, "ctl_drain": 50,
-              "svc_namespaces": 10, "svc_replicas": 100, "svc_volume_pods": 16,
-              "svc_claim_pods": 16,
-              "fallback": {"prebound": 48, "provision": 16, "static": 8, "dra_one": 32,
-                           "dra_two": 16, "spread": 16}})
+    sizes = smoke_sizes(args.small)
     seconds = {}  # each phase's wall seconds, printed before the kernels line
 
     def timed(name, fn, *fargs):
@@ -5410,6 +5928,7 @@ def main(argv=None) -> int:
         controllers = timed("main_path_controllers", phase_main_path_controllers, device,
                             sizes, card)
         services = timed("main_path_services", phase_main_path_services, device, sizes, card)
+        server = timed("main_path_server", phase_main_path_server, device, sizes, card)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5455,7 +5974,8 @@ def main(argv=None) -> int:
          "fallback_path_launches": fallback["launches"]["row_scatter"],
          "partition_path_launches": partition_sum["row_scatter"],
          "controllers_path_launches": controllers["launches"]["row_scatter"],
-         "services_path_launches": services["launches"]["row_scatter"]},
+         "services_path_launches": services["launches"]["row_scatter"],
+         "server_path_launches": server["launches"]["row_scatter"]},
         {"name": "waterfill", "route": "cuda", "source": KERNEL_C_SRC,
          "replaces": "kubernetes_tpu/models/waterfill.py:79",
          "launches": sum(ln["launches"]["waterfill"] for ln in fast.values()),
@@ -5472,7 +5992,8 @@ def main(argv=None) -> int:
          "fallback_path_launches": fallback["launches"]["waterfill"],
          "partition_path_launches": partition_sum["waterfill"],
          "controllers_path_launches": controllers["launches"]["waterfill"],
-         "services_path_launches": services["launches"]["waterfill"]},
+         "services_path_launches": services["launches"]["waterfill"],
+         "server_path_launches": server["launches"]["waterfill"]},
         {"name": "repair_check", "route": "cuda", "source": KERNEL_D_SRC,
          "replaces": "kubernetes_tpu/models/repair.py:121",
          "launches": sum(ln["launches"]["repair_check"] for ln in fast.values()),
@@ -5570,4 +6091,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # every pool is closed and every thread stopped by now: skip the
+    # interpreter's teardown of the phases' heaps and the CUDA context
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -10,10 +10,6 @@ defaults and wire forms, held equal to it by the port's tests.
 
 from __future__ import annotations
 
-# the dispatch objects live in server/flowcontrol.py, which the port does not
-# have yet (the scheduler's NOT_PORTED wording, scheduler/serial.py)
-NOT_PORTED = "not yet ported to the PyTorch/CUDA package (ROADMAP.md queue 1 item 7g)"
-
 
 class PriorityLevelConfiguration:
     """Wire form subset: spec.type Exempt|Limited, spec.limited.seats,
@@ -65,9 +61,12 @@ class PriorityLevelConfiguration:
                 "metadata": self.metadata.to_dict(), "spec": spec}
 
     def to_level(self):
-        """The server/flowcontrol.py PriorityLevel; comes with that module."""
-        raise NotImplementedError("PriorityLevelConfiguration.to_level builds a "
-                                  "server/flowcontrol.py object, " + NOT_PORTED)
+        from ..server.flowcontrol import PriorityLevel
+
+        return PriorityLevel(self.metadata.name, seats=self.seats,
+                             queue_length=self.queue_length,
+                             queue_timeout=self.queue_timeout,
+                             exempt=self.type == "Exempt")
 
 
 class FlowSchemaConfiguration:
@@ -125,8 +124,10 @@ class FlowSchemaConfiguration:
                 }}
 
     def to_schema(self):
-        """The server/flowcontrol.py FlowSchema; comes with that module."""
-        raise NotImplementedError("FlowSchemaConfiguration.to_schema builds a "
-                                  "server/flowcontrol.py object, " + NOT_PORTED)
+        from ..server.flowcontrol import FlowSchema
+
+        return FlowSchema(self.metadata.name, self.priority_level,
+                          users=self.users, groups=self.groups,
+                          verbs=self.verbs, resources=self.resources)
 
 

@@ -154,3 +154,65 @@ class PreferredSchedulingTerm:
                 tuple(parse_requirement(e) for e in p.get("matchFields") or []),
             ),
         )
+
+
+def parse_selector_string(raw: str) -> Selector:
+    """Parse the label-selector QUERY STRING grammar
+    (apimachinery/pkg/labels/selector.go Parse): comma-joined requirements of
+    the forms `k=v`, `k==v`, `k!=v`, `k in (a,b)`, `k notin (a,b)`, `k`,
+    `!k`. Raises ValueError on malformed input (the apiserver's 400)."""
+    import re
+
+    reqs: List[Requirement] = []
+    raw = raw.strip()
+    # split on commas NOT inside parentheses
+    parts: List[str] = []
+    depth = 0
+    start = 0
+    for i, ch in enumerate(raw):
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append(raw[start:i])
+            start = i + 1
+    parts.append(raw[start:])
+    set_re = re.compile(r"^(?P<key>[^!=\s]+)\s+(?P<op>in|notin)\s*"
+                        r"\((?P<vals>[^)]*)\)$")
+    key_re = re.compile(r"^[A-Za-z0-9._/-]+$")
+
+    def checked_key(k: str, part: str) -> str:
+        k = k.strip()
+        if not key_re.match(k):
+            raise ValueError(f"invalid label key in clause {part!r}")
+        return k
+
+    for part in parts:
+        part = part.strip()
+        if not part:
+            continue
+        m = set_re.match(part)
+        if m:
+            vals = tuple(v.strip() for v in m.group("vals").split(",")
+                         if v.strip())
+            if not vals:
+                raise ValueError(f"empty value set in {part!r}")
+            reqs.append(Requirement(checked_key(m.group("key"), part),
+                                    IN if m.group("op") == "in" else NOT_IN,
+                                    vals))
+        elif "!=" in part:
+            k, _, v = part.partition("!=")
+            reqs.append(Requirement(checked_key(k, part), NOT_IN, (v.strip(),)))
+        elif "=" in part:
+            k, _, v = part.partition("=")
+            if v.startswith("="):  # the == alias
+                v = v[1:]
+            reqs.append(Requirement(checked_key(k, part), IN, (v.strip(),)))
+        elif part.startswith("!"):
+            reqs.append(Requirement(checked_key(part[1:], part), DOES_NOT_EXIST))
+        elif key_re.match(part):
+            reqs.append(Requirement(part, EXISTS))
+        else:
+            raise ValueError(f"unparsable selector clause {part!r}")
+    return Selector(tuple(reqs))

@@ -49,6 +49,9 @@ class Controller:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # the daemon loop's thread, kept past stop(): only its drains end
+        # early when the controller stops
+        self._loop_thread: Optional[threading.Thread] = None
         self.sync_errors = 0
         # per-loop reconcile recorder. telemetry=False keeps the
         # recorder fully inert AND unregistered — the parity oracle for the
@@ -122,13 +125,27 @@ class Controller:
             return 0
         t0 = time.perf_counter()
         errors0 = self.sync_errors
+        # the daemon loop's drain ends at stop(), its unsynced keys left
+        # dirty: a stopping replica writes for one more sync at most, not
+        # for its whole backlog (the JAX package drains it)
+        stopping = self._stop if threading.current_thread() is self._loop_thread else None
+        done = 0
         for key in keys:
+            if stopping is not None and stopping.is_set():
+                with self._lock:
+                    for k in keys[done:]:
+                        self._dirty.setdefault(k, now)
+                break
+            done += 1
             try:
                 self.sync(key)
             except Exception:
                 self.sync_errors += 1
                 traceback.print_exc()
                 self._mark(key, now)  # retry (rate limiting elided)
+        keys = keys[:done]
+        if not keys:
+            return 0
         errs = self.sync_errors - errors0
         t1 = time.perf_counter()
         self.recorder.loop(keys=len(keys), errors=errs, requeues=errs,
@@ -188,7 +205,7 @@ class Controller:
                 if self.reconcile_once() == 0:
                     self.clock.sleep(interval)
 
-        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread = self._loop_thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
 
     def stop(self) -> None:

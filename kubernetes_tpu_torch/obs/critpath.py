@@ -2,9 +2,9 @@
 submit→bound latency into additive per-stage components and name the
 dominant one per window.
 
-The counterpart of `kubernetes_tpu/obs/critpath.py` (its `ktl sched why` and
-GET /debug/critpath surfaces come with the server, ROADMAP.md queue 1
-item 7g).
+The counterpart of `kubernetes_tpu/obs/critpath.py`. GET /debug/critpath
+(server/rest.py) serves it; `ktl sched why` comes with the CLI (ROADMAP.md
+queue 1 item 7g2).
 
 Input is the existing podtrace span set (scheduler/podtrace.py): each
 sampled span carries absolute-offset stamps (ms from enqueue) for the

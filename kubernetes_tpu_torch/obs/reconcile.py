@@ -14,8 +14,9 @@ the same machinery the scheduler has, built on the SAME RingRecorder base
                             stage table and running counters.
   registry                — weak registry of live controllers (the configz
                             pattern, same as flightrec's scheduler registry)
-                            behind GET /debug/controlstats and
-                            `ktl controller stats` (item 7g).
+                            behind GET /debug/controlstats
+                            (server/rest.py) and `ktl controller stats`
+                            (ROADMAP.md queue 1 item 7g2).
   workqueue_depth_samples — render-time feed for the
                             controller_workqueue_depth GaugeFunc.
 

@@ -131,11 +131,22 @@ partition_conflicts counts it). sched_stats()["partition"] and the
 "partition" window probe publish them, and the bind worker's trace track
 and thread name carry the partition (p<i>-bind). Standalone, all are inert.
 
+Background loop (JAX batch.py :2103-2128): start() runs schedule_batch on
+a daemon thread, drains the async bind outcomes every cycle (bind failures
+requeue under sustained load), and at idle flushes the binds, pumps events,
+flushes the backoff and unschedulable tiers, sweeps expired assumes and
+waits 50 ms; the thread registers with an attached resource sampler as
+"sched" (p<i>-sched in a partition). A solver failure, a kernel's build
+or launch error included, takes the same failure domain as under
+run_until_idle (the batch requeues with backoff, the breaker records it,
+last_solver_error says why); no path moves the pipeline off its device.
+The server's /debug routes read sched_stats() and the flight recorder's
+snapshots from handler threads; those hold plain Python numbers only.
+
 Not in this slice (each raises or is named where it would act):
   transport over a node-axis mesh (several cards), extenders
                                               queue 1 item 6
-  the background start() loop, the /debug routes and `ktl sched`
-                                              queue 1 item 7g
+  `ktl sched`                                 queue 1 item 7g2
 """
 
 from __future__ import annotations
@@ -182,6 +193,8 @@ from .runtime import Framework
 from .serial import ScheduleResult, Scheduler
 
 SOLVERS = ("exact", "fast", "auto", "native", "auction", "sinkhorn")
+# how long stop() waits for the loop and the bind worker to exit
+STOP_TIMEOUT_S = 60.0
 
 log = logging.getLogger(__name__)
 
@@ -1375,14 +1388,51 @@ class BatchScheduler(Scheduler):
         self._drain_bind_results()
 
     def stop(self) -> None:
-        """Stop the watch like the base class, and release the bind worker
-        (parked in q.get() it would pin this scheduler's object graph). Items
-        queued before the sentinel still commit."""
+        """Stop the loop and the watch like the base class, and release the
+        bind worker (parked in q.get() it would pin this scheduler's object
+        graph). The loop's last batch and the binds queued before the
+        sentinel commit before stop() returns, and their submit -> bound
+        observations are settled: a stopped pipeline writes nothing after,
+        and its latency series misses no pod it bound. (The JAX package
+        returns with both threads still running and the last chunk's
+        observations unsettled, ROADMAP.md queue 3.)"""
+        loop = self._thread
         super().stop()
-        if self._bind_worker is not None:
+        if loop is not None:
+            loop.join(timeout=STOP_TIMEOUT_S)
+        worker = self._bind_worker
+        if worker is not None:
             self._bind_q.put(None)
             self._bind_q = _queue.Queue()
             self._bind_worker = None
+            worker.join(timeout=STOP_TIMEOUT_S)
+        self.podtrace.settle()
+
+    def start(self) -> None:
+        """Background loop: batch solve instead of one-pod cycles."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.is_set():
+                handled = self.schedule_batch()
+                # drain async-bind outcomes every cycle (bind failures must
+                # requeue even under sustained load), full flush only on idle
+                self._drain_bind_results()
+                if handled == 0:
+                    self.flush_binds()
+                    self.pump_events()
+                    self.queue.flush_backoff_completed()
+                    self.queue.flush_unschedulable_left_over()
+                    self.sweep_expired_assumes()
+                    self._stop.wait(0.05)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+        if self.resource_sampler is not None:
+            self.resource_sampler.register_thread(
+                self._thread_label("sched"), self._thread)
 
     # -- idle loops, resync, stats --------------------------------------------
 
@@ -1789,8 +1839,7 @@ class BatchScheduler(Scheduler):
         """The live counters, the flight recorder's stage table (p50/p99
         columns), the submit->bound latency distribution, the tracer's
         health, the recent time-series windows and the last batch record:
-        the payload the JAX package serves at /debug/schedstats (its route
-        comes with ROADMAP.md queue 1 item 7g)."""
+        the payload server/rest.py serves at /debug/schedstats."""
         tel = self._update_queue_telemetry(want_dict=True)
         # read the windows FIRST: the read settles an expired open window,
         # and the counters below must describe the settled state
@@ -1907,12 +1956,15 @@ class BatchScheduler(Scheduler):
     def attach_resource_sampler(self, sampler) -> None:
         """Wire an obs/resource.py ResourceSampler: its latest columns join
         every closed window (the rss/alloc slope gates' feed), and the bind
-        worker registers for per-thread CPU attribution, now if it runs and
-        as it spawns. (The scheduling loop thread registers with start(),
-        ROADMAP.md queue 1 item 7g.)"""
+        worker and the loop thread register for per-thread CPU attribution:
+        the loop thread on start(), the bind worker as it spawns, both now
+        when already running."""
         self.resource_sampler = sampler
-        if sampler is not None and self._bind_worker is not None:
-            sampler.register_thread(self._thread_label("bind"), self._bind_worker)
+        if sampler is not None:
+            if self._thread is not None:
+                sampler.register_thread(self._thread_label("sched"), self._thread)
+            if self._bind_worker is not None:
+                sampler.register_thread(self._thread_label("bind"), self._bind_worker)
 
     def _watch_summary(self) -> Dict:
         """The store watch bus seen from this scheduler: settled

@@ -19,8 +19,8 @@ PAPERS.md) additionally needs per-decision attribution. Three pieces:
                    accumulates into per-stage "outside" buckets so the
                    aggregate stage table still sums to ~wall time.
   registry       — weak registry of live BatchSchedulers so the API server's
-                   /debug/schedstats and `ktl sched stats` (ROADMAP.md queue 1
-                   item 7g) can read the stage table of an in-process
+                   /debug/schedstats (server/rest.py) and `ktl sched stats`
+                   (ROADMAP.md queue 1 item 7g2) can read the stage table of an in-process
                    scheduler without new plumbing (the configz
                    register/snapshot pattern, utils/tracing.py). The
                    snapshot functions below are those surfaces' payloads.

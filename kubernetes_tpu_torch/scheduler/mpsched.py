@@ -52,9 +52,8 @@ on a card that thread path is the card's path):
 Concurrency is judged only by measured CPU overlap (owner plus worker CPU
 seconds beyond the wall time, `overlap_cpu_s`), never by wall clock.
 
-Not in this slice: the thread path's background start() (it delegates to
-BatchScheduler.start(), ROADMAP.md queue 1 item 7g) raises; the mp path's
-start() brings the workers up.
+start(): the thread path delegates to BatchScheduler.start() (JAX
+mpsched.py :736-740); the mp path's start() brings the workers up.
 """
 
 from __future__ import annotations
@@ -77,7 +76,6 @@ from .batch import BatchScheduler
 from .flightrec import register_scheduler
 from .partition import spans_partitions
 from .queue import QueuedPodInfo
-from .serial import NOT_PORTED
 
 _mp_seq = itertools.count(1)
 
@@ -750,8 +748,8 @@ class MPScheduler:
 
     def start(self) -> None:
         if self._inner is not None:
-            raise NotImplementedError("the thread path's background start() is "
-                                      + NOT_PORTED.format("7g"))
+            self._inner.start()
+            return
         self._ensure_workers()
 
     def stop(self) -> None:

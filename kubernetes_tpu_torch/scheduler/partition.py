@@ -67,10 +67,12 @@ invert against every pipeline's commit path.)
 `partitions=1` is byte-identical to a standalone BatchScheduler: no gates,
 no hooks, no residual — pure delegation.
 
-Not in this slice: the background start() mode with its supervisor thread
-(it drives BatchScheduler.start(), ROADMAP.md queue 1 item 7g); start()
-raises. run_until_idle, kill_partition, the residual pass, stop() and
-sched_stats() are whole.
+Background mode (JAX partition.py :734-778): start() starts every live
+pipeline's BatchScheduler.start() loop and a supervisor thread that, every
+0.5 s, absorbs a pipeline whose loop thread died (the survivors stopped
+around the absorb so their resync does not race their own loops, then
+restarted) and runs the residual pass over the parked pods; stop() ends the
+supervisor, then every member.
 """
 
 from __future__ import annotations
@@ -87,7 +89,6 @@ from ..ops.kernels import launch_scope
 from ..store import APIStore
 from .batch import BatchScheduler
 from .queue import QueuedPodInfo
-from .serial import NOT_PORTED
 
 LABEL_ZONE = "topology.kubernetes.io/zone"
 
@@ -323,6 +324,8 @@ class PartitionedScheduler:
         self.dispatch_faults = 0  # absorbed partition.dispatch fail plans
         self.residual_passes = 0
         self.partitions_absorbed = 0
+        self._sup_thread: Optional[threading.Thread] = None
+        self._sup_stop = threading.Event()
 
         self.pipelines: List[BatchScheduler] = []
         for i in range(partitions):
@@ -744,12 +747,48 @@ class PartitionedScheduler:
     # -- background mode -------------------------------------------------------
 
     def start(self) -> None:
-        """The background mode drives each pipeline's start() thread under a
-        supervisor; BatchScheduler.start() is not ported yet."""
-        raise NotImplementedError("the partitioned scheduler's background start() is "
-                                  + NOT_PORTED.format("7g"))
+        if self._single:
+            self.pipelines[0].start()
+            return
+        for i, pipe in enumerate(self.pipelines):
+            if i not in self._dead:
+                pipe.start()
+        if self._sup_thread is not None:
+            return
+        self._sup_stop.clear()
+
+        def supervise():
+            while not self._sup_stop.is_set():
+                for i, pipe in enumerate(self.pipelines):
+                    if i in self._dead:
+                        continue
+                    t = pipe._thread
+                    if t is not None and not t.is_alive():
+                        # quiesce the SURVIVORS before the absorb: their
+                        # resync_from_store must not race their own running
+                        # loops (run_until_idle joins its drive threads
+                        # before an absorb)
+                        for j, other in enumerate(self.pipelines):
+                            if j != i and j not in self._dead:
+                                other.stop()
+                        self._absorb_dead({i})
+                        for j, other in enumerate(self.pipelines):
+                            if j not in self._dead:
+                                other.start()
+                with self._dispatch_lock:
+                    parked = bool(self._residual_qps)
+                if parked:
+                    self._run_residual_pass()
+                self._sup_stop.wait(0.5)
+
+        self._sup_thread = threading.Thread(target=supervise, daemon=True)
+        self._sup_thread.start()
 
     def stop(self) -> None:
+        self._sup_stop.set()
+        if self._sup_thread is not None:
+            self._sup_thread.join(timeout=2)
+            self._sup_thread = None
         for p in self._members():
             p.stop()
 

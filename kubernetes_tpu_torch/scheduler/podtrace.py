@@ -42,8 +42,8 @@ first (counted, never silent).
 
 Consumers: sched_stats()["latency"] / ["trace"], the critical path
 (obs/critpath.py), the SLO gates (scheduler/slo.py), the trace export's
-flow arrows (obs/tracebuf.py), and `ktl sched trace` / GET
-/debug/schedtrace with the server (ROADMAP.md queue 1 item 7g). The
+flow arrows (obs/tracebuf.py), GET /debug/schedtrace (server/rest.py) and
+`ktl sched trace` (ROADMAP.md queue 1 item 7g2). The
 post-bound edges (watch_delivered, kubelet_observed, running) are stamped
 by the node agent through note_pod_event (item 7h).
 
@@ -701,6 +701,11 @@ class PodTracer:
             self._evicted_links = 0
 
     # -- read side (every surface settles deferred chunks first) ---------------
+
+    def settle(self) -> None:
+        """Settle the deferred ops now (a stopping scheduler's last chunks,
+        which no later read may come to settle)."""
+        self._flush_ops()
 
     @property
     def live_incomplete(self) -> int:

@@ -9,8 +9,10 @@ admission time, then admission sequence; a profile's custom QueueSort
 plugin replaces it through its less(). A cluster event moves the
 unschedulable pods that its QueueingHints select (move_pods_for_event, fed by
 scheduler/serial.py _move_for_event from each pod's unschedulable_plugins).
-The background loop that calls the flushes comes with the daemon (ROADMAP.md
-queue 1 item 7g).
+The flush cadence is the schedulers' background loops: Scheduler.start()
+(scheduler/serial.py) flushes the backoff and unschedulable tiers whenever a
+pop times out (50 ms), BatchScheduler.start() (scheduler/batch.py) on every
+idle cycle; run_until_idle callers flush them themselves.
 
 Observability sinks, installed by BatchScheduler: stat_sink (the flight
 recorder) times each bulk admission into its "queue_add" bucket, and

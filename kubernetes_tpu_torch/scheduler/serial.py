@@ -60,13 +60,19 @@ them, since quorums are cluster-scoped) and its peers' bind origins (a
 peer's coalesced bind batch is skipped whole). All three are None or empty
 on a standalone scheduler.
 
+Background loop (JAX serial.py :946-968): start() runs schedule_one on a
+daemon thread, and when a pop times out flushes the backoff and
+unschedulable tiers and sweeps expired assumes; stop() ends the thread and
+the watch.
+
 Not in this module: HTTP extenders (`extenders=` raises, ROADMAP.md queue 1
-item 6) and the background start() thread (item 7g).
+item 6).
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -198,6 +204,8 @@ class Scheduler:
         # entry for such a pod self-heals through the bind-conflict path.
         self._peer_bind_origins: frozenset = frozenset()
         self._watch = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
         # pipeline flight recorder (scheduler/flightrec.py), installed by
         # BatchScheduler; None on the serial loop, every hook gated on it
         self.flightrec = None
@@ -822,7 +830,27 @@ class Scheduler:
         except NotFoundError:
             pass  # deleted meanwhile: its DELETED event drops it from the queue
 
+    def start(self) -> None:
+        """Background loop (wait.UntilWithContext(sched.ScheduleOne, 0))."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.is_set():
+                if not self.schedule_one(timeout=0.05):
+                    self.queue.flush_backoff_completed()
+                    self.queue.flush_unschedulable_left_over()
+                    self.sweep_expired_assumes()
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
     def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+            self._thread = None
         if self._watch is not None:
             self._watch.stop()
             self._watch = None

@@ -3,7 +3,7 @@
 The counterpart of `kubernetes_tpu/scheduler/slo.py`: it turns the flight
 recorder and the pod tracer from a dashboard into assertions. A spec is a
 plain dict (JSON-serializable, loadable from a file for `ktl sched slo
---spec`, which comes with ROADMAP.md queue 1 item 7g):
+--spec`, which comes with ROADMAP.md queue 1 item 7g2):
 
     {
       "stage_p99_ms":         {"solve": 5000, "bind": 8000, ...},

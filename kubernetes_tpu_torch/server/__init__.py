@@ -1,3 +1,9 @@
-"""Server-side telemetry. This slice has the metric primitives and the
-store's series (metrics.py); the REST server, watch mux and /metrics
-endpoint come with ROADMAP.md queue 1 item 7g. Import from the modules."""
+"""L2 — the API server surface: the REST front-end (rest.py) with its watch
+mux, admission, auth, audit, APF flow control and server-side apply, the
+client and informer (client.py), the leader-elected control plane
+(controlplane.py) and the metric registry (metrics.py). The counterpart of
+`kubernetes_tpu/server/`, with the same export list."""
+
+from .client import APIError, Informer, RESTClient  # noqa: F401
+from .metrics import Registry, global_registry  # noqa: F401
+from .rest import APIServer  # noqa: F401

@@ -9,8 +9,8 @@ and deaths, gangs, controllers, resource sampling), and the
 series the API store records into — the bind_many commit latency, dropped
 watch deliveries by reason, the commit-to-dequeue watch propagation
 histogram, and the per-subscriber queue-length and delivered-RV-lag gauges
-read from live stores at render time. The /metrics endpoint and the REST
-server come with ROADMAP.md queue 1 item 7g.
+read from live stores at render time. server/rest.py serves the text
+exposition at GET /metrics.
 """
 
 from __future__ import annotations

@@ -120,7 +120,6 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 from ..api.types import Pod
 from ..chaos import faultinject as _chaos
 from ..obs import tracebuf as _tracebuf
-from ..server import metrics as _metrics
 from . import columnar as _columnar
 
 ADDED = "ADDED"
@@ -129,6 +128,19 @@ DELETED = "DELETED"
 BOOKMARK = "BOOKMARK"
 
 _watch_seq = itertools.count()
+
+_metrics_mod = None
+
+
+def _metrics():
+    """server/metrics.py, imported on first use: the store cannot import the
+    server package at module load (server/rest.py imports the store)."""
+    global _metrics_mod
+    if _metrics_mod is None:
+        from ..server import metrics as m
+
+        _metrics_mod = m
+    return _metrics_mod
 
 @dataclass(frozen=True)
 class Event:
@@ -1360,7 +1372,7 @@ class APIStore:
             register = not self._watch_metrics_registered
             self._watch_metrics_registered = True
         if register:
-            _metrics.register_watch_source(weakref.ref(self))
+            _metrics().register_watch_source(weakref.ref(self))
         return w
 
     def _unsubscribe(self, w: Watch) -> None:
@@ -1375,7 +1387,7 @@ class APIStore:
         eviction) — rare by construction, so the metrics import/inc on this
         path costs nothing in the steady state."""
         self._watch_drops[reason] = self._watch_drops.get(reason, 0) + 1
-        _metrics.store_watch_dropped.inc(reason=reason, kind=kind)
+        _metrics().store_watch_dropped.inc(reason=reason, kind=kind)
 
     # -- watch propagation ------------------------------------------------------
 
@@ -1385,8 +1397,8 @@ class APIStore:
         with self._prop_lock:
             h = self._prop_hist.get(kind)
             if h is None:
-                h = self._prop_hist[kind] = _metrics.Histogram(
-                    "watch_propagation", buckets=_metrics.PROPAGATION_BUCKETS)
+                h = self._prop_hist[kind] = _metrics().Histogram(
+                    "watch_propagation", buckets=_metrics().PROPAGATION_BUCKETS)
             return h
 
     def _settle_propagation(self, w: Watch, inline: bool = False) -> None:
@@ -1426,10 +1438,10 @@ class APIStore:
                 # one numpy bucket pass feeds the private histogram AND the
                 # process-wide series (identical bucket layouts)
                 h.observe_counts(*res)
-                _metrics.store_watch_propagation.child(kind).observe_counts(*res)
+                _metrics().store_watch_propagation.child(kind).observe_counts(*res)
         for kind, val, n in bulk:
             self._prop_child(kind).observe_n(val, n)
-            _metrics.store_watch_propagation.child(kind).observe_n(val, n)
+            _metrics().store_watch_propagation.child(kind).observe_n(val, n)
         dt = time.perf_counter() - t0
         with self._prop_lock:
             self._prop_settle_s += dt
@@ -1460,7 +1472,7 @@ class APIStore:
         with self._prop_lock:
             hists = dict(self._prop_hist)
             settle = self._prop_settle_s
-        merged = _metrics.Histogram("merged", buckets=_metrics.PROPAGATION_BUCKETS)
+        merged = _metrics().Histogram("merged", buckets=_metrics().PROPAGATION_BUCKETS)
         kinds: Dict[str, Dict] = {}
         for kind, h in sorted(hists.items()):
             counts, total_sum, n = h.counts_snapshot()
@@ -1730,7 +1742,7 @@ class APIStore:
                     prepared.append((key, pod, new, node_name))
         bound = 0
         if not prepared:
-            _metrics.store_bind_many_duration.observe(
+            _metrics().store_bind_many_duration.observe(
                 time.perf_counter() - t0)
             return bound, errors
         if native is not None and _chaos.ACTIVE is not None:
@@ -1791,7 +1803,7 @@ class APIStore:
                         bound += 1
                 self._rv = rv
                 self._emit_batch(MODIFIED, "pods", events, origin)
-        _metrics.store_bind_many_duration.observe(time.perf_counter() - t0)
+        _metrics().store_bind_many_duration.observe(time.perf_counter() - t0)
         return bound, errors
 
     def _bind_many_columnar(self, bindings, origin: Optional[str],
@@ -1813,7 +1825,7 @@ class APIStore:
         with self._pods_lock:
             rows, ids, keys, rv_snap = cols.bind_prepare(bindings, errors, native)
         if not len(rows):
-            _metrics.store_bind_many_duration.observe(
+            _metrics().store_bind_many_duration.observe(
                 time.perf_counter() - t0)
             return 0, errors
         if native is not None and _chaos.ACTIVE is not None:
@@ -1833,7 +1845,7 @@ class APIStore:
                                           ids, cols.node_names,
                                           pod_bind_clone, t_commit)
                     self._emit_bind_batch(batch, origin)
-        _metrics.store_bind_many_duration.observe(time.perf_counter() - t0)
+        _metrics().store_bind_many_duration.observe(time.perf_counter() - t0)
         return bound, errors
 
     def _emit_bind_batch(self, batch: LazyBindBatch,

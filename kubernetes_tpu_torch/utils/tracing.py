@@ -4,8 +4,8 @@ The counterpart of `kubernetes_tpu/utils/tracing.py`. Reference:
 k8s.io/utils/trace (the scheduler's utiltrace steps with a 100ms log
 threshold — schedule_one.go:411) and component-base/logs (klog text/JSON
 backends). OTel export is out of scope; the span model matches utiltrace so
-call sites read the same. The /configz route that serves
-configz_snapshot() comes with the server (ROADMAP.md queue 1 item 7g).
+call sites read the same. server/rest.py's /configz route serves
+configz_snapshot().
 """
 
 from __future__ import annotations

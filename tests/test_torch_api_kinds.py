@@ -581,15 +581,36 @@ def test_append_pod_log_trims_and_resets_as_in_jax():
 # -- flow control -------------------------------------------------------------------
 
 
-def test_flowcontrol_dispatch_builders_raise_naming_item_7g():
-    level = tser.from_dict("prioritylevelconfigurations",
-                           {"metadata": {"name": "low"}, "spec": {"type": "Limited"}})
-    schema = tser.from_dict("flowschemas", {"metadata": {"name": "nodes"}, "spec": {}})
-    with pytest.raises(NotImplementedError, match="item 7g"):
-        level.to_level()
-    with pytest.raises(NotImplementedError, match="item 7g"):
-        schema.to_schema()
-    assert isinstance(level, tflow.PriorityLevelConfiguration)
-    assert isinstance(schema, tflow.FlowSchemaConfiguration)
-    assert json.dumps(level.to_dict(), sort_keys=True) == json.dumps(
-        jflow.PriorityLevelConfiguration.from_dict(level.to_dict()).to_dict(), sort_keys=True)
+def test_flowcontrol_dispatch_builders_match_jax():
+    """to_level() / to_schema() build server/flowcontrol.py's dispatch
+    objects, field for field the JAX package's."""
+    docs = (("prioritylevelconfigurations",
+             {"metadata": {"name": "low"}, "spec": {"type": "Limited"}}),
+            ("prioritylevelconfigurations",
+             {"metadata": {"name": "batch"},
+              "spec": {"type": "Limited", "limited": {"seats": 3, "queueLength": 0,
+                                                      "queueTimeoutSeconds": 2.5}}}),
+            ("prioritylevelconfigurations",
+             {"metadata": {"name": "free"}, "spec": {"type": "Exempt"}}),
+            ("flowschemas", {"metadata": {"name": "nodes"}, "spec": {}}),
+            ("flowschemas",
+             {"metadata": {"name": "heavy"},
+              "spec": {"priorityLevelConfiguration": {"name": "batch"},
+                       "matchingPrecedence": 100, "verbs": ["list"], "resources": ["pods"],
+                       "subjects": [{"kind": "Group", "group": {"name": "ops"}}]}}))
+    for kind, doc in docs:
+        mine, ref = tser.from_dict(kind, doc), jser.from_dict(kind, doc)
+        if kind == "flowschemas":
+            a, b = mine.to_schema(), ref.to_schema()
+            assert isinstance(mine, tflow.FlowSchemaConfiguration)
+        else:
+            a, b = mine.to_level(), ref.to_level()
+            assert isinstance(mine, tflow.PriorityLevelConfiguration)
+            assert (a.seats, a.queue_length, a.queue_timeout, a.exempt) == (
+                b.seats, b.queue_length, b.queue_timeout, b.exempt)
+        assert type(a).__module__ == "kubernetes_tpu_torch.server.flowcontrol"
+        assert type(a).__name__ == type(b).__name__
+        assert {k: v for k, v in vars(a).items() if not k.startswith("_")} == {
+            k: v for k, v in vars(b).items() if not k.startswith("_")}
+        assert json.dumps(mine.to_dict(), sort_keys=True) == json.dumps(
+            ref.to_dict(), sort_keys=True)

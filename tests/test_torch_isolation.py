@@ -17,7 +17,8 @@ interpreter imports what a worker imports without torch; another drives a
 Deployment and a DaemonSet through the workload controllers; another
 imports every controller and the service, CRD, certificate, flow-control
 and serializer modules and drives a namespace's service account, quota and
-endpoint slice; a static pass
+endpoint slice; another imports every module of the server slice and
+drives the API server, a leading control plane and an informer; a static pass
 over every module of kubernetes_tpu_torch and chip_smoke.py finds no such
 import; and the entry points default to the
 card, raising where none is present (decided inside each test).
@@ -624,6 +625,57 @@ def test_services_and_every_controller_import_no_jax_and_no_jax_package():
     assert got["kinds"] == 46 and got["csr"] == "CertificateSigningRequest"
     assert got["crd"] == "customresourcedefinitions" and got["flow"] == "FlowSchema"
     assert got["modules"] == []
+
+_SERVER = r"""
+import importlib, json, sys, time
+NEW = ["server.admission", "server.admissionpolicy", "server.audit", "server.auth",
+       "server.celexpr", "server.client", "server.controlplane", "server.fieldmanager",
+       "server.flowcontrol", "server.ipalloc", "server.podsecurity", "server.rest",
+       "server.watchmux", "utils.leaderelection", "utils.leakcheck"]
+mods = [importlib.import_module("kubernetes_tpu_torch." + m) for m in NEW]
+from kubernetes_tpu_torch.api.workloads import Lease
+from kubernetes_tpu_torch.server import APIServer, Informer, RESTClient
+from kubernetes_tpu_torch.server.controlplane import ControlPlane
+from kubernetes_tpu_torch.store import APIStore
+from kubernetes_tpu_torch.testing import MakeNode, renew_node_leases
+from kubernetes_tpu_torch.utils.leakcheck import assert_no_thread_leaks
+
+with assert_no_thread_leaks(grace=5.0):
+    store = APIStore()
+    for i in range(2):
+        store.create("nodes", MakeNode(f"n{i}").capacity(
+            {"cpu": "4", "memory": "8Gi", "pods": "20"}).obj())
+    renew_node_leases(store, Lease, ["n0", "n1"], time.monotonic())
+    srv = APIServer(store, flowcontrol="default", audit="default").start()
+    cp = ControlPlane(store, "cp-0", device="cpu", lease_duration=1.0, renew_deadline=0.8,
+                      retry_period=0.05).start()
+    c = RESTClient(srv.url, timeout=10)
+    inf = Informer(c, "pods").start()
+    c.create("pods", {"metadata": {"name": "p"}, "spec": {"containers": [
+        {"name": "c", "resources": {"requests": {"cpu": "500m"}}}]}})
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline and not (
+            "default/p" in inf.cache and inf.cache["default/p"].spec.node_name):
+        time.sleep(0.05)
+    node = inf.cache["default/p"].spec.node_name
+    stats = json.loads(c.request_text("/debug/schedstats"))
+    inf.stop(); cp.stop(); srv.stop()
+print(json.dumps({"imported": len(mods), "node": node, "pipelines": len(stats),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"))}))
+"""
+
+
+def test_server_and_control_plane_import_no_jax_and_no_jax_package():
+    """Every module of the server slice, driving an APIServer, a leading
+    ControlPlane on the CPU and an Informer over one pod: neither jax nor
+    the JAX package is loaded, and every thread stops."""
+    out = subprocess.run([sys.executable, "-c", _SERVER], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["imported"] == 15 and got["node"] in ("n0", "n1") and got["pipelines"] == 1
+    assert got["modules"] == []
+
 
 def test_worker_modules_import_no_torch():
     """What a spawned worker process imports (scheduler/mpworker.py and

@@ -8,7 +8,7 @@ conserved; the resourceVersions are not compared (the workers' intents
 arrive in process order). processes=1 and every fallback delegate to one
 thread-path BatchScheduler, byte-identical. The JAX package's rendering
 test (`ktl`) becomes a shape check here: the port's CLI is ROADMAP.md queue
-1 item 7g.
+1 item 7g2.
 
 Segments: the port's arenas carry the prefix "kttorch" and every test
 asserts that none it made is left (the names carry the creating process's
@@ -23,6 +23,7 @@ loadfile` never runs two of them at once. Tolerance 0.
 
 import importlib
 import os
+import time
 
 import pytest
 
@@ -455,12 +456,31 @@ def test_sched_stats_shape():
     assert (mode, n, tmode, tfb, scheduled) == ("mp", 2, "thread", "requested", 10)
 
 
-def test_thread_path_start_names_the_item():
-    p = P["port"]
-    s = p.mp(p.store(), processes=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7g"):
-        s.start()
-    s.stop()
+def test_thread_path_start_runs_the_batch_loop():
+    """processes=1 delegates start() to its BatchScheduler's background
+    loop: pods created while it runs are bound, equal across packages, and
+    stop() leaves no thread behind."""
+    from kubernetes_tpu_torch.utils.leakcheck import assert_no_thread_leaks
+
+    def run(p):
+        with assert_no_thread_leaks(grace=5.0):
+            store = p.store(nodes=6)
+            s = p.mp(store, processes=1)
+            s.sync()
+            s.start()
+            alive = s._inner._thread is not None and s._inner._thread.is_alive()
+            store.create_many("pods", p.pods(30, "th"), consume=True)
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline and sum(
+                    1 for x in store.list("pods")[0] if x.spec.node_name) < 30:
+                time.sleep(0.02)
+            s.stop()
+        pods = store.list("pods")[0]
+        return (alive, s.mode, sum(1 for x in pods if x.spec.node_name),
+                s._inner._thread is None)
+
+    got = both(run)
+    assert got["jax"] == got["port"] == (True, "thread", 30, True)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ names the item that brings the background mode. Tolerance 0.
 import copy
 import gc
 import importlib
+import time
 
 import pytest
 
@@ -796,7 +797,38 @@ def test_partition_series_and_start():
     for name in ("partition_conflicts_total", "partition_reroutes_total",
                  "partition_deaths_total"):
         assert getattr(p.metrics, name).name == getattr(P["jax"].metrics, name).name
-    ps = p.coord(p.store())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7g"):
-        ps.start()
-    ps.stop()
+
+    def run(q):
+        """The background mode: each pipeline's start() loop under the
+        supervisor, pods arriving while it runs; the end state (every pod
+        bound once, by partition) equal across packages, no thread left."""
+        from kubernetes_tpu_torch.utils.leakcheck import assert_no_thread_leaks
+
+        with assert_no_thread_leaks(grace=5.0):
+            store = q.store()
+            for n in q.nodes(8):
+                store.create("nodes", n)
+            ps = q.coord(store)
+            ps.sync()
+            ps.start()
+            alive = [pipe._thread.is_alive() for pipe in ps.pipelines] + [
+                ps._sup_thread.is_alive()]
+            store.create_many("pods", q.pods(40, "bg"), consume=True)
+            deadline = time.monotonic() + 20
+            while time.monotonic() < deadline and sum(
+                    1 for x in store.list("pods")[0] if x.spec.node_name) < 40:
+                time.sleep(0.02)
+            ps.stop()
+            gone = ps._sup_thread is None and all(pipe._thread is None for pipe in ps.pipelines)
+        pods = store.list("pods")[0]
+        per = sorted(sum(1 for x in pods if x.spec.node_name
+                         and ps.router.partition_of_node_name(x.spec.node_name) == i)
+                     for i in range(2))
+        report = q.t.pod_conservation_report(store, ps, [x.key for x in pods])["counts"]
+        return alive, gone, sum(1 for x in pods if x.spec.node_name), per, report
+
+    got = both(run)
+    assert got["jax"] == got["port"]
+    alive, gone, bound, _, report = got["port"]
+    assert alive == [True, True, True] and gone and bound == 40
+    assert report["double_bound"] == 0 and report["lost"] == 0
